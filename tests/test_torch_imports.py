@@ -49,7 +49,9 @@ def test_every_port_module_imports_without_jax():
     # the slice's modules are all there
     for must in ("core.tx", "crypto.fp", "crypto.p256", "verify.block",
                  "verify.dispatch", "verify.txverify", "state.storage",
-                 "state.views", "trace", "device", "_build"):
+                 "state.views", "trace", "device", "_build",
+                 "crypto.sha256", "config", "parallel.multihost",
+                 "mine.engine", "mine.miner"):
         assert "upow_tpu_torch." + must in names, must
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(

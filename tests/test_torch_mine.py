@@ -1,0 +1,376 @@
+"""The port's miner against the JAX package's.
+
+* ``mine(job, "torch")`` (the plain PyTorch search, CPU) against JAX
+  ``mine(job, "jnp")``: the same first hit and ``hashes_tried`` through the
+  same depth-2 pipelined rounds;
+* ``build_job``, ``plan_nonce_ranges`` and ``Config.load`` parity;
+* the port's backend names, its supervisor's child command, its refusal
+  of a multi-host coordinator and of a card it does not have;
+* end to end: ``miner.run(..., device="cpu", once=True)`` against a
+  stdlib stub node over the port's ``ChainState`` pushes the same bytes
+  as JAX ``run(..., device="jnp", once=True)`` against a twin stub over a
+  JAX-built chain, and both nodes accept the block.
+"""
+
+import asyncio
+import json
+import threading
+from decimal import Decimal
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import upow_tpu.config as jconfig
+import upow_tpu.core as jcore
+import upow_tpu.core.clock as jclock
+import upow_tpu.core.curve as jcurve
+import upow_tpu.core.difficulty as jdifficulty
+import upow_tpu.core.tx as jtx
+import upow_tpu.mine.engine as jengine
+import upow_tpu.mine.miner as jminer
+import upow_tpu.parallel.multihost as jmultihost
+import upow_tpu.state as jstate
+import upow_tpu.verify as jverify
+import upow_tpu_torch.config as tconfig
+import upow_tpu_torch.core as tcore
+import upow_tpu_torch.core.clock as tclock
+import upow_tpu_torch.core.curve as tcurve
+import upow_tpu_torch.core.difficulty as tdifficulty
+import upow_tpu_torch.core.tx as ttx
+import upow_tpu_torch.mine.engine as tengine
+import upow_tpu_torch.mine.miner as tminer
+import upow_tpu_torch.state as tstate
+import upow_tpu_torch.verify as tverify
+from upow_tpu_torch.crypto import sha256 as tsha
+from upow_tpu_torch.parallel import multihost as tmultihost
+
+T0 = 1_760_000_000
+RNG = np.random.default_rng(0x313E)
+PREV = RNG.bytes(32).hex()
+MERKLE = RNG.bytes(32).hex()
+KEY_SEED = 0x313E  # the miner's key: early blocks must pay the genesis address
+_KEY, _PUB = tcurve.keygen(rng=KEY_SEED)
+ADDR = tcore.point_to_string(_PUB)
+
+JAX = SimpleNamespace(
+    core=jcore, clock=jclock, curve=jcurve, tx=jtx, difficulty=jdifficulty,
+    ChainState=jstate.ChainState, manager=jverify.BlockManager,
+    miner=jminer, device="jnp")
+PORT = SimpleNamespace(
+    core=tcore, clock=tclock, curve=tcurve, tx=ttx, difficulty=tdifficulty,
+    ChainState=tstate.ChainState,
+    manager=lambda st: tverify.BlockManager(st, device="cpu"),
+    miner=tminer, device="cpu")
+
+
+@pytest.fixture
+def frozen():
+    for pkg in (JAX, PORT):
+        pkg.clock.freeze(T0)
+    yield
+    for pkg in (JAX, PORT):
+        pkg.clock.reset()
+
+
+def _jobs(diff):
+    fields = dict(previous_hash=PREV, address=ADDR, merkle_root=MERKLE,
+                  timestamp=T0, difficulty=diff)
+    return (jengine.MiningJob.from_header_fields(**fields),
+            tengine.MiningJob.from_header_fields(**fields))
+
+
+@pytest.mark.parametrize("diff", ["1.3", "2", "2.6"])
+def test_mine_torch_matches_jax_jnp(diff):
+    jjob, tjob = _jobs(diff)
+    assert tjob.prefix == jjob.prefix
+    want = jengine.mine(jjob, "jnp", batch=4096, stride_end=1 << 16)
+    got = tengine.mine(tjob, "torch", batch=4096, stride_end=1 << 16)
+    assert got.nonce == want.nonce is not None
+    assert got.hashes_tried == want.hashes_tried
+    assert tjob.check(got.nonce)
+    assert tengine.mine(tjob, "python", batch=4096,
+                        stride_end=1 << 16).nonce == got.nonce
+
+
+def test_mine_ragged_miss_matches_jax_jnp():
+    """A miss over a range that is no multiple of the batch: every nonce
+    is tried once, in the same rounds."""
+    jjob, tjob = _jobs("9")
+    kw = dict(start=1000, stride_end=1000 + 3 * 4096 + 17, batch=4096)
+    want = jengine.mine(jjob, "jnp", **kw)
+    got = tengine.mine(tjob, "torch", **kw)
+    assert got.nonce is None and want.nonce is None
+    assert got.hashes_tried == want.hashes_tried == 3 * 4096 + 17
+
+
+@pytest.mark.cuda
+def test_mine_cuda_matches_torch_on_card():
+    """The engine's rounds on the card (kernel, then the read-back of each
+    round) against the plain version's rounds (runs on a machine with a
+    card; skips elsewhere)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for diff, kw in (("1.3", {}), ("2.6", {}),
+                     ("9", dict(start=1000, stride_end=1000 + 3 * 4096 + 17))):
+        _jjob, tjob = _jobs(diff)
+        kw = dict(dict(batch=4096, stride_end=1 << 16), **kw)
+        want = tengine.mine(tjob, "torch", **kw)
+        got = tengine.mine(tjob, "cuda", **kw)
+        assert (got.nonce, got.hashes_tried) == (want.nonce, want.hashes_tried)
+
+
+def test_mine_checks_every_device_hit(monkeypatch):
+    """A wrong hit from the search is an AssertionError, not a block."""
+    _jjob, tjob = _jobs("2")
+    monkeypatch.setattr(tsha, "pow_search",
+                        lambda *a, **k: torch.tensor(12345))
+    with pytest.raises(AssertionError, match="failing host check"):
+        tengine.mine(tjob, "torch", batch=4096, stride_end=1 << 16)
+
+
+def test_mine_stops_at_the_ttl():
+    _jjob, tjob = _jobs("9")
+    res = tengine.mine(tjob, "torch", batch=256, stride_end=1 << 20, ttl=0.0)
+    # the depth-2 pipeline reads one round, finds the TTL spent, stops
+    assert res.nonce is None and res.hashes_tried == 256
+    assert tengine.MAX_SEARCH_END == jengine.MAX_SEARCH_END == (1 << 32) - 1
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _jjob, tjob = _jobs("2")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tengine.mine(tjob, "cuda", batch=4096)
+    template = tsha.make_template(tjob.prefix)
+    target = tsha.pack_target(tsha.target_spec(PREV, "2"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsha.pow_search(template, target, 0, 16)
+
+
+@pytest.mark.parametrize("last_block", [
+    {},
+    {"id": 41, "hash": RNG.bytes(32).hex(), "difficulty": 6.3,
+     "timestamp": T0 - 60},
+])
+def test_build_job_matches_jax(frozen, last_block):
+    hashes = [RNG.bytes(32).hex() for _ in range(3)]
+    info = {"difficulty": 6.3, "last_block": last_block,
+            "pending_transactions": [], "pending_transactions_hashes": hashes,
+            "merkle_root": MERKLE}
+    jjob, jhashes, jno = jminer.build_job(info, ADDR)
+    tjob, thashes, tno = tminer.build_job(info, ADDR)
+    assert (tjob.prefix, tjob.previous_hash, tjob.difficulty) == \
+        (jjob.prefix, jjob.previous_hash, jjob.difficulty)
+    assert (thashes, tno) == (jhashes, jno)
+    assert tno == last_block.get("id", 0) + 1
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 7, 8])
+def test_nonce_plans_match_jax(k):
+    assert tmultihost.plan_nonce_ranges(k) == jmultihost.plan_nonce_ranges(k)
+    lo, hi = 1000, tengine.MAX_SEARCH_END
+    bounds = tmultihost.plan_nonce_ranges(k, lo, hi)
+    assert bounds == jmultihost.plan_nonce_ranges(k, lo, hi)
+    # exact cover: contiguous, disjoint, nothing left out
+    assert bounds[0][0] == lo and bounds[-1][1] == hi
+    assert all(b == c for (_a, b), (c, _d) in zip(bounds, bounds[1:]))
+
+
+def test_select_backend_names():
+    assert tminer.select_backend("cuda") == "cuda"
+    assert tminer.select_backend("gpu") == "cuda"
+    assert tminer.select_backend("cpu") == "torch"
+    assert tminer.select_backend("torch") == "torch"
+    assert tminer.select_backend("python") == "python"
+    with pytest.raises(NotImplementedError, match="A7"):
+        tminer.select_backend("native")
+    with pytest.raises(NotImplementedError, match="A11"):
+        tminer.select_backend("mesh")
+    for name in ("tpu", "pallas", "jnp"):  # the JAX package's, not ours
+        with pytest.raises(SystemExit):
+            tminer.select_backend(name)
+    assert tminer._runtime_arm_reason() is None
+
+
+def test_config_reads_the_jax_environment(monkeypatch):
+    assert tconfig.DeviceConfig().search_batch == \
+        jconfig.DeviceConfig().search_batch == 1 << 24
+    monkeypatch.setenv("UPOW_DEVICE_SEARCH_BATCH", "4096")
+    got, want = tconfig.Config.load().device, jconfig.Config.load().device
+    assert got.search_batch == want.search_batch == 4096
+    # the CLI's --batch 0 takes it
+    seen = {}
+    monkeypatch.setattr(tminer, "run", lambda *a, **k: seen.setdefault("a", a))
+    tminer.main([ADDR, "--device", "cpu", "--once",
+                 "--node", "http://127.0.0.1:1/"])
+    assert seen["a"][3] == 4096
+
+
+def _args(**kw):
+    base = dict(address=ADDR, node="http://127.0.0.1:1/", device="cuda",
+                batch=4096, ttl=5.0, workers=2, once=True, shard="0/1")
+    base.update(kw)
+    return SimpleNamespace(**base)
+
+
+def test_child_command_runs_the_port():
+    cmd = tminer._child_cmd(_args())
+    assert cmd[1:3] == ["-m", "upow_tpu_torch.mine.miner"]
+    assert jminer._child_cmd(_args())[2] == "upow_tpu.mine.miner"
+
+
+def test_workers_refuse_the_card():
+    for device in ("cuda", "gpu"):
+        assert tminer._run_workers(_args(device=device)) == 2
+
+
+def test_coordinator_address_raises(monkeypatch):
+    monkeypatch.setenv("UPOW_COORDINATOR_ADDRESS", "10.0.0.1:1234")
+    with pytest.raises(NotImplementedError, match="A11"):
+        tminer.main([ADDR, "--device", "cpu", "--once",
+                     "--node", "http://127.0.0.1:1/"])
+    monkeypatch.delenv("UPOW_COORDINATOR_ADDRESS")
+    assert tmultihost.initialize() is False
+
+
+def test_hang_watchdog_trips_on_stale_heartbeat():
+    import time
+
+    fired = threading.Event()
+    hb = {"t": time.monotonic()}
+    tminer._start_hang_watchdog(hb, limit=1.2, _exit=lambda code: fired.set())
+    for _ in range(3):
+        time.sleep(0.4)
+        hb["t"] = time.monotonic()
+    assert not fired.is_set()
+    assert fired.wait(timeout=4.0)
+
+
+# --- end to end: the CLI's run() against a stub node -----------------------
+
+class StubNode:
+    """``get_mining_info`` and ``push_block`` over one package's chain,
+    served by a stdlib HTTP server thread.  The chain lives on its own
+    event-loop thread (a sqlite connection stays on its thread)."""
+
+    def __init__(self, pkg):
+        self.pkg = pkg
+        self.loop = asyncio.new_event_loop()
+        self.loop_thread = threading.Thread(target=self.loop.run_forever,
+                                            daemon=True)
+        self.loop_thread.start()
+        self.pushed = []
+        self.call(self._genesis())
+        stub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *_a):
+                pass
+
+            def _reply(self, body: dict):
+                data = json.dumps(body).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):
+                self._reply({"ok": True,
+                             "result": stub.call(stub._mining_info())})
+
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                stub.pushed.append(body)
+                self._reply(stub.call(stub._push(json.loads(body))))
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.http_thread = threading.Thread(target=self.server.serve_forever,
+                                            daemon=True)
+        self.http_thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_port}/"
+
+    def call(self, coro):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(120)
+
+    async def _genesis(self):
+        pkg = self.pkg
+        self.state = pkg.ChainState()
+        self.manager = pkg.manager(self.state)
+        self.d, self.pub = pkg.curve.keygen(rng=KEY_SEED)
+        self.addr = pkg.core.point_to_string(self.pub)
+        job = pkg.miner.build_job(
+            {"difficulty": 2.0, "last_block": {},
+             "pending_transactions_hashes": []}, self.addr)[0]
+        assert await self.manager.create_block(job.block_content(0), [])
+        coin = (await self.state.get_spendable_outputs(self.addr))[0]
+        T = pkg.tx
+        tx = T.Tx([T.TxInput(coin.tx_hash, coin.index)],
+                  [T.TxOutput(self.addr, coin.amount)]
+                  ).sign([self.d], lambda _i: self.pub)
+        self.pending = {tx.hash(): tx}
+
+    async def _mining_info(self):
+        diff, last = await self.manager.calculate_difficulty()
+        last = dict(last)
+        if "difficulty" in last:
+            last["difficulty"] = float(last["difficulty"])
+        pending = sorted(tx.hex() for tx in self.pending.values())
+        import hashlib
+
+        return {"difficulty": float(diff), "last_block": last,
+                "pending_transactions": pending[:10],
+                "pending_transactions_hashes": [
+                    hashlib.sha256(bytes.fromhex(t)).hexdigest()
+                    for t in pending]}
+
+    async def _push(self, body):
+        txs = [self.pending[h] for h in body["txs"]]
+        errors = []
+        ok = await self.manager.create_block(body["block_content"], txs,
+                                             errors=errors)
+        tip = await self.state.get_last_block()
+        return {"ok": ok, "errors": errors, "tip": tip["id"]}
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.loop.call_soon_threadsafe(self.state.close)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.http_thread.join(10)
+        self.loop_thread.join(10)
+        assert not self.http_thread.is_alive()
+        assert not self.loop_thread.is_alive()
+        self.loop.close()
+
+
+def test_run_once_pushes_the_same_block_as_jax(frozen, monkeypatch, capsys):
+    for pkg in (JAX, PORT):
+        monkeypatch.setattr(pkg.difficulty, "START_DIFFICULTY",
+                            Decimal("2.0"))
+    stubs = {}
+    try:
+        for name, pkg in (("jax", JAX), ("port", PORT)):
+            pkg.clock.advance(60)
+            stubs[name] = StubNode(pkg)
+            pkg.clock.advance(60)
+        assert stubs["jax"].pending.keys() == stubs["port"].pending.keys()
+        rc_j = jminer.run(ADDR, stubs["jax"].url, "jnp", 4096, 60.0,
+                          once=True)
+        rc_t = tminer.run(ADDR, stubs["port"].url, "cpu", 4096, 60.0,
+                          once=True)
+        assert rc_t == rc_j == 0
+        out = capsys.readouterr().out
+        assert "backend=torch" in out and "BLOCK MINED" in out
+        assert len(stubs["port"].pushed) == len(stubs["jax"].pushed) == 1
+        assert stubs["port"].pushed[0] == stubs["jax"].pushed[0]
+        body = json.loads(stubs["port"].pushed[0])
+        assert body["block_no"] == 2 and len(body["txs"]) == 1
+        for stub in stubs.values():
+            assert stub.call(stub.state.get_last_block())["id"] == 2
+    finally:
+        for stub in stubs.values():
+            stub.close()

@@ -6,7 +6,7 @@ package: the modules it needs are its own copies.  Plain tensor code is
 PyTorch; every Pallas kernel on a ported path is a CUDA kernel written by
 hand for sm_90a (``csrc/``), built with nvcc at first use (``_build.py``).
 
-Slice 1 (this tree) is the node's block-accept path:
+Two paths are ported.  The node's block-accept path:
 
     verify.block.BlockManager.check_block / create_block
       -> verify.dispatch.SigDispatchFront (micro-batch coalescing)
@@ -15,5 +15,12 @@ Slice 1 (this tree) is the node's block-accept path:
       -> csrc/p256_verify.cu (scalar prep + Jacobian ladder, one launch)
 
 over ``state.storage.ChainState`` (sqlite, same schema as the JAX
-package).  Entry points run on the card unless given ``device="cpu"``.
+package).  The miner:
+
+    mine.miner (CLI: get_mining_info, build_job, push_block)
+      -> mine.engine.mine (depth-2 pipelined rounds, TTL, hashlib check)
+      -> crypto.sha256.pow_search
+      -> csrc/sha256_search.cu (one compression per nonce, least hit)
+
+Entry points run on the card unless given ``device="cpu"``.
 """

@@ -49,9 +49,13 @@ def library_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing, or older than its source or any shared
+    header in csrc/."""
     lib = library_path(name)
-    return not lib.exists() or \
-        lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def _command(name: str, out: Path) -> list:

@@ -1,0 +1,477 @@
+"""SHA-256 proof-of-work search: midstate split + one compression per nonce.
+
+The uPow header puts the 4-byte nonce at the very end (core/header.py), so
+a mining template factors as
+
+    sha256(header) = compress(tail_block(nonce), midstate(prefix_blocks))
+
+where ``midstate`` covers every complete 64-byte block of the prefix (host,
+once per template) and only ONE compression runs per nonce on the card.
+
+The host half (the constants, the pure-Python compression, templates and
+targets) is a copy of the JAX package's ``crypto/sha256.py``: it fixes the
+wire format.  The search is new:
+
+* :func:`pow_search_plain` — the plain PyTorch version (int64 tensors
+  masked to 32 bits), the same function as the JAX package's
+  ``_pow_search_jnp`` with the dynamic target of ``_hit_nonce_dynamic``.
+* :func:`pow_search` — the wrapper: a CUDA device launches the kernel
+  ``csrc/sha256_search.cu``, the CPU runs the plain version.
+
+Both return a 0-d int64 tensor whose ``int()`` is the least nonce in
+``[nonce_base, nonce_base + count)`` that meets the target, or
+:data:`SENTINEL`.  Neither waits for the card: ``int()`` does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve
+
+# --- constants -----------------------------------------------------------
+
+_K = np.array(
+    [
+        0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
+        0x923F82A4, 0xAB1C5ED5, 0xD807AA98, 0x12835B01, 0x243185BE, 0x550C7DC3,
+        0x72BE5D74, 0x80DEB1FE, 0x9BDC06A7, 0xC19BF174, 0xE49B69C1, 0xEFBE4786,
+        0x0FC19DC6, 0x240CA1CC, 0x2DE92C6F, 0x4A7484AA, 0x5CB0A9DC, 0x76F988DA,
+        0x983E5152, 0xA831C66D, 0xB00327C8, 0xBF597FC7, 0xC6E00BF3, 0xD5A79147,
+        0x06CA6351, 0x14292967, 0x27B70A85, 0x2E1B2138, 0x4D2C6DFC, 0x53380D13,
+        0x650A7354, 0x766A0ABB, 0x81C2C92E, 0x92722C85, 0xA2BFE8A1, 0xA81A664B,
+        0xC24B8B70, 0xC76C51A3, 0xD192E819, 0xD6990624, 0xF40E3585, 0x106AA070,
+        0x19A4C116, 0x1E376C08, 0x2748774C, 0x34B0BCB5, 0x391C0CB3, 0x4ED8AA4A,
+        0x5B9CCA4F, 0x682E6FF3, 0x748F82EE, 0x78A5636F, 0x84C87814, 0x8CC70208,
+        0x90BEFFFA, 0xA4506CEB, 0xBEF9A3F7, 0xC67178F2,
+    ],
+    dtype=np.uint32,
+)
+
+_H0 = np.array(
+    [0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
+     0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19],
+    dtype=np.uint32,
+)
+
+SENTINEL = np.uint32(0xFFFFFFFF)  # "no hit" marker; nonce space is capped below it
+
+MASK32 = 0xFFFFFFFF
+# Lanes of one plain-version pass: 32 MB per int64 temporary.
+PLAIN_CHUNK = 1 << 22
+
+# Kernel launches (a plain integer, read by chip_smoke.py).  Miners may
+# dispatch from worker threads, so updates take the lock.
+LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def reset_counts() -> None:
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES = 0
+
+
+# --- pure-Python compression (host midstate) -----------------------------
+
+def _rotr_py(x: int, n: int) -> int:
+    return ((x >> n) | (x << (32 - n))) & 0xFFFFFFFF
+
+
+def _compress_py(state: Sequence[int], block: bytes) -> Tuple[int, ...]:
+    """One SHA-256 compression on the host (64-byte block)."""
+    w = [int(x) for x in np.frombuffer(block, dtype=">u4")]
+    for i in range(16, 64):
+        s0 = _rotr_py(w[i - 15], 7) ^ _rotr_py(w[i - 15], 18) ^ (w[i - 15] >> 3)
+        s1 = _rotr_py(w[i - 2], 17) ^ _rotr_py(w[i - 2], 19) ^ (w[i - 2] >> 10)
+        w.append((w[i - 16] + s0 + w[i - 7] + s1) & 0xFFFFFFFF)
+    a, b, c, d, e, f, g, h = state
+    for i in range(64):
+        s1 = _rotr_py(e, 6) ^ _rotr_py(e, 11) ^ _rotr_py(e, 25)
+        ch = (e & f) ^ (~e & g)
+        t1 = (h + s1 + ch + int(_K[i]) + w[i]) & 0xFFFFFFFF
+        s0 = _rotr_py(a, 2) ^ _rotr_py(a, 13) ^ _rotr_py(a, 22)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        t2 = (s0 + maj) & 0xFFFFFFFF
+        a, b, c, d, e, f, g, h = (t1 + t2) & 0xFFFFFFFF, a, b, c, (d + t1) & 0xFFFFFFFF, e, f, g
+    return tuple((x + y) & 0xFFFFFFFF for x, y in zip(state, (a, b, c, d, e, f, g, h)))
+
+
+def sha256_py(message: bytes) -> bytes:
+    """Full pure-Python sha256 (test oracle for the compression)."""
+    state = tuple(int(x) for x in _H0)
+    padded = message + b"\x80" + b"\x00" * ((55 - len(message)) % 64) + (8 * len(message)).to_bytes(8, "big")
+    for off in range(0, len(padded), 64):
+        state = _compress_py(state, padded[off:off + 64])
+    return b"".join(s.to_bytes(4, "big") for s in state)
+
+
+# --- template preparation (host) -----------------------------------------
+
+class SearchTemplate(NamedTuple):
+    """Everything the search needs for one mining template.
+
+    midstate      : (8,)  uint32 — state after the full prefix blocks
+    tail_words    : (16,) uint32 — final block with nonce bytes zeroed,
+                    padding + length already applied
+    nonce_spec    : 4×(word_index, left_shift) — where each little-endian
+                    nonce byte lands in the tail words (v2 108-byte
+                    header → all four bytes in w10; v1 138-byte header →
+                    split across w1/w2)
+    """
+
+    midstate: np.ndarray
+    tail_words: np.ndarray
+    nonce_spec: Tuple[Tuple[int, int], ...]
+
+
+def make_template(prefix: bytes) -> SearchTemplate:
+    """Build a search template from the header prefix (header minus nonce).
+
+    ``prefix`` is ``BlockHeader.prefix_bytes()`` — 104 bytes for v2, 134
+    for v1 (core/header.py).  The full message is ``prefix + nonce(4, LE)``.
+    """
+    total_len = len(prefix) + 4
+    n_full = len(prefix) // 64
+    # in-block message (rem + nonce) must leave room for 0x80 AND the
+    # 8-byte length field: rem + 4 + 1 <= 56, i.e. in-block total <= 55
+    # (at exactly 56 the 0x80 would be overwritten by the length field)
+    if total_len - n_full * 64 > 55:
+        raise ValueError("tail would span two blocks — unsupported header size")
+    state = tuple(int(x) for x in _H0)
+    for i in range(n_full):
+        state = _compress_py(state, prefix[i * 64:(i + 1) * 64])
+
+    tail = bytearray(64)
+    rem = prefix[n_full * 64:]
+    tail[: len(rem)] = rem
+    nonce_off = len(rem)  # nonce occupies tail[nonce_off : nonce_off+4]
+    tail[nonce_off + 4] = 0x80
+    tail[56:64] = (8 * total_len).to_bytes(8, "big")
+
+    # little-endian nonce byte j = (nonce >> 8j) & 0xFF lands at tail byte
+    # nonce_off + j, i.e. word (nonce_off+j)//4, big-endian byte slot
+    # (nonce_off+j)%4 → left shift 8*(3 - slot).
+    nonce_spec = tuple(
+        ((nonce_off + j) // 4, 8 * (3 - (nonce_off + j) % 4)) for j in range(4)
+    )
+    tail_words = np.frombuffer(bytes(tail), dtype=">u4").astype(np.uint32)
+    return SearchTemplate(np.array(state, dtype=np.uint32), tail_words, nonce_spec)
+
+
+class TargetSpec(NamedTuple):
+    """PoW acceptance test compiled to u32 compares (manager.py:130-151).
+
+    hit ⇔ (h0 & mask0)==val0 ∧ (h1 & mask1)==val1 ∧ next-nibble < charset
+    (charset check skipped when charset == 16).
+    """
+
+    mask0: np.uint32
+    val0: np.uint32
+    mask1: np.uint32
+    val1: np.uint32
+    nibble_word: int      # which digest word holds the fractional nibble
+    nibble_shift: int     # right-shift to land it in the low 4 bits
+    charset: int          # allowed-charset size; 16 disables the check
+
+
+def target_spec(previous_hash: str, difficulty) -> TargetSpec:
+    from ..core.difficulty import pow_target
+
+    prefix, k, charset = pow_target(previous_hash, difficulty)
+    if k > 16:
+        raise ValueError(f"difficulty prefix of {k} hex chars exceeds 2 digest words")
+    p0, p1 = prefix[:8], prefix[8:]
+    mask0 = ((1 << 4 * len(p0)) - 1) << (32 - 4 * len(p0)) if p0 else 0
+    val0 = int(p0, 16) << (32 - 4 * len(p0)) if p0 else 0
+    mask1 = ((1 << 4 * len(p1)) - 1) << (32 - 4 * len(p1)) if p1 else 0
+    val1 = int(p1, 16) << (32 - 4 * len(p1)) if p1 else 0
+    return TargetSpec(
+        np.uint32(mask0), np.uint32(val0), np.uint32(mask1), np.uint32(val1),
+        nibble_word=k // 8, nibble_shift=28 - 4 * (k % 8), charset=charset,
+    )
+
+
+def pack_target(spec: TargetSpec) -> np.ndarray:
+    """Pack a :class:`TargetSpec` into the (7,) u32 vector the search
+    takes as data — [mask0, val0, mask1, val1, nibble_word, nibble_shift,
+    charset] — so one kernel build serves every chain tip and
+    difficulty."""
+    return np.array(
+        [spec.mask0, spec.val0, spec.mask1, spec.val1,
+         spec.nibble_word, spec.nibble_shift, spec.charset],
+        dtype=np.uint32,
+    )
+
+
+# --- the plain version ---------------------------------------------------
+#
+# PyTorch has little uint32 arithmetic and ``>>`` on int32 is arithmetic,
+# which breaks rotates, so every word is an int64 holding a value below
+# 2^32, masked after each add and each left shift.  A word that does not
+# depend on the nonce stays a Python int, so rounds before the first
+# nonce word cost nothing per lane.
+
+def _rotr(x, n: int):
+    return (x >> n) | ((x << (32 - n)) & MASK32)
+
+
+def _compress_plain(midstate: Sequence[int], w: list) -> list:
+    """One compression over 16 message words (ints or int64 tensors) from
+    ``midstate``; returns the 8 digest words."""
+    w = list(w)
+    a, b, c, d, e, f, g, h = midstate
+    for i in range(64):
+        if i >= 16:
+            w15, w2 = w[i - 15], w[i - 2]
+            s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
+            s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> 10)
+            w.append((w[i - 16] + s0 + w[i - 7] + s1) & MASK32)
+        s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
+        ch = (e & f) ^ (~e & g)
+        t1 = (h + s1 + ch + int(_K[i]) + w[i]) & MASK32
+        s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        a, b, c, d, e, f, g, h = (t1 + s0 + maj) & MASK32, a, b, c, \
+            (d + t1) & MASK32, e, f, g
+    return [(int(m) + x) & MASK32 for m, x in zip(midstate, (a, b, c, d, e, f, g, h))]
+
+
+def _build_w(tail_words, nonces: torch.Tensor, nonce_spec) -> list:
+    """Scatter the little-endian nonce bytes into the 16 tail words."""
+    w = [int(x) for x in tail_words]
+    for j, (widx, shift) in enumerate(nonce_spec):
+        w[widx] = w[widx] | (((nonces >> (8 * j)) & 0xFF) << shift)
+    return w
+
+
+def hit_min_plain(digest: Sequence[torch.Tensor], nonces: torch.Tensor,
+                  target, valid=None) -> torch.Tensor:
+    """The least nonce whose digest meets ``target`` (the 7-word
+    :func:`pack_target` vector), or SENTINEL — the JAX package's
+    ``_hit_nonce_dynamic``.  ``valid`` masks lanes out of the range."""
+    t = [int(x) for x in np.asarray(target, dtype=np.uint32)]
+    ok = ((digest[0] & t[0]) == t[1]) & ((digest[1] & t[2]) == t[3])
+    # nibble_word = k // 8 for k <= 16 hex chars, so only words 0..2 can
+    # ever hold the fractional nibble; charset >= 16 disables the check
+    nib = (torch.as_tensor(digest[t[4]]) >> t[5]) & 0xF
+    ok = ok & ((t[6] >= 16) | (nib < t[6]))
+    if valid is not None:
+        ok = ok & valid
+    return torch.where(ok, nonces, int(SENTINEL)).min()
+
+
+def pow_search_plain(template: SearchTemplate, target, nonce_base: int,
+                     count: int, device: DeviceLike = "cpu") -> torch.Tensor:
+    """Search ``[nonce_base, nonce_base + count)`` with int64 tensors on
+    ``device``; returns the least hit nonce or SENTINEL as a 0-d int64
+    tensor.  The tests and chip_smoke.py call it; the miner never does."""
+    dev = resolve(device)
+    _check_range(nonce_base, count)
+    best = torch.tensor(int(SENTINEL), dtype=torch.int64, device=dev)
+    for lo in range(0, count, PLAIN_CHUNK):
+        width = min(PLAIN_CHUNK, count - lo)
+        nonces = nonce_base + lo + torch.arange(width, dtype=torch.int64,
+                                                device=dev)
+        w = _build_w(template.tail_words, nonces, template.nonce_spec)
+        digest = _compress_plain([int(x) for x in template.midstate], w)
+        best = torch.minimum(best, hit_min_plain(digest, nonces, target))
+    return best
+
+
+def _check_range(nonce_base: int, count: int) -> None:
+    if not 0 <= count <= MASK32 or nonce_base < 0 \
+            or nonce_base + count > 1 << 32:
+        raise ValueError(f"nonce range [{nonce_base}, {nonce_base}+{count})"
+                         " leaves the 32-bit nonce space")
+
+
+# --- the kernel ----------------------------------------------------------
+
+# The kernel's by-value argument block, in 32-bit words; mirrored by
+# struct SearchArgs in csrc/sha256_search.cu.
+ARG_WORDS = 8 + 16 + 4 + 4 + 7 + 2
+
+
+def kernel_args(template: SearchTemplate, target, nonce_base: int,
+                count: int) -> np.ndarray:
+    """midstate (8), tail words (16), nonce byte word indices (4) and
+    shifts (4), the target (7), base, count."""
+    target = np.asarray(target, dtype=np.uint32)
+    if target.shape != (7,) or int(target[4]) > 2:
+        raise ValueError(f"expected a pack_target vector, got {target}")
+    args = np.concatenate([
+        np.asarray(template.midstate, dtype=np.uint32),
+        np.asarray(template.tail_words, dtype=np.uint32),
+        np.array([w for w, _s in template.nonce_spec], dtype=np.uint32),
+        np.array([s for _w, s in template.nonce_spec], dtype=np.uint32),
+        target,
+        np.array([nonce_base, count], dtype=np.uint32),
+    ])
+    assert args.size == ARG_WORDS
+    return args
+
+
+_LIB = None
+_LIB_LOCK = threading.Lock()
+
+
+def _kernel_lib():
+    """Build (at first use) and load the kernel library."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            from .. import _build
+
+            lib = _build.load("sha256_search")
+            lib.sha256_search_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p]
+            lib.sha256_search_launch.restype = ctypes.c_int
+            _LIB = lib
+    return _LIB
+
+
+def pow_search(template: SearchTemplate, target, nonce_base: int, count: int,
+               device: DeviceLike = None) -> torch.Tensor:
+    """Search ``[nonce_base, nonce_base + count)`` for the least nonce
+    that meets ``target`` (the :func:`pack_target` vector).
+
+    On the card (the default) this launches the kernel on the current
+    stream and returns at once: the 0-d int64 result is a fresh tensor
+    filled with SENTINEL before every launch, so no hit leaks from one
+    round into the next, and ``int()`` of it waits.  ``device="cpu"``
+    runs :func:`pow_search_plain`.  Without a card, and without
+    ``"cpu"``, it raises."""
+    global LAUNCHES
+    dev = resolve(device)
+    if dev.type == "cpu":
+        return pow_search_plain(template, target, nonce_base, count, dev)
+    _check_range(nonce_base, count)
+    args = kernel_args(template, target, nonce_base, count)
+    # the kernel min-reduces into the low 32 bits (little-endian) of this
+    # int64, whose high word stays 0: int() is the unsigned nonce
+    out = torch.full((), int(SENTINEL), dtype=torch.int64, device=dev)
+    if count == 0:
+        return out
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.sha256_search_launch(args.ctypes.data, args.size,
+                                      out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sha256_search launch failed: CUDA error {rc}")
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+    return out
+
+
+# --- the bound -----------------------------------------------------------
+#
+# The least 32-bit integer instructions one nonce needs, counted on the
+# template's own dataflow.  A word that does not depend on the nonce is a
+# Python int, folded once per template; a word that does is a node, and
+# only the nodes that the target test reads count.  An "alu" node is an
+# SHF (a rotate or a shift), a LOP3 (any logic of up to 3 inputs) or a
+# PRMT (the nonce's bytes into a message word); these issue on the ALU
+# pipe alone.  An "add" node is an IADD3 (3 terms), which the card may
+# also issue as IMAD on the FMA pipe.
+
+class _Node(NamedTuple):
+    index: int
+
+
+class _Dataflow:
+    def __init__(self):
+        self.operands: list = []   # node -> the nodes it reads
+        self.pipe: list = []       # node -> "alu" | "add"
+        self.offset: dict = {}     # node -> (v, c) where it is v + c
+
+    def node(self, pipe: str, *args) -> _Node:
+        self.operands.append([a for a in args if isinstance(a, _Node)])
+        self.pipe.append(pipe)
+        return _Node(len(self.pipe) - 1)
+
+    def rotr(self, x, n: int):
+        return _rotr_py(x, n) if isinstance(x, int) else self.node("alu", x)
+
+    def shr(self, x, n: int):
+        return x >> n if isinstance(x, int) else self.node("alu", x)
+
+    def logic(self, fn, *xs):
+        """One LOP3, unless every input is a constant."""
+        if all(isinstance(x, int) for x in xs):
+            return fn(*xs) & MASK32
+        return self.node("alu", *xs)
+
+    def add(self, *terms):
+        """The sum mod 2^32 in IADD3s, with the constant terms folded into
+        one.  A term that is itself v + c is read as v, with c folded in,
+        wherever that takes no more IADD3s (a constant term is there
+        anyway, or the count of terms is even), so it may go unread."""
+        nodes = [t for t in terms if isinstance(t, _Node)]
+        const = sum(t for t in terms if isinstance(t, int)) & MASK32
+        if const or len(nodes) % 2 == 0:
+            for i, t in enumerate(nodes):
+                if t in self.offset:
+                    nodes[i], c = self.offset[t]
+                    const = (const + c) & MASK32
+        if not nodes:
+            return const
+        operands = nodes + ([const] if const else [])
+        while len(operands) > 1:
+            operands = [self.node("add", *operands[:3])] + operands[3:]
+        if len(nodes) == 1 and const:
+            self.offset[operands[0]] = (nodes[0], const)
+        return operands[0]
+
+    def count(self, outputs) -> Tuple[int, int]:
+        """(alu, add) nodes that ``outputs`` read."""
+        live, todo = set(), [o for o in outputs if isinstance(o, _Node)]
+        while todo:
+            n = todo.pop()
+            if n.index not in live:
+                live.add(n.index)
+                todo += self.operands[n.index]
+        alu = sum(self.pipe[i] == "alu" for i in live)
+        return alu, len(live) - alu
+
+
+def ops_per_nonce(template: SearchTemplate, target) -> Tuple[int, int]:
+    """(alu, add): the least 32-bit integer instructions one nonce needs
+    with this template and target (the :func:`pack_target` vector) —
+    one PRMT per message word that holds nonce bytes, every operation of
+    the schedule and the rounds that reads the nonce, and the digest
+    words that the target test reads, each with its add and the test's
+    LOP3 and compare."""
+    df = _Dataflow()
+    xor3 = lambda p, q, r: p ^ q ^ r  # noqa: E731
+    w = [int(x) for x in template.tail_words]
+    for widx in {widx for widx, _shift in template.nonce_spec}:
+        w[widx] = df.node("alu")
+    for i in range(16, 64):
+        x, y = w[i - 15], w[i - 2]
+        s0 = df.logic(xor3, df.rotr(x, 7), df.rotr(x, 18), df.shr(x, 3))
+        s1 = df.logic(xor3, df.rotr(y, 17), df.rotr(y, 19), df.shr(y, 10))
+        w.append(df.add(w[i - 16], s0, w[i - 7], s1))
+    mid = [int(x) for x in template.midstate]
+    a, b, c, d, e, f, g, h = mid
+    for i in range(64):
+        S1 = df.logic(xor3, df.rotr(e, 6), df.rotr(e, 11), df.rotr(e, 25))
+        ch = df.logic(lambda p, q, r: (p & q) ^ (~p & r), e, f, g)
+        t1 = df.add(h, S1, ch, int(_K[i]), w[i])
+        S0 = df.logic(xor3, df.rotr(a, 2), df.rotr(a, 13), df.rotr(a, 22))
+        maj = df.logic(lambda p, q, r: (p & q) ^ (p & r) ^ (q & r), a, b, c)
+        a, b, c, d, e, f, g, h = df.add(t1, S0, maj), a, b, c, \
+            df.add(d, t1), e, f, g
+    # the test's terms: prefix words 0 and 1 where masked, and the nibble
+    # (in word 0, 1 or 2) unless the charset is 16
+    t = [int(x) for x in np.asarray(target, dtype=np.uint32)]
+    terms = [k for k, on in ((0, t[0]), (1, t[2]), (t[4], t[6] < 16)) if on]
+    alu, add = df.count([df.add(mid[k], (a, b, c)[k]) for k in set(terms)])
+    return alu + 2 * len(terms), add
