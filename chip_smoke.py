@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's two paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -9,37 +9,57 @@ Phases, one line each; any failure exits non-zero:
    nvcc per source, all started together, with ptxas's registers and
    spills, and the sha256 kernel's SASS opcodes per loop trip
    (cuobjdump);
-3. kernel vs plain, P-256: the verify kernel against its plain PyTorch
-   version on 8,192 lanes (one full block of signatures: honest,
+3. kernel vs plain, P-256: the Jacobian verify kernel against its plain
+   PyTorch version on 8,192 lanes (one full block of signatures: honest,
    corrupted, r + n < p, off-curve, (0, 0), oversized digests and
    coordinates, crafted ladder collisions), bit for bit, with verdicts
    held against the host oracle on a sample; then at the main path's
    launch shapes (1,026 lanes, a ragged edge, and 1 lane); times and
    the bound;
-4. kernel vs plain, sha256: the nonce-search kernel against its plain
+4. kernel vs plain, P-256 complete: the RCB16 complete-formula kernel on
+   the same 8,192 lanes against its plain version and against the
+   Jacobian path's final verdicts (exception lanes decided by the host
+   oracle), every lane, and at the 1,026- and 1-lane shapes; times with
+   10 dispatches queued, and the bound;
+5. kernel vs plain, sha256: the nonce-search kernel against its plain
    PyTorch version (and a hashlib brute force where the range is small
    or its first hit near) on v2 and v1 templates, integer and
    fractional difficulties, a miss, dense hits, ragged counts, a range
    ending at 2^32 - 1, and 16 consecutive 2^24-nonce rounds at
    difficulty 5 (the miner's dispatch shape); times and the bound;
-5. the accept path: a 3-block chain fanning one coinbase into 255 x 32
-   outputs, each block mined by the port's ``mine(job, "cuda")`` at the
-   protocol's difficulty 6.0, then ``BlockManager(state).create_block``
-   of the 8,160-tx block on the card, counting kernel launches and
-   exception lanes, with the device's busy time read by
-   ``torch.profiler`` (CUDA activity only); then a block with one
-   corrupted signature and a block that spends an output twice must be
-   rejected with the reference's error strings;
-6. the miner's path: ``upow_tpu_torch.mine.miner.run(device="cuda",
-   once=True)`` against a stub node (a stdlib HTTP server over the same
-   chain, holding 64 pending txs) must push a block that the port's
-   ``BlockManager`` accepts, with the sha256 launches counted;
-7. the hash rate: one template at difficulty 10 swept over all 2^32 - 1
+6. the accept path: a 3-block chain fanning one coinbase into 255 x 32
+   outputs (a sqlite file), each block mined by the port's ``mine(job,
+   "cuda")`` at the protocol's difficulty 6.0, then, on an in-memory
+   copy, ``BlockManager(state).create_block`` of the 8,160-tx block on
+   the card (Jacobian kernel), counting kernel launches and exception lanes,
+   with the device's busy time read by ``torch.profiler`` (CUDA activity
+   only); then a block with one corrupted signature and a block that
+   spends an output twice must be rejected with the reference's error
+   strings;
+7. the node, on a copy of the chain: the port's ``Node`` serving HTTP on
+   the standard library, ``device="cuda"``, configured by
+   ``Config.load`` with ``UPOW_DEVICE_VERIFY_KERNEL=complete``.  A burst
+   of 1,024 concurrent ``push_tx`` must all be accepted through the
+   coalescing intake with the complete kernel launched and the Jacobian
+   one not; the duplicate and a tampered tx must be rejected with the
+   reference's strings; ``upow_tpu_torch.mine.miner.run(device="cuda",
+   once=True)`` against the node must get its block accepted, emptying
+   the pending set by the count it took;
+8. ``push_block`` of the 8,160-tx block over HTTP, each on a fresh copy
+   of the chain: to a node on the complete kernel (then the two tampered
+   blocks must be rejected with their strings) and to one on the
+   Jacobian kernel, with wall time, launches and the profiler's idle
+   share;
+9. the hash rate: one template at difficulty 10 swept over all 2^32 - 1
    nonces through ``mine(job, "cuda", batch=2**24)``, with the card's
    busy time and idle share from the profiler; then a difficulty-6.3 job
    mined to a hit that hashlib checks.
 
-The line before the last is the kernels' JSON record; the last is
+The line before the last is the kernels' JSON record; each kernel's
+``launches`` is one path's own count (the accept's for the Jacobian
+kernel, the HTTP push_block's under complete for the complete kernel,
+``miner.run``'s for the sha256 kernel), and the complete kernel's
+``launches_by_path`` gives each path it ran on.  The last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero and prints no result.
 """
@@ -48,23 +68,25 @@ from __future__ import annotations
 
 import asyncio
 import collections
-import functools
 import hashlib
 import json
+import os
 import random
 import re
 import shutil
+import sqlite3
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 
 import torch
 
 from upow_tpu_torch import _build, device as tdevice, trace
+from upow_tpu_torch.config import Config
 from upow_tpu_torch.core import clock, curve, point_to_string
 from upow_tpu_torch.core.constants import CURVE_GX, CURVE_GY, CURVE_N, CURVE_P
 from upow_tpu_torch.core.difficulty import (
@@ -73,15 +95,17 @@ from upow_tpu_torch.core.merkle import merkle_root
 from upow_tpu_torch.core.tx import Tx, TxInput, TxOutput
 from upow_tpu_torch.crypto import p256, sha256 as tsha
 from upow_tpu_torch.mine import engine as mine_engine, miner
+from upow_tpu_torch.node.app import Node
+from upow_tpu_torch.node.http import fetch
 from upow_tpu_torch.state import ChainState
-from upow_tpu_torch.verify import BlockManager
+from upow_tpu_torch.verify import BlockManager, txverify
 
-KERNELS = ["p256_verify", "sha256_search"]
+KERNELS = ["p256_verify", "p256_complete", "sha256_search"]
 LANES = 8192
 FAN, PER = 255, 32          # 8,160 leaf spends: one full block
 GENESIS_PREV = (18_884_643).to_bytes(32, "little").hex()
 SEARCH_BATCH = 1 << 24      # the miner's dispatch (config device.search_batch)
-PENDING = 64                # txs the stub node holds for the miner
+BURST = 1024                # concurrent push_tx in the node's burst
 KEY_SEED = 0xACC7           # the chain's and the miner's key
 SENTINEL = int(tsha.SENTINEL)
 # charset size -> the fractional part of the difficulty that gives it
@@ -188,9 +212,9 @@ def cuda_ms(fn, reps: int, warm: int = 2, per: int = 1) -> float:
     return statistics.median(times)
 
 
-def kernel_phase(dev: torch.device) -> dict:
+def kernel_phase(dev: torch.device, mix: tuple) -> dict:
     t0 = time.perf_counter()
-    digests, sigs, pubs, kinds = signature_mix(LANES)
+    digests, sigs, pubs, kinds = mix
     fused, zs, rs, ss, qxs, qys = p256._pack_device_inputs(
         digests, sigs, pubs, LANES)
     packed = p256.packed_tensor(fused, dev)
@@ -238,6 +262,7 @@ def kernel_phase(dev: torch.device) -> dict:
         shapes[width] = part
 
     ms = cuda_ms(lambda: p256.verify_packed(packed), reps=30, warm=3)
+    ms_queued = cuda_ms(lambda: p256.verify_packed(packed), reps=5, per=10)
     ms_1026 = cuda_ms(lambda: p256.verify_packed(shapes[1026]), reps=10)
     ms_1 = cuda_ms(lambda: p256.verify_packed(shapes[1]), reps=10)
     plain_ms = cuda_ms(lambda: p256.verify_plain(packed), reps=2, warm=0)
@@ -253,7 +278,8 @@ def kernel_phase(dev: torch.device) -> dict:
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     phase("kernel_vs_plain", lanes=LANES, equal=True,
           exception_lanes=len(exc), sampled_vs_host=len(sample),
-          ms=round(ms, 4), ms_1026_lanes=round(ms_1026, 4),
+          ms=round(ms, 4), ms_10_queued=round(ms_queued, 4),
+          ms_1026_lanes=round(ms_1026, 4),
           ms_1_lane=round(ms_1, 4), plain_ms=round(plain_ms, 1),
           bound_ms=round(max(ops_ms, bytes_ms), 4),
           sms=props.multi_processor_count, clock_mhz=clock_mhz,
@@ -263,6 +289,79 @@ def kernel_phase(dev: torch.device) -> dict:
             "replaces": "upow_tpu/crypto/p256.py:1016",
             "launches": 0, "max_abs_err": max_abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None}
+
+
+def complete_phase(dev: torch.device, mix: tuple) -> dict:
+    """The complete-formula kernel against its plain version and against
+    the Jacobian path's final verdicts (its exception lanes decided by
+    the host oracle), on every lane of the mix and at the main path's
+    launch shapes; times and the bound."""
+    digests, sigs, pubs, kinds = mix
+    fused, zs, rs, ss, qxs, qys = p256._pack_device_inputs(
+        digests, sigs, pubs, LANES)
+    packed = p256.packed_tensor(fused, dev)
+    got = p256.verify_complete_packed(packed)
+    torch.cuda.synchronize()
+    plain = p256.verify_complete_plain(packed)
+    torch.cuda.synchronize()
+    if got.shape != (LANES,) or got.dtype != torch.int32:
+        fail(f"complete kernel output {tuple(got.shape)} {got.dtype}")
+    max_abs_err = int((got.long() - plain.long()).abs().max())
+    if not torch.equal(got, plain):
+        bad = torch.nonzero(got != plain).flatten()[:8].tolist()
+        fail(f"complete kernel != plain on {int((got != plain).sum())} "
+             f"lanes, first {bad}")
+    if bool((got & 2).any()):
+        fail("the complete kernel set an exception bit")
+    saved = p256.VERIFY_KERNEL
+    p256.VERIFY_KERNEL = "jac"
+    jac = p256.verify_batch_prehashed(digests, sigs, pubs, device=dev)
+    p256.VERIFY_KERNEL = saved
+    verdicts = (got & 1).bool().cpu().numpy()
+    if verdicts.tolist() != jac.tolist():
+        lanes = [i for i in range(LANES) if verdicts[i] != jac[i]][:8]
+        fail(f"complete kernel != the Jacobian path's verdicts at {lanes}")
+    collisions = [i for i, k in enumerate(kinds) if k == "collision"]
+    for i in collisions[:16]:
+        want = p256._host_verify_prehashed(zs[i], rs[i], ss[i], qxs[i], qys[i])
+        if bool(verdicts[i]) != want:
+            fail(f"collision lane {i}: complete {verdicts[i]}, host {want}")
+    shapes = {}
+    for width in (1026, 1):
+        part = packed[:, :width].contiguous()
+        if not torch.equal(p256.verify_complete_packed(part), plain[:width]):
+            fail(f"complete kernel != plain at the {width}-lane launch shape")
+        shapes[width] = part
+
+    ms = cuda_ms(lambda: p256.verify_complete_packed(packed), reps=5, warm=2,
+                 per=10)
+    ms_1026 = cuda_ms(lambda: p256.verify_complete_packed(shapes[1026]),
+                      reps=5, per=10)
+    ms_1 = cuda_ms(lambda: p256.verify_complete_packed(shapes[1]), reps=5,
+                   per=10)
+    plain_ms = cuda_ms(lambda: p256.verify_complete_plain(packed), reps=1,
+                       warm=0)
+    props = torch.cuda.get_device_properties(dev)
+    clock_mhz = tdevice.max_sm_clock_mhz() or props.clock_rate / 1000
+    ops = p256.mul_ops_needed(zs, rs, ss, qxs, qys, kernel="complete")
+    ops_ms = ops / (props.multi_processor_count * IMUL_PER_SM_CLK
+                    * clock_mhz * 1e6) * 1e3
+    bytes_ms = LANES * (p256.PACKED_ROWS * 4 + 4) / HBM_BYTES_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    phase("complete_kernel_vs_plain", lanes=LANES, equal=True,
+          equal_to_jac_path=True, collision_lanes=len(collisions),
+          accepted=int(verdicts.sum()), ms=round(ms, 4),
+          ms_1026_lanes=round(ms_1026, 4), ms_1_lane=round(ms_1, 4),
+          plain_ms=round(plain_ms, 1), bound_ms=round(bound_ms, 4),
+          bound_share=round(bound_ms / ms, 4), int_mul_ops=ops,
+          sms=props.multi_processor_count, clock_mhz=clock_mhz)
+    return {"name": "p256_complete", "route": "cuda",
+            "source": "upow_tpu_torch/csrc/p256_complete.cu",
+            "replaces": "upow_tpu/crypto/p256.py:548 (and :468)",
+            "launches": 0, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None}
 
@@ -411,86 +510,118 @@ def sweep_job(addr: str) -> "mine_engine.MiningJob":
         timestamp=1_760_000_000, difficulty="10")
 
 
-# --- phases 5 and 6: the accept path and the miner's path -----------------
+# --- phases 5 and 6: the accept path and the node ------------------------
 
-async def main_path(dev: torch.device, key: tuple, fan: int = FAN,
-                    per: int = PER) -> tuple:
-    """(the accept's record, the miner run's record)."""
-    clock.freeze(int(time.time()) - 3600)
-    state = ChainState()
-    manager = BlockManager(state, device=dev)
-    d, pub = key
-    addr = point_to_string(pub)
-    pub_of = lambda _i: pub  # noqa: E731
-    mined = []  # MineResult of every header mined below
+class Kit:
+    """The chain's key: its spends, and headers mined on a manager's tip
+    by the port's miner on the card at the chain's own difficulty."""
 
-    async def header(txs) -> str:
-        """A header on the current tip, its nonce found by the port's
-        miner on the card at the chain's own difficulty."""
+    def __init__(self, key: tuple):
+        self.d, self.pub = key
+        self.addr = point_to_string(self.pub)
+        self.mined = []  # MineResult of every header mined
+
+    def spend(self, outpoints, outs) -> Tx:
+        return Tx([TxInput(h, i) for h, i in outpoints], outs).sign(
+            [self.d], lambda _i: self.pub)
+
+    async def header(self, manager: BlockManager, txs) -> str:
         diff, last = await manager.calculate_difficulty()
         prev = last["hash"] if last else GENESIS_PREV
         job = mine_engine.MiningJob.from_header_fields(
-            previous_hash=prev, address=addr, merkle_root=merkle_root(txs),
-            timestamp=clock.timestamp(), difficulty=diff)
+            previous_hash=prev, address=self.addr,
+            merkle_root=merkle_root(txs), timestamp=clock.timestamp(),
+            difficulty=diff)
         if not last:
             return job.block_content(0)  # genesis: no PoW
         res = mine_engine.mine(job, "cuda", batch=SEARCH_BATCH)
         if res.nonce is None:
             fail(f"no nonce found at difficulty {diff}")
-        mined.append(res)
+        self.mined.append(res)
         return job.block_content(res.nonce)
 
-    async def submit(txs, content=None):
-        """(accepted, errors, seconds in create_block alone)."""
-        if content is None:
-            clock.advance(60)
-            content = await header(txs)
-        errors = []
-        t0 = time.perf_counter()
-        ok = await manager.create_block(content, txs, errors=errors)
-        return ok, errors, time.perf_counter() - t0
+    def tampered(self, leaves) -> tuple:
+        """Candidates on the tip after the big block: 1,024 spends of its
+        outputs with one corrupted signature, and half of them plus a
+        second spend of an output."""
+        new_outs = [(t.hash(), 0, t.outputs[0].amount) for t in leaves[:1024]]
+        cand = [self.spend([(h, i)], [TxOutput(self.addr, a)])
+                for h, i, a in new_outs]
+        bad = cand[len(cand) // 2]
+        r, s = bad.inputs[0].signature
+        bad.inputs[0].signature = (r, (s + 1) % CURVE_N)
+        bad._hex_cache.pop(True, None)
+        bad._hash = None
+        twin = self.spend([new_outs[0][:2]], [TxOutput(self.addr, 1)])
+        return cand, cand[:len(cand) // 2] + [twin]
 
-    def spend(outpoints, outs):
-        return Tx([TxInput(h, i) for h, i in outpoints], outs).sign([d], pub_of)
 
+KERNEL_NAMES = {"jac": "p256_verify_kernel",
+                "complete": "p256_complete_kernel"}
+REJECTED = ["signature verification failed",
+            "double spend in block: 5 (unspent_outputs)"]
+
+
+async def build_chain(dev: torch.device, kit: Kit, path: str,
+                      fan: int = FAN, per: int = PER) -> tuple:
+    """A 3-block chain fanning one coinbase into fan x per outputs, in a
+    sqlite file; returns (the leaf spends, the big block's header mined
+    on its tip, seconds)."""
     t0 = time.perf_counter()
-    ok, errors, _ = await submit([])
-    if not ok:
-        fail(f"genesis rejected: {errors}")
-    coin = (await state.get_spendable_outputs(addr))[0]
+    state = ChainState(path)
+    manager = BlockManager(state, device=dev)
+
+    async def submit(txs):
+        clock.advance(60)
+        errors = []
+        if not await manager.create_block(await kit.header(manager, txs),
+                                          txs, errors=errors):
+            fail(f"chain block rejected: {errors}")
+
+    await submit([])
+    coin = (await state.get_spendable_outputs(kit.addr))[0]
     each = coin.amount // fan
-    fan_tx = spend([(coin.tx_hash, coin.index)],
-                   [TxOutput(addr, each)] * (fan - 1)
-                   + [TxOutput(addr, coin.amount - each * (fan - 1))])
-    ok, errors, _ = await submit([fan_tx])
-    if not ok:
-        fail(f"fan-out block rejected: {errors}")
+    fan_tx = kit.spend([(coin.tx_hash, coin.index)],
+                       [TxOutput(kit.addr, each)] * (fan - 1)
+                       + [TxOutput(kit.addr, coin.amount - each * (fan - 1))])
+    await submit([fan_tx])
     mids = []
     for j in range(fan):
         amt = fan_tx.outputs[j].amount
         sub = amt // per
-        mids.append(spend([(fan_tx.hash(), j)],
-                          [TxOutput(addr, sub)] * (per - 1)
-                          + [TxOutput(addr, amt - sub * (per - 1))]))
-    ok, errors, _ = await submit(mids)
-    if not ok:
-        fail(f"mid block rejected: {errors}")
-    leaves = [spend([(m.hash(), k)], [TxOutput(addr, o.amount)])
+        mids.append(kit.spend([(fan_tx.hash(), j)],
+                              [TxOutput(kit.addr, sub)] * (per - 1)
+                              + [TxOutput(kit.addr, amt - sub * (per - 1))]))
+    await submit(mids)
+    leaves = [kit.spend([(m.hash(), k)], [TxOutput(kit.addr, o.amount)])
               for m in mids for k, o in enumerate(m.outputs)]
-    setup_s = time.perf_counter() - t0
-    pre_hash = await state.get_unspent_outputs_hash()
     clock.advance(60)
-    content = await header(leaves)  # mined before the measured accept
+    content = await kit.header(manager, leaves)  # mined before any accept
+    state.close()
+    return leaves, content, time.perf_counter() - t0
+
+
+async def accept_path(dev: torch.device, kit: Kit, path: str, leaves,
+                      content: str) -> dict:
+    """BlockManager(state).create_block of the big block on the card,
+    then the tampered candidates.  The chain is loaded into an in-memory
+    database, as in every accept measured since the first slice."""
+    state = ChainState()
+    with sqlite3.connect(path) as src:
+        src.backup(state.db)
+    manager = BlockManager(state, device=dev)
+    pre_hash = await state.get_unspent_outputs_hash()
     chain_difficulty = (await manager.calculate_difficulty())[0]
 
     # the measured accept: cold verdict cache, counts from zero
-    from upow_tpu_torch.verify import txverify
-
     txverify.clear_sig_verdicts()
     trace.reset()
     p256.reset_counts()
     prof = start_profiler()
-    ok, errors, accept_s = await submit(leaves, content)
+    errors = []
+    t0 = time.perf_counter()
+    ok = await manager.create_block(content, leaves, errors=errors)
+    accept_s = time.perf_counter() - t0
     launches, exc_lanes = p256.LAUNCHES, p256.EXCEPTION_LANES
     device = device_busy(prof, "p256_verify_kernel")
     breakdown = accept_breakdown(trace.snapshot())
@@ -504,127 +635,191 @@ async def main_path(dev: torch.device, key: tuple, fan: int = FAN,
     tip = await state.get_last_block()
     if post_hash == pre_hash or tip["id"] != 4:
         fail("the accepted block did not move the chain")
-    spendable = await state.get_spendable_outputs(addr)
+    spendable = await state.get_spendable_outputs(kit.addr)
     if len(spendable) != len(leaves) + 3:  # + coinbases of blocks 2-4
         fail(f"{len(spendable)} spendable outputs after accept")
 
     # tampered candidates on the new tip must be rejected
-    new_outs = [(t.hash(), 0, t.outputs[0].amount) for t in leaves[:1024]]
-    cand = [spend([(h, i)], [TxOutput(addr, a)]) for h, i, a in new_outs]
-    bad = cand[len(cand) // 2]
-    r, s = bad.inputs[0].signature
-    bad.inputs[0].signature = (r, (s + 1) % CURVE_N)
-    bad._hex_cache.pop(True, None)
-    bad._hash = None
-    ok_bad, err_bad, _ = await submit(cand)
-    twin = spend([new_outs[0][:2]], [TxOutput(addr, 1)])
-    ok_dbl, err_dbl, _ = await submit(cand[:len(cand) // 2] + [twin])
-    if ok_bad or err_bad != ["signature verification failed"]:
-        fail(f"corrupted-signature block: {ok_bad} {err_bad}")
-    if ok_dbl or err_dbl != ["double spend in block: 5 (unspent_outputs)"]:
-        fail(f"double-spend block: {ok_dbl} {err_dbl}")
+    rejected = []
+    for txs in kit.tampered(leaves):
+        clock.advance(60)
+        errors = []
+        if await manager.create_block(await kit.header(manager, txs), txs,
+                                      errors=errors):
+            fail("a tampered block was accepted")
+        rejected += errors
+    if rejected != REJECTED:
+        fail(f"tampered blocks: {rejected}")
     if await state.get_unspent_outputs_hash() != post_hash:
         fail("a rejected block changed the UTXO set")
-    accept = {"txs": len(leaves), "accept_s": accept_s,
-              "launches": launches, "exception_lanes": exc_lanes,
-              "setup_s": setup_s, "rejected": [err_bad[0], err_dbl[0]],
-              "breakdown": breakdown, "device": device,
-              "difficulty": chain_difficulty, "mined": mined}
-
-    # the miner's path: the CLI's run() against a stub node over this
-    # chain, holding valid spends of the new outputs as its mempool
-    good = [t for t in cand if t is not bad][:PENDING]
-    pending = {t.hash(): t for t in good}
-    node = StubNode(asyncio.get_running_loop(), manager, pending)
-    clock.advance(60)
-    tsha.reset_counts()
-    t0 = time.perf_counter()
-    rc = await asyncio.get_running_loop().run_in_executor(
-        None, functools.partial(miner.run, addr, node.url, "cuda",
-                                SEARCH_BATCH, 90.0, once=True))
-    run_s = time.perf_counter() - t0
-    sha_launches = tsha.LAUNCHES
-    node.close()
-    tip = await state.get_last_block()
-    if rc != 0 or len(node.accepted) != 1 or tip["id"] != 5:
-        fail(f"miner.run: rc {rc}, pushes {node.replies}, tip {tip['id']}")
-    if sha_launches == 0:
-        fail("the miner's path never launched the sha256 kernel")
-    if await state.get_unspent_outputs_hash() == post_hash:
-        fail("the mined block did not move the UTXO set")
     state.close()
-    clock.reset()
-    return accept, {"run_s": run_s, "launches": sha_launches,
-                    "txs": len(node.accepted[0]), "tip": tip["id"],
-                    "difficulty": float(tip["difficulty"])}
+    return {"txs": len(leaves), "accept_s": accept_s,
+            "launches": launches, "exception_lanes": exc_lanes,
+            "rejected": rejected, "breakdown": breakdown, "device": device,
+            "difficulty": chain_difficulty}
 
 
-class StubNode:
-    """The two routes a miner calls, over the chain of the running accept
-    path: ``get_mining_info`` in the node's wire shape (difficulty and
-    last block from ``BlockManager.calculate_difficulty``, the held
-    pending txs sorted by hex, their hashes) and ``push_block`` into
-    ``BlockManager.create_block``.  A stdlib HTTP server on its own
-    thread hands each request to the chain's event loop, which owns the
-    sqlite connection.  Scaffolding for this script, not a node."""
+class NodeThread:
+    """The port's Node serving HTTP on its own event-loop thread (the
+    loop owns the node's sqlite connection), configured as ``python -m
+    upow_tpu_torch.node.run --device cuda`` would be: ``Config.load`` over
+    the environment, the database file, a free port."""
 
-    def __init__(self, loop, manager: BlockManager, pending: dict):
-        self.loop, self.manager, self.pending = loop, manager, pending
-        self.accepted, self.replies = [], []
-        stub = self
-
-        class Handler(BaseHTTPRequestHandler):
-            def log_message(self, *_a):
-                pass
-
-            def _reply(self, coro):
-                body = asyncio.run_coroutine_threadsafe(
-                    coro, stub.loop).result(120)
-                data = json.dumps(body).encode()
-                self.send_response(200)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
-
-            def do_GET(self):
-                self._reply(stub.mining_info())
-
-            def do_POST(self):
-                raw = self.rfile.read(int(self.headers["Content-Length"]))
-                self._reply(stub.push_block(json.loads(raw)))
-
-        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
-        self.thread = threading.Thread(target=self.server.serve_forever,
+    def __init__(self, dev: torch.device, db: str, kernel_env: str):
+        os.environ["UPOW_DEVICE_VERIFY_KERNEL"] = kernel_env
+        try:
+            self.cfg = Config.load(node__db_path=db, node__ip_config_file="",
+                                   node__host="127.0.0.1", node__port=0)
+        finally:
+            del os.environ["UPOW_DEVICE_VERIFY_KERNEL"]
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
                                        daemon=True)
         self.thread.start()
-        self.url = f"http://127.0.0.1:{self.server.server_port}/"
+        self.node = self.call(self._start(dev))
 
-    async def mining_info(self) -> dict:
-        diff, last = await self.manager.calculate_difficulty()
-        last = dict(last, difficulty=float(last["difficulty"]))
-        pending = sorted(t.hex() for t in self.pending.values())
-        return {"ok": True, "result": {
-            "difficulty": float(diff), "last_block": last,
-            "pending_transactions": pending[:10],
-            "pending_transactions_hashes": [
-                hashlib.sha256(bytes.fromhex(t)).hexdigest()
-                for t in pending]}}
+    async def _start(self, dev) -> Node:
+        node = Node(self.cfg, device=dev)
+        server = await node.serve()
+        self.url = f"http://127.0.0.1:{server.port}/"
+        return node
 
-    async def push_block(self, body: dict) -> dict:
-        txs = [self.pending[h] for h in body["txs"]]
-        errors = []
-        ok = await self.manager.create_block(body["block_content"], txs,
-                                             errors=errors)
-        if ok:
-            self.accepted.append(txs)
-        self.replies.append({"ok": ok, "errors": errors})
-        return self.replies[-1]
+    def call(self, coro, timeout: float = 600.0):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def request(self, path: str, body=None) -> dict:
+        """One request from this (client) thread; the decoded body."""
+        data = None if body is None else json.dumps(body).encode()
+        status, raw = asyncio.run(fetch(self.url + path,
+                                        "GET" if data is None else "POST",
+                                        data))
+        return json.loads(raw)
 
     def close(self) -> None:
-        self.server.shutdown()
-        self.server.server_close()
+        self.call(self.node.close())
+        self.loop.call_soon_threadsafe(self.loop.stop)
         self.thread.join(10)
+        self.loop.close()
+
+
+async def _burst(url: str, hexes, width: int = 256) -> list:
+    """Every tx pushed at once (at most ``width`` connections open)."""
+    gate = asyncio.Semaphore(width)
+
+    async def push(tx_hex):
+        async with gate:
+            _status, raw = await fetch(url + "push_tx", "POST",
+                                       json.dumps({"tx_hex": tx_hex}).encode())
+            return json.loads(raw)
+    return await asyncio.gather(*(push(h) for h in hexes))
+
+
+def node_path(dev: torch.device, kit: Kit, workdir: Path, leaves) -> dict:
+    """The port's node under ``UPOW_DEVICE_VERIFY_KERNEL=complete``: a
+    burst of push_tx through the coalescing intake, the duplicate and a
+    tampered tx, then ``miner.run(device="cuda", once=True)`` against it."""
+    db = str(workdir / "node.db")
+    shutil.copyfile(workdir / "base.db", db)
+    node = NodeThread(dev, db, "complete")
+    burst = leaves[:BURST]
+    try:
+        txverify.clear_sig_verdicts()
+        trace.reset()
+        p256.reset_counts()
+        t0 = time.perf_counter()
+        replies = asyncio.run(_burst(node.url, [t.hex() for t in burst]))
+        burst_s = time.perf_counter() - t0
+        complete, jac = p256.COMPLETE_LAUNCHES, p256.LAUNCHES
+        sizes = trace.snapshot()["observations"].get(
+            "mempool.intake_batch_size", [])
+        if not all(r.get("ok") for r in replies):
+            fail(f"burst: {[r for r in replies if not r.get('ok')][:3]}")
+        if complete == 0 or jac != 0:
+            fail(f"burst launches: complete {complete}, jac {jac}")
+        dup = node.request("push_tx", {"tx_hex": burst[0].hex()})
+        bad = kit.spend([(leaves[BURST].inputs[0].tx_hash,
+                          leaves[BURST].inputs[0].index)],
+                        list(leaves[BURST].outputs))
+        r, s = bad.inputs[0].signature
+        bad.inputs[0].signature = (r, (s + 1) % CURVE_N)
+        bad._hex_cache.pop(True, None)
+        bad._hash = None
+        tampered = node.request("push_tx", {"tx_hex": bad.hex()})
+        strings = [dup.get("error"), tampered.get("error")]
+        if strings != ["Transaction just added",
+                       "Transaction has not been added"]:
+            fail(f"duplicate / tampered push_tx: {dup} {tampered}")
+        before = len(node.request("get_pending_transactions")["result"])
+
+        clock.advance(60)
+        tsha.reset_counts()
+        p256.reset_counts()
+        t0 = time.perf_counter()
+        rc = miner.run(kit.addr, node.url, "cuda", SEARCH_BATCH, 90.0,
+                       once=True)
+        run_s = time.perf_counter() - t0
+        sha_launches = tsha.LAUNCHES
+        after = len(node.request("get_pending_transactions")["result"])
+        tip = node.call(node.node.state.get_last_block())
+        if rc != 0 or tip["id"] != 4:
+            fail(f"miner.run against the node: rc {rc}, tip {tip['id']}")
+        if sha_launches == 0:
+            fail("the miner's path never launched the sha256 kernel")
+        taken = len(node.call(node.node.state.get_block_transactions(
+            tip["hash"]))) - 1  # the block's txs, less its coinbase
+        if before != BURST or before - after != taken:
+            fail(f"pending {before} -> {after}, block took {taken}")
+    finally:
+        node.close()
+    return {"burst": len(burst), "burst_s": burst_s, "complete": complete,
+            "jac": jac, "batches": sizes, "rejected": strings,
+            "miner": {"run_s": run_s, "launches": sha_launches,
+                      "txs": taken, "tip": tip["id"],
+                      "difficulty": float(tip["difficulty"]),
+                      "pending": [before, after],
+                      "complete": p256.COMPLETE_LAUNCHES}}
+
+
+def push_block_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
+                    content: str, kernel: str) -> dict:
+    """On a fresh copy of the chain, the big block pushed over HTTP to a
+    node on ``kernel``, with a cold verdict cache, its launches and the
+    card's busy time; under ``complete`` then the tampered blocks."""
+    db = str(workdir / f"push_{kernel}.db")
+    shutil.copyfile(workdir / "base.db", db)
+    node = NodeThread(dev, db, kernel)
+    try:
+        body = {"block_content": content, "txs": [t.hex() for t in leaves]}
+        txverify.clear_sig_verdicts()
+        p256.reset_counts()
+        prof = start_profiler()
+        t0 = time.perf_counter()
+        reply = node.request("push_block", body)
+        wall_s = time.perf_counter() - t0
+        out = {"wall_s": wall_s, "complete": p256.COMPLETE_LAUNCHES,
+               "jac": p256.LAUNCHES, "exception_lanes": p256.EXCEPTION_LANES,
+               "device": device_busy(prof, KERNEL_NAMES[kernel]),
+               "bytes": len(json.dumps(body))}
+        if reply != {"ok": True}:
+            fail(f"push_block of {len(leaves)} txs under {kernel}: {reply}")
+        launched = out["complete"] if kernel == "complete" else out["jac"]
+        other = out["jac"] if kernel == "complete" else out["complete"]
+        if launched == 0 or other != 0:
+            fail(f"push_block under {kernel}: launches {out}")
+        if kernel == "complete":
+            rejected = []
+            for txs in kit.tampered(leaves):
+                clock.advance(60)
+                header = node.call(kit.header(node.node.manager, txs))
+                reply = node.request("push_block", {
+                    "block_content": header, "txs": [t.hex() for t in txs]})
+                rejected.append(reply.get("error"))
+            if rejected != REJECTED:
+                fail(f"tampered blocks over HTTP: {rejected}")
+            out["rejected"] = rejected
+    finally:
+        node.close()
+    return out
 
 
 # --- phase 7: the hash rate ---------------------------------------------------
@@ -774,14 +969,34 @@ def main() -> int:
           + " ".join(f"{op}={n}" for op, n in loop.most_common(12)),
           flush=True)
 
-    record = kernel_phase(dev)
+    mix = signature_mix(LANES)
+    record = kernel_phase(dev, mix)
+    complete_record = complete_phase(dev, mix)
     key = curve.keygen(rng=KEY_SEED)
     sha_record = sha_phase(dev, point_to_string(key[1]))
 
-    res, mined = asyncio.run(main_path(dev, key))
+    kit = Kit(key)
+    clock.freeze(int(time.time()) - 3600)
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp)
+        leaves, content, setup_s = asyncio.run(build_chain(
+            dev, kit, str(workdir / "base.db")))
+        res = asyncio.run(accept_path(dev, kit, str(workdir / "base.db"),
+                                      leaves, content))
+        nres = node_path(dev, kit, workdir, leaves)
+        pushes = {k: push_block_path(dev, kit, workdir, leaves, content, k)
+                  for k in ("complete", "jac")}
+    clock.reset()
     record["launches"] = res["launches"]
-    sha_record["launches"] = mined["launches"]
-    blocks = res["mined"]
+    sha_record["launches"] = nres["miner"]["launches"]
+    # one path's own count (the 8,160-tx push_block under complete), and
+    # each path's count beside it: the paths are reset and read apart
+    complete_record["launches"] = pushes["complete"]["complete"]
+    complete_record["launches_by_path"] = {
+        "node_burst": nres["complete"],
+        "miner_run": nres["miner"]["complete"],
+        "node_push_block_complete": pushes["complete"]["complete"]}
+    blocks = kit.mined
     phase("chain_mining", blocks=len(blocks), difficulty=res["difficulty"],
           start_difficulty=START_DIFFICULTY,
           hashes=sum(b.hashes_tried for b in blocks),
@@ -789,13 +1004,35 @@ def main() -> int:
     phase("main_path", txs=res["txs"], accept_s=round(res["accept_s"], 3),
           tx_per_s=round(res["txs"] / res["accept_s"], 1),
           launches=res["launches"], exception_lanes=res["exception_lanes"],
-          chain_setup_s=round(res["setup_s"], 1),
+          chain_setup_s=round(setup_s, 1),
           rejected=json.dumps(res["rejected"]), card=json.dumps(card))
     phase("accept_breakdown", **res["breakdown"])
     device_phase("device_profile", res["device"], res["accept_s"])
-    phase("miner_run", accepted=True, tip=mined["tip"], txs=mined["txs"],
+    phase("node_burst", verify_kernel="complete", push_tx=nres["burst"],
+          accepted=nres["burst"], seconds=round(nres["burst_s"], 3),
+          tx_per_s=round(nres["burst"] / nres["burst_s"], 1),
+          complete_launches=nres["complete"], jac_launches=nres["jac"],
+          intake_batches=len(nres["batches"]),
+          batch_sizes=json.dumps(sorted(collections.Counter(
+              int(n) for n in nres["batches"]).items())),
+          rejected=json.dumps(nres["rejected"]))
+    mined = nres["miner"]
+    phase("miner_run", node="port", accepted=True, tip=mined["tip"],
+          txs=mined["txs"], pending=json.dumps(mined["pending"]),
           difficulty=mined["difficulty"], launches=mined["launches"],
+          complete_launches=mined["complete"],
           seconds=round(mined["run_s"], 3))
+    for kernel, out in pushes.items():
+        busy = out["device"].get("busy_s")
+        phase(f"node_push_block_{kernel}", txs=len(leaves),
+              body_bytes=out["bytes"], wall_s=round(out["wall_s"], 3),
+              tx_per_s=round(len(leaves) / out["wall_s"], 1),
+              complete_launches=out["complete"], jac_launches=out["jac"],
+              exception_lanes=out["exception_lanes"],
+              busy_s="not_measured" if busy is None else round(busy, 4),
+              idle_share="not_measured" if busy is None
+              else round(1 - busy / out["wall_s"], 4),
+              rejected=json.dumps(out.get("rejected")), card=json.dumps(card))
 
     rate = hashrate_phase(key)
     phase("hashrate", hashes=rate["tried"], seconds=round(rate["seconds"], 4),
@@ -806,7 +1043,8 @@ def main() -> int:
     phase("difficulty_6_3", nonce=rate["nonce_6_3"], hashlib_checked=True,
           hashes=rate["tried_6_3"], seconds=round(rate["seconds_6_3"], 4))
 
-    print(json.dumps({"kernels": [record, sha_record]}), flush=True)
+    print(json.dumps({"kernels": [record, complete_record, sha_record]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

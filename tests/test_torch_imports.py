@@ -1,8 +1,12 @@
-"""The port imports with ``jax`` and the JAX package out of reach.
+"""The port imports with ``jax``, the JAX package and ``aiohttp`` out of
+reach.
 
 A subprocess puts a finder on ``sys.meta_path`` that refuses ``jax``,
-``jaxlib`` and ``upow_tpu`` (but not ``upow_tpu_torch``), then imports
-every module of the port, and ``chip_smoke.py`` with it.
+``jaxlib``, ``upow_tpu`` (but not ``upow_tpu_torch``) and ``aiohttp`` (the
+JAX node's server; the port's node serves on the standard library), then
+imports every module of the port, and ``chip_smoke.py`` with it.  A second
+subprocess starts the port's node under the same finder and serves a
+request.
 """
 
 import os
@@ -17,7 +21,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKER = r"""
 import importlib, importlib.abc, sys
 
-BLOCKED = ("jax", "jaxlib", "upow_tpu")
+BLOCKED = ("jax", "jaxlib", "upow_tpu", "aiohttp")
 
 
 class Block(importlib.abc.MetaPathFinder):
@@ -28,8 +32,34 @@ class Block(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, Block())
+
+
+def serve():
+    import asyncio, json
+    from upow_tpu_torch.config import Config
+    from upow_tpu_torch.node.app import Node
+    from upow_tpu_torch.node.http import fetch
+
+    async def main():
+        cfg = Config.load(node__db_path="", node__ip_config_file="")
+        cfg.device.verify_kernel = "complete"
+        node = Node(cfg, device="cpu")
+        server = await node.serve("127.0.0.1", 0)
+        try:
+            base = "http://127.0.0.1:%d" % server.port
+            status, body = await fetch(base + "/get_mining_info")
+            assert status == 200 and json.loads(body)["ok"], body
+            status, body = await fetch(base + "/push_tx", "POST", b"{}")
+            assert status == 422, body
+        finally:
+            await node.close()
+    asyncio.run(main())
+    print("served")
 for name in sys.argv[1:]:
-    importlib.import_module(name)
+    if name == "--serve":
+        serve()
+    else:
+        importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("imported", len(sys.argv) - 1)
@@ -51,7 +81,10 @@ def test_every_port_module_imports_without_jax():
                  "verify.dispatch", "verify.txverify", "state.storage",
                  "state.views", "trace", "device", "_build",
                  "crypto.sha256", "config", "parallel.multihost",
-                 "mine.engine", "mine.miner"):
+                 "mine.engine", "mine.miner", "mempool", "mempool.pool",
+                 "mempool.intake", "mempool.template", "node.app",
+                 "node.http", "node.ratelimit", "node.ipfilter",
+                 "node.run"):
         assert "upow_tpu_torch." + must in names, must
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(
@@ -59,6 +92,15 @@ def test_every_port_module_imports_without_jax():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert f"imported {len(names) + 1}" in out.stdout
+
+
+def test_port_node_serves_without_jax_or_aiohttp():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKER, "--serve"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "served" in out.stdout
 
 
 def test_port_sources_name_no_jax_import():
@@ -74,6 +116,7 @@ def test_port_sources_name_no_jax_import():
             s = line.strip()
             if s.startswith(("import jax", "from jax", "from upow_tpu ",
                              "from upow_tpu.", "import upow_tpu ",
-                             "import upow_tpu.")):
+                             "import upow_tpu.", "import aiohttp",
+                             "from aiohttp")):
                 bad.append((path, s))
     assert len(sources) > 20 and not bad, bad

@@ -212,11 +212,12 @@ def test_kernel_source_matches_plain_under_host_compiler(tmp_path):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
-    src = (Path(p256.__file__).parent.parent / "csrc"
-           / "p256_verify.cu").read_text()
+    csrc = Path(p256.__file__).parent.parent / "csrc"
+    src = (csrc / "p256_verify.cu").read_text()
     # the launch wrapper is CUDA-only syntax; the kernel is called directly
     src = src[:src.index('extern "C" int p256_verify_launch')]
     (tmp_path / "cuda_runtime.h").write_text(_SHIM)
+    shutil.copy(csrc / "p256_common.cuh", tmp_path)
     (tmp_path / "kernel.cpp").write_text(src)
     (tmp_path / "main.cpp").write_text(_MAIN)
     subprocess.run([gxx, "-std=c++17", "-O1", "-I", str(tmp_path),

@@ -6,13 +6,16 @@ package: the modules it needs are its own copies.  Plain tensor code is
 PyTorch; every Pallas kernel on a ported path is a CUDA kernel written by
 hand for sm_90a (``csrc/``), built with nvcc at first use (``_build.py``).
 
-Two paths are ported.  The node's block-accept path:
+The node's write path, with the reads a miner needs:
 
-    verify.block.BlockManager.check_block / create_block
+    node.run -> node.app.Node (node.http: a standard-library HTTP server)
+      push_tx -> mempool.intake.IntakeCoordinator (coalesced batches)
+      push_block -> verify.block.BlockManager.check_block / create_block
       -> verify.dispatch.SigDispatchFront (micro-batch coalescing)
       -> verify.txverify.run_sig_checks (verdict cache, canaries, retry)
-      -> crypto.p256.verify_batch_prehashed
+      -> crypto.p256.verify_batch_prehashed (VERIFY_KERNEL)
       -> csrc/p256_verify.cu (scalar prep + Jacobian ladder, one launch)
+         or csrc/p256_complete.cu (scalar prep + RCB16 complete ladder)
 
 over ``state.storage.ChainState`` (sqlite, same schema as the JAX
 package).  The miner:

@@ -1,44 +1,148 @@
 """Typed configuration: the part of the JAX package's ``config.py`` that
-the miner reads.
+the port's node and miner read.
 
-Each field takes its default unless a ``UPOW_<SECTION>_<FIELD>``
-environment variable sets it (``UPOW_DEVICE_SEARCH_BATCH=16777216``), the
-JAX package's convention.  The config file, the keyword overrides, the
-other fields and the other sections (node, mempool, telemetry, ...) come
-with the slices that read them (ROADMAP.md).
+``Config.load(path, **overrides)`` reads, later winning: the defaults, a
+JSON config file, ``UPOW_<SECTION>_<FIELD>`` environment variables
+(``UPOW_NODE_PORT=3007``, ``UPOW_DEVICE_VERIFY_KERNEL=complete``) and
+``section__field`` keyword overrides (``node__port=3007``): the JAX
+package's names and precedence, so a config file or environment that the
+JAX node reads configures the port's node the same way.  Sections and
+fields the port does not have yet (the resilience, cache, snapshot,
+archive, telemetry and watchtower settings, ``device.verify_window``, the
+node's peer, gossip and sync settings with ``node.self_url``, and
+``mempool.allow_rbf`` and ``mempool.reinject_on_reorg``) come with the
+slices that read them (ROADMAP.md); a config file naming them is read,
+and they are skipped.  So is ``mempool.enabled``: the port's node always
+admits through the coalescing intake, whose replies are byte for byte
+those of the JAX node's serial path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
 import os
 from dataclasses import dataclass, field
+from typing import Optional
+
+log = logging.getLogger("upow_tpu_torch.config")
 
 
 @dataclass
 class DeviceConfig:
-    """Compute settings for the miner."""
+    """Compute settings of the node's verify path and the miner."""
 
+    sig_backend: str = "auto"       # auto | device | host ("tpu", the JAX
+                                    # package's name, means the device)
     search_batch: int = 1 << 24     # nonces per device dispatch
+    verify_kernel: str = ""         # "" = default (jac) | jac | complete
+    verify_microbatch: int = 1024   # txs per check_block micro-batch:
+                                    # digest prep of batch N overlaps the
+                                    # in-flight sig verify of batch N-1
+                                    # (verify/block.py); 0 = whole block
+
+    def apply_kernel_overrides(self) -> None:
+        """Push ``verify_kernel`` into ``crypto.p256.VERIFY_KERNEL``
+        (module-level, so node, tests and chip_smoke.py see one value).
+        No-op at the default."""
+        if not self.verify_kernel:
+            return
+        from .crypto import p256
+
+        if self.verify_kernel not in p256.VERIFY_KERNELS:
+            raise ValueError(
+                f"device.verify_kernel must be 'jac' or 'complete', "
+                f"not {self.verify_kernel!r}")
+        p256.VERIFY_KERNEL = self.verify_kernel
+
+
+@dataclass
+class MempoolConfig:
+    """Micro-batched mempool subsystem (upow_tpu_torch/mempool/).
+
+    All operational policy: nodes with different mempool settings stay
+    bit-identical on chain state, and push_tx keeps the reference wire
+    shape (error strings / status codes) regardless of these knobs.
+    """
+
+    coalesce_window_ms: float = 2.0  # admission-queue drain window: how
+                                    # long the first waiter of a batch
+                                    # holds the door for stragglers
+    max_intake_batch: int = 128     # txs per micro-batch (one P-256
+                                    # device dispatch per batch)
+    max_pool_bytes_hex: int = 64 * 1024 * 1024  # pool byte cap (hex
+                                    # chars, 16 reference blocks);
+                                    # overflow evicts lowest fee-rate
+    tx_ttl: float = 7200.0          # seconds before an un-mined pooled
+                                    # tx expires (0 = never)
+    tx_cache_size: int = 1 << 16    # push_tx dedup set capacity
+                                    # (replaces the 100-entry deque)
+    tx_cache_ttl: float = 600.0     # seconds a dedup entry stays live
+
+
+@dataclass
+class NodeConfig:
+    host: str = "0.0.0.0"
+    port: int = 3006                # reference run_node.py port
+    db_path: str = "upow_tpu.db"    # sqlite file ('' -> in-memory)
+    ip_config_file: str = "ip_config.json"
+    response_cap: int = 20 * 1024 * 1024  # request body cap
+    mempool_clean_interval: int = 600  # main.py:678-683
+    rate_limits_enabled: bool = True   # slowapi parity (main.py:55)
 
 
 @dataclass
 class Config:
     device: DeviceConfig = field(default_factory=DeviceConfig)
+    node: NodeConfig = field(default_factory=NodeConfig)
+    mempool: MempoolConfig = field(default_factory=MempoolConfig)
 
     @classmethod
-    def load(cls) -> "Config":
-        """Defaults, then the ``UPOW_<SECTION>_<FIELD>`` environment."""
+    def load(cls, path: Optional[str] = None, **overrides) -> "Config":
+        """File -> env -> kwargs, later wins (``node__port=3007``)."""
         cfg = cls()
-        _apply_env_fields(cfg.device, "device")
+        if path and os.path.exists(path):
+            with open(path) as f:
+                _merge_dict(cfg, json.load(f))
+        for f in dataclasses.fields(cfg):
+            _apply_env_fields(getattr(cfg, f.name), f.name)
+        for key, value in overrides.items():
+            section, _, fname = key.partition("__")
+            sub = getattr(cfg, section, None)
+            if sub is None or not hasattr(sub, fname):
+                raise KeyError(f"unknown config field {key}")
+            setattr(sub, fname, value)
         return cfg
+
+
+def _merge_dict(cfg: Config, data: dict) -> None:
+    for section, values in data.items():
+        sub = getattr(cfg, section, None)
+        if sub is None:
+            log.info("config section %s is not read by the port yet", section)
+            continue
+        for fname, value in values.items():
+            if not hasattr(sub, fname):
+                log.info("config field %s.%s is not read by the port yet",
+                         section, fname)
+                continue
+            setattr(sub, fname, value)
 
 
 def _apply_env_fields(sub, section: str) -> None:
     """Apply ``UPOW_<SECTION>_<FIELD>`` env overrides onto one config
-    dataclass instance (its fields are ints and strings)."""
+    dataclass instance (its fields are ints, floats, bools and strings)."""
     for f in dataclasses.fields(sub):
         env = f"UPOW_{section.upper()}_{f.name.upper()}"
         if env in os.environ:
             raw = os.environ[env]
-            setattr(sub, f.name, int(raw) if f.type in ("int", int) else raw)
+            if f.type in ("int", int):
+                value = int(raw)
+            elif f.type in ("float", float):
+                value = float(raw)
+            elif f.type in ("bool", bool):
+                value = raw.lower() in ("1", "true", "yes")
+            else:
+                value = raw
+            setattr(sub, f.name, value)

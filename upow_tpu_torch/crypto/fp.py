@@ -1,8 +1,9 @@
 """Batched 256-bit prime-field arithmetic in plain PyTorch (int64 limbs).
 
-This is the arithmetic of the PLAIN version of the P-256 verify kernel
-(:mod:`.p256`): the CPU tests run it, and the card's kernel is held
-against it bit for bit.  The card never runs it on the main path.
+This is the arithmetic of the PLAIN versions of the P-256 verify kernels
+(:mod:`.p256`, Jacobian and complete-formula): the CPU tests run it, and
+the card's kernels are held against it.  The card never runs it on the
+main path.
 
 Layout: an element is an int64 tensor of shape (12, N), twelve 24-bit
 limbs per lane (lanes on the last axis), value = sum(limb[k] << 24k).

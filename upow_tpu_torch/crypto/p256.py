@@ -1,32 +1,37 @@
 """Batched NIST P-256 ECDSA verification: one CUDA kernel per batch.
 
 The JAX package verifies a block's signatures with ``_scalar_prep`` (an
-XLA program) followed by the Pallas kernel ``_ladder_kernel_jac``
-(``upow_tpu/crypto/p256.py``).  Here both run in ONE hand-written CUDA
-launch (``csrc/p256_verify.cu``), one thread per signature.  Per lane it
-computes:
+XLA program) followed by one of its Pallas ladders
+(``upow_tpu/crypto/p256.py``).  Here prep and ladder run in ONE
+hand-written CUDA launch, one thread per signature, in either of two
+kernels that share their field arithmetic and scalar prep
+(``csrc/p256_common.cuh``): s^-1 mod n by Fermat (fixed 4-bit window over
+n - 2), u1 = z * s^-1 and u2 = r * s^-1, the on-curve check and the
+window digits; then a w = 4 Strauss ladder for u1*G + u2*Q:
 
-* s^-1 mod n by Fermat (fixed 4-bit window over n - 2), u1 = z * s^-1
-  and u2 = r * s^-1, the on-curve check and the window digits;
-* a Jacobian Strauss ladder for u1*G + u2*Q, w = 4: each of 64 rounds
-  does 4 doublings (dbl-2001-b), a mixed add (madd-2007-bl) from the
-  constant affine G table and a general add (add-2007-bl) from a
-  15-entry Q table built per lane (e1, dbl, then a madd chain).  A zero
-  digit keeps the accumulator, a not-yet-started accumulator takes the
-  picked point, and H == 0 with both operands real sets the lane's
-  exception flag;
-* accept <=> X == r*Z^2 or (r + n < p and X == (r+n)*Z^2), R finite.
+* ``csrc/p256_verify.cu`` (``VERIFY_KERNEL = "jac"``, the default) ports
+  ``_ladder_kernel_jac``: Jacobian coordinates, each of 64 rounds 4
+  doublings (dbl-2001-b), a mixed add (madd-2007-bl) from the constant
+  affine G table and a general add (add-2007-bl) from a 15-entry Q table
+  built per lane.  A zero digit keeps the accumulator, a not-yet-started
+  accumulator takes the picked point, and H == 0 with both operands real
+  sets the lane's exception flag; accept <=> X == r*Z^2 or (r + n < p and
+  X == (r+n)*Z^2), R finite.  Output bit 0 is the verdict, bit 1 the
+  exception flag; flagged lanes (cryptographically unreachable for
+  honest signatures) are re-verified on the host oracle, exactly as the
+  JAX package does, and both bits match the JAX kernel lane for lane.
+* ``csrc/p256_complete.cu`` (``VERIFY_KERNEL = "complete"``) ports
+  ``_ladder_kernel_list`` and ``_ladder_kernel``: the RCB16 complete
+  formulas (a = -3, homogeneous projective), a 16-entry Q table with the
+  identity at 0, and accept <=> X == r*Z or (r + n < p and X == (r+n)*Z),
+  Z != 0.  Complete formulas have no exceptional inputs, so bit 1 is
+  always 0 and no lane reaches the host oracle.
 
-The output is an int32 per lane: bit 0 the verdict, bit 1 the exception
-flag.  Flagged lanes (cryptographically unreachable for honest
-signatures) are re-verified on the host oracle, exactly as the JAX
-package does.  Every field value is the same in both packages, whatever
-the limb layout, so both bits match the JAX kernel lane for lane.
-
-Beside the kernel lives its plain PyTorch version (:func:`verify_plain`),
-the same function over int64 tensors (:mod:`.fp`).  The wrapper
-:func:`verify_packed` launches the kernel for a CUDA tensor and runs the
-plain version only for a CPU tensor.
+Beside each kernel lives its plain PyTorch version (:func:`verify_plain`,
+:func:`verify_complete_plain`), the same function over int64 tensors
+(:mod:`.fp`).  The wrappers :func:`verify_packed` and
+:func:`verify_complete_packed` launch the kernel for a CUDA tensor and
+run the plain version only for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -54,18 +59,28 @@ PACKED_ROWS = 42           # z, r, s, qx, qy (8 words each), range_ok, rn_ok
 FP = fp.Field(CURVE_P)
 FN = fp.Field(CURVE_N)
 
-# Plain integers, read by chip_smoke.py: kernel launches, and lanes the
-# kernel or the plain version flagged for the host oracle.  Verifies run
-# on executor threads, so updates take the lock.
+# Which ladder verify_batch_prehashed runs: "jac" (the Jacobian kernel,
+# exception lanes re-checked on the host oracle) or "complete" (the RCB16
+# complete-formula kernel, no exception lanes).  Module-level, as the JAX
+# package's PALLAS_KERNEL, so node, tests and chip_smoke.py see one value;
+# config.DeviceConfig.apply_kernel_overrides sets it.
+VERIFY_KERNEL = "jac"
+VERIFY_KERNELS = ("jac", "complete")
+
+# Plain integers, read by chip_smoke.py: launches of each kernel, and lanes
+# the Jacobian kernel or its plain version flagged for the host oracle.
+# Verifies run on executor threads, so updates take the lock.
 LAUNCHES = 0
+COMPLETE_LAUNCHES = 0
 EXCEPTION_LANES = 0
 _COUNT_LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
-    global LAUNCHES, EXCEPTION_LANES
+    global LAUNCHES, COMPLETE_LAUNCHES, EXCEPTION_LANES
     with _COUNT_LOCK:
         LAUNCHES = 0
+        COMPLETE_LAUNCHES = 0
         EXCEPTION_LANES = 0
 
 
@@ -258,9 +273,10 @@ def _apply_add(acc, res, H, pick, dg, started, exc):
     return out, started | ~pick_id, exc
 
 
-def verify_plain(packed: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: (42, N) int32 packed
-    inputs -> (N,) int32, bit 0 verdict and bit 1 exception flag."""
+def _prep_plain(packed: torch.Tensor):
+    """The kernels' shared scalar prep (csrc/p256_common.cuh) on (42, N)
+    packed inputs: window digits of u1 and u2 (64, N), Montgomery forms
+    of qx, qy, r and r + n mod p, and the valid / rn_ok lane masks."""
     dev = packed.device
     n = packed.shape[1]
     z, r, s, qx, qy = (_words_to_limbs(packed[8 * i:8 * i + 8])
@@ -283,7 +299,6 @@ def verify_plain(packed: torch.Tensor) -> torch.Tensor:
         w_m = nmul(w_m, pows[d])
     u1 = fp.canonical_from_mont(nmul(nmul(z, r2n), w_m), FN)
     u2 = fp.canonical_from_mont(nmul(nmul(r, r2n), w_m), FN)
-    d1, d2 = _digits(u1), _digits(u2)
 
     # mod p: Montgomery forms of Q, r and r + n; y^2 == x^3 - 3x + b
     r2p = FP.const(FP.r2_mod_m, dev)
@@ -293,6 +308,15 @@ def verify_plain(packed: torch.Tensor) -> torch.Tensor:
     rhs = fp.mul(fp.sqr(qx_m, FP), qx_m, FP) - 3 * qx_m \
         + FP.const(FP.to_mont(CURVE_B), dev)
     valid = range_ok & fp.eq(fp.sqr(qy_m, FP), rhs, FP)
+    return _digits(u1), _digits(u2), qx_m, qy_m, r_m, rn_m, valid, rn_ok
+
+
+def verify_plain(packed: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: (42, N) int32 packed
+    inputs -> (N,) int32, bit 0 verdict and bit 1 exception flag."""
+    dev = packed.device
+    n = packed.shape[1]
+    d1, d2, qx_m, qy_m, r_m, rn_m, valid, rn_ok = _prep_plain(packed)
 
     # Q table: [1]Q = (qx, qy, 1), [2]Q = dbl, then [k]Q = [k-1]Q + Q
     one = FP.const(FP.r_mod_m, dev).expand(-1, n)
@@ -328,10 +352,124 @@ def verify_plain(packed: torch.Tensor) -> torch.Tensor:
     return verdict.to(torch.int32) | (exc.to(torch.int32) << 1)
 
 
-# --- the kernel ----------------------------------------------------------
+# --- the complete-formula version (RCB16, a = -3) --------------------------
 
-# Layout of the kernel's __constant__ table, in 32-bit words; mirrored by
-# the C_* offsets in csrc/p256_verify.cu.
+def _point_add_rcb16(P1, P2, b):
+    """Renes-Costello-Batina 2016, Algorithm 4 (a = -3, homogeneous
+    projective), in the JAX package's operand order: 12 products + 2 by
+    b, correct for every pair of inputs, the identity (0 : 1 : 0) and
+    P1 == P2 included.  Additions stay lazy (fp.py's bounds: no value
+    here exceeds 16 p in magnitude)."""
+    X1, Y1, Z1 = P1
+    X2, Y2, Z2 = P2
+
+    def mul(a, c):
+        return fp.mul(a, c, FP)
+
+    t0 = mul(X1, X2)
+    t1 = mul(Y1, Y2)
+    t2 = mul(Z1, Z2)
+    t3 = mul(X1 + Y1, X2 + Y2) - (t0 + t1)
+    t4 = mul(Y1 + Z1, Y2 + Z2) - (t1 + t2)
+    Y3 = mul(X1 + Z1, X2 + Z2) - (t0 + t2)
+    return _rcb16_tail(t0, t1, t2, t3, t4, Y3, b)
+
+
+def _point_dbl_rcb16(P, b):
+    """The same sequence with P1 == P2, its six same-operand products
+    squared (the JAX package's ``_point_dbl_rcb16``)."""
+    X1, Y1, Z1 = P
+
+    def sqr(a):
+        return fp.sqr(a, FP)
+
+    t0, t1, t2 = sqr(X1), sqr(Y1), sqr(Z1)
+    t3 = sqr(X1 + Y1) - (t0 + t1)
+    t4 = sqr(Y1 + Z1) - (t1 + t2)
+    Y3 = sqr(X1 + Z1) - (t0 + t2)
+    return _rcb16_tail(t0, t1, t2, t3, t4, Y3, b)
+
+
+def _rcb16_tail(t0, t1, t2, t3, t4, Y3, b):
+    """Algorithm 4 from ``Z3 = b * t2`` on, shared by add and double."""
+    def mul(a, c):
+        return fp.mul(a, c, FP)
+
+    X3 = Y3 - mul(b, t2)
+    X3 = 3 * X3
+    Z3 = t1 - X3
+    X3 = t1 + X3
+    Y3 = mul(b, Y3) - 3 * t2 - t0
+    Y3 = 3 * Y3
+    t0 = 3 * t0 - 3 * t2
+    t1 = mul(t4, Y3)
+    t2 = mul(t0, Y3)
+    Y3 = mul(X3, Z3) + t2
+    X3 = mul(t3, X3) - t1
+    Z3 = mul(t4, Z3) + mul(t3, t0)
+    return X3, Y3, Z3
+
+
+_G_COMPLETE = {}  # device -> (16, 3, 12) int64 limbs, [k]G projective
+
+
+def _g_table_complete(device) -> torch.Tensor:
+    """[k]G for k = 0..15 as Montgomery (X, Y, Z), entry 0 the identity
+    (0 : 1 : 0), so a zero digit adds the identity."""
+    key = str(device)
+    if key not in _G_COMPLETE:
+        one = fp.int_to_limbs(FP.r_mod_m)
+        rows = [[fp.int_to_limbs(0), one, fp.int_to_limbs(0)]]
+        rows += [[fp.int_to_limbs(FP.to_mont(c)) for c in pt] + [one]
+                 for pt in _g_multiples()]
+        _G_COMPLETE[key] = torch.tensor(rows, dtype=torch.int64,
+                                        device=device)
+    return _G_COMPLETE[key]
+
+
+def verify_complete_plain(packed: torch.Tensor) -> torch.Tensor:
+    """The complete-formula kernel's function in plain PyTorch: (42, N)
+    int32 packed inputs -> (N,) int32 verdicts (bit 1 is always 0).
+
+    The shared scalar prep, then the RCB16 ladder of the JAX package's
+    ``_verify_device``: a 16-entry projective Q table (identity, Q, then
+    14 complete adds), 64 rounds of 4 doublings + a G add + a Q add, and
+    accept <=> X == r Z or (r + n < p and X == (r + n) Z), Z != 0."""
+    dev = packed.device
+    n = packed.shape[1]
+    d1, d2, qx_m, qy_m, r_m, rn_m, valid, rn_ok = _prep_plain(packed)
+    b = FP.const(FP.to_mont(CURVE_B), dev)
+    one = FP.const(FP.r_mod_m, dev).expand(-1, n)
+    zero = torch.zeros_like(one)
+    identity = (zero, one, zero)
+    Q = (qx_m, qy_m, one)
+
+    qtab = [identity, Q]
+    while len(qtab) < TABLE + 1:
+        qtab.append(_point_add_rcb16(qtab[-1], Q, b))
+    qtab = torch.stack([torch.stack(e) for e in qtab])   # (16, 3, 12, N)
+    gtab = _g_table_complete(dev)                         # (16, 3, 12)
+    lanes = torch.arange(n, device=dev)
+
+    acc = identity
+    for k in range(ROUNDS):
+        for _ in range(WINDOW):
+            acc = _point_dbl_rcb16(acc, b)
+        g = gtab[d1[k]].permute(1, 2, 0)                  # (3, 12, N)
+        acc = _point_add_rcb16(acc, (g[0], g[1], g[2]), b)
+        q = qtab[d2[k], :, :, lanes].permute(1, 2, 0)
+        acc = _point_add_rcb16(acc, (q[0], q[1], q[2]), b)
+
+    X, _Y, Z = acc
+    ok = fp.eq(X, fp.mul(r_m, Z, FP), FP) | (
+        rn_ok & fp.eq(X, fp.mul(rn_m, Z, FP), FP))
+    return (ok & ~fp.is_zero(Z, FP) & valid).to(torch.int32)
+
+
+# --- the kernels ---------------------------------------------------------
+
+# Layout of the kernels' __constant__ table, in 32-bit words; mirrored by
+# the C_* offsets in csrc/p256_common.cuh.
 _C_WORDS = 314
 
 
@@ -340,7 +478,7 @@ def _words_le(x: int) -> list:
 
 
 def kernel_constants() -> np.ndarray:
-    """The kernel's constant table (R = 2^256 Montgomery, 8 x 32-bit
+    """The kernels' constant table (R = 2^256 Montgomery, 8 x 32-bit
     limbs): p, n, R^2 mod p, R^2 mod n, R mod p, R mod n, b*R mod p,
     n*R mod p, n - 2, the affine [k]G table, -p^-1 and -n^-1 mod 2^32."""
     R = 1 << 256
@@ -357,43 +495,43 @@ def kernel_constants() -> np.ndarray:
     return np.array(words, dtype=np.uint32)
 
 
-_LIBS = {}  # cuda device index -> ctypes library with constants uploaded
+_LIBS = {}  # (kernel name, cuda device index) -> armed ctypes library
 
 
-def _kernel_lib(device: torch.device):
-    """Build (at first use), load and arm the kernel for one card."""
+def _kernel_lib(name: str, device: torch.device):
+    """Build (at first use), load and arm ``csrc/<name>.cu`` for one
+    card: both verify kernels share the constant table."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    lib = _LIBS.get(index)
+    lib = _LIBS.get((name, index))
     if lib is None:
         from .. import _build
 
-        lib = _build.load("p256_verify")
+        lib = _build.load(name)
         lib.p256_set_constants.argtypes = [ctypes.c_void_p, ctypes.c_int]
         lib.p256_set_constants.restype = ctypes.c_int
-        lib.p256_verify_launch.argtypes = [
+        launch = getattr(lib, f"{name}_launch")
+        launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        lib.p256_verify_launch.restype = ctypes.c_int
+        launch.restype = ctypes.c_int
         consts = kernel_constants()
         with torch.cuda.device(index):
             rc = lib.p256_set_constants(consts.ctypes.data, consts.size)
         if rc != 0:
             raise RuntimeError(f"p256_set_constants failed: CUDA error {rc}")
-        _LIBS[index] = lib
+        _LIBS[(name, index)] = lib
     return lib
 
 
-def verify_packed(packed: torch.Tensor) -> torch.Tensor:
-    """(42, N) int32 packed inputs -> (N,) int32 (bit 0 verdict, bit 1
-    exception).  A CUDA tensor launches the kernel on the current stream;
-    a CPU tensor runs :func:`verify_plain`."""
-    global LAUNCHES
+def _run(name: str, packed: torch.Tensor, plain) -> torch.Tensor:
+    """Check the packed input; run ``plain`` for a CPU tensor, else
+    launch kernel ``name`` on the current stream (no fallback)."""
     if packed.dtype != torch.int32 or packed.dim() != 2 \
             or packed.shape[0] != PACKED_ROWS:
         raise ValueError(f"expected (42, N) int32, got {tuple(packed.shape)}"
                          f" {packed.dtype}")
     if packed.device.type == "cpu":
-        return verify_plain(packed)
+        return plain(packed)
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     packed = packed.contiguous()
@@ -401,24 +539,59 @@ def verify_packed(packed: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.int32, device=packed.device)
     if n == 0:
         return out
-    lib = _kernel_lib(packed.device)
+    lib = _kernel_lib(name, packed.device)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.p256_verify_launch(packed.data_ptr(), out.data_ptr(), n,
-                                    stream)
+        rc = getattr(lib, f"{name}_launch")(packed.data_ptr(),
+                                            out.data_ptr(), n, stream)
     if rc != 0:
-        raise RuntimeError(f"p256_verify launch failed: CUDA error {rc}")
-    with _COUNT_LOCK:
-        LAUNCHES += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return out
 
 
-# Field products by kind, counted from the kernel's code: mod-p multiplies
+def verify_packed(packed: torch.Tensor) -> torch.Tensor:
+    """(42, N) int32 packed inputs -> (N,) int32 (bit 0 verdict, bit 1
+    exception).  A CUDA tensor launches the Jacobian kernel
+    (csrc/p256_verify.cu); a CPU tensor runs :func:`verify_plain`."""
+    global LAUNCHES
+    out = _run("p256_verify", packed, verify_plain)
+    if packed.device.type == "cuda" and out.numel():
+        with _COUNT_LOCK:
+            LAUNCHES += 1
+    return out
+
+
+def verify_complete_packed(packed: torch.Tensor) -> torch.Tensor:
+    """(42, N) int32 packed inputs -> (N,) int32 verdicts (bit 1 always
+    0).  A CUDA tensor launches the complete-formula kernel
+    (csrc/p256_complete.cu); a CPU tensor runs
+    :func:`verify_complete_plain`."""
+    global COMPLETE_LAUNCHES
+    out = _run("p256_complete", packed, verify_complete_plain)
+    if packed.device.type == "cuda" and out.numel():
+        with _COUNT_LOCK:
+            COMPLETE_LAUNCHES += 1
+    return out
+
+
+# Field products by kind, counted from the kernels' code: mod-p multiplies
 # and squarings, mod-n multiplies and squarings, and mod-n Montgomery
 # reductions alone (a product with 1, out of Montgomery form).
 DBL = {"p_mul": 3, "p_sqr": 5}    # dbl-2001-b
 MADD = {"p_mul": 7, "p_sqr": 4}   # madd-2007-bl
 ADD = {"p_mul": 11, "p_sqr": 5}   # add-2007-bl
+DBL_RCB16 = {"p_mul": 8, "p_sqr": 6}  # RCB16 doubling, 2 products by b
+ADD_RCB16 = {"p_mul": 14}             # RCB16 Algorithm 4, 2 products by b
+
+# Per kernel: the Q-table build, the round's doubling, G add and Q add,
+# and the final test against r (the test against r + n costs one more
+# multiply): X == r*Z^2 (jac) or X == r*Z (complete).
+_LADDERS = {
+    "jac": ([(DBL, 1), (MADD, TABLE - 2)], DBL, MADD, ADD,
+            {"p_mul": 1, "p_sqr": 1}),
+    "complete": ([(ADD_RCB16, TABLE - 1)], DBL_RCB16, ADD_RCB16, ADD_RCB16,
+                 {"p_mul": 1}),
+}
 
 # The least 32-bit multiply operations each kind needs.  A wide 32x32->64
 # product is 2 (low and high halves), a low-half one 1.  A multiply of two
@@ -434,30 +607,35 @@ def _add(total: dict, kind: dict, times: int = 1) -> None:
         total[k] = total.get(k, 0) + v * times
 
 
-def mults_per_lane() -> dict:
-    """Field products the kernel does per lane, by kind: s*R^2, 14 table
+def mults_per_lane(kernel: str = "jac") -> dict:
+    """Field products a kernel does per lane, by kind: s*R^2, 14 table
     and 64 x (4 squarings + 1 multiply) window products, z and r into
     Montgomery form, times w and out of it; the forms of qx, qy and r and
-    the on-curve check; the Q table (dbl + 13 madd); 64 rounds of 4 dbl +
-    madd + add; and Z^2, r*Z^2 and (r+n)*Z^2."""
+    the on-curve check; the Q table (jac: dbl + 13 madd; complete: 14
+    adds); 64 rounds of 4 doublings + G add + Q add; and the final test
+    against r and r + n."""
+    table, dbl, g_add, q_add, final = _LADDERS[kernel]
     total = {"n_mul": 1 + (TABLE - 1) + ROUNDS + 2 * 2,
              "n_sqr": ROUNDS * WINDOW, "n_red": 2,
-             "p_mul": 3 + 1 + 2, "p_sqr": 2 + 1}
-    _add(total, DBL)
-    _add(total, MADD, TABLE - 2)
-    _add(total, DBL, ROUNDS * WINDOW)
-    _add(total, MADD, ROUNDS)
-    _add(total, ADD, ROUNDS)
+             "p_mul": 3 + 1 + 1, "p_sqr": 2}
+    for kind, times in table:
+        _add(total, kind, times)
+    _add(total, dbl, ROUNDS * WINDOW)
+    _add(total, g_add, ROUNDS)
+    _add(total, q_add, ROUNDS)
+    _add(total, final)
     return total
 
 
-def mul_ops_needed(zs, rs, ss, qxs, qys) -> int:
+def mul_ops_needed(zs, rs, ss, qxs, qys, kernel: str = "jac") -> int:
     """The least 32-bit multiply operations these lanes need with the
-    kernel's formulas, counted from their data: a lane that fails the
-    range checks needs none and an off-curve lane only its on-curve
+    formulas of ``kernel``, counted from their data: a lane that fails
+    the range checks needs none and an off-curve lane only its on-curve
     check; the window over n - 2 squares nothing before its first digit
     and multiplies for no zero digit; the ladder doubles nothing before
-    its first nonzero digit, and adds for no zero digit."""
+    its first nonzero digit, and adds for no zero digit (a complete add
+    of the identity changes nothing)."""
+    table, dbl, g_add, q_add, final = _LADDERS[kernel]
     nm2 = _nm2_digits()
     fermat_mul = sum(1 for d in nm2[1:] if d)
     total: dict = {}
@@ -469,22 +647,23 @@ def mul_ops_needed(zs, rs, ss, qxs, qys) -> int:
             continue
         _add(total, {"n_mul": 1 + (TABLE - 1) + fermat_mul + 2 * 2,
                      "n_sqr": WINDOW * (ROUNDS - 1), "n_red": 2})
-        _add(total, DBL)
-        _add(total, MADD, TABLE - 2)
+        for kind, times in table:
+            _add(total, kind, times)
         w = pow(s, -1, CURVE_N)
         u1, u2 = z * w % CURVE_N, r * w % CURVE_N
         started = False
         for k in range(ROUNDS):
             if started:
-                _add(total, DBL, WINDOW)
+                _add(total, dbl, WINDOW)
             shift = WINDOW * (ROUNDS - 1 - k)
-            for u, kind in ((u1, MADD), (u2, ADD)):
+            for u, kind in ((u1, g_add), (u2, q_add)):
                 if (u >> shift) & TABLE:
                     if started:
                         _add(total, kind)
                     started = True
-        # r form, Z^2, r*Z^2 and, when r + n < p, (r+n)*Z^2
-        _add(total, {"p_mul": 2 + (r + CURVE_N < CURVE_P), "p_sqr": 1})
+        # the r form, the test against r and, when r + n < p, against r + n
+        _add(total, {"p_mul": 1 + (r + CURVE_N < CURVE_P)})
+        _add(total, final)
     return sum(MUL_OPS[k] * v for k, v in total.items())
 
 
@@ -501,9 +680,13 @@ def verify_batch_prehashed(
     reference uses it: big-endian digest integer, range-checked r and s,
     coordinates reduced mod p, on-curve pubkeys.
 
-    Runs on the card unless ``device="cpu"``; raises when no card is
-    there and none was declined."""
+    The ladder is :data:`VERIFY_KERNEL`'s.  Runs on the card unless
+    ``device="cpu"``; raises when no card is there and none was
+    declined."""
     global EXCEPTION_LANES
+    if VERIFY_KERNEL not in VERIFY_KERNELS:
+        raise ValueError(f"VERIFY_KERNEL must be one of {VERIFY_KERNELS}, "
+                         f"not {VERIFY_KERNEL!r}")
     dev = resolve(device)
     n = len(digests)
     if len(signatures) != n or len(pubkeys) != n:
@@ -513,7 +696,9 @@ def verify_batch_prehashed(
         return np.zeros(0, dtype=bool)
     fused, zs, rs, ss, qxs, qys = _pack_device_inputs(
         digests, signatures, pubkeys, n)
-    res = verify_packed(packed_tensor(fused, dev)).cpu().numpy()
+    kernel = (verify_complete_packed if VERIFY_KERNEL == "complete"
+              else verify_packed)
+    res = kernel(packed_tensor(fused, dev)).cpu().numpy()
     trace.record_batch("p256_verify", real=n, padded=n)
     out = (res & 1) != 0
     exc = np.nonzero(res & 2)[0]

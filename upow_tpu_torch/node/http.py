@@ -1,0 +1,241 @@
+"""A small HTTP/1.1 server and client on the standard library alone.
+
+The JAX package's node serves through ``aiohttp.web``; the port needs no
+package beyond PyTorch, so it serves through ``asyncio.start_server``:
+keep-alive connections, ``Content-Length`` bodies (up to a cap; larger
+ones answer 413, chunked ones 501), GET query strings and a route table
+of ``(method, path) -> handler``.  A handler takes a :class:`Request` and
+returns a :class:`Response`; :func:`json_response` serialises exactly as
+``aiohttp.web.json_response`` does (``json.dumps`` with its default
+separators, UTF-8, ``application/json; charset=utf-8``), so a body is
+byte for byte what the JAX node sends.
+
+:func:`fetch` is the matching client, one request per connection, for
+the tests and chip_smoke.py.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+from http import HTTPStatus
+from typing import Awaitable, Callable, Dict, Optional, Tuple
+from urllib.parse import parse_qsl, unquote, urlsplit
+
+log = logging.getLogger("upow_tpu_torch.node.http")
+
+_MAX_HEAD = 64 * 1024          # request line + headers
+_KEEPALIVE_SECONDS = 75.0      # idle keep-alive connections close after this
+
+
+class Request:
+    """One parsed request: ``path`` is percent-decoded, ``query`` keeps
+    the first value of each key (as aiohttp's ``query.get`` does)."""
+
+    def __init__(self, method: str, target: str, headers: Dict[str, str],
+                 body: bytes, peer_ip: str):
+        self.method = method
+        path, _, self.query_string = target.partition("?")
+        self.path = unquote(path) or "/"
+        self.query: Dict[str, str] = {}
+        for key, value in parse_qsl(self.query_string,
+                                    keep_blank_values=True):
+            self.query.setdefault(key, value)
+        self.headers = headers     # lower-case names
+        self.body = body
+        self.peer_ip = peer_ip
+
+    @property
+    def host(self) -> str:
+        return self.headers.get("host", "")
+
+    def json(self):
+        """The body parsed as JSON (raises ValueError when it is not)."""
+        return json.loads(self.body.decode("utf-8"))
+
+
+class Response:
+    def __init__(self, body: bytes, status: int = 200,
+                 content_type: str = "application/json; charset=utf-8",
+                 headers: Optional[Dict[str, str]] = None):
+        self.body = body
+        self.status = status
+        self.content_type = content_type
+        self.headers = dict(headers or {})
+
+
+def json_response(data, status: int = 200) -> Response:
+    return Response(json.dumps(data).encode("utf-8"), status)
+
+
+def text_response(text: str, status: int) -> Response:
+    return Response(text.encode("utf-8"), status,
+                    content_type="text/plain; charset=utf-8")
+
+
+Handler = Callable[[Request], Awaitable[Response]]
+
+
+class HttpServer:
+    """Serve ``handler`` (which does its own routing) on host:port.
+
+    ``max_body`` caps a request body; ``port=0`` takes a free port,
+    readable from :attr:`port` after :meth:`start`."""
+
+    def __init__(self, handler: Handler, host: str = "127.0.0.1",
+                 port: int = 0, max_body: int = 20 * 1024 * 1024):
+        self.handler = handler
+        self.host = host
+        self.port = port
+        self.max_body = max_body
+        self._server: Optional[asyncio.base_events.Server] = None
+        self._writers: set = set()
+
+    async def start(self) -> None:
+        self._server = await asyncio.start_server(
+            self._connection, self.host, self.port, limit=_MAX_HEAD,
+            backlog=1024)
+        self.port = self._server.sockets[0].getsockname()[1]
+
+    async def close(self) -> None:
+        if self._server is None:
+            return
+        self._server.close()
+        for writer in list(self._writers):
+            writer.close()
+        try:
+            await asyncio.wait_for(self._server.wait_closed(), 5.0)
+        except asyncio.TimeoutError:
+            log.warning("HTTP server connections still open at close")
+        self._server = None
+
+    async def _connection(self, reader: asyncio.StreamReader,
+                          writer: asyncio.StreamWriter) -> None:
+        self._writers.add(writer)
+        peer = writer.get_extra_info("peername")
+        peer_ip = peer[0] if peer else ""
+        try:
+            while True:
+                try:
+                    head = await asyncio.wait_for(
+                        reader.readuntil(b"\r\n\r\n"), _KEEPALIVE_SECONDS)
+                except (asyncio.IncompleteReadError, asyncio.TimeoutError,
+                        ConnectionError):
+                    return
+                except asyncio.LimitOverrunError:
+                    await _write(writer, text_response(
+                        "431: Request Header Fields Too Large", 431), False)
+                    return
+                parsed = _parse_head(head)
+                if parsed is None:
+                    await _write(writer, text_response(
+                        "400: Bad Request", 400), False)
+                    return
+                method, target, version, headers = parsed
+                keep = _keep_alive(version, headers)
+                if "transfer-encoding" in headers:
+                    await _write(writer, text_response(
+                        "501: Not Implemented", 501), False)
+                    return
+                try:
+                    length = int(headers.get("content-length", "0"))
+                except ValueError:
+                    length = -1
+                if length < 0:
+                    await _write(writer, text_response(
+                        "400: Bad Request", 400), False)
+                    return
+                if length > self.max_body:
+                    await _write(writer, json_response(
+                        {"ok": False, "error": "Request body too large"},
+                        413), False)
+                    return
+                body = await reader.readexactly(length) if length else b""
+                try:
+                    response = await self.handler(
+                        Request(method, target, headers, body, peer_ip))
+                except Exception:  # the handler's own envelope failed
+                    log.exception("unhandled error on %s %s", method, target)
+                    response = text_response("500: Internal Server Error",
+                                             500)
+                await _write(writer, response, keep)
+                if not keep:
+                    return
+        except (asyncio.IncompleteReadError, ConnectionError):
+            return
+        finally:
+            self._writers.discard(writer)
+            writer.close()
+
+
+def _parse_head(head: bytes):
+    try:
+        lines = head.decode("latin-1").split("\r\n")
+        method, target, version = lines[0].split(" ")
+    except ValueError:
+        return None
+    headers: Dict[str, str] = {}
+    for line in lines[1:]:
+        if not line:
+            continue
+        name, sep, value = line.partition(":")
+        if not sep:
+            return None
+        headers[name.strip().lower()] = value.strip()
+    return method, target, version, headers
+
+
+def _keep_alive(version: str, headers: Dict[str, str]) -> bool:
+    conn = headers.get("connection", "").lower()
+    if version == "HTTP/1.0":
+        return conn == "keep-alive"
+    return conn != "close"
+
+
+async def _write(writer: asyncio.StreamWriter, response: Response,
+                 keep: bool) -> None:
+    reason = HTTPStatus(response.status).phrase
+    lines = [f"HTTP/1.1 {response.status} {reason}",
+             f"Content-Type: {response.content_type}",
+             f"Content-Length: {len(response.body)}",
+             "Connection: " + ("keep-alive" if keep else "close")]
+    lines += [f"{k}: {v}" for k, v in response.headers.items()]
+    writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
+                 + response.body)
+    await writer.drain()
+
+
+async def fetch(url: str, method: str = "GET", body: Optional[bytes] = None,
+                headers: Optional[Dict[str, str]] = None
+                ) -> Tuple[int, bytes]:
+    """One request to ``url`` (``http://host:port/path?query``) on its
+    own connection; returns (status, body).  A dict or list ``body`` is
+    not accepted: pass bytes (``json.dumps(...).encode()``)."""
+    split = urlsplit(url)
+    target = (split.path or "/") + (f"?{split.query}" if split.query else "")
+    reader, writer = await asyncio.open_connection(split.hostname,
+                                                   split.port or 80)
+    try:
+        lines = [f"{method} {target} HTTP/1.1", f"Host: {split.netloc}",
+                 "Connection: close"]
+        if body is not None:
+            lines += ["Content-Type: application/json",
+                      f"Content-Length: {len(body)}"]
+        lines += [f"{k}: {v}" for k, v in (headers or {}).items()]
+        writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
+                     + (body or b""))
+        await writer.drain()
+        head = await reader.readuntil(b"\r\n\r\n")
+        status_line, *header_lines = head.decode("latin-1").split("\r\n")
+        status = int(status_line.split(" ")[1])
+        length = None
+        for line in header_lines:
+            name, _, value = line.partition(":")
+            if name.strip().lower() == "content-length":
+                length = int(value.strip())
+        data = await (reader.readexactly(length) if length is not None
+                      else reader.read())
+        return status, data
+    finally:
+        writer.close()

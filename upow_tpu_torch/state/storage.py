@@ -5,9 +5,11 @@ block acceptance and its rule checks read and write: same schema, same
 SQL, same fingerprints, so a chain database written by either package
 opens in the other.  The device-resident UTXO index is not ported yet
 (``enable_device_index`` raises; see ROADMAP.md), so membership checks
-take the SQL path, as they do in the JAX package by default.  Reorg
-rollback, the mempool intake, the explorer views, snapshots and the
-archive tier come with the later slices that call them (ROADMAP.md).
+take the SQL path, as they do in the JAX package by default.  The
+mempool journal and the block and transaction reads serve the node's
+routes; reorg rollback, tx propagation, the address and governance
+views, snapshots and the archive tier come with the later slices that
+call them (ROADMAP.md).
 
 The reference couples all chain state to asyncpg/PostgreSQL through an
 ~80-method ``Database`` class (database.py, 1654 LoC).  This keeps the
@@ -45,7 +47,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 from ..core.codecs import OutputType, TransactionType
 from ..core.clock import timestamp as now_ts
-from ..core.constants import SMALLEST
+from ..core.constants import MAX_BLOCK_SIZE_HEX, SMALLEST
 from ..core.tx import CoinbaseTx, Tx, TxInput, tx_from_hex
 
 AnyTx = Union[Tx, CoinbaseTx]
@@ -291,6 +293,48 @@ class ChainState(StateViews):
         r = self.db.execute("SELECT * FROM blocks ORDER BY id DESC LIMIT 1").fetchone()
         return self._block_dict(r) if r else None
 
+    async def get_block(self, block_hash: str) -> Optional[dict]:
+        r = self.db.execute("SELECT * FROM blocks WHERE hash = ?", (block_hash,)).fetchone()
+        return self._block_dict(r) if r else None
+
+    async def get_next_block_id(self) -> int:
+        r = self.db.execute("SELECT MAX(id) AS m FROM blocks").fetchone()
+        return (r["m"] or 0) + 1
+
+    async def get_blocks(self, offset: int, limit: int,
+                         size_capped: bool = False) -> List[dict]:
+        """Blocks with embedded full transaction hexes, ordered by id
+        (reference database.py:380-408's get_blocks).  One transactions
+        query per 900-block chunk of the page, grouped host-side.
+        ``size_capped`` truncates the page once the accumulated hex
+        passes 8 full blocks' worth (the HTTP layer passes it; the
+        reference caps inside Database.get_blocks unconditionally)."""
+        rows = self.db.execute(
+            "SELECT * FROM blocks WHERE id >= ? ORDER BY id LIMIT ?",
+            (offset, limit),
+        ).fetchall()
+        by_hash: dict = {r["hash"]: [] for r in rows}
+        hashes = list(by_hash)
+        for lo in range(0, len(hashes), 900):
+            chunk = hashes[lo:lo + 900]
+            marks = ",".join("?" * len(chunk))
+            for t in self.db.execute(
+                    f"SELECT block_hash, tx_hex FROM transactions"
+                    f" WHERE block_hash IN ({marks})", chunk):
+                by_hash[t["block_hash"]].append(t["tx_hex"])
+        out = []
+        size = 0
+        for r in rows:
+            txs = by_hash[r["hash"]]
+            size += sum(len(h) for h in txs)
+            if size_capped and size > MAX_BLOCK_SIZE_HEX * 8:
+                break
+            block = self._block_dict(r)
+            block["difficulty"] = float(block["difficulty"])
+            block["reward"] = str(block["reward"])
+            out.append({"block": block, "transactions": txs})
+        return out
+
     # ------------------------------------------------------- transactions --
 
     async def add_transactions(self, txs: Sequence[AnyTx], block_hash: str) -> None:
@@ -404,7 +448,183 @@ class ChainState(StateViews):
             self._amount_cache_put(key, amount)
         return amount
 
+    async def get_block_transactions(self, block_hash: str,
+                                     hex_only: bool = False) -> List:
+        rows = self.db.execute(
+            "SELECT tx_hex FROM transactions WHERE block_hash = ?", (block_hash,)
+        ).fetchall()
+        if hex_only:
+            return [r["tx_hex"] for r in rows]
+        return [tx_from_hex(r["tx_hex"], check_signatures=False) for r in rows]
+
+    async def get_block_transaction_hashes(self, block_hash: str) -> List[str]:
+        rows = self.db.execute(
+            "SELECT tx_hash FROM transactions WHERE block_hash = ?",
+            (block_hash,),
+        ).fetchall()
+        return [r["tx_hash"] for r in rows]
+
+    async def get_nice_transaction(self, tx_hash: str) -> Optional[dict]:
+        """Explorer-style decoded transaction (reference
+        database.py:1606-1654), confirmed or pending.  Amounts are
+        coin-denominated floats like the reference's JSON."""
+        r = self.db.execute(
+            "SELECT t.*, b.id AS block_no, b.timestamp AS block_ts FROM"
+            " transactions t JOIN blocks b ON b.hash = t.block_hash"
+            " WHERE t.tx_hash = ?", (tx_hash,),
+        ).fetchone()
+        is_confirm = r is not None
+        if r is None:
+            r = self.db.execute(
+                "SELECT tx_hash, tx_hex, inputs_addresses FROM"
+                " pending_transactions WHERE tx_hash = ?", (tx_hash,),
+            ).fetchone()
+        if r is None:
+            return None
+        keys = r.keys()
+        tx = tx_from_hex(r["tx_hex"], check_signatures=False)
+        inputs_addresses = json.loads(r["inputs_addresses"])
+
+        def coins(amount: int) -> float:
+            return float(Decimal(amount) / SMALLEST)
+
+        def column(name):
+            return r[name] if name in keys else None
+
+        out = {"is_coinbase": tx.is_coinbase, "hash": r["tx_hash"],
+               "block_hash": column("block_hash"),
+               "block_no": column("block_no"),
+               "datetime": column("block_ts")}
+        if not tx.is_coinbase:
+            inputs = []
+            for i, tx_input in enumerate(tx.inputs):
+                amt = await self.get_output_amount(tx_input.tx_hash,
+                                                   tx_input.index)
+                inputs.append({
+                    "index": tx_input.index,
+                    "tx_hash": tx_input.tx_hash,
+                    "address": (inputs_addresses[i]
+                                if i < len(inputs_addresses) else None),
+                    "amount": coins(amt or 0),
+                })
+            out.update({
+                "message": tx.message.hex() if tx.message is not None else None,
+                "transaction_type": tx.transaction_type.name,
+                "is_confirm": is_confirm,
+                "inputs": inputs,
+                "delta": None,
+                "fees": coins(await self.tx_fees(tx)),
+            })
+        out["outputs"] = [
+            {"address": o.address, "amount": coins(o.amount),
+             "type": o.output_type.name}
+            for o in tx.outputs
+        ]
+        return out
+
+    async def get_block_nice_transactions(self, block_hash: str) -> List[dict]:
+        nice = [await self.get_nice_transaction(h)
+                for h in await self.get_block_transaction_hashes(block_hash)]
+        return [t for t in nice if t is not None]
+
     # ------------------------------------------------------------ mempool --
+
+    async def add_pending_transaction(self, tx: Tx) -> int:
+        """Insert one journal row; returns its journal sequence (the
+        sqlite rowid): with no interleaved foreign writer, the stamp's
+        MAX(rowid) after this call equals the returned value, which is
+        what lets the mempool intake predict the stamp its own batch
+        should produce (Mempool.reconcile)."""
+        inputs_addresses = [
+            await self.resolve_output_address(i.tx_hash, i.index) or ""
+            for i in tx.inputs
+        ]
+        fees = await self.tx_fees(tx)
+        cur = self.db.execute(
+            "INSERT INTO pending_transactions (tx_hash, tx_hex, inputs_addresses,"
+            " fees, propagation_time) VALUES (?,?,?,?,?)",
+            (tx.hash(), tx.hex(), json.dumps(inputs_addresses), fees, now_ts()),
+        )
+        seq = cur.lastrowid
+        self.db.executemany(
+            "INSERT INTO pending_spent_outputs (tx_hash, idx) VALUES (?,?)",
+            [(i.tx_hash, i.index) for i in tx.inputs],
+        )
+        self._commit()
+        self._pending_gen += 1
+        return seq
+
+    async def pending_transaction_exists(self, tx_hash: str) -> bool:
+        r = self.db.execute(
+            "SELECT 1 FROM pending_transactions WHERE tx_hash = ?", (tx_hash,)
+        ).fetchone()
+        return r is not None
+
+    async def get_pending_transactions_limit(
+        self, limit_hex_chars: int = MAX_BLOCK_SIZE_HEX, hex_only: bool = False
+    ) -> List:
+        """Fee-rate-ordered mempool slice capped by total hex size
+        (reference database.py:171-186 ORDER BY fees/LENGTH(tx_hex) DESC,
+        cap MAX_BLOCK_SIZE_HEX), breaking at the first overflow."""
+        rows = self.db.execute(
+            "SELECT tx_hex FROM pending_transactions ORDER BY"
+            " CAST(fees AS REAL)/LENGTH(tx_hex) DESC, tx_hash"
+        ).fetchall()
+        out, total = [], 0
+        for r in rows:
+            if total + len(r["tx_hex"]) > limit_hex_chars:
+                break
+            total += len(r["tx_hex"])
+            out.append(r["tx_hex"])
+        if hex_only:
+            return out
+        return [tx_from_hex(h, check_signatures=False) for h in out]
+
+    async def get_pending_transactions_by_hash(self, hashes: List[str]) -> List[str]:
+        """Chunked ``IN (...)`` lookups; found hexes come back in request
+        order (push_block resolves up to a whole block's txs here)."""
+        found: Dict[str, str] = {}
+        for i in range(0, len(hashes), 500):
+            chunk = hashes[i:i + 500]
+            ph = ",".join("?" * len(chunk))
+            for r in self.db.execute(
+                    "SELECT tx_hash, tx_hex FROM pending_transactions"
+                    f" WHERE tx_hash IN ({ph})", chunk):
+                found[r["tx_hash"]] = r["tx_hex"]
+        return [found[h] for h in hashes if h in found]
+
+    async def get_pending_transactions_count(self) -> int:
+        return self.db.execute(
+            "SELECT COUNT(*) AS c FROM pending_transactions").fetchone()["c"]
+
+    async def remove_pending_transactions(self) -> None:
+        self.db.execute("DELETE FROM pending_transactions")
+        self.db.execute("DELETE FROM pending_spent_outputs")
+        self._amount_cache.clear()
+        self._commit()
+        self._pending_gen += 1
+
+    # The pending_transactions table doubles as the mempool's write-behind
+    # journal (mempool/): the in-memory pool is the read authority, this
+    # table gives restart recovery and interop with other writers.  The
+    # stamp is how the pool detects journal movement it did not make
+    # itself: the (count, max rowid, local generation) triple that
+    # _pending_decoded uses.
+
+    async def pending_journal_stamp(self) -> tuple:
+        """Cheap change detector for the mempool journal."""
+        r = self.db.execute(
+            "SELECT COUNT(*) AS c, COALESCE(MAX(rowid), 0) AS m"
+            " FROM pending_transactions").fetchone()
+        return (r["c"], r["m"], self._pending_gen)
+
+    async def load_pending_journal(self) -> List[dict]:
+        """Every journal row the pool needs to rebuild itself."""
+        rows = self.db.execute(
+            "SELECT tx_hash, tx_hex, fees FROM pending_transactions"
+        ).fetchall()
+        return [{"tx_hash": r["tx_hash"], "tx_hex": r["tx_hex"],
+                 "fees": r["fees"]} for r in rows]
 
     async def get_pending_spent_outpoints(self, outpoints=None) -> set:
         """Pending-spent overlay; with ``outpoints`` only the matching

@@ -15,11 +15,12 @@ reference, by design (SURVEY.md §7):
 
 ``BlockManager(state, device=...)`` runs on the card unless the caller
 passes ``device="cpu"`` (the plain PyTorch version of the kernel), and
-raises without a card otherwise.  Not ported yet (ROADMAP.md): the
-device txid batch (txids are hashed on the host), the fused accept scan
-over the resident UTXO index, the mempool GC, the node's hooks
-(mempool / cache notifications, difficulty and inode caches) and the
-chain-sync page verdict prefill.
+raises without a card otherwise.  The node's hooks are here: the
+mempool GC (``clear_pending_transactions``), the ``on_pending_removed``
+notification and the cached difficulty.  Not ported yet (ROADMAP.md):
+the device txid batch (txids are hashed on the host), the fused accept
+scan over the resident UTXO index, the hot-cache notification, the
+inode cache and the chain-sync page verdict prefill.
 
 Rules and quirks are otherwise replicated exactly; citations inline.
 """
@@ -120,17 +121,33 @@ def _fused_digest_prep(transactions: Sequence[Tx]) -> Dict[int, tuple]:
 class BlockManager:
     """Difficulty, check_block, create_block over one ChainState."""
 
-    def __init__(self, state: ChainState, device: DeviceLike = None):
+    def __init__(self, state: ChainState, device: DeviceLike = None,
+                 verify_microbatch: int = VERIFY_MICROBATCH):
         self.state = state
         # the card unless the caller asks for the CPU; raises without one
         self.device = resolve(device)
+        self.verify_microbatch = verify_microbatch
         self.is_syncing = False
+        self._difficulty_cache: Optional[Tuple[Decimal, dict]] = None
+        # mempool notification: called with the tx hashes of every
+        # journal removal this manager performs (mined txs on block
+        # acceptance, GC evictions), AFTER the removal committed.  The
+        # node points this at Mempool.remove so the in-memory pool drops
+        # mined txs at once instead of at the next stamp reconcile.
+        self.on_pending_removed = None
         # one acceptance at a time: check_block suspends (sql, executor
         # dispatch), so two concurrent push_block handlers could both
         # validate against tip N and race the same block id into the
         # insert — the loser must instead re-validate against the new
         # tip and reject cleanly ("Previous hash is not matched")
         self._accept_lock = asyncio.Lock()
+
+    def invalidate_difficulty(self):
+        self._difficulty_cache = None
+
+    def _notify_pending_removed(self, hashes: List[str]) -> None:
+        if self.on_pending_removed is not None and hashes:
+            self.on_pending_removed(hashes)
 
     # -------------------------------------------------------- difficulty --
 
@@ -152,6 +169,11 @@ class BlockManager:
                 last["id"] - int(BLOCKS_COUNT) + 1)
             window_start = first["timestamp"] if first else last["timestamp"]
         return difficulty_rules.next_difficulty(last, window_start), last
+
+    async def get_difficulty(self) -> Tuple[Decimal, dict]:
+        if self._difficulty_cache is None:
+            self._difficulty_cache = await self.calculate_difficulty()
+        return self._difficulty_cache
 
     # ------------------------------------------------------- check_block --
 
@@ -213,7 +235,7 @@ class BlockManager:
         verifier = TxVerifier(self.state, is_syncing=self.is_syncing)
         front = get_front()
         loop = asyncio.get_running_loop()
-        mb = VERIFY_MICROBATCH
+        mb = self.verify_microbatch or max(len(transactions), 1)
         dispatches: List[asyncio.Future] = []
         n_checks = 0
         decode_busy = 0.0  # telemetry accumulator  # upowlint: disable=CP001
@@ -226,7 +248,7 @@ class BlockManager:
                                               chunk)
             chunk_checks: List[tuple] = []
             for tx in chunk:
-                if not await verifier.rules_ok(tx):
+                if not await verifier.rules_ok(tx, check_double_spend=False):
                     failed_tx = tx
                     break
                 checks = await verifier.collect_sig_checks(
@@ -378,6 +400,11 @@ class BlockManager:
                     await self.state.remove_pending_transactions_by_hash(
                         [tx.hash() for tx in transactions])
                     await self.state.remove_outputs(transactions)
+        # outside the atomic block: the pool must only drop entries for
+        # a COMMITTED acceptance
+        with span("block.mempool_remove"):
+            self._notify_pending_removed([tx.hash() for tx in transactions])
+        self.invalidate_difficulty()
         # first-seen stamp for the fleet propagation tracker: emitted
         # once per node per committed block (timed accept path)
         event("block_seen", hash=block_hash, height=block_no)
@@ -447,6 +474,46 @@ class BlockManager:
                     await self.state.remove_pending_transactions_by_hash(
                         [tx.hash() for tx in transactions])
                     await self.state.remove_outputs(transactions)
+        self._notify_pending_removed([tx.hash() for tx in transactions])
+        self.invalidate_difficulty()
         # first-seen stamp, sync-accept path (same semantics as timed)
         event("block_seen", hash=block_hash, height=block_no)
         return True
+
+    # --------------------------------------------------------- mempool GC --
+
+    async def clear_pending_transactions(self) -> None:
+        """Evict mempool entries whose inputs are gone or double-used
+        (manager.py:253-349), with the JAX package's deliberate
+        divergences: no unbounded recursion, only the affected
+        transactions evicted when every checked input of a class is
+        missing (the reference wipes the whole mempool), and exact
+        tx-hash removal instead of the reference's hex-substring match."""
+        while True:
+            txs = await self.state.get_pending_transactions_limit(hex_only=False)
+            used: set = set()
+            evicted = False
+            by_table: dict = {}
+            for tx in txs:
+                outpoints = [i.outpoint for i in tx.inputs]
+                if any(o in used for o in outpoints):
+                    await self.state.remove_pending_transactions_by_hash([tx.hash()])
+                    self._notify_pending_removed([tx.hash()])
+                    evicted = True
+                    break
+                used.update(outpoints)
+                table = _INPUT_TABLE.get(tx.transaction_type, "unspent_outputs")
+                by_table.setdefault(table, {})[tx.hash()] = outpoints
+            if evicted:
+                continue
+            for table, tx_map in by_table.items():
+                all_outpoints = [o for ops in tx_map.values() for o in ops]
+                present = await self.state.outpoints_exist(all_outpoints, table)
+                missing = {o for o, ok in zip(all_outpoints, present) if not ok}
+                if not missing:
+                    continue
+                doomed = [h for h, ops in tx_map.items()
+                          if any(o in missing for o in ops)]
+                await self.state.remove_pending_transactions_by_hash(doomed)
+                self._notify_pending_removed(doomed)
+            return

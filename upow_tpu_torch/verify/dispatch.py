@@ -2,7 +2,8 @@
 
 The port of the JAX package's ``verify/dispatch.py``.  Every caller that
 needs signature verdicts — block verify's micro-batches
-(:mod:`.block`), benches — submits its checks HERE instead of calling
+(:mod:`.block`), the mempool intake's batches (``mempool/intake.py``) —
+submits its checks HERE instead of calling
 :func:`txverify.run_sig_checks_async` directly.  Submissions queue; a
 per-event-loop drainer flattens every queued submission with compatible
 dispatch parameters into ONE ``run_sig_checks_async`` call and scatters

@@ -37,7 +37,7 @@ from ..core.codecs import OutputType, TransactionType, string_to_point
 from ..core.constants import CURVE_N, MAX_INODES, SMALLEST
 from ..core.tx import Tx
 from ..device import DeviceLike
-from ..state.storage import ChainState
+from ..state.storage import ChainState, _INPUT_TABLE
 
 log = logging.getLogger("upow_tpu_torch.verify")
 
@@ -152,9 +152,12 @@ def _canary_checks() -> Tuple[tuple, tuple]:
 
 def _resolve_backend(backend: str, n_checks: int) -> str:
     """The ``auto`` policy: fewer than :data:`HOST_BELOW` checks verify
-    on the host oracle, the rest on the device."""
+    on the host oracle, the rest on the device (``"tpu"``, the JAX
+    package's name in a shared config file, means the device)."""
     if backend == "auto":
         return "host" if n_checks < HOST_BELOW else "device"
+    if backend == "tpu":  # the JAX package's name for its device
+        return "device"
     if backend not in ("host", "device"):
         raise ValueError(f"unknown signature backend {backend!r}")
     return backend
@@ -297,6 +300,30 @@ class TxVerifier:
             return await self.input_address(tx.inputs[0])
         return info["inputs_addresses"][0]
 
+    # -- double spends -----------------------------------------------------
+
+    @staticmethod
+    def no_internal_double_spend(tx: Tx) -> bool:
+        """No outpoint used twice within the tx (transaction.py:90-97)."""
+        outpoints = [i.outpoint for i in tx.inputs]
+        return len(set(outpoints)) == len(outpoints)
+
+    async def inputs_unspent(self, tx: Tx) -> bool:
+        """Every input exists in the UTXO-class table its tx type spends
+        (transaction.py:99-124)."""
+        table = _INPUT_TABLE.get(tx.transaction_type, "unspent_outputs")
+        present = await self.state.outpoints_exist(
+            [i.outpoint for i in tx.inputs], table)
+        return all(present)
+
+    async def no_pending_double_spend(self, tx: Tx) -> bool:
+        """Inputs absent from the pending-spent overlay
+        (transaction.py:126-133; like the reference, only this tx's
+        outpoints are fetched, not the whole overlay)."""
+        pending = await self.state.get_pending_spent_outpoints(
+            [i.outpoint for i in tx.inputs])
+        return all(i.outpoint not in pending for i in tx.inputs)
+
     # -- DPoS rules (each returns True when the rule does not apply) -------
 
     async def check_stake(self, tx: Tx) -> bool:
@@ -414,7 +441,8 @@ class TxVerifier:
             return False
         return True
 
-    async def check_vote_as_delegate(self, tx: Tx) -> bool:
+    async def check_vote_as_delegate(self, tx: Tx,
+                                     verifying_add_pending: bool = False) -> bool:
         """transaction.py:290-323."""
         if tx.transaction_type != TransactionType.VOTE_AS_DELEGATE:
             return True
@@ -425,7 +453,8 @@ class TxVerifier:
         address = await self.input_address(tx.inputs[0])
         if await self.state.is_inode_registered(address, check_pending_txs=True):
             return False
-        if not await self.state.get_stake_outputs(address):
+        if not await self.state.get_stake_outputs(
+                address, check_pending_txs=verifying_add_pending):
             return False
         recipient = ""
         for o in tx.outputs:
@@ -470,10 +499,15 @@ class TxVerifier:
 
     # -- the full chain ----------------------------------------------------
 
-    async def rules_ok(self, tx: Tx) -> bool:
-        """Everything except signatures and double spends, in reference
-        order (the block's double-spend scan covers every input at once,
-        verify/block.py)."""
+    async def rules_ok(self, tx: Tx, check_double_spend: bool = True,
+                       verifying_add_pending: bool = False) -> bool:
+        """Everything except signatures, in reference order.  Block
+        verify passes ``check_double_spend=False``: its double-spend scan
+        covers every input of the block at once (verify/block.py)."""
+        if check_double_spend and not self.no_internal_double_spend(tx):
+            return False
+        if check_double_spend and not await self.inputs_unspent(tx):
+            return False
         for rule in (
             self.check_stake,
             self.check_unstake,
@@ -483,10 +517,12 @@ class TxVerifier:
             self.check_inode_deregister,
             self.check_inode_register,
             self.check_vote_as_validator,
-            self.check_vote_as_delegate,
         ):
             if not await rule(tx):
                 return False
+        if not await self.check_vote_as_delegate(
+                tx, verifying_add_pending=verifying_add_pending):
+            return False
         if not self.check_outputs(tx):
             return False
         if not await self.check_fees(tx):
@@ -509,3 +545,29 @@ class TxVerifier:
         return _dedup_sig_checks(
             tx, is_revoke, lambda i: addresses.get(i.outpoint),
             digests=digests)
+
+    async def verify(self, tx: Tx, check_double_spend: bool = True,
+                     verifying_add_pending: bool = False,
+                     sig_backend: str = "auto",
+                     device: DeviceLike = None) -> bool:
+        """Full single-tx verification (rules + signatures)."""
+        if not await self.rules_ok(tx, check_double_spend, verifying_add_pending):
+            return False
+        checks = await self.collect_sig_checks(tx)
+        if checks is None:
+            return False
+        return all(await run_sig_checks_async(
+            checks, backend=sig_backend, device=device))
+
+    async def prepare_pending(self, tx: Tx) -> Optional[List[tuple]]:
+        """Host-side half of add-pending verification: every rule check
+        plus the pending-double-spend overlay, with the signature work
+        COLLECTED but not dispatched.  The mempool intake flattens the
+        returned check tuples across a whole micro-batch into one
+        signature dispatch; ``None`` means the tx failed a host-side rule
+        and never reaches the device."""
+        if not await self.rules_ok(tx, verifying_add_pending=True):
+            return None
+        if not await self.no_pending_double_spend(tx):
+            return None
+        return await self.collect_sig_checks(tx)
