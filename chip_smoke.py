@@ -7,8 +7,8 @@ Phases, one line each; any failure exits non-zero:
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build every kernel of the paths from csrc/ with nvcc (sm_90a), one
    nvcc per source, all started together, with ptxas's registers and
-   spills, and the sha256 kernel's SASS opcodes per loop trip
-   (cuobjdump);
+   spills, and the sha256 and complete kernels' SASS opcodes per loop
+   trip (cuobjdump);
 3. kernel vs plain, P-256: the Jacobian verify kernel against its plain
    PyTorch version on 8,192 lanes (one full block of signatures: honest,
    corrupted, r + n < p, off-curve, (0, 0), oversized digests and
@@ -19,8 +19,10 @@ Phases, one line each; any failure exits non-zero:
 4. kernel vs plain, P-256 complete: the RCB16 complete-formula kernel on
    the same 8,192 lanes against its plain version and against the
    Jacobian path's final verdicts (exception lanes decided by the host
-   oracle), every lane, and at the 1,026- and 1-lane shapes; times with
-   10 dispatches queued, and the bound;
+   oracle), every lane, and at the 1,026-, 33- and 1-lane shapes (33: a
+   partial warp and block of its four-thread groups); times with 10
+   dispatches queued, the bound, and the kernel's group and block size,
+   shared memory a block, registers and local bytes a thread;
 5. kernel vs plain, sha256: the nonce-search kernel against its plain
    PyTorch version (and a hashlib brute force where the range is small
    or its first hit near) on v2 and v1 templates, integer and
@@ -329,7 +331,7 @@ def complete_phase(dev: torch.device, mix: tuple) -> dict:
         if bool(verdicts[i]) != want:
             fail(f"collision lane {i}: complete {verdicts[i]}, host {want}")
     shapes = {}
-    for width in (1026, 1):
+    for width in (1026, 33, 1):
         part = packed[:, :width].contiguous()
         if not torch.equal(p256.verify_complete_packed(part), plain[:width]):
             fail(f"complete kernel != plain at the {width}-lane launch shape")
@@ -356,7 +358,8 @@ def complete_phase(dev: torch.device, mix: tuple) -> dict:
           ms_1026_lanes=round(ms_1026, 4), ms_1_lane=round(ms_1, 4),
           plain_ms=round(plain_ms, 1), bound_ms=round(bound_ms, 4),
           bound_share=round(bound_ms / ms, 4), int_mul_ops=ops,
-          sms=props.multi_processor_count, clock_mhz=clock_mhz)
+          sms=props.multi_processor_count, clock_mhz=clock_mhz,
+          **p256.complete_kernel_attributes(dev))
     return {"name": "p256_complete", "route": "cuda",
             "source": "upow_tpu_torch/csrc/p256_complete.cu",
             "replaces": "upow_tpu/crypto/p256.py:548 (and :468)",
@@ -919,11 +922,14 @@ def device_phase(title: str, dev_use: dict, wall_s: float) -> None:
         phase(title, idle_share="not_measured")
 
 
-def sass_counts(name: str) -> tuple:
+def sass_counts(name: str, inside: str = "") -> tuple:
     """(instructions in the kernel, opcode counts inside its loop) from
     cuobjdump's SASS of the built library, NOPs left out.  The loop is
-    the longest backward branch's span: one nonce a trip in the search
-    kernel.  (0, {}) where the toolkit has no cuobjdump."""
+    the longest backward branch's span that holds the opcode ``inside``
+    (any, if empty): one nonce a trip in the search kernel; in the
+    complete kernel, with ``inside="WARPSYNC"`` (the group's sync), one
+    ladder round, whose six point operations share one copy of the
+    four-step add.  (0, {}) where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or str(
         Path(_build.nvcc()).with_name("cuobjdump"))
     if not Path(tool).exists():
@@ -935,9 +941,13 @@ def sass_counts(name: str) -> tuple:
     lo, hi = 0, -1
     for addr, op, args in code:
         target = re.findall(r"0x[0-9a-f]+", args) if op == "BRA" else []
-        if target and int(target[-1], 16) < addr \
-                and addr - int(target[-1], 16) > hi - lo:
-            lo, hi = int(target[-1], 16), addr
+        if not target or int(target[-1], 16) >= addr \
+                or addr - int(target[-1], 16) <= hi - lo:
+            continue
+        start = int(target[-1], 16)
+        if not inside or any(o == inside for a, o, _ in code
+                             if start <= a <= addr):
+            lo, hi = start, addr
     loop = collections.Counter(op for a, op, _ in code if lo <= a <= hi)
     return len(code), loop
 
@@ -963,11 +973,12 @@ def main() -> int:
         for line in _build.ptxas_report(k).splitlines():
             if "registers" in line or "spill" in line or "stack" in line:
                 print(f"  ptxas {k}: {line.strip()}", flush=True)
-    total, loop = sass_counts("sha256_search")
-    print(f"  sass sha256_search: instructions={total or 'not_measured'} "
-          f"loop={sum(loop.values())} "
-          + " ".join(f"{op}={n}" for op, n in loop.most_common(12)),
-          flush=True)
+    for k, inside in (("sha256_search", ""), ("p256_complete", "WARPSYNC")):
+        total, loop = sass_counts(k, inside)
+        print(f"  sass {k}: instructions={total or 'not_measured'} "
+              f"loop={sum(loop.values())} "
+              + " ".join(f"{op}={n}" for op, n in loop.most_common(12)),
+              flush=True)
 
     mix = signature_mix(LANES)
     record = kernel_phase(dev, mix)

@@ -549,6 +549,22 @@ def _run(name: str, packed: torch.Tensor, plain) -> torch.Tensor:
     return out
 
 
+def complete_kernel_attributes(device: torch.device) -> dict:
+    """The complete kernel's launch shape and resources on a card
+    (``cudaFuncGetAttributes``): threads a signature and a block, shared
+    memory bytes a block, registers and local-memory bytes a thread."""
+    lib = _kernel_lib("p256_complete", device)
+    vals = (ctypes.c_int * 5)()
+    lib.p256_complete_attributes.argtypes = [ctypes.c_void_p]
+    lib.p256_complete_attributes.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        rc = lib.p256_complete_attributes(ctypes.addressof(vals))
+    if rc != 0:
+        raise RuntimeError(f"p256_complete_attributes: CUDA error {rc}")
+    return dict(zip(("group", "threads", "smem_bytes", "registers",
+                     "local_bytes"), vals))
+
+
 def verify_packed(packed: torch.Tensor) -> torch.Tensor:
     """(42, N) int32 packed inputs -> (N,) int32 (bit 0 verdict, bit 1
     exception).  A CUDA tensor launches the Jacobian kernel
