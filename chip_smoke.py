@@ -7,15 +7,17 @@ Phases, one line each; any failure exits non-zero:
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build every kernel of the paths from csrc/ with nvcc (sm_90a), one
    nvcc per source, all started together, with ptxas's registers and
-   spills, and the sha256 and complete kernels' SASS opcodes per loop
-   trip (cuobjdump);
+   spills, and the SASS opcodes per loop trip (cuobjdump) of the sha256
+   search and of both P-256 ladders;
 3. kernel vs plain, P-256: the Jacobian verify kernel against its plain
    PyTorch version on 8,192 lanes (one full block of signatures: honest,
    corrupted, r + n < p, off-curve, (0, 0), oversized digests and
    coordinates, crafted ladder collisions), bit for bit, with verdicts
    held against the host oracle on a sample; then at the main path's
-   launch shapes (1,026 lanes, a ragged edge, and 1 lane); times and
-   the bound;
+   launch shapes (1,026 lanes, a ragged edge, and 1 lane) and at 33
+   lanes (a partial warp and block of its four-thread groups); times,
+   the bound, and the kernel's group and block size, shared memory a
+   block, registers and local bytes a thread;
 4. kernel vs plain, P-256 complete: the RCB16 complete-formula kernel on
    the same 8,192 lanes against its plain version and against the
    Jacobian path's final verdicts (exception lanes decided by the host
@@ -253,10 +255,11 @@ def kernel_phase(dev: torch.device, mix: tuple) -> dict:
             fail(f"lane {i} ({kind}): verdict {bits[i] & 1}")
 
     # the main path's launch shapes: a 1,024-check micro-batch plus the
-    # two canaries (8 full blocks of 128 and a 2-lane edge), and a pass-2
-    # retry of a single lane; both must equal the plain version's lanes
+    # two canaries (32 full blocks of 32 signatures and a 2-signature
+    # edge), and a pass-2 retry of a single lane; and 33 lanes, one live
+    # group in a second block; each must equal the plain version's lanes
     shapes = {}
-    for width in (1026, 1):
+    for width in (1026, 33, 1):
         part = packed[:, :width].contiguous()
         got_part = p256.verify_packed(part)
         if not torch.equal(got_part, plain[:width]):
@@ -278,19 +281,22 @@ def kernel_phase(dev: torch.device, mix: tuple) -> dict:
                     * clock_mhz * 1e6) * 1e3
     nbytes = LANES * (p256.PACKED_ROWS * 4 + 4)
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
     phase("kernel_vs_plain", lanes=LANES, equal=True,
+          equal_shapes=json.dumps(sorted(shapes)),
           exception_lanes=len(exc), sampled_vs_host=len(sample),
           ms=round(ms, 4), ms_10_queued=round(ms_queued, 4),
           ms_1026_lanes=round(ms_1026, 4),
           ms_1_lane=round(ms_1, 4), plain_ms=round(plain_ms, 1),
-          bound_ms=round(max(ops_ms, bytes_ms), 4),
+          bound_ms=round(bound_ms, 4), bound_share=round(bound_ms / ms, 4),
           sms=props.multi_processor_count, clock_mhz=clock_mhz,
-          int_mul_ops=ops, setup_s=round(setup_s, 1))
+          int_mul_ops=ops, setup_s=round(setup_s, 1),
+          **p256.kernel_attributes("p256_verify", dev))
     return {"name": "p256_verify", "route": "cuda",
             "source": "upow_tpu_torch/csrc/p256_verify.cu",
             "replaces": "upow_tpu/crypto/p256.py:1016",
             "launches": 0, "max_abs_err": max_abs_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None}
 
@@ -359,7 +365,7 @@ def complete_phase(dev: torch.device, mix: tuple) -> dict:
           plain_ms=round(plain_ms, 1), bound_ms=round(bound_ms, 4),
           bound_share=round(bound_ms / ms, 4), int_mul_ops=ops,
           sms=props.multi_processor_count, clock_mhz=clock_mhz,
-          **p256.complete_kernel_attributes(dev))
+          **p256.kernel_attributes("p256_complete", dev))
     return {"name": "p256_complete", "route": "cuda",
             "source": "upow_tpu_torch/csrc/p256_complete.cu",
             "replaces": "upow_tpu/crypto/p256.py:548 (and :468)",
@@ -926,10 +932,12 @@ def sass_counts(name: str, inside: str = "") -> tuple:
     """(instructions in the kernel, opcode counts inside its loop) from
     cuobjdump's SASS of the built library, NOPs left out.  The loop is
     the longest backward branch's span that holds the opcode ``inside``
-    (any, if empty): one nonce a trip in the search kernel; in the
-    complete kernel, with ``inside="WARPSYNC"`` (the group's sync), one
-    ladder round, whose six point operations share one copy of the
-    four-step add.  (0, {}) where the toolkit has no cuobjdump."""
+    (any, if empty): one nonce a trip in the search kernel; in the P-256
+    kernels, with ``inside="WARPSYNC"`` (the group's sync), one ladder
+    round (the complete kernel's six point operations share one copy of
+    the four-step add; the Jacobian kernel's round holds the doubling's
+    loop, the madd and the add).  (0, {}) where the toolkit has no
+    cuobjdump."""
     tool = shutil.which("cuobjdump") or str(
         Path(_build.nvcc()).with_name("cuobjdump"))
     if not Path(tool).exists():
@@ -973,7 +981,8 @@ def main() -> int:
         for line in _build.ptxas_report(k).splitlines():
             if "registers" in line or "spill" in line or "stack" in line:
                 print(f"  ptxas {k}: {line.strip()}", flush=True)
-    for k, inside in (("sha256_search", ""), ("p256_complete", "WARPSYNC")):
+    for k, inside in (("sha256_search", ""), ("p256_verify", "WARPSYNC"),
+                      ("p256_complete", "WARPSYNC")):
         total, loop = sass_counts(k, inside)
         print(f"  sass {k}: instructions={total or 'not_measured'} "
               f"loop={sum(loop.values())} "

@@ -10,10 +10,12 @@ package's, on the same inputs.
   drive the ladder into its accumulator/table collisions, identity
   re-entry and r + n < p paths (s = 1 makes u1 = z and u2 = r, so the
   digits are chosen directly through the real interface).
-* The CUDA source itself, compiled by the host's g++ under a small shim
-  (``__device__`` and friends defined away, one loop step per lane), so
-  the kernel's arithmetic is held against the plain version without a
-  card; and the kernel on the card, where there is one.
+* The CUDA source itself, compiled by the host's g++ under a shim that
+  runs each block's threads as std::threads and each signature's group
+  of four in turns (``_GROUP_SHIM``, shared with the complete kernel's
+  test), so the kernel's arithmetic and its group syncs are held against
+  the plain version without a card; and the kernel on the card, where
+  there is one.
 
 No tolerance: every compared value is a bit.
 """
@@ -152,21 +154,80 @@ def test_mults_per_lane_counts_the_formulas():
     assert 0.35 < need(21) / (sum(counts.values()) * 264) < 0.45
 
 
-_SHIM = r"""
+# The CUDA names the group kernels use (p256_verify.cu and
+# p256_complete.cu, four threads a signature), for the host's g++ (C++20):
+# a block's threads run as std::threads, threadIdx and blockIdx
+# thread-local, dynamic shared memory one buffer for the block,
+# __syncthreads a barrier of the block.  __syncwarp(mask), whose mask must
+# name the caller's group of four exactly, hands the group on in turns:
+# after a sync the group's ranks run one at a time, each up to its next
+# sync, in the order 3, 2, 1, 0 in even groups and 0, 1, 2, 3 in odd ones.
+# So a rank that reads another's shared memory before a sync that orders
+# the two reads it stale, every run alike, and a dropped sync shows.
+# Before a group's first sync its ranks run freely.
+_GROUP_SHIM = r"""
 #pragma once
+#include <barrier>
+#include <condition_variable>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
+#include <mutex>
+#include <vector>
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 static const int cudaErrorInvalidValue = 1;
 #define __device__
 #define __global__
 #define __constant__
+#define __shared__
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(x)
 struct dim3_ { unsigned x; };
-inline dim3_ blockIdx, threadIdx, blockDim;
+inline thread_local dim3_ blockIdx, threadIdx;
+struct Turns {
+  std::mutex m;
+  std::condition_variable cv;
+  int phase = 0, arrived = 0, turn = -1;
+};
+struct BlockSync {
+  explicit BlockSync(int threads) : block(threads), groups(threads / 4) {}
+  std::barrier<> block;
+  std::vector<Turns> groups;
+};
+inline BlockSync* g_sync;
+inline void __syncthreads() { g_sync->block.arrive_and_wait(); }
+// under the group's lock: the calling rank is done with the current
+// phase; pass the turn on, and the group's last arrival opens the next
+// phase at its first rank.  Returns the phase the caller finished.
+inline int group_arrive(Turns& t) {
+  const int grp = threadIdx.x / 4, rank = threadIdx.x & 3;
+  const int phase = t.phase;
+  if (++t.arrived == 4) {
+    t.arrived = 0;
+    ++t.phase;
+    t.turn = grp & 1 ? 0 : 3;
+  } else {
+    t.turn = grp & 1 ? rank + 1 : rank - 1;
+  }
+  t.cv.notify_all();
+  return phase;
+}
+inline Turns& turns() { return g_sync->groups[threadIdx.x / 4]; }
+inline void __syncwarp(unsigned mask) {
+  if (mask != 0xFu << (threadIdx.x & 31 & ~3u)) std::abort();
+  Turns& t = turns();
+  std::unique_lock<std::mutex> lk(t.m);
+  const int phase = group_arrive(t);
+  const int rank = threadIdx.x & 3;
+  t.cv.wait(lk, [&] { return t.phase > phase && t.turn == rank; });
+}
+inline void group_exit() {  // the thread left the kernel
+  Turns& t = turns();
+  std::lock_guard<std::mutex> lk(t.m);
+  group_arrive(t);
+}
 template <class T, class U>
 cudaError_t cudaMemcpyToSymbol(T& sym, const U* src, size_t n) {
   std::memcpy(&sym, src, n);
@@ -174,12 +235,15 @@ cudaError_t cudaMemcpyToSymbol(T& sym, const U* src, size_t n) {
 }
 """
 
-_MAIN = r"""
+# main() for a group kernel (KERNEL: its name), included after the
+# kernel's source so that it launches the kernel's own block shape.
+_GROUP_MAIN = r"""
 #include <cstdio>
+#include <thread>
 #include <vector>
 #include "cuda_runtime.h"
 extern "C" int p256_set_constants(const uint32_t* host, int words);
-void p256_verify_kernel(const uint32_t* packed, int32_t* out, int n);
+alignas(16) uint32_t smem[1 << 16];
 int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
   int nc = 0, n = 0;
@@ -191,12 +255,21 @@ int main(int argc, char** argv) {
   if (fread(pk.data(), 4, pk.size(), f) != pk.size()) return 2;
   fclose(f);
   if (p256_set_constants(c.data(), nc) != 0) return 3;
-  std::vector<int32_t> out(n);
-  blockDim.x = 1;
-  threadIdx.x = 0;
-  for (int i = 0; i < n; ++i) {
-    blockIdx.x = i;
-    p256_verify_kernel(pk.data(), out.data(), n);
+  std::vector<int32_t> out(n, -1);
+  const int threads = THREADS, blocks = (n + SIGS - 1) / SIGS;
+  for (int b = 0; b < blocks; ++b) {
+    memset(smem, 0xA5, sizeof smem);  // shared memory starts undefined
+    BlockSync sync(threads);
+    g_sync = &sync;
+    std::vector<std::thread> ts;
+    for (int t = 0; t < threads; ++t)
+      ts.emplace_back([&, b, t] {
+        blockIdx.x = b;
+        threadIdx.x = t;
+        KERNEL(pk.data(), out.data(), n);
+        group_exit();
+      });
+    for (auto& t : ts) t.join();
   }
   FILE* g = fopen(argv[2], "wb");
   fwrite(out.data(), 4, n, g);
@@ -206,50 +279,84 @@ int main(int argc, char** argv) {
 """
 
 
-def test_kernel_source_matches_plain_under_host_compiler(tmp_path):
-    """csrc/p256_verify.cu, device code compiled as host C++ and run one
-    lane per step, against the plain PyTorch version, bit for bit."""
+def build_group_kernel(tmp: Path, name: str) -> Path:
+    """csrc/<name>.cu built by the host's g++ under _GROUP_SHIM; returns
+    the binary, which reads (constants, n, packed) and writes n int32."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
     csrc = Path(p256.__file__).parent.parent / "csrc"
-    src = (csrc / "p256_verify.cu").read_text()
+    src = (csrc / f"{name}.cu").read_text()
     # the launch wrapper is CUDA-only syntax; the kernel is called directly
-    src = src[:src.index('extern "C" int p256_verify_launch')]
-    (tmp_path / "cuda_runtime.h").write_text(_SHIM)
-    shutil.copy(csrc / "p256_common.cuh", tmp_path)
-    (tmp_path / "kernel.cpp").write_text(src)
-    (tmp_path / "main.cpp").write_text(_MAIN)
-    subprocess.run([gxx, "-std=c++17", "-O1", "-I", str(tmp_path),
-                    str(tmp_path / "kernel.cpp"), str(tmp_path / "main.cpp"),
-                    "-o", str(tmp_path / "kernel")],
+    src = src[:src.index(f'extern "C" int {name}_launch')]
+    (tmp / "cuda_runtime.h").write_text(_GROUP_SHIM)
+    shutil.copy(csrc / "p256_common.cuh", tmp)
+    (tmp / "kernel.cpp").write_text(src)
+    (tmp / "main.cpp").write_text('#include "kernel.cpp"\n' + _GROUP_MAIN
+                                  .replace("KERNEL", f"{name}_kernel"))
+    subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-I", str(tmp),
+                    str(tmp / "main.cpp"), "-o", str(tmp / "kernel")],
                    check=True, capture_output=True, timeout=300)
+    return tmp / "kernel"
 
-    digests, sigs, pubs = _mix()
-    n = len(digests)
-    fused = p256._pack_device_inputs(digests, sigs, pubs, n)[0]
+
+def run_group_kernel(binary: Path, fused: np.ndarray) -> np.ndarray:
+    """The g++-built kernel on one packed (42, n) uint32 array."""
+    n = fused.shape[1]
     consts = p256.kernel_constants()
     blob = (np.array([consts.size], np.int32).tobytes() + consts.tobytes()
             + np.array([n], np.int32).tobytes() + fused.tobytes())
-    (tmp_path / "in.bin").write_bytes(blob)
-    subprocess.run([str(tmp_path / "kernel"), str(tmp_path / "in.bin"),
-                    str(tmp_path / "out.bin")], check=True, timeout=300)
-    got = np.fromfile(tmp_path / "out.bin", dtype=np.int32)
+    inp, outp = binary.with_name(f"in{n}.bin"), binary.with_name(f"out{n}.bin")
+    inp.write_bytes(blob)
+    subprocess.run([str(binary), str(inp), str(outp)], check=True,
+                   timeout=300)
+    return np.fromfile(outp, dtype=np.int32)
+
+
+def _mix_lanes(lanes):
+    """The mix, repeated to ``lanes`` lanes."""
+    digests, sigs, pubs = _mix()
+    reps = -(-lanes // len(digests))
+    return tuple((x * reps)[:lanes] for x in (digests, sigs, pubs))
+
+
+@pytest.fixture(scope="module")
+def jac_kernel(tmp_path_factory):
+    return build_group_kernel(tmp_path_factory.mktemp("jac"), "p256_verify")
+
+
+@pytest.mark.parametrize("lanes", [22, 33])
+def test_kernel_source_matches_plain_under_host_compiler(jac_kernel, lanes):
+    """csrc/p256_verify.cu, device code compiled as host C++ with each
+    block's threads run as std::threads (groups of four synced in turns),
+    against the plain PyTorch version, bit for bit: the mix (22 lanes, a
+    partial warp and block) and the mix repeated to 33 lanes (one live
+    group in a second block).  The mix's 5 exception lanes stay flagged
+    in every copy."""
+    digests, sigs, pubs = _mix_lanes(lanes)
+    fused = p256._pack_device_inputs(digests, sigs, pubs, lanes)[0]
+    got = run_group_kernel(jac_kernel, fused)
     want = p256.verify_plain(p256.packed_tensor(fused, "cpu")).numpy()
     assert got.tolist() == want.tolist()
-    assert int((got & 2).astype(bool).sum()) == 5
+    n0 = len(_mix()[0])
+    assert [i for i in range(lanes) if got[i] & 2] == \
+        [i for i in range(lanes) if i % n0 in (6, 7, 8, 9, 14)]
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    """The CUDA kernel against its plain version, bit for bit (runs on
-    a machine with a card; skips elsewhere)."""
+@pytest.mark.parametrize("lanes", [8192, 1026, 33, 1])
+def test_kernel_matches_plain_on_card(lanes):
+    """The CUDA kernel against its plain version on the card, bit for
+    bit, at a full block of signatures, the accept's two launch shapes
+    and a partial warp (runs on a machine with a card; skips
+    elsewhere)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    digests, sigs, pubs = _mix()
-    fused = p256._pack_device_inputs(digests, sigs, pubs, len(digests))[0]
+    digests, sigs, pubs = _mix_lanes(lanes)
+    fused = p256._pack_device_inputs(digests, sigs, pubs, lanes)[0]
+    packed = p256.packed_tensor(fused, "cuda")
     launches = p256.LAUNCHES
-    got = p256.verify_packed(p256.packed_tensor(fused, "cuda")).cpu()
+    got = p256.verify_packed(packed)
     torch.cuda.synchronize()
     assert p256.LAUNCHES == launches + 1
-    assert torch.equal(got, p256.verify_plain(p256.packed_tensor(fused, "cpu")))
+    assert torch.equal(got, p256.verify_plain(packed))

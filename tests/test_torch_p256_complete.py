@@ -14,23 +14,21 @@ against the JAX package's complete-formula path on the same inputs.
   complete formulas decide them themselves), honest ones among them;
   off-curve keys, (0, 0), oversized digests and coordinates.
 * The CUDA source, compiled by the host's g++ with each block's threads
-  run as std::threads (``_GROUP_SHIM``), against the plain version; and
-  the kernel on the card, where there is one.
+  run as std::threads (the group shim of ``test_torch_p256.py``), against
+  the plain version; and the kernel on the card, where there is one.
 
 No tolerance: every compared value is a verdict bit.
 """
 
 import hashlib
 import random
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from test_torch_p256 import _crafted, _neg, _signed
+from test_torch_p256 import (_crafted, _neg, _signed, build_group_kernel,
+                             run_group_kernel)
 from upow_tpu.crypto import p256 as jp256
 from upow_tpu_torch.core import curve
 from upow_tpu_torch.core.codecs import is_on_curve
@@ -189,114 +187,12 @@ def test_mults_per_lane_counts_the_complete_formulas():
                                kernel="complete") == 0
 
 
-# The CUDA names the complete kernel uses, for the host's g++ (C++20): a
-# block's threads run as std::threads, threadIdx and blockIdx thread-local,
-# dynamic shared memory one buffer for the block, __syncthreads a barrier
-# of the block and __syncwarp(mask) one of the caller's group of four,
-# which the mask must name exactly.
-_GROUP_SHIM = r"""
-#pragma once
-#include <barrier>
-#include <cstdint>
-#include <cstdlib>
-#include <cstring>
-#include <memory>
-#include <vector>
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-static const int cudaErrorInvalidValue = 1;
-#define __device__
-#define __global__
-#define __constant__
-#define __shared__
-#define __forceinline__ inline
-#define __restrict__
-#define __launch_bounds__(x)
-struct dim3_ { unsigned x; };
-inline thread_local dim3_ blockIdx, threadIdx;
-struct BlockSync {
-  explicit BlockSync(int threads) : block(threads) {
-    for (int g = 0; g < threads / 4; ++g)
-      groups.push_back(std::make_unique<std::barrier<>>(4));
-  }
-  std::barrier<> block;
-  std::vector<std::unique_ptr<std::barrier<>>> groups;
-};
-inline BlockSync* g_sync;
-inline void __syncthreads() { g_sync->block.arrive_and_wait(); }
-inline void __syncwarp(unsigned mask) {
-  if (mask != 0xFu << (threadIdx.x & 31 & ~3u)) std::abort();
-  g_sync->groups[threadIdx.x / 4]->arrive_and_wait();
-}
-template <class T, class U>
-cudaError_t cudaMemcpyToSymbol(T& sym, const U* src, size_t n) {
-  std::memcpy(&sym, src, n);
-  return 0;
-}
-"""
-
-_GROUP_MAIN = r"""
-#include <cstdio>
-#include <thread>
-#include <vector>
-#include "cuda_runtime.h"
-extern "C" int p256_set_constants(const uint32_t* host, int words);
-void p256_complete_kernel(const uint32_t* packed, int32_t* out, int n);
-alignas(16) uint32_t smem[1 << 16];
-int main(int argc, char** argv) {
-  FILE* f = fopen(argv[1], "rb");
-  int nc = 0, n = 0;
-  if (fread(&nc, 4, 1, f) != 1) return 2;
-  std::vector<uint32_t> c(nc);
-  if (fread(c.data(), 4, nc, f) != (size_t)nc) return 2;
-  if (fread(&n, 4, 1, f) != 1) return 2;
-  std::vector<uint32_t> pk(42 * (size_t)n);
-  if (fread(pk.data(), 4, pk.size(), f) != pk.size()) return 2;
-  fclose(f);
-  if (p256_set_constants(c.data(), nc) != 0) return 3;
-  std::vector<int32_t> out(n, -1);
-  const int threads = THREADS, blocks = (n + SIGS - 1) / SIGS;
-  for (int b = 0; b < blocks; ++b) {
-    memset(smem, 0xA5, sizeof smem);  // shared memory starts undefined
-    BlockSync sync(threads);
-    g_sync = &sync;
-    std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t)
-      ts.emplace_back([&, b, t] {
-        blockIdx.x = b;
-        threadIdx.x = t;
-        p256_complete_kernel(pk.data(), out.data(), n);
-      });
-    for (auto& t : ts) t.join();
-  }
-  FILE* g = fopen(argv[2], "wb");
-  fwrite(out.data(), 4, n, g);
-  fclose(g);
-  return 0;
-}
-"""
-
-
 @pytest.fixture(scope="module")
 def group_kernel(tmp_path_factory):
-    """csrc/p256_complete.cu built by the host's g++ under _GROUP_SHIM."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++")
-    tmp = tmp_path_factory.mktemp("complete")
-    csrc = Path(p256.__file__).parent.parent / "csrc"
-    src = (csrc / "p256_complete.cu").read_text()
-    # the launch wrapper is CUDA-only syntax; the kernel is called directly
-    src = src[:src.index('extern "C" int p256_complete_launch')]
-    (tmp / "cuda_runtime.h").write_text(_GROUP_SHIM)
-    shutil.copy(csrc / "p256_common.cuh", tmp)
-    (tmp / "kernel.cpp").write_text(src)
-    # the kernel's own block shape, read from its source
-    (tmp / "main.cpp").write_text('#include "kernel.cpp"\n' + _GROUP_MAIN)
-    subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-I", str(tmp),
-                    str(tmp / "main.cpp"), "-o", str(tmp / "kernel")],
-                   check=True, capture_output=True, timeout=300)
-    return tmp
+    """csrc/p256_complete.cu built by the host's g++ under the group shim
+    of test_torch_p256.py."""
+    return build_group_kernel(tmp_path_factory.mktemp("complete"),
+                              "p256_complete")
 
 
 @pytest.fixture(scope="module")
@@ -310,22 +206,15 @@ def mix_plain():
 def test_complete_kernel_source_matches_plain_under_host_compiler(
         group_kernel, mix_plain, lanes):
     """csrc/p256_complete.cu, device code compiled as host C++ with each
-    block's threads run as std::threads (groups of four synced by
-    barriers), against the plain PyTorch version: the whole mix (48
+    block's threads run as std::threads (groups of four synced in
+    turns), against the plain PyTorch version: the whole mix (48
     lanes, two blocks, the second half empty), and its first 33 lanes (a
     partial warp and a partial block: one live group in the second
     block).  The plain version decides each lane alone, so its verdicts
     on the first 33 lanes of the mix are those lanes' verdicts."""
     digests, sigs, pubs = (x[:lanes] for x in _mix())
     fused = p256._pack_device_inputs(digests, sigs, pubs, lanes)[0]
-    consts = p256.kernel_constants()
-    blob = (np.array([consts.size], np.int32).tobytes() + consts.tobytes()
-            + np.array([lanes], np.int32).tobytes() + fused.tobytes())
-    inp, outp = group_kernel / f"in{lanes}.bin", group_kernel / f"out{lanes}.bin"
-    inp.write_bytes(blob)
-    subprocess.run([str(group_kernel / "kernel"), str(inp), str(outp)],
-                   check=True, timeout=300)
-    got = np.fromfile(outp, dtype=np.int32)
+    got = run_group_kernel(group_kernel, fused)
     assert got.tolist() == mix_plain[:lanes].tolist()
     assert got[16:22].tolist() == [1] * 6
 

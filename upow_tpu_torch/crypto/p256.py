@@ -3,7 +3,7 @@
 The JAX package verifies a block's signatures with ``_scalar_prep`` (an
 XLA program) followed by one of its Pallas ladders
 (``upow_tpu/crypto/p256.py``).  Here prep and ladder run in ONE
-hand-written CUDA launch, one thread per signature, in either of two
+hand-written CUDA launch, four threads to a signature, in either of two
 kernels that share their field arithmetic and scalar prep
 (``csrc/p256_common.cuh``): s^-1 mod n by Fermat (fixed 4-bit window over
 n - 2), u1 = z * s^-1 and u2 = r * s^-1, the on-curve check and the
@@ -549,18 +549,20 @@ def _run(name: str, packed: torch.Tensor, plain) -> torch.Tensor:
     return out
 
 
-def complete_kernel_attributes(device: torch.device) -> dict:
-    """The complete kernel's launch shape and resources on a card
-    (``cudaFuncGetAttributes``): threads a signature and a block, shared
-    memory bytes a block, registers and local-memory bytes a thread."""
-    lib = _kernel_lib("p256_complete", device)
+def kernel_attributes(name: str, device: torch.device) -> dict:
+    """Kernel ``name``'s (``p256_verify`` or ``p256_complete``) launch
+    shape and resources on a card (``cudaFuncGetAttributes``): threads a
+    signature and a block, shared memory bytes a block, registers and
+    local-memory bytes a thread."""
+    lib = _kernel_lib(name, device)
     vals = (ctypes.c_int * 5)()
-    lib.p256_complete_attributes.argtypes = [ctypes.c_void_p]
-    lib.p256_complete_attributes.restype = ctypes.c_int
+    fn = getattr(lib, f"{name}_attributes")
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     with torch.cuda.device(device):
-        rc = lib.p256_complete_attributes(ctypes.addressof(vals))
+        rc = fn(ctypes.addressof(vals))
     if rc != 0:
-        raise RuntimeError(f"p256_complete_attributes: CUDA error {rc}")
+        raise RuntimeError(f"{name}_attributes: CUDA error {rc}")
     return dict(zip(("group", "threads", "smem_bytes", "registers",
                      "local_bytes"), vals))
 

@@ -1,5 +1,5 @@
 // Batched P-256 ECDSA verify: scalar prep + Jacobian Strauss ladder in ONE
-// launch, one thread per signature.
+// launch, four threads to a signature.
 //
 // Replaces upow_tpu/crypto/p256.py::_ladder_kernel_jac (the Pallas kernel)
 // together with the XLA program _scalar_prep that fed it.  Input: the fused
@@ -10,212 +10,485 @@
 // those lanes).  The plain PyTorch version of the same function is
 // crypto/p256.py::verify_plain.
 //
-// What bounds it: 32x32-bit integer multiplies.  Each lane does 4,277
-// Montgomery products (crypto/p256.py::mults_per_lane counts them from this
-// code, by kind: 341 mod n for s^-1, u1 and u2; 6 mod p for the forms and
-// the on-curve check; 151 for the Q table; 64 x (4 x 8 + 11 + 16) = 3,776
-// for the ladder; 3 for the final test), and each product here is a
-// generic CIOS multiply over 8 x 32-bit limbs: 128 32x32->64 multiplies
-// and 8 low-half ones.  The function needs fewer: a squaring needs 36 wide
-// products, not 64, and p's Solinas form makes reduction mod p free of
-// multiplies (crypto/p256.py::MUL_OPS, mul_ops_needed).  Bytes are
-// negligible: 172 per lane.
+// Per signature: the shared scalar prep (p256_common.cuh); a 15-entry Q
+// table [1]Q, [2]Q = dbl, [k]Q = [k-1]Q + Q by madd; 64 rounds of 4
+// doublings (dbl-2001-b), a mixed add of the affine G pick (madd-2007-bl)
+// and a general add of the Q pick (add-2007-bl), MSB-first 4-bit digits; a
+// zero digit keeps the accumulator, a not-yet-started accumulator takes the
+// pick, H == 0 with both operands real flags the lane; then accept <=>
+// X == r Z^2 or (r + n < p and X == (r + n) Z^2), with the result finite.
 //
-// What the design does about it: one thread owns one lane, so every limb
-// product is an independent IMAD.WIDE with no cross-thread traffic, and
-// the modulus and Montgomery constants sit in __constant__ memory, read
-// at uniform addresses (a broadcast).  Values are kept fully reduced below
-// the modulus (one conditional subtraction per product), so no lazy bound
-// has to be tracked.  This first version keeps the 15-entry Q table
-// (1,440 bytes a lane) and the 16-entry inversion table in local memory
-// and spends the G-table reads on divergent __constant__ addresses; blocks
-// are 128 threads with a masked ragged edge and no padding of N.  The field
-// arithmetic and the scalar prep are in p256_common.cuh, shared with the
-// complete-formula kernel (p256_complete.cu).
+// What bounds it: not the card's multiply rate but the latency of one
+// signature's dependent chain.  A round is 4 x 8 + 11 + 16 = 59 field
+// products (crypto/p256.py::mults_per_lane counts them; mul_ops_needed
+// gives the bound), each a CIOS Montgomery product whose carry chain is
+// serial.  With one thread to a signature a lane was 4,277 product
+// latencies in a row, and 1 lane took 93 % of the time of 8,192.
+//
+// What the design does about it:
+// - A group of four consecutive threads of one warp works on a signature
+//   (8 signatures a warp, 32 a 128-thread block).  Rank k of the group
+//   computes the k-th product of a step, operands picked by selects so
+//   that one instruction stream serves the group; the modular adds
+//   between steps are computed by every rank from the products,
+//   redundantly.  Each rank writes its product to the signature's slot
+//   in shared memory and the group syncs with __syncwarp on its own four
+//   lanes.  Two slot sets alternate: a rank reads a step's products
+//   before it reaches the next step's sync, so a slot is rewritten only
+//   after a sync that every reader of it has passed.
+// - The three formulas stay as they are (the exception bits depend on
+//   them); only their products are grouped by dependency level, and
+//   delta = Z^2, which each formula's first level needs, is computed in
+//   the level of the operation before that produces Z (the select of the
+//   post-add digits is known before the add, so the selected Z is too).
+//   The Q table keeps Z^2 and Z^3 of each entry beside X, Y, Z.  So:
+//     dbl  (8 products, 3 steps of 3, 3, 2):
+//       1: gamma = Y^2, (Y + Z)^2, (X - delta)(X + delta)
+//       2: beta = X gamma, gamma^2, alpha^2
+//       3: alpha (4 beta - X3), Z3^2
+//     madd (11 products, 4 steps of 2, 3, 4, 2):
+//       1: U2 = x2 Z1Z1, Z1 Z1Z1
+//       2: S2 = y2 Z1^3, HH = H^2, (Z1 + H)^2
+//       3: J = H I, V = X1 I, rr^2, Zsel^2
+//       4: Y1 J, rr (V - X3)
+//     add  (14 products, 4 steps of 4, 3, 4, 3; Z2Z2, Z2^3 from the table):
+//       1: U1 = X1 Z2Z2, U2 = X2 Z1Z1, Z1 Z1Z1, S1 = Y1 Z2^3
+//       2: S2 = Y2 Z1^3, I = (2H)^2, (Z1 + Z2)^2
+//       3: J = H I, V = U1 I, rr^2, Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H
+//       4: S1 J, rr (V - X3), Zsel^2
+//   A round is 4 x 3 + 4 + 4 = 20 product latencies instead of 59.  With
+//   the serial prep (341 mod-n products), the Q table (one dbl, 13 madds
+//   and one Z^3: 56 steps) and the final test (1 step), a lane's chain is
+//   about 1,678 latencies instead of 4,277.
+// - Idle ranks: a step of fewer than four products has its idle ranks
+//   compute a copy of one of them (a select, no branch), so it costs issue
+//   slots, not latency: 57 of a round's 80 rank-products are needed (71 %;
+//   dbl 8 of 12, madd 11 of 16, add 14 of 16).  A group of four still fits
+//   best: three threads would need 4 steps for the add and 5 for the
+//   madd, and eight would leave most ranks idle in every step, while
+//   four reuses the group sync and the g++ group shim of p256_complete.cu.
+// - The field code is p256_common.cuh's, unchanged: Montgomery form with
+//   R = 2^256, values always fully reduced, so a sum's canonical value
+//   does not depend on the order of its terms and the grouped formulas
+//   equal the sequential ones bit for bit (exception bits included).
+// - Tables in shared memory: the Q table one copy a signature (15 x 160
+//   B: X, Y, Z, Z^2, Z^3), the affine [k]G table (15 x 64 B) once a block.
+//   No local-memory table and no divergent __constant__ reads in the
+//   ladder.  A block needs 90,560 B, above the 48 KB static limit, so it is
+//   dynamic shared memory raised by cudaFuncSetAttribute in the launch
+//   function; two 128-thread blocks fit an SM.
+// - The scalar prep (341 serial mod-n products) runs on rank 0 and hands
+//   u1, u2, Q, r and r + n to the group through shared memory.  Rank 0
+//   makes the final test and writes the verdict.
+// - The ragged edge is masked by whole groups: a group past n exits after
+//   the block's one __syncthreads, and every later sync names only the
+//   group's own four lanes, so no thread waits on one that left.
 
 #include "p256_common.cuh"
 
-// dbl-2001-b (a = -3): 3M + 5S.
-__device__ __forceinline__ Pt jac_dbl(const Pt& P) {
-  Fe delta, gamma, beta, alpha, t1, t2, beta4, beta8, g8;
-  Pt R;
-  fsqr(delta, P.z);
-  fsqr(gamma, P.y);
-  fmul(beta, P.x, gamma);
-  fsub(t1, P.x, delta);
-  fadd(t2, P.x, delta);
-  fmul(alpha, t1, t2);
-  fadd(t1, alpha, alpha);
-  fadd(alpha, t1, alpha);                 // 3 (X - delta)(X + delta)
-  fadd(beta4, beta, beta);
+#define GROUP 4                     // threads a signature
+#define THREADS 128                 // threads a block
+#define SIGS (THREADS / GROUP)      // signatures a block
+#define TABLE 15                    // [1]P .. [15]P
+#define G_ENTRY (2 * NW)            // affine x, y
+#define Q_ENTRY (5 * NW)            // X, Y, Z, Z^2, Z^3
+#define G_WORDS (TABLE * G_ENTRY)
+
+// one signature's shared area, in 32-bit words
+#define S_SLOT (TABLE * Q_ENTRY)    // two sets of GROUP product slots
+#define S_U1 (S_SLOT + 2 * GROUP * NW)  // u1, plain (window digits)
+#define S_U2 (S_U1 + NW)            // u2, plain
+#define S_RM (S_U2 + NW)            // r R mod p
+#define S_RNM (S_RM + NW)           // (r + n) R mod p
+#define S_FLAGS (S_RNM + NW)        // bit 0 valid, bit 1 r + n < p
+#define SIG_WORDS (S_FLAGS + 4)     // padded to 16 bytes
+#define SMEM_BYTES (4 * (G_WORDS + SIGS * SIG_WORDS))
+
+__device__ __forceinline__ void ld(Fe& r, const u32* s) {
+#pragma unroll
+  for (int j = 0; j < NW; ++j) r.v[j] = s[j];
+}
+
+__device__ __forceinline__ void st(u32* s, const Fe& a) {
+#pragma unroll
+  for (int j = 0; j < NW; ++j) s[j] = a.v[j];
+}
+
+// r = a[rank] by selects, so that every rank runs the same instructions
+__device__ __forceinline__ void pick(Fe& r, int rank, const Fe& a0,
+                                     const Fe& a1, const Fe& a2,
+                                     const Fe& a3) {
+#pragma unroll
+  for (int j = 0; j < NW; ++j)
+    r.v[j] = rank == 0 ? a0.v[j]
+           : rank == 1 ? a1.v[j]
+           : rank == 2 ? a2.v[j] : a3.v[j];
+}
+
+// r = (a, b, c)[sel] by selects: the accumulator (0), the pick (1) or
+// the formula's result (2)
+__device__ __forceinline__ void sel3(Fe& r, int sel, const Fe& a,
+                                     const Fe& b, const Fe& c) {
+#pragma unroll
+  for (int j = 0; j < NW; ++j)
+    r.v[j] = sel == 0 ? a.v[j] : sel == 1 ? b.v[j] : c.v[j];
+}
+
+// The group of a signature: its two slot sets, the thread's rank, the
+// group's lane mask, and the set the next step writes.
+struct Group {
+  u32* slots;
+  int rank;
+  unsigned mask;
+  int set;
+};
+
+// One group step: the rank's product a * c into its slot of the current
+// set, then the group's sync.  Returns the set; its GROUP products must be
+// read before the caller's next step.
+__device__ __forceinline__ const u32* step(Group& g, const Fe& a,
+                                           const Fe& c) {
+  Fe p;
+  fmul(p, a, c);
+  u32* s = g.slots + g.set * (GROUP * NW);
+  st(s + g.rank * NW, p);
+  __syncwarp(g.mask);
+  g.set ^= 1;
+  return s;
+}
+
+// dbl-2001-b (a = -3) in three steps.  On entry d = delta = Z^2; on
+// return P is the double and d its Z^2 (the next operation's delta).
+__device__ __forceinline__ void dbl_group(Pt& P, Fe& d, Group& g) {
+  Fe a, c, t, gamma, alpha, beta4, g8, x3, z3;
+  const u32* s;
+
+  // step 1: gamma = Y^2, (Y + Z)^2, (X - delta)(X + delta)
+  Fe yz, xm, xp;
+  fadd(yz, P.y, P.z);
+  fsub(xm, P.x, d);
+  fadd(xp, P.x, d);
+  pick(a, g.rank, P.y, yz, xm, xm);
+  pick(c, g.rank, P.y, yz, xp, xp);
+  s = step(g, a, c);
+  ld(gamma, s);
+  ld(t, s + NW);
+  fsub(t, t, gamma);
+  fsub(z3, t, d);                         // Z3 = (Y + Z)^2 - gamma - delta
+  ld(t, s + 2 * NW);
+  fadd(alpha, t, t);
+  fadd(alpha, alpha, t);                  // 3 (X - delta)(X + delta)
+
+  // step 2: beta = X gamma, gamma^2, alpha^2
+  pick(a, g.rank, P.x, gamma, alpha, alpha);
+  pick(c, g.rank, gamma, gamma, alpha, alpha);
+  s = step(g, a, c);
+  ld(t, s);
+  fadd(beta4, t, t);
   fadd(beta4, beta4, beta4);              // 4 beta
-  fadd(beta8, beta4, beta4);              // 8 beta
-  fsqr(t1, alpha);
-  fsub(R.x, t1, beta8);                   // X3 = alpha^2 - 8 beta
-  fsqr(g8, gamma);
+  ld(g8, s + NW);
   fadd(g8, g8, g8);
   fadd(g8, g8, g8);
   fadd(g8, g8, g8);                       // 8 gamma^2
-  fsub(t1, beta4, R.x);
-  fmul(t2, alpha, t1);
-  fsub(R.y, t2, g8);                      // Y3 = alpha (4 beta - X3) - 8 gamma^2
-  fadd(t1, P.y, P.z);
-  fsqr(t2, t1);
-  fsub(t2, t2, gamma);
-  fsub(R.z, t2, delta);                   // Z3 = (Y + Z)^2 - gamma - delta
-  return R;
+  ld(t, s + 2 * NW);
+  fadd(c, beta4, beta4);
+  fsub(x3, t, c);                         // X3 = alpha^2 - 8 beta
+
+  // step 3: alpha (4 beta - X3), Z3^2
+  fsub(t, beta4, x3);
+  pick(a, g.rank, alpha, z3, z3, z3);
+  pick(c, g.rank, t, z3, z3, z3);
+  s = step(g, a, c);
+  ld(t, s);
+  fsub(P.y, t, g8);                       // Y3 = alpha (4 beta - X3) - 8 gamma^2
+  P.x = x3;
+  P.z = z3;
+  ld(d, s + NW);
 }
 
-// madd-2007-bl (second operand affine): 7M + 4S.  Writes H.
-__device__ __forceinline__ Pt jac_madd(const Pt& P, const Fe& x2, const Fe& y2,
-                                       Fe& H) {
-  Fe z1z1, u2, s2, hh, i4, j, rr, v, t1, t2;
-  Pt R;
-  fsqr(z1z1, P.z);
-  fmul(u2, x2, z1z1);
-  fmul(t1, P.z, z1z1);
-  fmul(s2, y2, t1);
-  fsub(H, u2, P.x);
-  fsqr(hh, H);
+// madd-2007-bl (second operand affine (x2, y2)) in four steps: R = P +
+// (x2, y2), and H.  d = Z1Z1 on entry; on return d is the square of the Z
+// that the caller's select keeps: P's (sel 0), pz's (sel 1) or R's (sel
+// 2).  z1c returns Z1^3.
+__device__ __forceinline__ void madd_group(Pt& R, Fe& H, Fe& z1c,
+                                           const Pt& P, Fe& d, const Fe& x2,
+                                           const Fe& y2, const Fe& pz,
+                                           int sel, Group& g) {
+  Fe a, c, t, t2, hh, i4, j, rr, v, zs;
+  const u32* s;
+
+  // step 1: U2 = x2 Z1Z1, Z1 Z1Z1
+  pick(a, g.rank, x2, P.z, P.z, P.z);
+  s = step(g, a, d);
+  ld(t, s);
+  fsub(H, t, P.x);                        // H = U2 - X1
+  ld(z1c, s + NW);
+
+  // step 2: S2 = y2 Z1^3, HH = H^2, (Z1 + H)^2
+  fadd(t, P.z, H);
+  pick(a, g.rank, y2, H, t, t);
+  pick(c, g.rank, z1c, H, t, t);
+  s = step(g, a, c);
+  ld(hh, s + NW);
+  ld(t, s + 2 * NW);
+  fsub(t, t, d);
+  fsub(R.z, t, hh);                       // Z3 = (Z1 + H)^2 - Z1Z1 - HH
   fadd(i4, hh, hh);
-  fadd(i4, i4, i4);
-  fmul(j, H, i4);
-  fsub(rr, s2, P.y);
-  fadd(rr, rr, rr);
-  fmul(v, P.x, i4);
-  fsqr(t1, rr);
-  fsub(t1, t1, j);
+  fadd(i4, i4, i4);                       // I = 4 HH
+  ld(t, s);
+  fsub(rr, t, P.y);
+  fadd(rr, rr, rr);                       // rr = 2 (S2 - Y1)
+
+  // step 3: J = H I, V = X1 I, rr^2, Zsel^2
+  sel3(zs, sel, P.z, pz, R.z);
+  pick(a, g.rank, H, P.x, rr, zs);
+  pick(c, g.rank, i4, i4, rr, zs);
+  s = step(g, a, c);
+  ld(j, s);
+  ld(v, s + NW);
+  ld(t, s + 2 * NW);
+  ld(d, s + 3 * NW);
+  fsub(t, t, j);
   fadd(t2, v, v);
-  fsub(R.x, t1, t2);                      // X3 = rr^2 - J - 2V
-  fmul(t1, P.y, j);
-  fadd(t1, t1, t1);
+  fsub(R.x, t, t2);                       // X3 = rr^2 - J - 2V
+
+  // step 4: Y1 J, rr (V - X3)
   fsub(t2, v, R.x);
-  fmul(t2, rr, t2);
-  fsub(R.y, t2, t1);                      // Y3 = rr (V - X3) - 2 Y1 J
-  fadd(t1, P.z, H);
-  fsqr(t1, t1);
-  fsub(t1, t1, z1z1);
-  fsub(R.z, t1, hh);                      // Z3 = (Z1 + H)^2 - Z1Z1 - HH
-  return R;
+  pick(a, g.rank, P.y, rr, rr, rr);
+  pick(c, g.rank, j, t2, t2, t2);
+  s = step(g, a, c);
+  ld(t, s);
+  fadd(t, t, t);
+  ld(t2, s + NW);
+  fsub(R.y, t2, t);                       // Y3 = rr (V - X3) - 2 Y1 J
 }
 
-// add-2007-bl (both Jacobian): 11M + 5S.  Writes H.
-__device__ __forceinline__ Pt jac_add(const Pt& P, const Pt& Q, Fe& H) {
-  Fe z1z1, z2z2, u1, u2, s1, s2, i, j, rr, v, t1, t2;
-  Pt R;
-  fsqr(z1z1, P.z);
-  fsqr(z2z2, Q.z);
-  fmul(u1, P.x, z2z2);
-  fmul(u2, Q.x, z1z1);
-  fmul(t1, Q.z, z2z2);
-  fmul(s1, P.y, t1);
-  fmul(t1, P.z, z1z1);
-  fmul(s2, Q.y, t1);
-  fsub(H, u2, u1);
-  fadd(t1, H, H);
-  fsqr(i, t1);
-  fmul(j, H, i);
-  fsub(rr, s2, s1);
-  fadd(rr, rr, rr);
-  fmul(v, u1, i);
-  fsqr(t1, rr);
-  fsub(t1, t1, j);
+// add-2007-bl (both Jacobian; q a Q-table entry: X, Y, Z, Z^2, Z^3) in
+// four steps: R = P + Q, and H.  d as in madd_group, the pick's Z being
+// the entry's.
+__device__ __forceinline__ void add_group(Pt& R, Fe& H, const Pt& P, Fe& d,
+                                          const u32* q, int sel, Group& g) {
+  Fe a, c, t, t2, u1, s1, z1c, i, j, rr, v, qz, zs;
+  const u32* s;
+
+  // step 1: U1 = X1 Z2Z2, U2 = X2 Z1Z1, Z1 Z1Z1, S1 = Y1 Z2^3
+  ld(v, q);                               // X2
+  ld(t, q + 3 * NW);                      // Z2Z2
+  ld(t2, q + 4 * NW);                     // Z2^3
+  pick(a, g.rank, P.x, v, P.z, P.y);
+  pick(c, g.rank, t, d, d, t2);
+  s = step(g, a, c);
+  ld(u1, s);
+  ld(t, s + NW);
+  fsub(H, t, u1);                         // H = U2 - U1
+  ld(z1c, s + 2 * NW);
+  ld(s1, s + 3 * NW);
+
+  // step 2: S2 = Y2 Z1^3, I = (2H)^2, (Z1 + Z2)^2
+  ld(qz, q + 2 * NW);
+  ld(t, q + NW);                          // Y2
+  fadd(t2, H, H);
+  fadd(v, P.z, qz);
+  pick(a, g.rank, t, t2, v, v);
+  pick(c, g.rank, z1c, t2, v, v);
+  s = step(g, a, c);
+  ld(i, s + NW);
+  ld(t, s + 2 * NW);
+  fsub(t, t, d);
+  ld(t2, q + 3 * NW);
+  fsub(t2, t, t2);                        // (Z1 + Z2)^2 - Z1Z1 - Z2Z2
+  ld(t, s);
+  fsub(rr, t, s1);
+  fadd(rr, rr, rr);                       // rr = 2 (S2 - S1)
+
+  // step 3: J = H I, V = U1 I, rr^2, Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H
+  pick(a, g.rank, H, u1, rr, t2);
+  pick(c, g.rank, i, i, rr, H);
+  s = step(g, a, c);
+  ld(j, s);
+  ld(v, s + NW);
+  ld(t, s + 2 * NW);
+  ld(R.z, s + 3 * NW);
+  fsub(t, t, j);
   fadd(t2, v, v);
-  fsub(R.x, t1, t2);                      // X3 = rr^2 - J - 2V
-  fmul(t1, s1, j);
-  fadd(t1, t1, t1);
+  fsub(R.x, t, t2);                       // X3 = rr^2 - J - 2V
+
+  // step 4: S1 J, rr (V - X3), Zsel^2
+  sel3(zs, sel, P.z, qz, R.z);
   fsub(t2, v, R.x);
-  fmul(t2, rr, t2);
-  fsub(R.y, t2, t1);                      // Y3 = rr (V - X3) - 2 S1 J
-  fadd(t1, P.z, Q.z);
-  fsqr(t1, t1);
-  fsub(t1, t1, z1z1);
-  fsub(t1, t1, z2z2);
-  fmul(R.z, t1, H);                       // Z3 = ((Z1+Z2)^2 - Z1Z1 - Z2Z2) H
-  return R;
+  pick(a, g.rank, s1, rr, zs, zs);
+  pick(c, g.rank, j, t2, zs, zs);
+  s = step(g, a, c);
+  ld(t, s);
+  fadd(t, t, t);
+  ld(t2, s + NW);
+  fsub(R.y, t2, t);                       // Y3 = rr (V - X3) - 2 S1 J
+  ld(d, s + 2 * NW);
 }
 
 // The post-add selects of both add sites (the JAX package's
-// _jac_apply_add): a zero digit keeps the accumulator, a not-yet-started
-// accumulator takes the picked point, H == 0 with both operands real flags
-// the lane, otherwise the formula result.
-__device__ __forceinline__ void apply_add(Pt& acc, const Pt& res, const Fe& H,
-                                          const Pt& pick, u32 digit,
-                                          bool& started, bool& exc) {
-  if (digit == 0) return;
-  if (!started) {
-    acc = pick;
-  } else {
-    exc = exc || fe_is_zero(H);
-    acc = res;
-  }
-  started = true;
+// _jac_apply_add): a zero digit keeps the accumulator (sel 0), a
+// not-yet-started accumulator takes the pick (sel 1), otherwise the
+// formula's result (sel 2), where H == 0 flags the lane.
+__device__ __forceinline__ void apply_add(Pt& acc, const Pt& res,
+                                          const Fe& H, const Fe& px,
+                                          const Fe& py, const Fe& pz,
+                                          int sel, bool& exc) {
+  exc = exc || (sel == 2 && fe_is_zero(H));
+  sel3(acc.x, sel, acc.x, px, res.x);
+  sel3(acc.y, sel, acc.y, py, res.y);
+  sel3(acc.z, sel, acc.z, pz, res.z);
 }
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(THREADS)
 p256_verify_kernel(const u32* __restrict__ packed, int32_t* __restrict__ out,
                    int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+  extern __shared__ u32 smem[];
+  const int rank = threadIdx.x & (GROUP - 1);
+  const int local = threadIdx.x / GROUP;
+  const int sig = blockIdx.x * SIGS + local;
+  u32* gtab = smem;                                    // the block's [k]G
+  u32* area = smem + G_WORDS + local * SIG_WORDS;      // this signature's
+  u32* qtab = area;
 
-  Prep pr;
-  scalar_prep(packed, n, lane, pr);
-  const Fe &u1 = pr.u1, &u2 = pr.u2, &qx_m = pr.qx_m, &qy_m = pr.qy_m;
-  const Fe &r_m = pr.r_m, &rn_m = pr.rn_m;
-  const bool valid = pr.valid, rn_ok = pr.rn_ok;
+  // ---- the affine [k]G table, once a block ----------------------------
+  for (int i = threadIdx.x; i < G_WORDS; i += THREADS)
+    gtab[i] = c_k[C_G + i];
+  __syncthreads();
+  if (sig >= n) return;  // the whole group: all four ranks share sig
+  Group g;
+  g.slots = area + S_SLOT;
+  g.rank = rank;
+  g.mask = 0xFu << (threadIdx.x & 31 & ~(GROUP - 1));
+  g.set = 0;
 
-  // ---- Q table: [1]Q, [2]Q = dbl, [k]Q = [k-1]Q + Q (madd chain) -------
-  Fe one_m, H;
+  Fe one_m;
   fe_const(one_m, C_ONEP);
-  Pt qtab[15];
-  qtab[0].x = qx_m;
-  qtab[0].y = qy_m;
-  qtab[0].z = one_m;
-  qtab[1] = jac_dbl(qtab[0]);
-  for (int k = 2; k < 15; ++k) qtab[k] = jac_madd(qtab[k - 1], qx_m, qy_m, H);
 
-  // ---- ladder: 64 rounds of 4 dbl + G madd + Q add ---------------------
-  Pt acc;
+  // ---- scalar prep on rank 0, handed to the group ---------------------
+  if (rank == 0) {
+    Prep pr;
+    scalar_prep(packed, n, sig, pr);
+    st(area + S_U1, pr.u1);
+    st(area + S_U2, pr.u2);
+    st(area + S_RM, pr.r_m);
+    st(area + S_RNM, pr.rn_m);
+    area[S_FLAGS] = (pr.valid ? 1u : 0u) | (pr.rn_ok ? 2u : 0u);
+    st(qtab, pr.qx_m);                   // [1]Q = (qx, qy, 1), Z^2 = Z^3 = 1
+    st(qtab + NW, pr.qy_m);
+    st(qtab + 2 * NW, one_m);
+    st(qtab + 3 * NW, one_m);
+    st(qtab + 4 * NW, one_m);
+  }
+  __syncwarp(g.mask);
+
+  // ---- Q table: [2]Q = dbl, [k]Q = [k-1]Q + Q (madd chain) ------------
+  Fe qx, qy, H, zc;
+  ld(qx, qtab);
+  ld(qy, qtab + NW);
+  Pt acc, res;
+  acc.x = qx;
+  acc.y = qy;
+  acc.z = one_m;
+  Fe d = one_m;                          // 1^2
+  dbl_group(acc, d, g);
+#pragma unroll 1
+  for (int k = 2; k <= TABLE; ++k) {
+    u32* e = qtab + (k - 1) * Q_ENTRY;   // [k]Q: ranks store X, Y, Z, Z^2
+    Fe f;
+    pick(f, rank, acc.x, acc.y, acc.z, d);
+    st(e + rank * NW, f);
+    if (k == TABLE) break;
+    madd_group(res, H, zc, acc, d, qx, qy, one_m, 2, g);
+    if (rank == 0) st(e + 4 * NW, zc);   // Z^3 of [k]Q
+    acc = res;
+  }
+  {
+    const u32* s = step(g, acc.z, d);    // Z^3 of [15]Q
+    if (rank == 0) {
+      Fe f;
+      ld(f, s);
+      st(qtab + (TABLE - 1) * Q_ENTRY + 4 * NW, f);
+    }
+  }                                      // the ladder's first sync orders
+                                         // these stores before any read
+
+  // ---- ladder: 64 rounds of 4 dbl + G madd + Q add ----------------------
   acc.x = one_m;
   acc.y = one_m;
   fe_zero(acc.z);
+  fe_zero(d);                            // 0^2
   bool started = false, exc = false;
-  for (int k = 0; k < 64; ++k) {
 #pragma unroll 1
-    for (int q = 0; q < 4; ++q) acc = jac_dbl(acc);
+  for (int k = 0; k < 64; ++k) {
+    const int bit = 4 * (63 - k);
+    const u32 d1 = (area[S_U1 + (bit >> 5)] >> (bit & 31)) & 0xFu;
+    const u32 d2 = (area[S_U2 + (bit >> 5)] >> (bit & 31)) & 0xFu;
+#pragma unroll 1
+    for (int q = 0; q < 4; ++q) dbl_group(acc, d, g);
 
-    const u32 d1 = digit_of(u1, k);
-    Pt pick;
-    const int g = C_G + 16 * (d1 ? d1 - 1 : 0);
-    fe_const(pick.x, g);
-    fe_const(pick.y, g + NW);
-    pick.z = one_m;
-    Pt res = jac_madd(acc, pick.x, pick.y, H);
-    apply_add(acc, res, H, pick, d1, started, exc);
+    Fe gx, gy;
+    const u32* ge = gtab + (d1 ? d1 - 1 : 0) * G_ENTRY;
+    ld(gx, ge);
+    ld(gy, ge + NW);
+    int sel = d1 == 0 ? 0 : started ? 2 : 1;
+    madd_group(res, H, zc, acc, d, gx, gy, one_m, sel, g);
+    apply_add(acc, res, H, gx, gy, one_m, sel, exc);
+    started = started || d1 != 0;
 
-    const u32 d2 = digit_of(u2, k);
-    pick = qtab[d2 ? d2 - 1 : 0];
-    res = jac_add(acc, pick, H);
-    apply_add(acc, res, H, pick, d2, started, exc);
+    const u32* qe = qtab + (d2 ? d2 - 1 : 0) * Q_ENTRY;
+    sel = d2 == 0 ? 0 : started ? 2 : 1;
+    add_group(res, H, acc, d, qe, sel, g);
+    Fe px, py, pz;
+    ld(px, qe);
+    ld(py, qe + NW);
+    ld(pz, qe + 2 * NW);
+    apply_add(acc, res, H, px, py, pz, sel, exc);
+    started = started || d2 != 0;
   }
 
   // ---- accept <=> X == r Z^2 or (rn_ok and X == (r+n) Z^2), R finite ---
-  Fe z2, rz, rnz;
-  fsqr(z2, acc.z);
-  fmul(rz, r_m, z2);
-  fmul(rnz, rn_m, z2);
-  const bool at_inf = fe_is_zero(acc.z) || !started;
-  const bool ok = fe_eq(acc.x, rz) || (rn_ok && fe_eq(acc.x, rnz));
-  const bool verdict = ok && !at_inf && valid;
-  out[lane] = (verdict ? 1 : 0) | (exc ? 2 : 0);
+  Fe r_m, rn_m, a;
+  ld(r_m, area + S_RM);
+  ld(rn_m, area + S_RNM);
+  pick(a, rank, r_m, rn_m, rn_m, rn_m);
+  const u32* s = step(g, a, d);          // d = Z^2
+  if (rank == 0) {
+    Fe rz, rnz;
+    ld(rz, s);
+    ld(rnz, s + NW);
+    const u32 flags = area[S_FLAGS];
+    const bool at_inf = fe_is_zero(acc.z) || !started;
+    const bool ok = fe_eq(acc.x, rz) || ((flags & 2u) && fe_eq(acc.x, rnz));
+    const bool verdict = ok && !at_inf && (flags & 1u);
+    out[sig] = (verdict ? 1 : 0) | (exc ? 2 : 0);
+  }
 }
 
 extern "C" int p256_verify_launch(const void* packed, void* out, int n,
                                   void* stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  p256_verify_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      p256_verify_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + SIGS - 1) / SIGS;
+  p256_verify_kernel<<<blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const u32*)packed, (int32_t*)out, n);
   return (int)cudaGetLastError();
+}
+
+// The launch's shape and the kernel's resources: threads a signature,
+// threads a block, shared bytes a block, registers a thread, local
+// (stack) bytes a thread.
+extern "C" int p256_verify_attributes(int* out5) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, p256_verify_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out5[0] = GROUP;
+  out5[1] = THREADS;
+  out5[2] = SMEM_BYTES;
+  out5[3] = fa.numRegs;
+  out5[4] = (int)fa.localSizeBytes;
+  return 0;
 }

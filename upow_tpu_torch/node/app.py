@@ -45,7 +45,8 @@ from ..mempool import IntakeCoordinator, Mempool, MiningInfoCache, TTLSet
 from ..state.storage import ChainState
 from ..verify.block import BlockManager
 from ..verify.txverify import TxVerifier
-from .http import HttpServer, Request, Response, json_response, text_response
+from .http import (BodyTooLarge, HttpServer, Request, Response, json_response,
+                   text_response)
 from .ipfilter import IpFilter
 from .ratelimit import RateLimiter
 
@@ -141,7 +142,7 @@ class Node:
         """Merge query params with a JSON object body (reference
         Body(False))."""
         params = dict(request.query)
-        if request.method == "POST" and request.body:
+        if request.method == "POST" and request.body_size:
             try:
                 body = request.json()
                 if isinstance(body, dict):
@@ -175,13 +176,23 @@ class Node:
             return json_response(
                 {"ok": False, "error": "Rate limit exceeded"}, status=429)
 
-        handler = self.routes.get((request.method, normalized))
+        # aiohttp's add_get serves HEAD by the GET handler, and its 405
+        # names the route's methods in Allow
+        method = "GET" if request.method == "HEAD" else request.method
+        handler = self.routes.get((method, normalized))
         if handler is None:
-            if any(path == normalized for _m, path in self.routes):
-                return text_response("405: Method Not Allowed", 405)
-            return text_response("404: Not Found", 404)
+            allowed = {m for m, path in self.routes if path == normalized}
+            if not allowed:
+                return text_response("404: Not Found", 404)
+            if "GET" in allowed:
+                allowed.add("HEAD")
+            response = text_response("405: Method Not Allowed", 405)
+            response.headers["Allow"] = ",".join(sorted(allowed))
+            return response
         try:
             response = await handler(request)
+        except BodyTooLarge as e:  # aiohttp's 413, past the envelope
+            return text_response(str(e), 413)
         except Exception as e:  # exception envelope (main.py:394-406)
             log.error("Error on %s, %s: %s", request.path, type(e).__name__,
                       e, exc_info=True)

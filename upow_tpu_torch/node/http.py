@@ -2,13 +2,16 @@
 
 The JAX package's node serves through ``aiohttp.web``; the port needs no
 package beyond PyTorch, so it serves through ``asyncio.start_server``:
-keep-alive connections, ``Content-Length`` bodies (up to a cap; larger
-ones answer 413, chunked ones 501), GET query strings and a route table
-of ``(method, path) -> handler``.  A handler takes a :class:`Request` and
-returns a :class:`Response`; :func:`json_response` serialises exactly as
-``aiohttp.web.json_response`` does (``json.dumps`` with its default
-separators, UTF-8, ``application/json; charset=utf-8``), so a body is
-byte for byte what the JAX node sends.
+keep-alive connections, ``Content-Length`` and chunked bodies, GET query
+strings and a route table of ``(method, path) -> handler``.  A handler
+takes a :class:`Request` and returns a :class:`Response`;
+:func:`json_response` serialises exactly as ``aiohttp.web.json_response``
+does (``json.dumps`` with its default separators, UTF-8,
+``application/json; charset=utf-8``), so a body is byte for byte what the
+JAX node sends.  As aiohttp does, a body at or over the cap raises
+:class:`BodyTooLarge` only when the handler reads it (the node answers
+aiohttp's 413 text), a HEAD response keeps the Content-Length of the body
+it leaves out, and an HTTP/1.0 request is answered in HTTP/1.0.
 
 :func:`fetch` is the matching client, one request per connection, for
 the tests and chip_smoke.py.
@@ -27,14 +30,35 @@ log = logging.getLogger("upow_tpu_torch.node.http")
 
 _MAX_HEAD = 64 * 1024          # request line + headers
 _KEEPALIVE_SECONDS = 75.0      # idle keep-alive connections close after this
+_CHUNK = 64 * 1024             # read size while draining a body
+
+
+class _Refused(Exception):
+    """A request body the server cannot frame: 400, or 501 for a
+    transfer coding other than chunked."""
+
+    def __init__(self, status: int = 400):
+        super().__init__(status)
+        self.status = status
+
+
+class BodyTooLarge(Exception):
+    """A body at or over the cap, raised on reading it, with aiohttp's
+    ``HTTPRequestEntityTooLarge`` text."""
+
+    def __init__(self, max_size: int, actual_size: int):
+        super().__init__(f"Maximum request body size {max_size} exceeded, "
+                         f"actual body size {actual_size}")
 
 
 class Request:
     """One parsed request: ``path`` is percent-decoded, ``query`` keeps
-    the first value of each key (as aiohttp's ``query.get`` does)."""
+    the first value of each key (as aiohttp's ``query.get`` does).
+    ``body_size`` is the body's length; the bytes are kept only below
+    ``max_body`` (0: no cap)."""
 
     def __init__(self, method: str, target: str, headers: Dict[str, str],
-                 body: bytes, peer_ip: str):
+                 body: bytes, body_size: int, max_body: int, peer_ip: str):
         self.method = method
         path, _, self.query_string = target.partition("?")
         self.path = unquote(path) or "/"
@@ -43,16 +67,25 @@ class Request:
                                     keep_blank_values=True):
             self.query.setdefault(key, value)
         self.headers = headers     # lower-case names
-        self.body = body
+        self._body = body
+        self.body_size = body_size
+        self.max_body = max_body
         self.peer_ip = peer_ip
 
     @property
     def host(self) -> str:
         return self.headers.get("host", "")
 
+    def read(self) -> bytes:
+        """The body; raises :class:`BodyTooLarge` at or over the cap (as
+        aiohttp's ``read`` does, ``>=``)."""
+        if self.max_body and self.body_size >= self.max_body:
+            raise BodyTooLarge(self.max_body, self.body_size)
+        return self._body
+
     def json(self):
         """The body parsed as JSON (raises ValueError when it is not)."""
-        return json.loads(self.body.decode("utf-8"))
+        return json.loads(self.read().decode("utf-8"))
 
 
 class Response:
@@ -134,32 +167,23 @@ class HttpServer:
                     return
                 method, target, version, headers = parsed
                 keep = _keep_alive(version, headers)
-                if "transfer-encoding" in headers:
+                try:
+                    body, size = await self._body(reader, headers)
+                except _Refused as e:
+                    phrase = HTTPStatus(e.status).phrase
                     await _write(writer, text_response(
-                        "501: Not Implemented", 501), False)
+                        f"{e.status}: {phrase}", e.status), False, version,
+                        method)
                     return
                 try:
-                    length = int(headers.get("content-length", "0"))
-                except ValueError:
-                    length = -1
-                if length < 0:
-                    await _write(writer, text_response(
-                        "400: Bad Request", 400), False)
-                    return
-                if length > self.max_body:
-                    await _write(writer, json_response(
-                        {"ok": False, "error": "Request body too large"},
-                        413), False)
-                    return
-                body = await reader.readexactly(length) if length else b""
-                try:
-                    response = await self.handler(
-                        Request(method, target, headers, body, peer_ip))
+                    response = await self.handler(Request(
+                        method, target, headers, body, size, self.max_body,
+                        peer_ip))
                 except Exception:  # the handler's own envelope failed
                     log.exception("unhandled error on %s %s", method, target)
                     response = text_response("500: Internal Server Error",
                                              500)
-                await _write(writer, response, keep)
+                await _write(writer, response, keep, version, method)
                 if not keep:
                     return
         except (asyncio.IncompleteReadError, ConnectionError):
@@ -167,6 +191,60 @@ class HttpServer:
         finally:
             self._writers.discard(writer)
             writer.close()
+
+    async def _body(self, reader: asyncio.StreamReader,
+                    headers: Dict[str, str]) -> Tuple[bytes, int]:
+        """Read the request's body off the connection: (the bytes, kept
+        only while under ``max_body``, and the body's full length).  A
+        body at or over the cap is read through and dropped, so that the
+        connection stays in step for the response."""
+        coding = headers.get("transfer-encoding")
+        if coding is not None:
+            if coding.lower() != "chunked":
+                raise _Refused(501)
+            try:
+                return await self._chunked(reader)
+            except (ValueError, asyncio.LimitOverrunError):
+                raise _Refused() from None
+        try:
+            length = int(headers.get("content-length", "0"))
+        except ValueError:
+            raise _Refused() from None
+        if length < 0:
+            raise _Refused()
+        if not self.max_body or length < self.max_body:
+            return (await reader.readexactly(length) if length else b""), length
+        left = length
+        while left:
+            left -= len(await reader.readexactly(min(left, _CHUNK)))
+        return b"", length
+
+    async def _chunked(self, reader: asyncio.StreamReader
+                       ) -> Tuple[bytes, int]:
+        """Decode a chunked body (RFC 9112 7.1; extensions and trailers
+        read and dropped); raises ValueError on a malformed one."""
+        parts, size = [], 0
+        while True:
+            line = await reader.readuntil(b"\r\n")
+            n = int(line.split(b";", 1)[0].strip(), 16)
+            if n < 0:
+                raise ValueError("chunk size")
+            if n == 0:
+                break
+            left = n
+            while left:
+                data = await reader.readexactly(min(left, _CHUNK))
+                left -= len(data)
+                if not self.max_body or size + n < self.max_body:
+                    parts.append(data)
+            size += n
+            if await reader.readexactly(2) != b"\r\n":
+                raise ValueError("chunk end")
+        while await reader.readuntil(b"\r\n") != b"\r\n":
+            pass                                # trailer fields
+        body = b"" if self.max_body and size >= self.max_body \
+            else b"".join(parts)
+        return body, size
 
 
 def _parse_head(head: bytes):
@@ -194,15 +272,19 @@ def _keep_alive(version: str, headers: Dict[str, str]) -> bool:
 
 
 async def _write(writer: asyncio.StreamWriter, response: Response,
-                 keep: bool) -> None:
+                 keep: bool, version: str = "HTTP/1.1",
+                 method: str = "GET") -> None:
+    """The status line in the request's version (HTTP/1.0 or 1.1); a
+    HEAD response carries the headers of the body it leaves out."""
     reason = HTTPStatus(response.status).phrase
-    lines = [f"HTTP/1.1 {response.status} {reason}",
+    version = "HTTP/1.0" if version == "HTTP/1.0" else "HTTP/1.1"
+    lines = [f"{version} {response.status} {reason}",
              f"Content-Type: {response.content_type}",
              f"Content-Length: {len(response.body)}",
              "Connection: " + ("keep-alive" if keep else "close")]
     lines += [f"{k}: {v}" for k, v in response.headers.items()]
     writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
-                 + response.body)
+                 + (b"" if method == "HEAD" else response.body))
     await writer.drain()
 
 
