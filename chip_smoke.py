@@ -54,7 +54,29 @@ Phases, one line each; any failure exits non-zero:
    blocks must be rejected with their strings) and to one on the
    Jacobian kernel, with wall time, launches and the profiler's idle
    share;
-9. the hash rate: one template at difficulty 10 swept over all 2^32 - 1
+9. kernel vs plain, the txid batch: the batched-digest kernel against its
+   plain version and hashlib, bit for bit, on the accept's micro-batch
+   shape (1,024 txs x 3 payloads: signing bytes, their hex form and the
+   txid payload), on the sync page (every tx of the chain with the
+   8,160-tx block) and on the padding edges (0, 1, 55, 56, 63, 64, 119,
+   120 and 1,000 bytes); per bucket the kernel's time with 10 launches
+   queued, the host pack, the host-to-device copy and hashlib on the
+   same payloads, and which backend ``auto`` picks for each shape; then
+   ``txid_batch`` whole on the card against hashlib at 256 to 24,480
+   payloads of the accept's mix, the measurement ``auto``'s size rule
+   (``crypto.sha256.TXID_AUTO_DEVICE_MIN``) is set from;
+10. chain sync: a port node on a fresh file syncs the whole chain (one
+   page: blocks 1-4 with the 8,160-tx block) from the node that accepted
+   the push_block under jac, over HTTP (``/sync_blockchain?node_url=``,
+   ``txid_backend = device``, ``sync_fetch_interval = 0``), with one txid
+   batch and one signature verify for the page; its tip and UTXO hash
+   must equal the server's, the integrity-sample and host-retry counters
+   must be 0; wall, launches, and the card's busy time and idle share;
+11. reorg: a port node holding the 3-block prefix and its own block 4' (a
+   coinbase mined on the card), ``sync_reorg_window = 2``, syncs from the
+   same server: it must find block 3 in common, remove 4' and accept the
+   8,160-tx block 4, ending on the server's tip and UTXO hash;
+12. the hash rate: one template at difficulty 10 swept over all 2^32 - 1
    nonces through ``mine(job, "cuda", batch=2**24)``, with the card's
    busy time and idle share from the profiler; then a difficulty-6.3 job
    mined to a hit that hashlib checks.
@@ -62,10 +84,14 @@ Phases, one line each; any failure exits non-zero:
 The line before the last is the kernels' JSON record; each kernel's
 ``launches`` is one path's own count (the accept's for the Jacobian
 kernel, the HTTP push_block's under complete for the complete kernel,
-``miner.run``'s for the sha256 kernel), and the complete kernel's
-``launches_by_path`` gives each path it ran on.  The last is
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script
-exits non-zero and prints no result.
+``miner.run``'s for the sha256 search kernel, the sync's for the txid
+kernel), and the complete kernel's ``launches_by_path`` gives each path
+it ran on.  Every phase that can reach the txid batch (6, 7, 8, 10 and
+11) counts its txid kernel launches and fails if hashlib stood in for a
+device digest there (``txid.sample_mismatch`` or
+``sync.host_txid_retry`` above 0).  The last is ``{"ok": true,
+"device": {...}}``.  Without a
+CUDA device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -86,7 +112,9 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from urllib.parse import quote
 
+import numpy as np
 import torch
 
 from upow_tpu_torch import _build, device as tdevice, trace
@@ -104,12 +132,17 @@ from upow_tpu_torch.node.http import fetch
 from upow_tpu_torch.state import ChainState
 from upow_tpu_torch.verify import BlockManager, txverify
 
-KERNELS = ["p256_verify", "p256_complete", "sha256_search"]
+KERNELS = ["p256_verify", "p256_complete", "sha256_search",
+           "sha256_blocks"]
 LANES = 8192
 FAN, PER = 255, 32          # 8,160 leaf spends: one full block
 GENESIS_PREV = (18_884_643).to_bytes(32, "little").hex()
 SEARCH_BATCH = 1 << 24      # the miner's dispatch (config device.search_batch)
 BURST = 1024                # concurrent push_tx in the node's burst
+MICROBATCH = 1024           # txs per check_block micro-batch (the default)
+TXID_EDGES = [0, 1, 55, 56, 63, 64, 119, 120, 1000]
+# payload counts of the txid batch's card-against-hashlib sweep
+TXID_SWEEP = [256, 512, 1024, 2048, 3072, 4096, 6144, 8192, 12288, 16384]
 KEY_SEED = 0xACC7           # the chain's and the miner's key
 SENTINEL = int(tsha.SENTINEL)
 # charset size -> the fractional part of the difficulty that gives it
@@ -143,6 +176,17 @@ def fail(msg: str) -> None:
 
 
 # --- phase 3 inputs --------------------------------------------------------
+
+def host_digest_fallbacks(where: str) -> dict:
+    """The two counters that say hashlib stood in for a wrong device
+    digest (the txid batch's integrity sample, the sync's merkle retry),
+    counted since the phase's ``trace.reset()``; fails on either."""
+    counters = {k: trace.snapshot()["counters"].get(k, 0) for k in (
+        "txid.sample_mismatch", "sync.host_txid_retry")}
+    if any(counters.values()):
+        fail(f"{where}: hashlib stood in for device digests: {counters}")
+    return counters
+
 
 def signature_mix(n: int, seed: int = 0x5A17):
     """(digests, sigs, pubs, kinds): a block's worth of signature lanes."""
@@ -368,7 +412,7 @@ def complete_phase(dev: torch.device, mix: tuple) -> dict:
           **p256.kernel_attributes("p256_complete", dev))
     return {"name": "p256_complete", "route": "cuda",
             "source": "upow_tpu_torch/csrc/p256_complete.cu",
-            "replaces": "upow_tpu/crypto/p256.py:548 (and :468)",
+            "replaces": "upow_tpu/crypto/p256.py:548",
             "launches": 0, "max_abs_err": max_abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -626,12 +670,14 @@ async def accept_path(dev: torch.device, kit: Kit, path: str, leaves,
     txverify.clear_sig_verdicts()
     trace.reset()
     p256.reset_counts()
+    tsha.reset_counts()
     prof = start_profiler()
     errors = []
     t0 = time.perf_counter()
     ok = await manager.create_block(content, leaves, errors=errors)
     accept_s = time.perf_counter() - t0
     launches, exc_lanes = p256.LAUNCHES, p256.EXCEPTION_LANES
+    txid_launches = tsha.BLOCKS_LAUNCHES
     device = device_busy(prof, "p256_verify_kernel")
     breakdown = accept_breakdown(trace.snapshot())
     if not ok:
@@ -661,9 +707,11 @@ async def accept_path(dev: torch.device, kit: Kit, path: str, leaves,
         fail(f"tampered blocks: {rejected}")
     if await state.get_unspent_outputs_hash() != post_hash:
         fail("a rejected block changed the UTXO set")
+    host_digest_fallbacks("accept")
     state.close()
     return {"txs": len(leaves), "accept_s": accept_s,
             "launches": launches, "exception_lanes": exc_lanes,
+            "txid_launches": txid_launches,
             "rejected": rejected, "breakdown": breakdown, "device": device,
             "difficulty": chain_difficulty}
 
@@ -674,11 +722,13 @@ class NodeThread:
     upow_tpu_torch.node.run --device cuda`` would be: ``Config.load`` over
     the environment, the database file, a free port."""
 
-    def __init__(self, dev: torch.device, db: str, kernel_env: str):
+    def __init__(self, dev: torch.device, db: str, kernel_env: str,
+                 **overrides):
         os.environ["UPOW_DEVICE_VERIFY_KERNEL"] = kernel_env
         try:
             self.cfg = Config.load(node__db_path=db, node__ip_config_file="",
-                                   node__host="127.0.0.1", node__port=0)
+                                   node__host="127.0.0.1", node__port=0,
+                                   **overrides)
         finally:
             del os.environ["UPOW_DEVICE_VERIFY_KERNEL"]
         self.loop = asyncio.new_event_loop()
@@ -767,7 +817,7 @@ def node_path(dev: torch.device, kit: Kit, workdir: Path, leaves) -> dict:
         rc = miner.run(kit.addr, node.url, "cuda", SEARCH_BATCH, 90.0,
                        once=True)
         run_s = time.perf_counter() - t0
-        sha_launches = tsha.LAUNCHES
+        sha_launches, txid_launches = tsha.LAUNCHES, tsha.BLOCKS_LAUNCHES
         after = len(node.request("get_pending_transactions")["result"])
         tip = node.call(node.node.state.get_last_block())
         if rc != 0 or tip["id"] != 4:
@@ -778,6 +828,7 @@ def node_path(dev: torch.device, kit: Kit, workdir: Path, leaves) -> dict:
             tip["hash"]))) - 1  # the block's txs, less its coinbase
         if before != BURST or before - after != taken:
             fail(f"pending {before} -> {after}, block took {taken}")
+        host_digest_fallbacks("node")
     finally:
         node.close()
     return {"burst": len(burst), "burst_s": burst_s, "complete": complete,
@@ -786,7 +837,8 @@ def node_path(dev: torch.device, kit: Kit, workdir: Path, leaves) -> dict:
                       "txs": taken, "tip": tip["id"],
                       "difficulty": float(tip["difficulty"]),
                       "pending": [before, after],
-                      "complete": p256.COMPLETE_LAUNCHES}}
+                      "complete": p256.COMPLETE_LAUNCHES,
+                      "txid_launches": txid_launches}}
 
 
 def push_block_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
@@ -800,13 +852,16 @@ def push_block_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
     try:
         body = {"block_content": content, "txs": [t.hex() for t in leaves]}
         txverify.clear_sig_verdicts()
+        trace.reset()
         p256.reset_counts()
+        tsha.reset_counts()
         prof = start_profiler()
         t0 = time.perf_counter()
         reply = node.request("push_block", body)
         wall_s = time.perf_counter() - t0
         out = {"wall_s": wall_s, "complete": p256.COMPLETE_LAUNCHES,
                "jac": p256.LAUNCHES, "exception_lanes": p256.EXCEPTION_LANES,
+               "txid_launches": tsha.BLOCKS_LAUNCHES,
                "device": device_busy(prof, KERNEL_NAMES[kernel]),
                "bytes": len(json.dumps(body))}
         if reply != {"ok": True}:
@@ -826,9 +881,232 @@ def push_block_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
             if rejected != REJECTED:
                 fail(f"tampered blocks over HTTP: {rejected}")
             out["rejected"] = rejected
+        host_digest_fallbacks(f"push_block under {kernel}")
     finally:
         node.close()
     return out
+
+
+# --- phases 9-11: the txid batch, chain sync and reorg -------------------------
+
+def micro_batch_payloads(leaves, n: int = MICROBATCH) -> list:
+    """The digest prep's payloads of an accept micro-batch of ``n`` txs:
+    per tx its signing bytes, their hex form and the txid payload."""
+    out = []
+    for tx in leaves[:n]:
+        signing = tx.hex(False)
+        out += [bytes.fromhex(signing), signing.encode(),
+                bytes.fromhex(tx.hex())]
+    return out
+
+
+def page_payloads(db: str) -> list:
+    """Every tx of the chain in ``db``: what one sync page of it hashes."""
+    with sqlite3.connect(db) as con:
+        return [bytes.fromhex(h) for (h,) in con.execute(
+            "SELECT tx_hex FROM transactions")]
+
+
+def txid_phase(dev: torch.device, shapes: dict) -> dict:
+    """The batched-digest kernel against its plain version (on the card)
+    and hashlib on each shape, bucket by bucket, with times; returns
+    the kernel's record (its ms and bound at the sync page's shape)."""
+    props = torch.cuda.get_device_properties(dev)
+    clock_mhz = tdevice.max_sm_clock_mhz() or props.clock_rate / 1000
+    clocks = max(tsha.BLOCK_ALU_OPS / INT_OPS_PER_SM_CLK,
+                 (tsha.BLOCK_ALU_OPS + tsha.BLOCK_ADD_OPS)
+                 / INT_ISSUE_PER_SM_CLK)
+    totals, worst = {}, 0
+    for shape, payloads in shapes.items():
+        want = [hashlib.sha256(m).digest() for m in payloads]
+        if tsha.sha256_batch(payloads, device=dev) != want:
+            fail(f"txid batch != hashlib on the {shape} shape")
+        buckets = tsha.n_blocks_of(np.array([len(m) for m in payloads]))
+        tot = collections.Counter()
+        for n_blocks in np.unique(buckets).tolist():
+            msgs = [payloads[i] for i in np.nonzero(buckets == n_blocks)[0]]
+            t0 = time.perf_counter()
+            words = tsha.pack_bucket(msgs, n_blocks)
+            pack_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            on_card = torch.from_numpy(words.view(np.int32)).to(dev)
+            torch.cuda.synchronize()
+            h2d_ms = (time.perf_counter() - t0) * 1e3
+            got = tsha.sha256_blocks(on_card, n_blocks)
+            plain = tsha.sha256_blocks_plain(on_card, n_blocks)
+            worst = max(worst, int((got.long() - plain.long()).abs().max()))
+            if not torch.equal(got, plain):
+                fail(f"txid kernel != plain: {shape}, {n_blocks} blocks")
+            ms = cuda_ms(lambda: tsha.sha256_blocks(on_card, n_blocks),
+                         reps=5, warm=2, per=10)
+            plain_ms = cuda_ms(lambda: tsha.sha256_blocks_plain(
+                on_card, n_blocks), reps=2, warm=1)
+            t0 = time.perf_counter()
+            for m in msgs:
+                hashlib.sha256(m).digest()
+            hashlib_ms = (time.perf_counter() - t0) * 1e3
+            compressions = len(msgs) * n_blocks
+            ops_ms = clocks * compressions / (
+                props.multi_processor_count * clock_mhz * 1e6) * 1e3
+            bytes_ms = (words.nbytes + len(msgs) * 32) / HBM_BYTES_S * 1e3
+            tot.update(ms=ms, plain_ms=plain_ms, pack_ms=pack_ms,
+                       h2d_ms=h2d_ms, hashlib_ms=hashlib_ms, ops_ms=ops_ms,
+                       bytes_ms=bytes_ms, rows=len(msgs),
+                       compressions=compressions, launches=1)
+            print(f"  txid {shape} blocks={n_blocks} rows={len(msgs)} "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+                  f"pack_ms={pack_ms:.3f} h2d_ms={h2d_ms:.3f} "
+                  f"hashlib_ms={hashlib_ms:.3f}", flush=True)
+        auto = tsha.txid_auto_backend(len(payloads), dev)
+        totals[shape] = dict(tot, auto=auto)
+        phase(f"txid_{shape}", payloads=len(payloads), equal=True,
+              buckets=tot["launches"], rows=tot["rows"],
+              compressions=tot["compressions"],
+              kernel_ms=round(tot["ms"], 4), plain_ms=round(tot["plain_ms"], 3),
+              pack_ms=round(tot["pack_ms"], 3),
+              h2d_ms=round(tot["h2d_ms"], 3),
+              hashlib_ms=round(tot["hashlib_ms"], 3),
+              bound_ms=round(max(tot["ops_ms"], tot["bytes_ms"]), 5),
+              auto_picks=auto)
+    page = totals["sync_page"]
+    bound_ms = max(page["ops_ms"], page["bytes_ms"])
+    attrs = tsha.blocks_kernel_attributes(dev)
+    phase("txid_kernel_vs_plain", shapes=json.dumps(sorted(shapes)),
+          equal=True, bound_share=round(bound_ms / page["ms"], 4),
+          alu_ops_per_block=tsha.BLOCK_ALU_OPS,
+          add_ops_per_block=tsha.BLOCK_ADD_OPS, clock_mhz=clock_mhz,
+          **attrs)
+    return {"name": "sha256_blocks", "route": "cuda",
+            "source": "upow_tpu_torch/csrc/sha256_blocks.cu",
+            "replaces": "upow_tpu/crypto/sha256.py:429",
+            "launches": 0, "max_abs_err": worst, "ms": page["ms"],
+            "plain_ms": page["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": "operations" if page["ops_ms"] >= page["bytes_ms"]
+            else "bytes",
+            "library_ms": None, "share": bound_ms / page["ms"],
+            "registers": attrs["registers"],
+            "ms_micro_batch": totals["micro_batch"]["ms"]}
+
+
+def txid_crossover(dev: torch.device, payloads: list) -> None:
+    """``txid_batch`` whole (pack, copy, launches, read-back, hex, the
+    integrity sample) on the card against hashlib, on leading slices of
+    the accept's payload mix: the median of 7 interleaved passes each.
+    Prints the smallest slice from which the card was faster at it and
+    every larger one, beside the size ``auto``'s rule uses."""
+    sizes = [n for n in TXID_SWEEP if n < len(payloads)] + [len(payloads)]
+    tsha.txid_batch(payloads[:sizes[0]], "device", 1, dev)  # warm
+    host_ms, device_ms = [], []
+    for n in sizes:
+        batch = payloads[:n]
+        times = {"host": [], "device": []}
+        for _ in range(7):
+            for backend in times:
+                t0 = time.perf_counter()
+                tsha.txid_batch(batch, backend, 1, dev)
+                times[backend].append((time.perf_counter() - t0) * 1e3)
+        host_ms.append(statistics.median(times["host"]))
+        device_ms.append(statistics.median(times["device"]))
+    device_from = None
+    for i in range(len(sizes) - 1, -1, -1):
+        if device_ms[i] >= host_ms[i]:
+            break
+        device_from = sizes[i]
+    phase("txid_crossover", sizes=json.dumps(sizes),
+          host_ms=json.dumps([round(t, 3) for t in host_ms]),
+          device_ms=json.dumps([round(t, 3) for t in device_ms]),
+          device_faster_from=device_from,
+          auto_device_min=tsha.TXID_AUTO_DEVICE_MIN)
+
+
+def sync_request(node: NodeThread, peer: NodeThread) -> dict:
+    return node.request("sync_blockchain?node_url="
+                        + quote(peer.url.rstrip("/"), safe=""))
+
+
+def same_chain(node: NodeThread, server: NodeThread) -> tuple:
+    """(tip, UTXO hash) of ``node``; fails unless they are the server's."""
+    got = [(n.call(n.node.state.get_last_block())["hash"],
+            n.call(n.node.state.get_unspent_outputs_hash()))
+           for n in (node, server)]
+    if got[0] != got[1]:
+        fail(f"synced node at {got[0]}, server at {got[1]}")
+    return got[0]
+
+
+def sync_path(dev: torch.device, workdir: Path, server: NodeThread) -> dict:
+    """A port node on a fresh file syncs the served chain in one page."""
+    node = NodeThread(dev, str(workdir / "sync.db"), "jac",
+                      device__txid_backend="device",
+                      node__sync_fetch_interval=0)
+    try:
+        txverify.clear_sig_verdicts()
+        trace.reset()
+        tsha.reset_counts()
+        p256.reset_counts()
+        prof = start_profiler()
+        t0 = time.perf_counter()
+        reply = sync_request(node, server)
+        wall_s = time.perf_counter() - t0
+        b5, jac = tsha.BLOCKS_LAUNCHES, p256.LAUNCHES
+        dev_use = device_busy(prof, "sha256_blocks_kernel")
+        snap = trace.snapshot()
+        if reply != {"ok": True, "peer": server.url.rstrip("/")}:
+            fail(f"sync: {reply}")
+        tip, utxo = same_chain(node, server)
+        txs = node.call(node.node.state.get_next_block_id()) - 1
+        counters = host_digest_fallbacks("sync")
+        pages = {k: snap["spans"].get(k, {}).get("count", 0) for k in (
+            "sync.page_txids", "sync.page_sig_prefill")}
+        if b5 == 0 or jac == 0 or pages != {"sync.page_txids": 1,
+                                             "sync.page_sig_prefill": 1}:
+            fail(f"sync launches: txid {b5}, jac {jac}, pages {pages}")
+        n_txs = len(page_payloads(str(workdir / "sync.db")))
+    finally:
+        node.close()
+    return {"wall_s": wall_s, "blocks": txs, "txs": n_txs, "b5": b5,
+            "jac": jac, "device": dev_use, "counters": counters,
+            "pages": pages, "tip": tip, "utxo": utxo}
+
+
+def reorg_path(dev: torch.device, kit: Kit, workdir: Path,
+               server: NodeThread) -> dict:
+    """A port node on the 3-block prefix mines its own block 4' on the
+    card, then syncs from the server with a reorg window of 2."""
+    db = str(workdir / "reorg.db")
+    shutil.copyfile(workdir / "base.db", db)
+    node = NodeThread(dev, db, "jac", node__sync_reorg_window=2,
+                      node__sync_fetch_interval=0)
+    try:
+        clock.advance(60)
+        manager = node.node.manager
+        content = node.call(kit.header(manager, []))
+        errors = []
+        if not node.call(manager.create_block(content, [], errors=errors)):
+            fail(f"block 4' rejected: {errors}")
+        fork = node.call(node.node.state.get_last_block())
+        removed = []
+        node.node.state.on_blocks_removed = removed.append
+        txverify.clear_sig_verdicts()
+        trace.reset()
+        tsha.reset_counts()
+        p256.reset_counts()
+        t0 = time.perf_counter()
+        reply = sync_request(node, server)
+        wall_s = time.perf_counter() - t0
+        b5, jac = tsha.BLOCKS_LAUNCHES, p256.LAUNCHES
+        if reply != {"ok": True, "peer": server.url.rstrip("/")}:
+            fail(f"reorg sync: {reply}")
+        host_digest_fallbacks("reorg")
+        if removed != [4] or node.call(
+                node.node.state.get_block(fork["hash"])) is not None:
+            fail(f"block 4' not removed: {removed}")
+        tip, utxo = same_chain(node, server)
+    finally:
+        node.close()
+    return {"wall_s": wall_s, "fork_id": fork["id"], "removed": removed,
+            "b5": b5, "jac": jac, "tip": tip}
 
 
 # --- phase 7: the hash rate ---------------------------------------------------
@@ -981,7 +1259,8 @@ def main() -> int:
         for line in _build.ptxas_report(k).splitlines():
             if "registers" in line or "spill" in line or "stack" in line:
                 print(f"  ptxas {k}: {line.strip()}", flush=True)
-    for k, inside in (("sha256_search", ""), ("p256_verify", "WARPSYNC"),
+    for k, inside in (("sha256_search", ""), ("sha256_blocks", ""),
+                      ("p256_verify", "WARPSYNC"),
                       ("p256_complete", "WARPSYNC")):
         total, loop = sass_counts(k, inside)
         print(f"  sass {k}: instructions={total or 'not_measured'} "
@@ -1006,7 +1285,21 @@ def main() -> int:
         nres = node_path(dev, kit, workdir, leaves)
         pushes = {k: push_block_path(dev, kit, workdir, leaves, content, k)
                   for k in ("complete", "jac")}
+        txid_record = txid_phase(dev, {
+            "micro_batch": micro_batch_payloads(leaves),
+            "sync_page": page_payloads(str(workdir / "push_jac.db")),
+            "edges": [random.Random(e).randbytes(e) for e in TXID_EDGES]})
+        txid_crossover(dev, micro_batch_payloads(leaves, len(leaves)))
+        # the server: the chain with the 8,160-tx block, as the jac
+        # push_block left it
+        server = NodeThread(dev, str(workdir / "push_jac.db"), "jac")
+        try:
+            synced = sync_path(dev, workdir, server)
+            reorged = reorg_path(dev, kit, workdir, server)
+        finally:
+            server.close()
     clock.reset()
+    txid_record["launches"] = synced["b5"]
     record["launches"] = res["launches"]
     sha_record["launches"] = nres["miner"]["launches"]
     # one path's own count (the 8,160-tx push_block under complete), and
@@ -1024,6 +1317,7 @@ def main() -> int:
     phase("main_path", txs=res["txs"], accept_s=round(res["accept_s"], 3),
           tx_per_s=round(res["txs"] / res["accept_s"], 1),
           launches=res["launches"], exception_lanes=res["exception_lanes"],
+          txid_launches=res["txid_launches"],
           chain_setup_s=round(setup_s, 1),
           rejected=json.dumps(res["rejected"]), card=json.dumps(card))
     phase("accept_breakdown", **res["breakdown"])
@@ -1041,6 +1335,7 @@ def main() -> int:
           txs=mined["txs"], pending=json.dumps(mined["pending"]),
           difficulty=mined["difficulty"], launches=mined["launches"],
           complete_launches=mined["complete"],
+          txid_launches=mined["txid_launches"],
           seconds=round(mined["run_s"], 3))
     for kernel, out in pushes.items():
         busy = out["device"].get("busy_s")
@@ -1049,10 +1344,28 @@ def main() -> int:
               tx_per_s=round(len(leaves) / out["wall_s"], 1),
               complete_launches=out["complete"], jac_launches=out["jac"],
               exception_lanes=out["exception_lanes"],
+              txid_launches=out["txid_launches"],
               busy_s="not_measured" if busy is None else round(busy, 4),
               idle_share="not_measured" if busy is None
               else round(1 - busy / out["wall_s"], 4),
               rejected=json.dumps(out.get("rejected")), card=json.dumps(card))
+
+    phase("sync_path", blocks=synced["blocks"], txs=synced["txs"],
+          wall_s=round(synced["wall_s"], 3),
+          tx_per_s=round(synced["txs"] / synced["wall_s"], 1),
+          txid_launches=synced["b5"], jac_launches=synced["jac"],
+          page_txid_batches=synced["pages"]["sync.page_txids"],
+          page_sig_verifies=synced["pages"]["sync.page_sig_prefill"],
+          sample_mismatch=synced["counters"]["txid.sample_mismatch"],
+          host_txid_retry=synced["counters"]["sync.host_txid_retry"],
+          tip=synced["tip"][:16], card=json.dumps(card))
+    device_phase("sync_device_profile", synced["device"], synced["wall_s"])
+    phase("reorg_path", fork_block=reorged["fork_id"],
+          removed_from=json.dumps(reorged["removed"]),
+          wall_s=round(reorged["wall_s"], 3),
+          txid_launches=reorged["b5"], jac_launches=reorged["jac"],
+          txid_backend="auto", tip=reorged["tip"][:16],
+          card=json.dumps(card))
 
     rate = hashrate_phase(key)
     phase("hashrate", hashes=rate["tried"], seconds=round(rate["seconds"], 4),
@@ -1063,8 +1376,13 @@ def main() -> int:
     phase("difficulty_6_3", nonce=rate["nonce_6_3"], hashlib_checked=True,
           hashes=rate["tried_6_3"], seconds=round(rate["seconds_6_3"], 4))
 
-    print(json.dumps({"kernels": [record, complete_record, sha_record]}),
-          flush=True)
+    # kernels 3 and 4 of the TPU package are one CUDA kernel: one record
+    # for each TPU kernel it replaces, with the same measurements
+    stacked_record = dict(complete_record,
+                          replaces="upow_tpu/crypto/p256.py:468",
+                          same_kernel_as="upow_tpu/crypto/p256.py:548")
+    print(json.dumps({"kernels": [record, complete_record, stacked_record,
+                                  sha_record, txid_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

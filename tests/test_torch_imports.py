@@ -6,7 +6,8 @@ A subprocess puts a finder on ``sys.meta_path`` that refuses ``jax``,
 JAX node's server; the port's node serves on the standard library), then
 imports every module of the port, and ``chip_smoke.py`` with it.  A second
 subprocess starts the port's node under the same finder and serves a
-request.
+request; a third builds a two-block chain on one port node and syncs a
+second from it over HTTP (``node/peers.py``'s client).
 """
 
 import os
@@ -55,9 +56,61 @@ def serve():
             await node.close()
     asyncio.run(main())
     print("served")
+
+
+def sync():
+    import asyncio, json, time
+    from decimal import Decimal
+    from urllib.parse import quote
+    from upow_tpu_torch.config import Config
+    from upow_tpu_torch.core import clock, curve, difficulty, point_to_string
+    from upow_tpu_torch.core.header import BlockHeader
+    from upow_tpu_torch.core.merkle import merkle_root
+    from upow_tpu_torch.node.app import GENESIS_PREV_HASH, Node
+    from upow_tpu_torch.node.http import fetch
+
+    difficulty.START_DIFFICULTY = Decimal("1.0")
+    clock.freeze(int(time.time()) - 600)
+    addr = point_to_string(curve.keygen(rng=7)[1])
+
+    async def main():
+        nodes = [Node(Config.load(node__db_path="", node__ip_config_file="",
+                                  node__sync_fetch_interval=0), device="cpu")
+                 for _ in range(2)]
+        try:
+            urls = []
+            for node in nodes:
+                server = await node.serve("127.0.0.1", 0)
+                urls.append("http://127.0.0.1:%d" % server.port)
+            manager = nodes[0].manager
+            for _ in range(2):
+                clock.advance(60)
+                diff, last = await manager.calculate_difficulty()
+                prev = last["hash"] if last else GENESIS_PREV_HASH
+                h = BlockHeader(previous_hash=prev, address=addr,
+                                merkle_root=merkle_root([]),
+                                timestamp=clock.timestamp(),
+                                difficulty_x10=int(diff * 10), nonce=0)
+                while last and not difficulty.check_pow(h.hex(), prev, diff):
+                    h.nonce += 1
+                assert await manager.create_block(h.hex(), [])
+            status, body = await fetch(
+                urls[1] + "/sync_blockchain?node_url=" + quote(urls[0]))
+            assert status == 200 and json.loads(body)["ok"], body
+            tips = [await n.state.get_last_block() for n in nodes]
+            assert tips[0]["id"] == 2 and tips[0] == tips[1], tips
+        finally:
+            for node in nodes:
+                await node.close()
+    asyncio.run(main())
+    print("synced")
+
+
 for name in sys.argv[1:]:
     if name == "--serve":
         serve()
+    elif name == "--sync":
+        sync()
     else:
         importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -83,8 +136,8 @@ def test_every_port_module_imports_without_jax():
                  "crypto.sha256", "config", "parallel.multihost",
                  "mine.engine", "mine.miner", "mempool", "mempool.pool",
                  "mempool.intake", "mempool.template", "node.app",
-                 "node.http", "node.ratelimit", "node.ipfilter",
-                 "node.run"):
+                 "node.http", "node.peers", "node.ratelimit",
+                 "node.ipfilter", "node.run"):
         assert "upow_tpu_torch." + must in names, must
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(
@@ -101,6 +154,15 @@ def test_port_node_serves_without_jax_or_aiohttp():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "served" in out.stdout
+
+
+def test_port_node_syncs_without_jax_or_aiohttp():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKER, "--sync"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "synced" in out.stdout
 
 
 def test_port_sources_name_no_jax_import():

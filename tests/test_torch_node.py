@@ -351,14 +351,18 @@ def test_config_reads_the_jax_file_and_environment(tmp_path, monkeypatch):
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps({
         "node": {"port": 3111, "mempool_clean_interval": 30,
-                 "seed_url": "", "self_url": "http://10.0.0.1:3111"},
+                 "seed_url": "", "self_url": "http://10.0.0.1:3111",
+                 "sync_page": 50, "sync_reorg_window": 7},
         "mempool": {"coalesce_window_ms": 5.0, "max_intake_batch": 64,
                     "allow_rbf": True, "reinject_on_reorg": False},
-        "device": {"verify_kernel": "jac", "verify_window": 4},
+        "device": {"verify_kernel": "jac", "verify_window": 4,
+                   "txid_backend": "device"},
         "cache": {"enabled": False}}))
     monkeypatch.setenv("UPOW_DEVICE_VERIFY_KERNEL", "complete")
     monkeypatch.setenv("UPOW_MEMPOOL_ENABLED", "false")
     monkeypatch.setenv("UPOW_NODE_RATE_LIMITS_ENABLED", "0")
+    monkeypatch.setenv("UPOW_NODE_SYNC_FETCH_INTERVAL", "0.25")
+    monkeypatch.setenv("UPOW_DEVICE_TXID_MIN_BATCH", "64")
     got = tconfig.Config.load(str(path), node__host="127.0.0.1")
     want = jconfig.Config.load(str(path), node__host="127.0.0.1")
     for section in ("device", "node", "mempool"):
@@ -367,10 +371,14 @@ def test_config_reads_the_jax_file_and_environment(tmp_path, monkeypatch):
                 getattr(getattr(want, section), f.name), (section, f.name)
     assert got.device.verify_kernel == "complete"
     assert got.node.port == 3111 and got.mempool.max_intake_batch == 64
+    assert (got.node.sync_page, got.node.sync_reorg_window,
+            got.node.sync_fetch_interval) == (50, 7, 0.25)
+    assert (got.device.txid_backend, got.device.txid_min_batch) == \
+        ("device", 64)
+    assert got.mempool.reinject_on_reorg is False
     # read by the JAX node, skipped by the port's until a slice reads them
     assert not want.mempool.enabled and want.mempool.allow_rbf
     for section, name in (("mempool", "enabled"), ("mempool", "allow_rbf"),
-                          ("mempool", "reinject_on_reorg"),
                           ("node", "self_url")):
         assert not hasattr(getattr(got, section), name)
     got.device.apply_kernel_overrides()

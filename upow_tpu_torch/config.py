@@ -8,11 +8,11 @@ JSON config file, ``UPOW_<SECTION>_<FIELD>`` environment variables
 package's names and precedence, so a config file or environment that the
 JAX node reads configures the port's node the same way.  Sections and
 fields the port does not have yet (the resilience, cache, snapshot,
-archive, telemetry and watchtower settings, ``device.verify_window``, the
-node's peer, gossip and sync settings with ``node.self_url``, and
-``mempool.allow_rbf`` and ``mempool.reinject_on_reorg``) come with the
-slices that read them (ROADMAP.md); a config file naming them is read,
-and they are skipped.  So is ``mempool.enabled``: the port's node always
+archive, telemetry and watchtower settings, ``device.verify_window``,
+``device.utxo_index``, the node's peer and gossip settings with
+``node.self_url``, and ``mempool.allow_rbf``) come with the slices that
+read them (ROADMAP.md); a config file naming them is read, and they are
+skipped.  So is ``mempool.enabled``: the port's node always
 admits through the coalescing intake, whose replies are byte for byte
 those of the JAX node's serial path.
 """
@@ -41,6 +41,14 @@ class DeviceConfig:
                                     # digest prep of batch N overlaps the
                                     # in-flight sig verify of batch N-1
                                     # (verify/block.py); 0 = whole block
+    txid_backend: str = "auto"      # auto | device | host: the txid
+                                    # batch of a sync page and the txid
+                                    # and signing-digest batch of a
+                                    # check_block micro-batch
+                                    # (crypto/sha256.txid_batch); auto
+                                    # takes the device from a batch size
+                                    # (sha256.TXID_AUTO_DEVICE_MIN)
+    txid_min_batch: int = 256       # below this many payloads, hashlib
 
     def apply_kernel_overrides(self) -> None:
         """Push ``verify_kernel`` into ``crypto.p256.VERIFY_KERNEL``
@@ -79,6 +87,8 @@ class MempoolConfig:
     tx_cache_size: int = 1 << 16    # push_tx dedup set capacity
                                     # (replaces the 100-entry deque)
     tx_cache_ttl: float = 600.0     # seconds a dedup entry stays live
+    reinject_on_reorg: bool = True  # re-queue txs from rolled-back
+                                    # blocks into the journal and pool
 
 
 @dataclass
@@ -87,7 +97,14 @@ class NodeConfig:
     port: int = 3006                # reference run_node.py port
     db_path: str = "upow_tpu.db"    # sqlite file ('' -> in-memory)
     ip_config_file: str = "ip_config.json"
-    response_cap: int = 20 * 1024 * 1024  # request body cap
+    response_cap: int = 20 * 1024 * 1024  # request body cap, and the
+                                    # cap on a peer's response
+    http_timeout: float = 30.0      # seconds for one request to a peer
+    sync_reorg_window: int = 500    # main.py:167-185
+    sync_page: int = 1000           # block download page (main.py:188-192)
+    sync_fetch_interval: float = 1.7  # least seconds between get_blocks
+                                    # fetches: the peer allows 40/min,
+                                    # and the next page is prefetched
     mempool_clean_interval: int = 600  # main.py:678-683
     rate_limits_enabled: bool = True   # slowapi parity (main.py:55)
 

@@ -1,4 +1,4 @@
-"""SHA-256 proof-of-work search: midstate split + one compression per nonce.
+"""SHA-256 on the card: the proof-of-work search and batched digests.
 
 The uPow header puts the 4-byte nonce at the very end (core/header.py), so
 a mining template factors as
@@ -21,18 +21,38 @@ wire format.  The search is new:
 Both return a 0-d int64 tensor whose ``int()`` is the least nonce in
 ``[nonce_base, nonce_base + count)`` that meets the target, or
 :data:`SENTINEL`.  Neither waits for the card: ``int()`` does.
+
+The batched digests of whole messages (txids and signing digests, the
+JAX package's ``_sha256_blocks_jnp``, ``sha256_batch_jnp`` and
+``txid_batch``) follow the same pattern:
+
+* :func:`sha256_blocks_plain` — the plain PyTorch version over
+  pre-padded words of one length bucket;
+* :func:`sha256_blocks` — the wrapper: a CUDA tensor launches
+  ``csrc/sha256_blocks.cu``, a CPU tensor runs the plain version;
+* :func:`sha256_batch` pads and buckets messages, and :func:`txid_batch`
+  chooses between hashlib and the device under the JAX package's
+  ``host | device | auto`` names (``auto`` a size rule here) and keeps
+  its integrity sample.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import logging
+import random
 import threading
-from typing import NamedTuple, Sequence, Tuple
+import time
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import DeviceLike, resolve
+
+log = logging.getLogger("upow_tpu_torch.crypto")
 
 # --- constants -----------------------------------------------------------
 
@@ -65,16 +85,19 @@ MASK32 = 0xFFFFFFFF
 # Lanes of one plain-version pass: 32 MB per int64 temporary.
 PLAIN_CHUNK = 1 << 22
 
-# Kernel launches (a plain integer, read by chip_smoke.py).  Miners may
+# Kernel launches (plain integers, read by chip_smoke.py): the nonce
+# search's and the batched digests'.  Miners and the node's executor
 # dispatch from worker threads, so updates take the lock.
 LAUNCHES = 0
+BLOCKS_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
-    global LAUNCHES
+    global LAUNCHES, BLOCKS_LAUNCHES
     with _COUNT_LOCK:
         LAUNCHES = 0
+        BLOCKS_LAUNCHES = 0
 
 
 # --- pure-Python compression (host midstate) -----------------------------
@@ -221,9 +244,9 @@ def _rotr(x, n: int):
     return (x >> n) | ((x << (32 - n)) & MASK32)
 
 
-def _compress_plain(midstate: Sequence[int], w: list) -> list:
+def _compress_plain(midstate: Sequence, w: list) -> list:
     """One compression over 16 message words (ints or int64 tensors) from
-    ``midstate``; returns the 8 digest words."""
+    ``midstate`` (ints or int64 tensors); returns the 8 digest words."""
     w = list(w)
     a, b, c, d, e, f, g, h = midstate
     for i in range(64):
@@ -239,7 +262,8 @@ def _compress_plain(midstate: Sequence[int], w: list) -> list:
         maj = (a & b) ^ (a & c) ^ (b & c)
         a, b, c, d, e, f, g, h = (t1 + s0 + maj) & MASK32, a, b, c, \
             (d + t1) & MASK32, e, f, g
-    return [(int(m) + x) & MASK32 for m, x in zip(midstate, (a, b, c, d, e, f, g, h))]
+    return [((m if isinstance(m, torch.Tensor) else int(m)) + x) & MASK32
+            for m, x in zip(midstate, (a, b, c, d, e, f, g, h))]
 
 
 def _build_w(tail_words, nonces: torch.Tensor, nonce_spec) -> list:
@@ -317,24 +341,31 @@ def kernel_args(template: SearchTemplate, target, nonce_base: int,
     return args
 
 
-_LIB = None
+_LIBS: dict = {}
 _LIB_LOCK = threading.Lock()
+# each library's launch entry and its ctypes argument types
+_ENTRIES = {
+    "sha256_search": ("sha256_search_launch", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+    "sha256_blocks": ("sha256_blocks_launch", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]),
+}
 
 
-def _kernel_lib():
-    """Build (at first use) and load the kernel library."""
-    global _LIB
+def _kernel_lib(name: str = "sha256_search"):
+    """Build (at first use) and load ``csrc/<name>.cu``."""
     with _LIB_LOCK:
-        if _LIB is None:
+        lib = _LIBS.get(name)
+        if lib is None:
             from .. import _build
 
-            lib = _build.load("sha256_search")
-            lib.sha256_search_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_void_p]
-            lib.sha256_search_launch.restype = ctypes.c_int
-            _LIB = lib
-    return _LIB
+            lib = _build.load(name)
+            entry, argtypes = _ENTRIES[name]
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = ctypes.c_int
+            _LIBS[name] = lib
+    return lib
 
 
 def pow_search(template: SearchTemplate, target, nonce_base: int, count: int,
@@ -369,6 +400,243 @@ def pow_search(template: SearchTemplate, target, nonce_base: int, count: int,
     with _COUNT_LOCK:
         LAUNCHES += 1
     return out
+
+
+# --- batched digests of whole messages (txids) ---------------------------
+#
+# A message of length L is padded as the JAX package pads it, to
+# n_blocks = (L + 8) // 64 + 1 blocks: the bytes, 0x80, (55 - L) % 64
+# zero bytes and the bit length as 8 big-endian bytes.  Messages of one
+# block count form a bucket; a bucket is one kernel launch (or one plain
+# pass) over (rows, n_blocks * 16) big-endian words.
+
+def sha256_blocks_plain(words: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """(batch, n_blocks * 16) padded big-endian message words (any integer
+    dtype holding the 32-bit pattern) -> (batch, 8) int32 digest words,
+    the JAX package's ``_sha256_blocks_jnp``.  int64 arithmetic masked to
+    32 bits, as in :func:`pow_search_plain`."""
+    _check_words(words, n_blocks)
+    w = words.to(torch.int64) & MASK32
+    state = [int(x) for x in _H0]
+    for b in range(n_blocks):
+        state = _compress_plain(state, [w[:, b * 16 + i] for i in range(16)])
+    if not w.shape[0]:
+        return torch.empty((0, 8), dtype=torch.int32, device=w.device)
+    # int64 -> int32 keeps the low 32 bits: the same bit pattern
+    return torch.stack(state, dim=1).to(torch.int32)
+
+
+def _check_words(words: torch.Tensor, n_blocks: int) -> None:
+    if n_blocks < 1 or words.dim() != 2 or words.shape[1] != n_blocks * 16:
+        raise ValueError(f"expected (batch, {n_blocks * 16}) words for "
+                         f"{n_blocks} blocks, got {tuple(words.shape)}")
+
+
+def sha256_blocks(words, n_blocks: int,
+                  device: DeviceLike = None) -> torch.Tensor:
+    """(batch, n_blocks * 16) padded big-endian message words -> (batch, 8)
+    int32 digest words.
+
+    ``words`` is a tensor, which runs where it lies, or a numpy uint32
+    array, which is copied to ``device`` (the card unless ``"cpu"``).  A
+    CUDA tensor launches ``csrc/sha256_blocks.cu`` on the current stream
+    and returns at once; a CPU tensor runs :func:`sha256_blocks_plain`.
+    No fallback between the two: a failed build, load or launch raises."""
+    global BLOCKS_LAUNCHES
+    if isinstance(words, np.ndarray):
+        words = torch.from_numpy(
+            np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
+        ).to(resolve(device))
+    _check_words(words, n_blocks)
+    if words.device.type == "cpu":
+        return sha256_blocks_plain(words, n_blocks)
+    if words.device.type != "cuda" or words.dtype != torch.int32:
+        raise ValueError(f"expected int32 words on a CUDA device, got "
+                         f"{words.dtype} on {words.device}")
+    words = words.contiguous()
+    if words.data_ptr() % 16:  # the kernel reads 16 bytes at a time
+        words = words.clone()
+    batch = words.shape[0]
+    out = torch.empty((batch, 8), dtype=torch.int32, device=words.device)
+    if batch == 0:
+        return out
+    lib = _kernel_lib("sha256_blocks")
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.sha256_blocks_launch(words.data_ptr(), out.data_ptr(),
+                                      batch, n_blocks, stream)
+    if rc != 0:
+        raise RuntimeError(f"sha256_blocks launch failed: CUDA error {rc}")
+    with _COUNT_LOCK:
+        BLOCKS_LAUNCHES += 1
+    return out
+
+
+def blocks_kernel_attributes(device: DeviceLike = None) -> dict:
+    """Threads a block, registers and local-memory bytes a thread of the
+    batched-digest kernel on a card (``cudaFuncGetAttributes``)."""
+    dev = resolve(device)
+    lib = _kernel_lib("sha256_blocks")
+    vals = (ctypes.c_int * 3)()
+    lib.sha256_blocks_attributes.argtypes = [ctypes.c_void_p]
+    lib.sha256_blocks_attributes.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = lib.sha256_blocks_attributes(ctypes.addressof(vals))
+    if rc != 0:
+        raise RuntimeError(f"sha256_blocks_attributes: CUDA error {rc}")
+    return dict(zip(("threads", "registers", "local_bytes"), vals))
+
+
+def n_blocks_of(length):
+    """Padded 64-byte blocks of a message of ``length`` bytes (an int or
+    a numpy array of them)."""
+    return (length + 8) // 64 + 1
+
+
+def pack_bucket(messages: Sequence[bytes], n_blocks: int) -> np.ndarray:
+    """Pad messages of one bucket into (rows, n_blocks * 16) uint32 words
+    in bulk: the messages of each length (a bucket holds at most 64)
+    joined and copied into a zeroed buffer as one 2-D block, then the
+    0x80 bytes and the bit lengths, then one byte swap of the buffer."""
+    rows, width = len(messages), n_blocks * 64
+    lens = np.fromiter(map(len, messages), dtype=np.int64, count=rows)
+    if rows and int(lens.max()) + 9 > width:
+        raise ValueError(f"a message of {int(lens.max())} bytes does not "
+                         f"fit {n_blocks} blocks")
+    buf = np.zeros((rows, width), dtype=np.uint8)
+    for length in np.unique(lens).tolist():
+        idx = np.nonzero(lens == length)[0]
+        if length:
+            joined = b"".join([messages[i] for i in idx.tolist()])
+            buf[idx, :length] = np.frombuffer(joined, dtype=np.uint8) \
+                .reshape(len(idx), length)
+        buf[idx, length] = 0x80
+    buf[:, width - 8:] = (lens * 8).astype(">u8").view(np.uint8).reshape(
+        rows, 8)
+    return buf.view(">u4").astype(np.uint32)
+
+
+def _digest_array(messages: Sequence[bytes],
+                  device: DeviceLike = None) -> np.ndarray:
+    """(len(messages), 32) uint8 digests in input order: one
+    :func:`sha256_blocks` per bucket, every bucket launched before the
+    first is read back."""
+    dev = resolve(device)
+    out = np.empty((len(messages), 32), dtype=np.uint8)
+    lens = np.fromiter(map(len, messages), dtype=np.int64,
+                       count=len(messages))
+    buckets = n_blocks_of(lens)
+    pending = []
+    for n_blocks in np.unique(buckets).tolist():
+        idxs = np.nonzero(buckets == n_blocks)[0]
+        rows = pack_bucket([messages[i] for i in idxs.tolist()], n_blocks)
+        t0 = time.perf_counter()
+        pending.append((idxs, n_blocks, t0,
+                        sha256_blocks(rows, n_blocks, dev)))
+    for idxs, n_blocks, t0, digest in pending:
+        words = digest.cpu().numpy().view(np.uint32)
+        out[idxs] = words.astype(">u4").view(np.uint8).reshape(-1, 32)
+        trace.record_batch("sha256_txid", real=int(lens[idxs].sum()),
+                           padded=len(idxs) * n_blocks * 64,
+                           seconds=time.perf_counter() - t0)
+    return out
+
+
+def sha256_batch(messages: Sequence[bytes],
+                 device: DeviceLike = None) -> List[bytes]:
+    """sha256 of every message, in input order (the JAX package's
+    ``sha256_batch_jnp``): bucketed by padded block count, one
+    :func:`sha256_blocks` per bucket on ``device`` (the card unless
+    ``"cpu"``)."""
+    raw = _digest_array(messages, device).tobytes()
+    return [raw[i:i + 32] for i in range(0, len(raw), 32)]
+
+
+# ``auto`` takes the device for a batch of at least this many payloads
+# on a card, hashlib below it and always on the CPU.  The device's whole
+# path (pack, copy, launches, read-back, hex) against hashlib on the
+# accept's payload mix, in three runs of the ``txid_crossover`` line of
+# chip_smoke.py on an H100 at 700 W: faster at 16,384 payloads in all
+# three (by 2-11 %), at 24,480 in two, at 6,144 and 12,288 in one each,
+# at 8,192 and at 4,096 or fewer in none
+TXID_AUTO_DEVICE_MIN = 16384
+_TXID_SAMPLE_SALT = 0  # per-call roam counter of the integrity sample
+_TXID_LOCK = threading.Lock()
+TXID_SAMPLES = 8
+
+
+def _host_txids(payloads: Sequence[bytes]) -> List[str]:
+    return [hashlib.sha256(p).hexdigest() for p in payloads]
+
+
+def txid_auto_backend(n_payloads: int, device: torch.device) -> str:
+    """What ``auto`` runs for a batch of ``n_payloads`` on ``device``."""
+    if device.type == "cpu" or n_payloads < TXID_AUTO_DEVICE_MIN:
+        return "host"
+    return "device"
+
+
+def txid_batch(payloads: Sequence[bytes], backend: str = "auto",
+               min_batch: int = 256, device: DeviceLike = None) -> List[str]:
+    """Hex sha256 digests of ``payloads`` (the txids of a sync page, or
+    the txids and signing digests of a block's verify micro-batch), in
+    input order.
+
+    ``backend`` is one of the JAX package's three:
+
+    * ``host``: hashlib, one payload at a time;
+    * ``device``: :func:`sha256_batch` on ``device`` (the card unless
+      ``"cpu"``, where it runs the plain version);
+    * ``auto``: :func:`txid_auto_backend`, the device for a batch of at
+      least :data:`TXID_AUTO_DEVICE_MIN` payloads on a card, else
+      hashlib.  The JAX package times both once per process instead.
+
+    Fewer than ``min_batch`` payloads always take hashlib.  Device
+    digests feed consensus, so a roaming sample of
+    :data:`TXID_SAMPLES` lanes is checked against hashlib on every device
+    batch; a mismatch returns hashlib's digests for the whole batch,
+    counts ``txid.sample_mismatch`` and logs a warning.  Unlike the JAX
+    package, a device failure raises: there is no fallback that hides a
+    broken kernel.
+    """
+    global _TXID_SAMPLE_SALT
+    if not payloads:
+        return []
+    if backend == "host" or len(payloads) < min_batch:
+        return _host_txids(payloads)
+    if backend not in ("device", "auto"):
+        raise ValueError(f"unknown txid backend {backend!r}")
+    dev = resolve(device)
+    if backend == "auto" and txid_auto_backend(len(payloads), dev) == "host":
+        return _host_txids(payloads)
+    hexes = _digest_array(payloads, dev).tobytes().hex()
+    out = [hexes[i:i + 64] for i in range(0, len(hexes), 64)]
+    # the sample roams: seeded from the payloads and a per-call counter,
+    # so a retry of the same page checks other lanes
+    with _TXID_LOCK:
+        _TXID_SAMPLE_SALT += 1
+        salt = _TXID_SAMPLE_SALT
+    seed = int.from_bytes(hashlib.sha256(
+        payloads[0] + payloads[-1] + len(payloads).to_bytes(4, "big")
+        + salt.to_bytes(8, "big")).digest()[:8], "big")
+    for i in random.Random(seed).sample(range(len(out)),
+                                        min(len(out), TXID_SAMPLES)):
+        if hashlib.sha256(payloads[i]).hexdigest() != out[i]:
+            trace.inc("txid.sample_mismatch")
+            log.warning("device txid digest mismatch at sample %d; hashlib "
+                        "digests for this batch of %d", i, len(payloads))
+            return _host_txids(payloads)
+    return out
+
+
+# The least 32-bit integer instructions one compression over 16 unknown
+# words needs: each of the 48 schedule words two sigma functions of 2
+# rotates, a shift and a LOP3 (8 ALU) and 2 IADD3s for its 4 terms; each
+# of the 64 rounds the two Sigma functions (3 rotates and a LOP3 each),
+# ch and maj (a LOP3 each), 2 IADD3s for t1's 5 terms and one each for
+# the new a and e (10 ALU, 4 adds); then 8 adds into the state.
+BLOCK_ALU_OPS = 48 * 8 + 64 * 10
+BLOCK_ADD_OPS = 48 * 2 + 64 * 4 + 8
 
 
 # --- the bound -----------------------------------------------------------

@@ -2,8 +2,8 @@
 //
 // One call runs the 64 rounds over 16 message words from a given state:
 // the nonce search (sha256_search.cu) starts it from a template's midstate,
-// and a batch of fixed-length digests would chain it from the initial
-// state.  Fully unrolled, so the 16-word schedule window and the 8 working
+// and the batched digests (sha256_blocks.cu) chain it from the initial
+// state over each message's blocks.  Fully unrolled, so the 16-word schedule window and the 8 working
 // words live in registers, every rotate is one funnel shift (SHF) and the
 // round constants are constant-bank operands of the adds.
 

@@ -289,11 +289,12 @@ async def _write(writer: asyncio.StreamWriter, response: Response,
 
 
 async def fetch(url: str, method: str = "GET", body: Optional[bytes] = None,
-                headers: Optional[Dict[str, str]] = None
-                ) -> Tuple[int, bytes]:
+                headers: Optional[Dict[str, str]] = None,
+                max_bytes: Optional[int] = None) -> Tuple[int, bytes]:
     """One request to ``url`` (``http://host:port/path?query``) on its
     own connection; returns (status, body).  A dict or list ``body`` is
-    not accepted: pass bytes (``json.dumps(...).encode()``)."""
+    not accepted: pass bytes (``json.dumps(...).encode()``).  A response
+    body longer than ``max_bytes`` raises ``ValueError``."""
     split = urlsplit(url)
     target = (split.path or "/") + (f"?{split.query}" if split.query else "")
     reader, writer = await asyncio.open_connection(split.hostname,
@@ -316,8 +317,17 @@ async def fetch(url: str, method: str = "GET", body: Optional[bytes] = None,
             name, _, value = line.partition(":")
             if name.strip().lower() == "content-length":
                 length = int(value.strip())
-        data = await (reader.readexactly(length) if length is not None
-                      else reader.read())
+        if length is not None:
+            if max_bytes is not None and length > max_bytes:
+                raise ValueError("response too large")
+            data = await reader.readexactly(length)
+        else:  # to the end of the connection
+            buf = bytearray()
+            while chunk := await reader.read(1 << 16):
+                buf += chunk
+                if max_bytes is not None and len(buf) > max_bytes:
+                    raise ValueError("response too large")
+            data = bytes(buf)
         return status, data
     finally:
         writer.close()

@@ -45,6 +45,7 @@ from contextlib import asynccontextmanager
 from decimal import Decimal
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
+from .. import trace
 from ..core.codecs import OutputType, TransactionType
 from ..core.clock import timestamp as now_ts
 from ..core.constants import MAX_BLOCK_SIZE_HEX, SMALLEST
@@ -172,6 +173,12 @@ class ChainState(StateViews):
         self._pending_stamp: tuple = (-1, -1, -1)
         self._pending_gen = 0  # bumped on every LOCAL mempool mutation
         self._amount_cache: "OrderedDict[tuple, object]" = OrderedDict()
+        # reorg mempool re-injection: off at the library level, as in the
+        # JAX package; the node turns it on from mempool.reinject_on_reorg
+        self.reinject_reorg_txs = False
+        # reorg notification: called with the first removed block id
+        # after a remove_blocks rollback commits
+        self.on_blocks_removed = None
         self._data_version = self._db_data_version()
         self._data_version_checked = 0.0
 
@@ -334,6 +341,110 @@ class ChainState(StateViews):
             block["reward"] = str(block["reward"])
             out.append({"block": block, "transactions": txs})
         return out
+
+    async def remove_blocks(self, from_block_id: int) -> None:
+        """Reorg rollback: restore outputs spent by the removed blocks, drop
+        the blocks and everything their transactions created
+        (reference database.py:146-169), in one commit."""
+        rows = self.db.execute(
+            "SELECT t.tx_hex FROM transactions t JOIN blocks b ON t.block_hash = b.hash"
+            " WHERE b.id >= ?", (from_block_id,),
+        ).fetchall()
+        txs = [tx_from_hex(r["tx_hex"], check_signatures=False) for r in rows]
+        trace.event("reorg", from_block=from_block_id,
+                    removed_txs=len(txs))
+        # drop outputs created by removed txs (from whichever table)
+        created = [tx.hash() for tx in txs]
+        for table in ("unspent_outputs",) + _GOV_TABLES:
+            self.db.executemany(
+                f"DELETE FROM {table} WHERE tx_hash = ?", [(h,) for h in created]
+            )
+        # restore outputs their inputs had spent, but not outputs of txs
+        # that are themselves being removed (reference database.py
+        # remove_blocks filters `tx_input.tx_hash not in transactions_hashes`;
+        # restoring those would leave orphaned UTXO rows after a reorg of
+        # dependent txs and diverge the UTXO fingerprint)
+        created_set = set(created)
+        restore = [
+            tx_input for tx in txs if not tx.is_coinbase
+            for tx_input in tx.inputs if tx_input.tx_hash not in created_set
+        ]
+        await self._restore_spent_outputs(restore)
+        self.db.executemany(
+            "DELETE FROM transactions WHERE tx_hash = ?", [(h,) for h in created]
+        )
+        self.db.execute("DELETE FROM blocks WHERE id >= ?", (from_block_id,))
+        self._amount_cache_drop(created)
+        if self.reinject_reorg_txs:
+            # txs the losing fork confirmed go back into the pending
+            # journal (their spent outputs were just restored) so the
+            # winning fork can mine them; skipped: txs that spend an
+            # output of another removed tx, or conflict with the pending
+            # overlay
+            for tx in txs:
+                if tx.is_coinbase or any(
+                        i.tx_hash in created_set for i in tx.inputs):
+                    continue
+                await self._reinject_pending(tx)
+        self._bump_fees_gen()
+        self._pending_gen += 1
+        self._commit()
+        if self.on_blocks_removed is not None:
+            self.on_blocks_removed(from_block_id)
+
+    async def _reinject_pending(self, tx) -> bool:
+        """INSERT-OR-IGNORE a reorged-out tx back into the journal.
+        Returns True when the row (and its spent-output overlay rows)
+        actually landed."""
+        outpoints = [i.outpoint for i in tx.inputs]
+        if await self.get_pending_spent_outpoints(outpoints):
+            return False  # conflicts with a live pending tx
+        try:
+            inputs_addresses = [
+                await self.resolve_output_address(i.tx_hash, i.index) or ""
+                for i in tx.inputs
+            ]
+            fees = await self.tx_fees(tx)
+        except (ValueError, KeyError, IndexError):
+            return False  # source txs unresolvable after the rollback
+        cur = self.db.execute(
+            "INSERT OR IGNORE INTO pending_transactions (tx_hash, tx_hex,"
+            " inputs_addresses, fees, propagation_time) VALUES (?,?,?,?,?)",
+            (tx.hash(), tx.hex(), json.dumps(inputs_addresses), fees,
+             now_ts()),
+        )
+        if cur.rowcount == 0:
+            return False  # already pending
+        self.db.executemany(
+            "INSERT INTO pending_spent_outputs (tx_hash, idx) VALUES (?,?)",
+            [(i.tx_hash, i.index) for i in tx.inputs],
+        )
+        trace.inc("mempool.reinjected")
+        return True
+
+    async def _restore_spent_outputs(self, inputs: List[TxInput]) -> None:
+        """Re-materialize spent outputs by decoding their source txs
+        (INSERT OR IGNORE: a whitelisted historical double-spend may
+        restore one outpoint twice)."""
+        for tx_input in inputs:
+            src = await self.get_transaction(tx_input.tx_hash, include_pending=False)
+            if src is None:
+                continue
+            out = src.outputs[tx_input.index]
+            table = _OUTPUT_TABLE[out.output_type]
+            if table == "unspent_outputs":
+                self.db.execute(
+                    "INSERT OR IGNORE INTO unspent_outputs (tx_hash, idx, address,"
+                    " amount, is_stake) VALUES (?,?,?,?,?)",
+                    (tx_input.tx_hash, tx_input.index, out.address, out.amount,
+                     int(out.is_stake)),
+                )
+            else:
+                self.db.execute(
+                    f"INSERT OR IGNORE INTO {table} (tx_hash, idx, address, amount)"
+                    " VALUES (?,?,?,?)",
+                    (tx_input.tx_hash, tx_input.index, out.address, out.amount),
+                )
 
     # ------------------------------------------------------- transactions --
 

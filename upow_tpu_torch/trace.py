@@ -12,6 +12,16 @@ ported yet (ROADMAP.md).
     inc("verify.canary_pass")                # counters[name] += 1
     observe("kernel.p256_verify.dispatch_seconds", 0.02)
     snapshot()                               # a copy of everything above
+
+Counters that a run should read as zero unless something went wrong:
+``txid.sample_mismatch`` (a device txid batch disagreed with hashlib on
+its integrity sample, ``crypto/sha256.py``) and ``sync.host_txid_retry``
+(a sync page's device-seeded txids gave a merkle mismatch and the page
+was hashed again on the host, ``node/app.py``).  ``snapshot_recommended``
+counts syncs whose peer was further ahead than the reorg window, and
+``kernel.sha256_txid.batches`` the batched-digest buckets (kernel
+launches on a card; their plain integer count is
+``crypto.sha256.BLOCKS_LAUNCHES``).
 """
 
 from __future__ import annotations

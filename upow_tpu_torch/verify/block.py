@@ -17,10 +17,10 @@ reference, by design (SURVEY.md §7):
 passes ``device="cpu"`` (the plain PyTorch version of the kernel), and
 raises without a card otherwise.  The node's hooks are here: the
 mempool GC (``clear_pending_transactions``), the ``on_pending_removed``
-notification and the cached difficulty.  Not ported yet (ROADMAP.md):
-the device txid batch (txids are hashed on the host), the fused accept
-scan over the resident UTXO index, the hot-cache notification, the
-inode cache and the chain-sync page verdict prefill.
+notification, the cached difficulty, and the chain-sync page verdicts
+(``page_sig_verdicts``, set by the node around a sync page's accept
+loop).  Not ported yet (ROADMAP.md): the fused accept scan over the
+resident UTXO index, the hot-cache notification and the inode cache.
 
 Rules and quirks are otherwise replicated exactly; citations inline.
 """
@@ -28,12 +28,14 @@ Rules and quirks are otherwise replicated exactly; citations inline.
 from __future__ import annotations
 
 import asyncio
+import functools
 import hashlib
 import logging
 import time
 from decimal import Decimal
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..config import DeviceConfig
 from ..core.clock import timestamp as now_ts
 from ..core.constants import MAX_BLOCK_SIZE_HEX, SMALLEST
 from ..core import difficulty as difficulty_rules
@@ -42,6 +44,7 @@ from ..core.header import split_block_content
 from ..core.merkle import merkle_root
 from ..core.rewards import get_block_reward, get_inode_rewards
 from ..core.tx import CoinbaseTx, Tx, TxOutput
+from ..crypto.sha256 import txid_batch
 from ..device import DeviceLike, resolve
 from ..state.storage import ChainState, _INPUT_TABLE
 from ..trace import event, record_stage, span
@@ -90,31 +93,50 @@ MERKLE_EXCEPTION = (
     340510, "54e7e3fbfe5c3c7b2a74d14efd22a61c231d157b2c5c2476fca67736736b9ac8")
 
 
-def _fused_digest_prep(transactions: Sequence[Tx]) -> Dict[int, tuple]:
+def _fused_digest_prep(transactions: Sequence[Tx], txid_backend: str,
+                       txid_min_batch: int,
+                       device: DeviceLike = None) -> Dict[int, tuple]:
     """Digest preparation for one verify micro-batch.
 
     Per tx, THREE digests feed the hot path: the raw signing-bytes
     digest and its hex-form twin (both consumed by the signature
     checks) and the txid (consumed by merkle_root and storage).  All of
-    them are hashed here in one pass, and txids seed ``Tx._hash`` so the
-    later ``merkle_root`` is memo reads.  The txid seed is definitionally
+    them go through ONE :func:`..crypto.sha256.txid_batch` call, which
+    buckets them by length, and txids seed ``Tx._hash`` so the later
+    ``merkle_root`` is memo reads.  The txid seed is definitionally
     safe: the payload IS ``bytes.fromhex(tx.hex())``, exactly what
     ``Tx.hash()`` would digest.
 
-    The hashing is hashlib on the host (the JAX package's
-    ``txid_backend="host"``); the device txid batch is a later slice
-    (ROADMAP.md).
+    A host backend, or a micro-batch below ``txid_min_batch`` payloads,
+    hashes with hashlib; otherwise the batch runs on ``device`` (the
+    card unless ``"cpu"``) under ``txid_backend`` (``device`` or
+    ``auto``), as in the JAX package's node.  The JAX package's
+    ``probe`` (the resident UTXO index) comes with that index.
 
     Returns ``{id(tx): (digest, digest_hexform)}`` for
     ``collect_sig_checks``.
     """
-    out: Dict[int, tuple] = {}
+    payloads: List[bytes] = []
+    need_txid: List[bool] = []
     for tx in transactions:
         signing_hex = tx.hex(False)
-        out[id(tx)] = (hashlib.sha256(bytes.fromhex(signing_hex)).digest(),
-                       hashlib.sha256(signing_hex.encode()).digest())
-        if getattr(tx, "_hash", "x") is None:
-            tx._hash = hashlib.sha256(bytes.fromhex(tx.hex())).hexdigest()
+        payloads.append(bytes.fromhex(signing_hex))
+        payloads.append(signing_hex.encode())
+        need = getattr(tx, "_hash", "x") is None
+        need_txid.append(need)
+        if need:
+            payloads.append(bytes.fromhex(tx.hex()))
+    digests = txid_batch(payloads, backend=txid_backend,
+                         min_batch=txid_min_batch, device=device)
+    out: Dict[int, tuple] = {}
+    pos = 0
+    for tx, need in zip(transactions, need_txid):
+        out[id(tx)] = (bytes.fromhex(digests[pos]),
+                       bytes.fromhex(digests[pos + 1]))
+        pos += 2
+        if need:
+            tx._hash = digests[pos]
+            pos += 1
     return out
 
 
@@ -122,12 +144,21 @@ class BlockManager:
     """Difficulty, check_block, create_block over one ChainState."""
 
     def __init__(self, state: ChainState, device: DeviceLike = None,
-                 verify_microbatch: int = VERIFY_MICROBATCH):
+                 verify_microbatch: int = VERIFY_MICROBATCH,
+                 txid_backend: str = DeviceConfig.txid_backend,
+                 txid_min_batch: int = DeviceConfig.txid_min_batch):
         self.state = state
         # the card unless the caller asks for the CPU; raises without one
         self.device = resolve(device)
         self.verify_microbatch = verify_microbatch
+        # the digest prep's backend (config device.txid_backend; "host"
+        # is hashlib) and its least batch, defaulting to the config's
+        self.txid_backend = txid_backend
+        self.txid_min_batch = txid_min_batch
         self.is_syncing = False
+        # transient page-level signature verdicts (chain-sync prefill):
+        # set by the node's create_blocks around a page's accept loop
+        self.page_sig_verdicts: Optional[dict] = None
         self._difficulty_cache: Optional[Tuple[Decimal, dict]] = None
         # mempool notification: called with the tx hashes of every
         # journal removal this manager performs (mined txs on block
@@ -244,8 +275,9 @@ class BlockManager:
         for start in range(0, len(transactions), mb):
             chunk = transactions[start:start + mb]
             t0 = time.perf_counter()
-            prep = await loop.run_in_executor(None, _fused_digest_prep,
-                                              chunk)
+            prep = await loop.run_in_executor(None, functools.partial(
+                _fused_digest_prep, chunk, self.txid_backend,
+                self.txid_min_batch, self.device))
             chunk_checks: List[tuple] = []
             for tx in chunk:
                 if not await verifier.rules_ok(tx, check_double_spend=False):
@@ -263,7 +295,8 @@ class BlockManager:
             n_checks += len(chunk_checks)
             if chunk_checks:
                 dispatches.append(asyncio.ensure_future(front.submit(
-                    chunk_checks, device=self.device, source="block")))
+                    chunk_checks, device=self.device,
+                    precomputed=self.page_sig_verdicts, source="block")))
         if failed_tx is not None:
             for d in dispatches:
                 d.cancel()

@@ -17,8 +17,9 @@ The JAX package forwards a coalesced group to its weighted-fair device
 runtime; the port dispatches it straight to ``run_sig_checks_async``
 (the runtime is a later slice, ROADMAP.md).  The coalescing key is the
 JAX front's, less the fields the port has no counterpart yet for (pad
-block, device timeout, mesh size, chain-sync page verdicts, an injected
-dispatch callable), plus the device: (backend, device).
+block, device timeout, mesh size, an injected dispatch callable), plus
+the device: (backend, device, identity of the chain-sync page
+verdicts).
 """
 
 from __future__ import annotations
@@ -36,11 +37,12 @@ log = logging.getLogger("upow_tpu_torch.verify.dispatch")
 
 
 class _Submission:
-    __slots__ = ("checks", "key", "fut")
+    __slots__ = ("checks", "key", "precomputed", "fut")
 
-    def __init__(self, checks, key, fut):
+    def __init__(self, checks, key, precomputed, fut):
         self.checks = checks
         self.key = key
+        self.precomputed = precomputed
         self.fut = fut
 
 
@@ -59,17 +61,21 @@ class SigDispatchFront:
     async def submit(self, checks: Sequence[tuple], *,
                      backend: str = "auto",
                      device: DeviceLike = None,
+                     precomputed: Optional[dict] = None,
                      source: str = "other") -> List[bool]:
         """Queue one batch of sig checks; resolves to its verdict list.
 
-        Submissions sharing (backend, device) coalesce into one dispatch;
-        incompatible ones dispatch separately in arrival order.
+        Submissions sharing (backend, device, ``precomputed`` identity)
+        coalesce into one dispatch; incompatible ones dispatch separately
+        in arrival order.  ``precomputed`` (a sync page's verdicts)
+        answers the checks it holds (:func:`txverify.run_sig_checks`).
         """
         if not checks:
             return []
-        key = (backend, device)
+        key = (backend, device,
+               id(precomputed) if precomputed is not None else None)
         fut: asyncio.Future = self._loop.create_future()
-        self._queue.append(_Submission(list(checks), key, fut))
+        self._queue.append(_Submission(list(checks), key, precomputed, fut))
         self.submissions += 1
         trace.inc("pipeline.front.submissions")
         trace.inc("pipeline.front.source.%s" % source)
@@ -94,14 +100,15 @@ class SigDispatchFront:
         for s in group:
             slices.append((len(flat), len(flat) + len(s.checks)))
             flat.extend(s.checks)
-        backend, device = group[0].key
+        backend, device, _ = group[0].key
         self.dispatches += 1
         trace.inc("pipeline.front.dispatches")
         trace.observe("pipeline.front.coalesced", len(group))
         t0 = time.perf_counter()
         try:
             verdicts = await txverify.run_sig_checks_async(
-                flat, backend=backend, device=device)
+                flat, backend=backend, device=device,
+                precomputed=group[0].precomputed)
         except Exception as e:
             # not swallowed: every submitter in the group re-raises it
             log.debug("coalesced sig dispatch failed (%d submissions): %s",

@@ -29,7 +29,7 @@ import hashlib
 import logging
 import threading
 from collections import OrderedDict
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from .. import trace
 from ..core import curve
@@ -95,12 +95,14 @@ def _dedup_sig_checks(tx: Tx, voter: bool, address_of,
 
 async def run_sig_checks_async(checks: Sequence[tuple],
                                backend: str = "auto",
-                               device: DeviceLike = None) -> List[bool]:
+                               device: DeviceLike = None,
+                               precomputed: Optional[dict] = None
+                               ) -> List[bool]:
     """Executor-wrapped :func:`run_sig_checks`: the verify (and its wait
     on the card) must not block the event loop."""
     return await asyncio.get_running_loop().run_in_executor(
         None, functools.partial(run_sig_checks, checks, backend=backend,
-                                device=device))
+                                device=device, precomputed=precomputed))
 
 
 _SIG_VERDICTS: "OrderedDict[tuple, bool]" = OrderedDict()
@@ -165,7 +167,8 @@ def _resolve_backend(backend: str, n_checks: int) -> str:
 
 def run_sig_checks(checks: Sequence[tuple], backend: str = "auto",
                    device: DeviceLike = None,
-                   use_cache: bool = True) -> List[bool]:
+                   use_cache: bool = True,
+                   precomputed: Optional[dict] = None) -> List[bool]:
     """Verify deferred checks in one (or two) batched device calls.
 
     Pass 1 verifies against the raw-bytes digest; only failures re-try the
@@ -179,9 +182,24 @@ def run_sig_checks(checks: Sequence[tuple], backend: str = "auto",
     verdicts are always cached; device-path verdicts only when the
     batch's canary pair (:func:`_canary_checks`, riding in the same
     dispatch) comes back exactly (True, False).
+
+    ``precomputed`` maps checks to verdicts of a chain-sync page's one
+    batched dispatch: the checks it holds are answered from it, the rest
+    verify as above.  It lives only for that page's accept loop, so it
+    carries exactly the trust of the per-block dispatch it replaces.
     """
     if not checks:
         return []
+    if precomputed:
+        out_pre: List[Optional[bool]] = [precomputed.get(c) for c in checks]
+        rest_idx = [i for i, v in enumerate(out_pre) if v is None]
+        if rest_idx:
+            rest = run_sig_checks([checks[i] for i in rest_idx],
+                                  backend=backend, device=device,
+                                  use_cache=use_cache)
+            for i, v in zip(rest_idx, rest):
+                out_pre[i] = v
+        return out_pre  # type: ignore[return-value]
     if use_cache:
         out: List[Optional[bool]] = [None] * len(checks)
         misses = []
@@ -280,18 +298,36 @@ class TxVerifier:
     method cites its reference lines.
     """
 
-    def __init__(self, state: ChainState, is_syncing: bool = False):
+    def __init__(self, state: ChainState, is_syncing: bool = False,
+                 tx_overlay: Optional[Dict[str, Tx]] = None):
         self.state = state
         self.is_syncing = is_syncing
+        # not-yet-accepted source txs (chain-sync page prefill): input
+        # resolution consults these before the chain state, so signature
+        # checks for a whole sync page can be collected up front even
+        # when a tx spends an output created earlier in the same page
+        self.tx_overlay = tx_overlay or {}
 
     # -- address resolution ------------------------------------------------
 
     async def input_address(self, tx_input) -> Optional[str]:
+        src = self.tx_overlay.get(tx_input.tx_hash)
+        if src is not None:
+            # coinbase sources included: spending a same-page miner
+            # reward is the common case two blocks into a sync page
+            if 0 <= tx_input.index < len(src.outputs):
+                return src.outputs[tx_input.index].address
+            return None
         return await self.state.resolve_output_address(tx_input.tx_hash, tx_input.index)
 
     async def voter_address(self, tx_input) -> Optional[str]:
         """For revoke inputs: the vote tx's FIRST input address
         (transaction_input.py:56-58, 79-82)."""
+        src = self.tx_overlay.get(tx_input.tx_hash)
+        if src is not None:
+            if src.is_coinbase or not src.inputs:
+                return None
+            return await self.input_address(src.inputs[0])
         info = await self.state.get_transaction_info(tx_input.tx_hash)
         if info is None or not info["inputs_addresses"]:
             tx = await self.state.get_transaction(tx_input.tx_hash, include_pending=True)
