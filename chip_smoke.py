@@ -79,19 +79,44 @@ Phases, one line each; any failure exits non-zero:
 12. the hash rate: one template at difficulty 10 swept over all 2^32 - 1
    nonces through ``mine(job, "cuda", batch=2**24)``, with the card's
    busy time and idle share from the profiler; then a difficulty-6.3 job
-   mined to a hit that hashlib checks.
+   mined to a hit that hashlib checks;
+13. kernel vs plain, the UTXO probe: the resident index's windowed sorted
+   probe against its plain version run on the card, bit for bit on all
+   five outputs, at 8,192 queries (one block's inputs) and 1,024 (one
+   micro-batch) into 2^24 and 2^20 sorted random keys built on the card
+   from a seeded generator (a mid-size chain's UTXO set: 402.7 MB
+   resident), with planted cases (a 12-entry run on one high lane, 64-bit
+   twins, a high lane of I32_MAX) and an empty and a one-row index;
+   times with 10 launches queued, the plain version's, and
+   ``torch.searchsorted`` alone on the same tensors; the bound from the
+   bytes the run's probes need (``probe_bytes_needed``), registers and
+   local bytes;
+14. the resident accept: an in-memory copy of the accept's chain with
+   2^20 synthetic rows added to ``unspent_outputs``,
+   ``enable_device_index()`` and the first upload timed apart, then the
+   8,160-tx block through ``BlockManager.create_block`` on the fused
+   accept scan (one probe launch a micro-batch) under the profiler; the
+   resident probe, the shadow map and SQL must agree on the spends, the
+   creations and 16 absent outpoints after the accept, after
+   ``remove_blocks(4)`` (the UTXO hash back to its value before) and
+   after the same txs are accepted again in a new block; then the same
+   block on a copy without the index (the SQL scan), whose UTXO hash
+   must equal the resident accept's;
+15. ``push_block`` of the 8,160-tx block over HTTP to a node started
+   with ``UPOW_DEVICE_UTXO_INDEX=1`` on a fresh copy: accepted through
+   the probe, the two tampered blocks rejected with their strings.
 
 The line before the last is the kernels' JSON record; each kernel's
 ``launches`` is one path's own count (the accept's for the Jacobian
 kernel, the HTTP push_block's under complete for the complete kernel,
 ``miner.run``'s for the sha256 search kernel, the sync's for the txid
-kernel), and the complete kernel's ``launches_by_path`` gives each path
-it ran on.  Every phase that can reach the txid batch (6, 7, 8, 10 and
-11) counts its txid kernel launches and fails if hashlib stood in for a
-device digest there (``txid.sample_mismatch`` or
-``sync.host_txid_retry`` above 0).  The last is ``{"ok": true,
-"device": {...}}``.  Without a
-CUDA device the script exits non-zero and prints no result.
+kernel, the resident accept's for the probe kernel), and the complete
+kernel's ``launches_by_path`` gives each path it ran on.  Every phase
+that can reach the txid batch (6, 7, 8, 10, 11, 14 and 15) counts its
+txid kernel launches and fails if hashlib stood in for a device digest
+there (``txid.sample_mismatch`` or ``sync.host_txid_retry`` above 0).
+The last is ``{"ok": true, "device": {...}}``.  Without a CUDA device
+the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -129,11 +154,11 @@ from upow_tpu_torch.crypto import p256, sha256 as tsha
 from upow_tpu_torch.mine import engine as mine_engine, miner
 from upow_tpu_torch.node.app import Node
 from upow_tpu_torch.node.http import fetch
-from upow_tpu_torch.state import ChainState
+from upow_tpu_torch.state import ChainState, device_index as tdi
 from upow_tpu_torch.verify import BlockManager, txverify
 
 KERNELS = ["p256_verify", "p256_complete", "sha256_search",
-           "sha256_blocks"]
+           "sha256_blocks", "utxo_probe"]
 LANES = 8192
 FAN, PER = 255, 32          # 8,160 leaf spends: one full block
 GENESIS_PREV = (18_884_643).to_bytes(32, "little").hex()
@@ -143,6 +168,15 @@ MICROBATCH = 1024           # txs per check_block micro-batch (the default)
 TXID_EDGES = [0, 1, 55, 56, 63, 64, 119, 120, 1000]
 # payload counts of the txid batch's card-against-hashlib sweep
 TXID_SWEEP = [256, 512, 1024, 2048, 3072, 4096, 6144, 8192, 12288, 16384]
+# (live keys, capacity) of the probe phase: full lanes, and pad rows as
+# the resident accept's index holds them (about 2^20 live at 2^21)
+PROBE_SHAPES = [(1 << 24, 1 << 24), (1 << 20, 1 << 20),
+                ((1 << 20) + 8163, 1 << 21)]
+PROBE_QUERIES = [8192, 1024]      # one block's inputs, one micro-batch's
+PROBE_SEED = 0xB6
+SYNTH_ROWS = 1 << 20              # synthetic UTXOs of the resident accept
+ABSENT = [("ff" * 32, i) for i in range(16)]
+I32_MAX = 2 ** 31 - 1
 KEY_SEED = 0xACC7           # the chain's and the miner's key
 SENTINEL = int(tsha.SENTINEL)
 # charset size -> the fractional part of the difficulty that gives it
@@ -1109,6 +1143,342 @@ def reorg_path(dev: torch.device, kit: Kit, workdir: Path,
             "b5": b5, "jac": jac, "tip": tip}
 
 
+# --- phases 13-15: the UTXO probe and the resident accept ------------------
+
+def _low32(x: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of int64 values as int32 (two's complement)."""
+    return (((x + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31).to(torch.int32)
+
+
+def probe_lanes(dev: torch.device, n: int, cap: int,
+                gen: torch.Generator) -> tuple:
+    """((6, cap) int32 resident lanes; planted rows): n sorted random
+    64-bit keys built on the card, then the index's pad rows to the
+    capacity, with a 12-entry run on one high lane, a pair of 64-bit
+    twins (one key, other check lanes) and a last live key whose high
+    lane is I32_MAX, the pads' own."""
+    def rand(lo, hi):
+        return torch.randint(lo, hi, (n,), dtype=torch.int64, device=dev,
+                             generator=gen)
+    key = torch.sort(rand(-2 ** 31, 2 ** 31) * 2 ** 32
+                     + rand(0, 2 ** 32)).values
+    lanes = torch.empty((6, cap), dtype=torch.int32, device=dev)
+    lanes[:, n:] = torch.tensor([I32_MAX, I32_MAX, 0, 0, 0, 0],
+                                dtype=torch.int32, device=dev)[:, None]
+    lanes[0, :n] = (key >> 32).to(torch.int32)
+    lanes[1, :n] = _low32(key)
+    for r in range(2, 6):
+        lanes[r, :n] = _low32(rand(-2 ** 31, 2 ** 31))
+    run, twin = n // 3, n // 2
+    lanes[0, run + 1:run + 12] = lanes[0, run]     # stays sorted: <= next
+    lanes[:2, twin + 1] = lanes[:2, twin]
+    lanes[0, n - 1] = I32_MAX
+    planted = list(range(run, run + 12)) + [twin, twin + 1, n - 1]
+    return lanes, planted
+
+
+def probe_queries(lanes: torch.Tensor, n_live: int, q: int,
+                  gen: torch.Generator, planted=()) -> torch.Tensor:
+    """(4, q) int32 queries: half present (the planted rows first), a
+    quarter equal to a live row on the high lane only, a quarter
+    random (a 64-bit hit among them is about 2^-45 likely)."""
+    dev = lanes.device
+    qs = torch.randint(-2 ** 31, 2 ** 31, (4, q), dtype=torch.int64,
+                       device=dev, generator=gen).to(torch.int32)
+    if n_live:
+        rows = torch.randint(0, n_live, (q,), device=dev, generator=gen)
+        rows[:len(planted)] = torch.tensor(planted, device=dev)
+        half, quarter = q // 2, q // 4
+        qs[:, :half] = lanes[:4, rows[:half]]
+        qs[0, half:half + quarter] = lanes[0, rows[half:half + quarter]]
+    return qs.contiguous()
+
+
+def probe_check(lanes, n_live: int, qs, where: str = "") -> tuple:
+    """The kernel against its plain version on the card, all five
+    outputs bit for bit; (max abs error, the kernel's outputs)."""
+    got = tdi.probe(*lanes, n_live, *qs)
+    want = tdi.probe_plain(*lanes, n_live, *qs)
+    torch.cuda.synchronize()
+    err = max((int((g.long() - w.long()).abs().max()) if g.numel() else 0)
+              for g, w in zip(got, want))
+    for g, w, name in zip(got, want, ("hit", "key_hit", "overflow",
+                                      "amt_lo", "amt_hi")):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            bad = torch.nonzero(g != w).flatten()[:8].tolist()
+            fail(f"utxo_probe != plain on {name} at {n_live} keys of "
+                 f"{lanes[0].shape[0]}, {qs.shape[1]} queries{where}: "
+                 f"first {bad}")
+    return err, got
+
+
+def probe_phase(dev: torch.device) -> dict:
+    """Kernel B6 alone against its plain version at the main path's
+    shapes, with times and the bound; returns its record."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(PROBE_SEED)
+    worst, times = 0, {}
+    for n, cap in PROBE_SHAPES:
+        t0 = time.perf_counter()
+        lanes, planted = probe_lanes(dev, n, cap, gen)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        for q in PROBE_QUERIES:
+            qs = probe_queries(lanes, n, q, gen, planted)
+            qs[2, 15] ^= 1   # a present key with other check lanes
+            qs[0, -1] = I32_MAX   # absent, on the pads' high lane
+            err, (hit, key_hit, overflow, _lo, _hi) = probe_check(
+                lanes, n, qs)
+            worst = max(worst, err)
+            if not (bool(overflow[:12].all()) and bool(hit[12:15].all())
+                    and bool(key_hit[15]) and not bool(hit[15])
+                    and not bool(key_hit[-(q // 4):].any())):
+                fail(f"utxo_probe at {n} keys, {q} queries: the planted "
+                     "cases did not answer as planted")
+            ms = cuda_ms(lambda: tdi.probe(*lanes, n, *qs), reps=10, warm=3,
+                         per=10)
+            plain_ms = cuda_ms(lambda: tdi.probe_plain(*lanes, n, *qs),
+                               reps=5, warm=1)
+            lib_ms = cuda_ms(lambda: torch.searchsorted(lanes[0], qs[0]),
+                             reps=10, warm=3, per=10)
+            nbytes = tdi.probe_bytes_needed(lanes[0], n, qs[0])
+            bound_ms = nbytes / HBM_BYTES_S * 1e3
+            times[(n, cap, q)] = (ms, plain_ms, lib_ms, bound_ms)
+            print(f"  utxo_probe keys={n} capacity={cap} queries={q} "
+                  f"kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} searchsorted_ms={lib_ms:.4f} "
+                  f"bound_bytes={nbytes} bound_ms={bound_ms:.6f} "
+                  f"share={bound_ms / ms:.4f} build_s={build_s:.2f} "
+                  f"hits={int(hit.sum())} key_only="
+                  f"{int((key_hit & ~hit).sum())} "
+                  f"overflow={int(overflow.sum())}", flush=True)
+        del lanes, qs
+    # the edges: an empty index (its one pad row) and one live row
+    pad = torch.tensor([[I32_MAX], [I32_MAX], [0], [0], [0], [0]],
+                       dtype=torch.int32, device=dev)
+    one = torch.tensor([[5], [-7], [11], [13], [17], [19]],
+                       dtype=torch.int32, device=dev)
+    for n_live, lanes in ((0, pad), (1, one)):
+        qs = probe_queries(one, 1, 64, gen, [0])
+        qs[0, 1] = I32_MAX
+        worst = max(worst, probe_check(lanes, n_live, qs)[0])
+    ms, plain_ms, lib_ms, bound_ms = times[PROBE_SHAPES[0]
+                                          + (PROBE_QUERIES[0],)]
+    attrs = tdi.kernel_attributes(dev)
+    phase("utxo_probe_kernel_vs_plain", equal=True,
+          shapes=json.dumps([list(k) for k in times]
+                            + [[0, 1, 64], [1, 1, 64]]),
+          resident_mb=round(6 * 4 * PROBE_SHAPES[0][1] / 1e6, 1),
+          ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+          searchsorted_ms=round(lib_ms, 4), bound_ms=round(bound_ms, 6),
+          bound_share=round(bound_ms / ms, 4),
+          ms_by_shape=json.dumps({f"{n}/{cap}x{q}": round(t[0], 4)
+                                  for (n, cap, q), t in times.items()}),
+          **attrs)
+    return {"name": "utxo_probe", "route": "cuda",
+            "source": "upow_tpu_torch/csrc/utxo_probe.cu",
+            "replaces": "upow_tpu/state/device_index.py:171",
+            "launches": 0, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": lib_ms, "registers": attrs["registers"],
+            "ms_micro_batch": times[PROBE_SHAPES[0] + (PROBE_QUERIES[1],)][0],
+            "ms_by_shape": {f"{n}/{cap}x{q}": t[0]
+                            for (n, cap, q), t in times.items()}}
+
+
+def synthetic_utxos(n: int, seed: int) -> list:
+    """``n`` unspent_outputs rows of random outpoints and amounts."""
+    rng = np.random.default_rng(seed)
+    hexes = rng.bytes(32 * n).hex()
+    idx = rng.integers(0, 4, size=n).tolist()
+    amounts = rng.integers(1, 1 << 40, size=n).tolist()
+    return [(hexes[64 * i:64 * i + 64], idx[i], "synthetic", amounts[i], 0)
+            for i in range(n)]
+
+
+def resident_probe_check(state, sample, where: str) -> dict:
+    """B6 against its plain version on the card, bit for bit on all five
+    outputs, on the lanes of the state's ``unspent_outputs`` index (its
+    capacity and pad rows, as the accept probes them) with the queries of
+    ``sample``: the whole of it, and one micro-batch's worth of it."""
+    index = state.resident_indexes()["unspent_outputs"]
+    lanes, n_live = index._device_state()
+    ops = [tuple(o) for o in sample]
+    qs = torch.from_numpy(tdi.query_lanes(
+        tdi.fingerprint_batch(ops), tdi.check_batch(ops))).to(lanes.device)
+    if n_live >= lanes.shape[1]:
+        fail(f"resident probe check {where}: no pad row at {n_live} keys")
+    err, got = probe_check(lanes, n_live, qs, f" {where}")
+    err_mb = probe_check(lanes, n_live, qs[:, :MICROBATCH], f" {where}")[0]
+    return {"n_live": n_live, "capacity": int(lanes.shape[1]),
+            "queries": int(qs.shape[1]), "hits": int(got[0].sum()),
+            "max_abs_err": max(err, err_mb)}
+
+
+def resident_parity(state, sample, where: str) -> None:
+    """The resident probe, the shadow map and SQL agree on ``sample``."""
+    idx = state.resident_indexes()["unspent_outputs"]
+    dev = [bool(v) for v in idx.contains_batch(sample)]
+    shadow = [bool(v) for v in idx.shadow_contains_batch(sample)]
+    rows = set()
+    for lo in range(0, len(sample), 400):
+        chunk = sample[lo:lo + 400]
+        rows.update(state.db.execute(
+            "SELECT tx_hash, idx FROM unspent_outputs WHERE (tx_hash, idx)"
+            " IN (VALUES " + ",".join(["(?,?)"] * len(chunk)) + ")",
+            [v for o in chunk for v in o]).fetchall())
+    rows = {tuple(r) for r in rows}
+    sql = [tuple(o) in rows for o in sample]
+    if not dev == shadow == sql:
+        fail(f"resident parity {where}: probe, shadow map and SQL differ")
+
+
+async def accept_resident_path(dev: torch.device, kit: Kit, path: str,
+                               leaves, content: str) -> dict:
+    """The 8,160-tx block on the fused accept scan over a resident index
+    of about 1.06 M entries, with the three-way parity after the accept,
+    the reorg and the second accept; then on a copy without the index."""
+    t0 = time.perf_counter()
+    state = ChainState(device=dev)
+    with sqlite3.connect(path) as src:
+        src.backup(state.db)
+    state.db.executemany(
+        "INSERT INTO unspent_outputs (tx_hash, idx, address, amount,"
+        " is_stake) VALUES (?,?,?,?,?)", synthetic_utxos(SYNTH_ROWS, 0x5D))
+    state.db.commit()
+    sql_state = ChainState(device=dev)
+    state.db.backup(sql_state.db)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state.enable_device_index()
+    arm_s = time.perf_counter() - t0
+    index = state.resident_indexes()["unspent_outputs"]
+    t0 = time.perf_counter()
+    index.materialize()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    stats = index.stats()
+    manager = BlockManager(state, device=dev)
+    pre_hash = await state.get_unspent_outputs_hash()
+    sample = [i.outpoint for t in leaves for i in t.inputs] \
+        + [(t.hash(), 0) for t in leaves] + ABSENT
+    probe_checks = [resident_probe_check(state, sample, "before the accept")]
+
+    txverify.clear_sig_verdicts()
+    trace.reset()
+    p256.reset_counts()
+    tsha.reset_counts()
+    tdi.reset_counts()
+    prof = start_profiler()
+    errors = []
+    t0 = time.perf_counter()
+    ok = await manager.create_block(content, leaves, errors=errors)
+    accept_s = time.perf_counter() - t0
+    b6, jac, b5 = tdi.PROBE_LAUNCHES, p256.LAUNCHES, tsha.BLOCKS_LAUNCHES
+    device = device_busy(prof, "utxo_probe_kernel")
+    snap = trace.snapshot()
+    counters = snap["counters"]
+    probe_stage = sum(snap["observations"].get(
+        "pipeline.accept_probe.seconds", []))
+    if not ok:
+        fail(f"resident accept rejected the block: {errors}")
+    if b6 == 0 or jac == 0:
+        fail(f"resident accept launches: probe {b6}, jac {jac}")
+    if counters.get("index.probes", 0) == 0 \
+            or counters.get("index.shadow_consults", 0) != 0:
+        fail(f"resident accept index counters: {counters}")
+    host_digest_fallbacks("resident accept")
+    post_hash = await state.get_unspent_outputs_hash()
+    trace.reset()
+    probe_checks.append(resident_probe_check(state, sample,
+                                             "after the accept"))
+    resident_parity(state, sample, "after the accept")
+    uploads = trace.snapshot()["observations"].get(
+        "kernel.utxo_apply.dispatch_seconds", [])
+    await state.remove_blocks(4)
+    if await state.get_unspent_outputs_hash() != pre_hash:
+        fail("remove_blocks(4) did not restore the UTXO hash")
+    probe_checks.append(resident_probe_check(state, sample,
+                                             "after remove_blocks(4)"))
+    resident_parity(state, sample, "after remove_blocks(4)")
+    clock.advance(60)
+    errors = []
+    if not await manager.create_block(await kit.header(manager, leaves),
+                                      leaves, errors=errors):
+        fail(f"resident accept of the same txs again: {errors}")
+    resident_parity(state, sample, "after the second accept")
+    stats_after = state.index_stats()
+    state.close()
+
+    sql_manager = BlockManager(sql_state, device=dev)
+    txverify.clear_sig_verdicts()
+    errors = []
+    t0 = time.perf_counter()
+    ok = await sql_manager.create_block(content, leaves, errors=errors)
+    sql_accept_s = time.perf_counter() - t0
+    if not ok or await sql_state.get_unspent_outputs_hash() != post_hash:
+        fail(f"the SQL-scan accept differs from the resident one: {errors}")
+    sql_state.close()
+    return {"txs": len(leaves), "setup_s": setup_s, "arm_s": arm_s,
+            "upload_s": upload_s, "upload_after_block_s":
+            uploads[0] if uploads else None, "stats": stats,
+            "accept_s": accept_s, "sql_accept_s": sql_accept_s,
+            "b6": b6, "jac": jac, "b5": b5, "device": device,
+            "probes": counters.get("index.probes", 0),
+            "probe_outpoints": counters.get("index.probe_outpoints", 0),
+            "shadow_consults": counters.get("index.shadow_consults", 0),
+            "accept_probe_s": probe_stage,
+            "shadow_consults_total": stats_after["shadow_consults"],
+            "sample": len(sample), "probe_checks": probe_checks}
+
+
+def push_block_resident_path(dev: torch.device, kit: Kit, workdir: Path,
+                             leaves, content: str) -> dict:
+    """The big block over HTTP to a node started with its UTXO index
+    armed by ``UPOW_DEVICE_UTXO_INDEX=1``, then the tampered blocks."""
+    db = str(workdir / "push_resident.db")
+    shutil.copyfile(workdir / "base.db", db)
+    os.environ["UPOW_DEVICE_UTXO_INDEX"] = "1"
+    try:
+        node = NodeThread(dev, db, "jac")
+    finally:
+        del os.environ["UPOW_DEVICE_UTXO_INDEX"]
+    try:
+        if not node.node.state.resident_indexes():
+            fail("UPOW_DEVICE_UTXO_INDEX=1 did not arm the node's index")
+        body = {"block_content": content, "txs": [t.hex() for t in leaves]}
+        txverify.clear_sig_verdicts()
+        trace.reset()
+        p256.reset_counts()
+        tsha.reset_counts()
+        tdi.reset_counts()
+        t0 = time.perf_counter()
+        reply = node.request("push_block", body)
+        wall_s = time.perf_counter() - t0
+        out = {"wall_s": wall_s, "b6": tdi.PROBE_LAUNCHES,
+               "jac": p256.LAUNCHES, "b5": tsha.BLOCKS_LAUNCHES,
+               "consults": trace.snapshot()["counters"].get(
+                   "index.shadow_consults", 0)}
+        if reply != {"ok": True}:
+            fail(f"push_block to the resident node: {reply}")
+        if out["b6"] == 0 or out["consults"]:
+            fail(f"push_block to the resident node: {out}")
+        rejected = []
+        for txs in kit.tampered(leaves):
+            clock.advance(60)
+            header = node.call(kit.header(node.node.manager, txs))
+            reply = node.request("push_block", {
+                "block_content": header, "txs": [t.hex() for t in txs]})
+            rejected.append(reply.get("error"))
+        if rejected != REJECTED:
+            fail(f"tampered blocks to the resident node: {rejected}")
+        out["rejected"] = rejected
+        out["counters"] = host_digest_fallbacks("push_block, resident")
+    finally:
+        node.close()
+    return out
+
+
 # --- phase 7: the hash rate ---------------------------------------------------
 
 def hashrate_phase(key: tuple) -> dict:
@@ -1260,6 +1630,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "stack" in line:
                 print(f"  ptxas {k}: {line.strip()}", flush=True)
     for k, inside in (("sha256_search", ""), ("sha256_blocks", ""),
+                      ("utxo_probe", ""),
                       ("p256_verify", "WARPSYNC"),
                       ("p256_complete", "WARPSYNC")):
         total, loop = sass_counts(k, inside)
@@ -1273,6 +1644,7 @@ def main() -> int:
     complete_record = complete_phase(dev, mix)
     key = curve.keygen(rng=KEY_SEED)
     sha_record = sha_phase(dev, point_to_string(key[1]))
+    probe_record = probe_phase(dev)
 
     kit = Kit(key)
     clock.freeze(int(time.time()) - 3600)
@@ -1282,9 +1654,13 @@ def main() -> int:
             dev, kit, str(workdir / "base.db")))
         res = asyncio.run(accept_path(dev, kit, str(workdir / "base.db"),
                                       leaves, content))
+        resident = asyncio.run(accept_resident_path(
+            dev, kit, str(workdir / "base.db"), leaves, content))
         nres = node_path(dev, kit, workdir, leaves)
         pushes = {k: push_block_path(dev, kit, workdir, leaves, content, k)
                   for k in ("complete", "jac")}
+        pushed_resident = push_block_resident_path(dev, kit, workdir, leaves,
+                                                   content)
         txid_record = txid_phase(dev, {
             "micro_batch": micro_batch_payloads(leaves),
             "sync_page": page_payloads(str(workdir / "push_jac.db")),
@@ -1300,6 +1676,7 @@ def main() -> int:
             server.close()
     clock.reset()
     txid_record["launches"] = synced["b5"]
+    probe_record["launches"] = resident["b6"]
     record["launches"] = res["launches"]
     sha_record["launches"] = nres["miner"]["launches"]
     # one path's own count (the 8,160-tx push_block under complete), and
@@ -1367,6 +1744,41 @@ def main() -> int:
           txid_backend="auto", tip=reorged["tip"][:16],
           card=json.dumps(card))
 
+    stats = resident["stats"]
+    phase("accept_resident", txs=resident["txs"],
+          entries=stats["entries"], capacity=stats["capacity"],
+          resident_mb=round(stats["resident_bytes"] / 1e6, 1),
+          setup_s=round(resident["setup_s"], 3),
+          arm_s=round(resident["arm_s"], 3),
+          upload_ms=round(resident["upload_s"] * 1e3, 3),
+          upload_after_block_ms="not_measured"
+          if resident["upload_after_block_s"] is None
+          else round(resident["upload_after_block_s"] * 1e3, 3),
+          accept_s=round(resident["accept_s"], 3),
+          tx_per_s=round(resident["txs"] / resident["accept_s"], 1),
+          accept_probe_s=round(resident["accept_probe_s"], 4),
+          sql_scan_accept_s=round(resident["sql_accept_s"], 3),
+          probe_launches=resident["b6"], jac_launches=resident["jac"],
+          txid_launches=resident["b5"], index_probes=resident["probes"],
+          probe_outpoints=resident["probe_outpoints"],
+          shadow_consults=resident["shadow_consults"],
+          parity_sample=resident["sample"], parity="accept,reorg,reaccept",
+          probe_vs_plain=json.dumps(resident["probe_checks"]),
+          card=json.dumps(card))
+    device_phase("accept_resident_device_profile", resident["device"],
+                 resident["accept_s"])
+    phase("node_push_block_resident", txs=len(leaves),
+          wall_s=round(pushed_resident["wall_s"], 3),
+          tx_per_s=round(len(leaves) / pushed_resident["wall_s"], 1),
+          probe_launches=pushed_resident["b6"],
+          jac_launches=pushed_resident["jac"],
+          txid_launches=pushed_resident["b5"],
+          shadow_consults=pushed_resident["consults"],
+          sample_mismatch=pushed_resident["counters"]["txid.sample_mismatch"],
+          host_txid_retry=pushed_resident["counters"]["sync.host_txid_retry"],
+          rejected=json.dumps(pushed_resident["rejected"]),
+          card=json.dumps(card))
+
     rate = hashrate_phase(key)
     phase("hashrate", hashes=rate["tried"], seconds=round(rate["seconds"], 4),
           mh_s=round(rate["tried"] / rate["seconds"] / 1e6, 1),
@@ -1382,7 +1794,8 @@ def main() -> int:
                           replaces="upow_tpu/crypto/p256.py:468",
                           same_kernel_as="upow_tpu/crypto/p256.py:548")
     print(json.dumps({"kernels": [record, complete_record, stacked_record,
-                                  sha_record, txid_record]}), flush=True)
+                                  sha_record, txid_record, probe_record]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,8 +5,8 @@ A subprocess puts a finder on ``sys.meta_path`` that refuses ``jax``,
 ``jaxlib``, ``upow_tpu`` (but not ``upow_tpu_torch``) and ``aiohttp`` (the
 JAX node's server; the port's node serves on the standard library), then
 imports every module of the port, and ``chip_smoke.py`` with it.  A second
-subprocess starts the port's node under the same finder and serves a
-request; a third builds a two-block chain on one port node and syncs a
+subprocess starts the port's node under the same finder, with its
+resident UTXO index armed on the CPU, and serves a request; a third builds a two-block chain on one port node and syncs a
 second from it over HTTP (``node/peers.py``'s client).
 """
 
@@ -44,7 +44,9 @@ def serve():
     async def main():
         cfg = Config.load(node__db_path="", node__ip_config_file="")
         cfg.device.verify_kernel = "complete"
+        cfg.device.utxo_index = True
         node = Node(cfg, device="cpu")
+        assert node.state.index_stats()["entries"] == 0
         server = await node.serve("127.0.0.1", 0)
         try:
             base = "http://127.0.0.1:%d" % server.port
@@ -137,7 +139,7 @@ def test_every_port_module_imports_without_jax():
                  "mine.engine", "mine.miner", "mempool", "mempool.pool",
                  "mempool.intake", "mempool.template", "node.app",
                  "node.http", "node.peers", "node.ratelimit",
-                 "node.ipfilter", "node.run"):
+                 "node.ipfilter", "node.run", "state.device_index"):
         assert "upow_tpu_torch." + must in names, must
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(

@@ -10,9 +10,11 @@ import asyncio
 import shutil
 
 import pytest
+import torch
 
 from test_torch_block import (JAX, PORT, T0, Chain,  # noqa: F401
                               easy_chain, grow)
+from upow_tpu_torch.state import storage
 
 
 def test_port_accepts_next_block_on_a_jax_written_database(tmp_path):
@@ -53,9 +55,17 @@ def test_port_accepts_next_block_on_a_jax_written_database(tmp_path):
 
 
 def test_device_index_is_not_ported_yet():
-    """The resident UTXO index is a later slice: asking for it raises
-    instead of silently taking the SQL path."""
+    """Asking for the resident UTXO index never silently takes the SQL
+    path: on the card without one it raises and leaves no index; on the
+    CPU, named, it arms one index per UTXO-class table."""
     state = PORT.ChainState()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        state.enable_device_index()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            state.enable_device_index()
+    assert state.resident_indexes() is None
+    state.close()
+    state = PORT.ChainState(device_index=True, device="cpu")
+    assert sorted(state.resident_indexes()) == sorted(
+        ("unspent_outputs",) + storage._GOV_TABLES)
+    assert state.index_stats()["entries"] == 0
     state.close()

@@ -9,12 +9,12 @@ package's names and precedence, so a config file or environment that the
 JAX node reads configures the port's node the same way.  Sections and
 fields the port does not have yet (the resilience, cache, snapshot,
 archive, telemetry and watchtower settings, ``device.verify_window``,
-``device.utxo_index``, the node's peer and gossip settings with
-``node.self_url``, and ``mempool.allow_rbf``) come with the slices that
-read them (ROADMAP.md); a config file naming them is read, and they are
-skipped.  So is ``mempool.enabled``: the port's node always
-admits through the coalescing intake, whose replies are byte for byte
-those of the JAX node's serial path.
+the node's peer and gossip settings with ``node.self_url``, and
+``mempool.allow_rbf``) come with the slices that read them (ROADMAP.md);
+a config file naming them is read, and they are skipped.  So is
+``mempool.enabled``: the port's node always admits through the
+coalescing intake, whose replies are byte for byte those of the JAX
+node's serial path.
 """
 
 from __future__ import annotations
@@ -49,6 +49,10 @@ class DeviceConfig:
                                     # takes the device from a batch size
                                     # (sha256.TXID_AUTO_DEVICE_MIN)
     txid_min_batch: int = 256       # below this many payloads, hashlib
+    utxo_index: bool = False        # the resident UTXO index on the
+                                    # node's device: membership on block
+                                    # accept and tx intake
+                                    # (state/device_index.py)
 
     def apply_kernel_overrides(self) -> None:
         """Push ``verify_kernel`` into ``crypto.p256.VERIFY_KERNEL``

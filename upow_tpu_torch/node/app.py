@@ -84,9 +84,10 @@ class Node:
         self.config = config or Config()
         self.config.device.apply_kernel_overrides()
         self.device = resolve(device)
-        self.state = state if state is not None else ChainState(
-            self.config.node.db_path or None)
         dcfg = self.config.device
+        self.state = state if state is not None else ChainState(
+            self.config.node.db_path or None, device_index=dcfg.utxo_index,
+            device=self.device)
         self.manager = BlockManager(
             self.state, device=self.device,
             verify_microbatch=dcfg.verify_microbatch,

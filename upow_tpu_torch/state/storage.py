@@ -3,13 +3,16 @@
 The port's copy of the JAX package's ``state/storage.py``, cut to what
 block acceptance and its rule checks read and write: same schema, same
 SQL, same fingerprints, so a chain database written by either package
-opens in the other.  The device-resident UTXO index is not ported yet
-(``enable_device_index`` raises; see ROADMAP.md), so membership checks
-take the SQL path, as they do in the JAX package by default.  The
-mempool journal and the block and transaction reads serve the node's
-routes; reorg rollback, tx propagation, the address and governance
-views, snapshots and the archive tier come with the later slices that
-call them (ROADMAP.md).
+opens in the other.  ``device_index=True`` (or ``enable_device_index()``)
+mirrors every UTXO-class table into a resident
+:class:`~.device_index.DeviceUtxoIndex` on the ChainState's device (the
+card unless ``device="cpu"``), kept in step with every UTXO write; it
+then answers ``outpoints_exist`` and the accept's fused scan.  Without
+it membership checks take the SQL path, as in the JAX package by
+default.  The mempool journal and the block and transaction reads serve
+the node's routes; tx propagation, the address and governance views,
+snapshots and the archive tier come with the later slices that call
+them (ROADMAP.md).
 
 The reference couples all chain state to asyncpg/PostgreSQL through an
 ~80-method ``Database`` class (database.py, 1654 LoC).  This keeps the
@@ -50,6 +53,8 @@ from ..core.codecs import OutputType, TransactionType
 from ..core.clock import timestamp as now_ts
 from ..core.constants import MAX_BLOCK_SIZE_HEX, SMALLEST
 from ..core.tx import CoinbaseTx, Tx, TxInput, tx_from_hex
+from ..device import DeviceLike, resolve
+from .device_index import DeviceUtxoIndex
 
 AnyTx = Union[Tx, CoinbaseTx]
 
@@ -153,7 +158,8 @@ class ChainState(StateViews):
     :class:`StateViews`; this class implements the sqlite storage
     primitives under them."""
 
-    def __init__(self, path: Optional[str] = None):
+    def __init__(self, path: Optional[str] = None,
+                 device_index: bool = False, device: DeviceLike = None):
         self.path = path or ":memory:"
         self.db = sqlite3.connect(self.path)
         self.db.row_factory = sqlite3.Row
@@ -181,6 +187,12 @@ class ChainState(StateViews):
         self.on_blocks_removed = None
         self._data_version = self._db_data_version()
         self._data_version_checked = 0.0
+        # the resident UTXO index, one per UTXO-class table, on
+        # ``device`` (the card unless "cpu"); None when not armed
+        self.device = device
+        self._dev_index: Optional[Dict[str, DeviceUtxoIndex]] = None
+        if device_index:
+            self.enable_device_index()
 
     def _db_data_version(self) -> int:
         return self.db.execute("PRAGMA data_version").fetchone()[0]
@@ -235,12 +247,57 @@ class ChainState(StateViews):
             self._pending_stamp = stamp
         return self._pending_cache
 
+    # ------------------------------------------------------ device index --
+
     def enable_device_index(self) -> None:
-        """The device-resident UTXO index is a later slice of the port
-        (ROADMAP.md, "Resident UTXO index"); until it lands, membership
-        checks take the SQL path."""
-        raise NotImplementedError(
-            "the device UTXO index is not ported yet; see ROADMAP.md")
+        """Mirror every UTXO-class table into a :class:`DeviceUtxoIndex`
+        on this state's device, maintained by the UTXO write paths and
+        rebuilt when a transaction rolls back.  Raises where the JAX
+        package disables the index and carries on with SQL: without a
+        card (unless the device is the CPU), or when the index cannot be
+        built, a node that asked for it does not start."""
+        device = resolve(self.device)
+        index = {}
+        for table in ("unspent_outputs",) + _GOV_TABLES:
+            rows = self.db.execute(
+                f"SELECT tx_hash, idx, amount, address FROM {table}"
+            ).fetchall()
+            index[table] = DeviceUtxoIndex(
+                [(r["tx_hash"], r["idx"]) for r in rows],
+                values=[(r["amount"], r["address"] or "", 0) for r in rows],
+                device=device)
+        self._dev_index = index
+
+    def _index_add(self, table: str, outpoints, values=None) -> None:
+        if self._dev_index is not None:
+            self._dev_index[table].add(outpoints, values)
+
+    def _index_remove(self, table: str, outpoints) -> None:
+        if self._dev_index is not None:
+            self._dev_index[table].remove(outpoints)
+
+    def _index_rebuild(self) -> None:
+        if self._dev_index is not None:
+            self.enable_device_index()
+
+    def resident_indexes(self) -> Optional[Dict[str, DeviceUtxoIndex]]:
+        """The per-table index map when armed, else None: the accept
+        path's gate for the fused resident scan (verify/block.py)."""
+        return self._dev_index
+
+    def index_stats(self) -> Optional[dict]:
+        """The indexes' entries, resident bytes, probes, shadow consults
+        and twin fingerprints summed over the tables; None when not
+        armed.  What the node's ``/metrics`` gauges will read (A12)."""
+        if not self._dev_index:
+            return None
+        agg = {"entries": 0, "resident_bytes": 0, "probes": 0,
+               "shadow_consults": 0, "twin_fingerprints": 0}
+        for index in self._dev_index.values():
+            s = index.stats()
+            for k in agg:
+                agg[k] += s[k]
+        return agg
 
     def close(self):
         self.db.close()
@@ -259,6 +316,7 @@ class ChainState(StateViews):
             self.db.rollback()
             self._amount_cache.clear()  # may hold rolled-back rows
             self._bump_fees_gen()
+            self._index_rebuild()  # undo the index updates the txn made
             raise
         finally:
             self._in_atomic = False
@@ -359,6 +417,18 @@ class ChainState(StateViews):
             self.db.executemany(
                 f"DELETE FROM {table} WHERE tx_hash = ?", [(h,) for h in created]
             )
+        # the index as a delta: the removed txs' outputs by class (spent
+        # ones are absent, a no-op as the SQL DELETE), before the
+        # restores below add back through the same hooks
+        if self._dev_index is not None:
+            doomed: Dict[str, list] = {}
+            for tx in txs:
+                h = tx.hash()
+                for index, out in enumerate(tx.outputs):
+                    doomed.setdefault(_OUTPUT_TABLE[out.output_type],
+                                      []).append((h, index))
+            for table, outpoints in doomed.items():
+                self._index_remove(table, outpoints)
         # restore outputs their inputs had spent, but not outputs of txs
         # that are themselves being removed (reference database.py
         # remove_blocks filters `tx_input.tx_hash not in transactions_hashes`;
@@ -425,7 +495,11 @@ class ChainState(StateViews):
     async def _restore_spent_outputs(self, inputs: List[TxInput]) -> None:
         """Re-materialize spent outputs by decoding their source txs
         (INSERT OR IGNORE: a whitelisted historical double-spend may
-        restore one outpoint twice)."""
+        restore one outpoint twice).  The index adds an outpoint only when
+        its INSERT took a row, so it never runs a duplicate ahead of the
+        table, and adds them in one splice per table at the end (the JAX
+        package splices one at a time, a copy of the index per input)."""
+        restored: Dict[str, list] = {}
         for tx_input in inputs:
             src = await self.get_transaction(tx_input.tx_hash, include_pending=False)
             if src is None:
@@ -433,18 +507,25 @@ class ChainState(StateViews):
             out = src.outputs[tx_input.index]
             table = _OUTPUT_TABLE[out.output_type]
             if table == "unspent_outputs":
-                self.db.execute(
+                cur = self.db.execute(
                     "INSERT OR IGNORE INTO unspent_outputs (tx_hash, idx, address,"
                     " amount, is_stake) VALUES (?,?,?,?,?)",
                     (tx_input.tx_hash, tx_input.index, out.address, out.amount,
                      int(out.is_stake)),
                 )
             else:
-                self.db.execute(
+                cur = self.db.execute(
                     f"INSERT OR IGNORE INTO {table} (tx_hash, idx, address, amount)"
                     " VALUES (?,?,?,?)",
                     (tx_input.tx_hash, tx_input.index, out.address, out.amount),
                 )
+            if cur.rowcount > 0:
+                restored.setdefault(table, []).append(
+                    ((tx_input.tx_hash, tx_input.index),
+                     (out.amount, out.address or "", 0)))
+        for table, rows in restored.items():
+            self._index_add(table, [o for o, _v in rows],
+                            values=[v for _o, v in rows])
 
     # ------------------------------------------------------- transactions --
 
@@ -812,6 +893,9 @@ class ChainState(StateViews):
                     " amount) VALUES (?,?,?,?)",
                     [(h, i, o.address, o.amount) for h, i, o in entries],
                 )
+            self._index_add(table, [(h, i) for h, i, _ in entries],
+                            values=[(o.amount, o.address or "", 0)
+                                    for _h, _i, o in entries])
 
     async def remove_outputs(self, txs: Sequence[AnyTx]) -> None:
         """Spend inputs from the table their tx type targets
@@ -829,15 +913,21 @@ class ChainState(StateViews):
                 f"DELETE FROM {table} WHERE tx_hash = ? AND idx = ?",
                 outpoints,
             )
+            self._index_remove(table, outpoints)
 
     async def outpoints_exist(self, outpoints: List[Tuple[str, int]],
                               table: str = "unspent_outputs") -> List[bool]:
-        """Batched membership test: one row-value IN query per 400
-        outpoints instead of a query per outpoint — an 8k-input block is
-        ~20 queries.  (The reference does a set-diff against a
+        """Batched membership test.  With the resident index armed, one
+        exact ``contains_batch`` probe; otherwise one row-value IN query
+        per 400 outpoints instead of a query per outpoint — an 8k-input
+        block is ~20 queries.  (The reference does a set-diff against a
         full-column fetch, manager.py:531-615.)"""
         if not outpoints:
             return []
+        if self._dev_index is not None and table in self._dev_index:
+            present = self._dev_index[table].contains_batch(
+                [tuple(o) for o in outpoints])
+            return [bool(p) for p in present]
         found: set = set()
         CHUNK = 400
         for off in range(0, len(outpoints), CHUNK):

@@ -22,6 +22,14 @@ counts syncs whose peer was further ahead than the reorg window, and
 ``kernel.sha256_txid.batches`` the batched-digest buckets (kernel
 launches on a card; their plain integer count is
 ``crypto.sha256.BLOCKS_LAUNCHES``).
+
+The resident UTXO index (``state/device_index.py``) records the JAX
+package's names: ``index.probes``, ``index.probe_outpoints``,
+``index.shadow_consults`` (zero on a collision-free block) and
+``index.ambiguous_probes`` (:func:`record_index_probe`), the
+``utxo_probe`` and ``utxo_apply`` (upload) batches, and the
+``accept_probe`` stage of the fused accept scan; its kernel's launches
+are ``state.device_index.PROBE_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -81,6 +89,18 @@ def record_batch(kernel: str, real: int, padded: int,
     inc("kernel.%s.lanes_padded" % kernel, max(int(padded), 1))
     if seconds is not None:
         observe("kernel.%s.dispatch_seconds" % kernel, seconds)
+
+
+def record_index_probe(outpoints: int, shadow_consults: int,
+                       ambiguous: int = 0) -> None:
+    """One resident-index probe of ``outpoints``, ``shadow_consults`` of
+    them answered by the host's shadow map."""
+    inc("index.probes")
+    inc("index.probe_outpoints", max(int(outpoints), 0))
+    if shadow_consults:
+        inc("index.shadow_consults", int(shadow_consults))
+    if ambiguous:
+        inc("index.ambiguous_probes", int(ambiguous))
 
 
 def record_stage(stage: str, seconds: float, items: Optional[int] = None,

@@ -19,8 +19,12 @@ raises without a card otherwise.  The node's hooks are here: the
 mempool GC (``clear_pending_transactions``), the ``on_pending_removed``
 notification, the cached difficulty, and the chain-sync page verdicts
 (``page_sig_verdicts``, set by the node around a sync page's accept
-loop).  Not ported yet (ROADMAP.md): the fused accept scan over the
-resident UTXO index, the hot-cache notification and the inode cache.
+loop).  With the state's resident UTXO index armed
+(``ChainState.resident_indexes()``), ``check_block`` takes the fused
+accept scan: each micro-batch's outpoints are probed on the index
+(kernel B6) in the same call as its digest batch, and the double-spend
+verdict is read from the probes instead of SQL.  Not ported yet
+(ROADMAP.md): the hot-cache notification and the inode cache.
 
 Rules and quirks are otherwise replicated exactly; citations inline.
 """
@@ -46,6 +50,7 @@ from ..core.rewards import get_block_reward, get_inode_rewards
 from ..core.tx import CoinbaseTx, Tx, TxOutput
 from ..crypto.sha256 import txid_batch
 from ..device import DeviceLike, resolve
+from ..state.device_index import fused_probe
 from ..state.storage import ChainState, _INPUT_TABLE
 from ..trace import event, record_stage, span
 from .dispatch import get_front
@@ -94,8 +99,8 @@ MERKLE_EXCEPTION = (
 
 
 def _fused_digest_prep(transactions: Sequence[Tx], txid_backend: str,
-                       txid_min_batch: int,
-                       device: DeviceLike = None) -> Dict[int, tuple]:
+                       txid_min_batch: int, device: DeviceLike = None,
+                       probe: Optional[Sequence[tuple]] = None):
     """Digest preparation for one verify micro-batch.
 
     Per tx, THREE digests feed the hot path: the raw signing-bytes
@@ -110,11 +115,19 @@ def _fused_digest_prep(transactions: Sequence[Tx], txid_backend: str,
     A host backend, or a micro-batch below ``txid_min_batch`` payloads,
     hashes with hashlib; otherwise the batch runs on ``device`` (the
     card unless ``"cpu"``) under ``txid_backend`` (``device`` or
-    ``auto``), as in the JAX package's node.  The JAX package's
-    ``probe`` (the resident UTXO index) comes with that index.
+    ``auto``), as in the JAX package's node.
+
+    ``probe`` (the resident accept path) is a list of
+    ``(DeviceUtxoIndex, outpoints)`` parts: the micro-batch's membership
+    probes and its digest batch run in one
+    :func:`..state.device_index.fused_probe` call, the digest batch as its
+    ``extra_fn``.  The JAX package gates the device digest batch there on
+    its degrade manager, which comes with the device runtime (A7): here a
+    failed probe or digest launch raises out of the accept.
 
     Returns ``{id(tx): (digest, digest_hexform)}`` for
-    ``collect_sig_checks``.
+    ``collect_sig_checks``; with ``probe``, ``(that dict,
+    [(present, amounts, shadow_consults), ...])``.
     """
     payloads: List[bytes] = []
     need_txid: List[bool] = []
@@ -126,8 +139,14 @@ def _fused_digest_prep(transactions: Sequence[Tx], txid_backend: str,
         need_txid.append(need)
         if need:
             payloads.append(bytes.fromhex(tx.hex()))
-    digests = txid_batch(payloads, backend=txid_backend,
-                         min_batch=txid_min_batch, device=device)
+    digest_batch = functools.partial(
+        txid_batch, payloads, backend=txid_backend, min_batch=txid_min_batch,
+        device=device)
+    probe_results = None
+    if probe is not None:
+        probe_results, digests = fused_probe(probe, extra_fn=digest_batch)
+    else:
+        digests = digest_batch()
     out: Dict[int, tuple] = {}
     pos = 0
     for tx, need in zip(transactions, need_txid):
@@ -137,6 +156,8 @@ def _fused_digest_prep(transactions: Sequence[Tx], txid_backend: str,
         if need:
             tx._hash = digests[pos]
             pos += 1
+    if probe is not None:
+        return out, probe_results
     return out
 
 
@@ -249,11 +270,23 @@ class BlockManager:
             errors.append("block is too big")
             return False
 
-        # double-spend scan: the per-table SQL membership check (the
-        # resident-index path of the JAX package is not ported yet)
-        if transactions and not await self._check_block_double_spends(
-                transactions, block_no, errors):
-            return False
+        # double-spend scan: the fused resident path answers membership
+        # from the UTXO index in the same call as each micro-batch's
+        # digest prep and hands the digests forward; otherwise the serial
+        # per-table SQL scan runs first.  Both feed the same verdict
+        # (whitelist, duplicate detect, error strings).
+        prep_cache: Optional[Dict[int, tuple]] = None
+        if transactions:
+            resident = self.state.resident_indexes()
+            if resident:
+                prep_cache, by_table, presence = \
+                    await self._fused_accept_scan(transactions, resident)
+                if not self._double_spend_verdict(
+                        by_table, presence, block_no, errors):
+                    return False
+            elif not await self._check_block_double_spends(
+                    transactions, block_no, errors):
+                return False
 
         # pipelined verify: the block is split into micro-batches; the
         # digest prep (tx decode + txid/digest sha256) of batch N runs on
@@ -275,9 +308,13 @@ class BlockManager:
         for start in range(0, len(transactions), mb):
             chunk = transactions[start:start + mb]
             t0 = time.perf_counter()
-            prep = await loop.run_in_executor(None, functools.partial(
-                _fused_digest_prep, chunk, self.txid_backend,
-                self.txid_min_batch, self.device))
+            if prep_cache is not None:
+                # the fused scan hashed the whole block already
+                prep = prep_cache
+            else:
+                prep = await loop.run_in_executor(None, functools.partial(
+                    _fused_digest_prep, chunk, self.txid_backend,
+                    self.txid_min_batch, self.device))
             chunk_checks: List[tuple] = []
             for tx in chunk:
                 if not await verifier.rules_ok(tx, check_double_spend=False):
@@ -364,6 +401,45 @@ class BlockManager:
             table: await self.state.outpoints_exist(outpoints, table)
             for table, outpoints in by_table.items()}
         return self._double_spend_verdict(by_table, presence, block_no, errors)
+
+    async def _fused_accept_scan(self, transactions: Sequence[Tx],
+                                 resident: dict) -> tuple:
+        """Phase 1 of the resident accept path: walk the block in verify
+        micro-batches, each one :func:`_fused_digest_prep` call with
+        ``probe=`` (its outpoints probed on the index, its digests
+        batched).  ``enable_device_index`` indexes every table an input
+        can spend from.
+
+        Returns ``(prep_cache, by_table, presence)``: the whole block's
+        digests for phase 2, and per-table outpoints and presence flags
+        in the grouping and order of the serial scan
+        (:meth:`_inputs_by_table`), so the verdict's first error is the
+        same."""
+        loop = asyncio.get_running_loop()
+        mb = self.verify_microbatch or len(transactions) or 1
+        prep_cache: Dict[int, tuple] = {}
+        by_table: dict = {}
+        presence: dict = {}
+        n_probed = 0
+        t0 = time.perf_counter()
+        for start in range(0, len(transactions), mb):
+            chunk = transactions[start:start + mb]
+            chunk_tables = self._inputs_by_table(chunk)
+            prep, probe_results = await loop.run_in_executor(
+                None, functools.partial(
+                    _fused_digest_prep, chunk, self.txid_backend,
+                    self.txid_min_batch, self.device,
+                    probe=[(resident[t], ops)
+                           for t, ops in chunk_tables.items()]))
+            prep_cache.update(prep)
+            for (table, ops), (present, _a, _c) in zip(
+                    chunk_tables.items(), probe_results):
+                by_table.setdefault(table, []).extend(ops)
+                presence.setdefault(table, []).extend(bool(p) for p in present)
+                n_probed += len(ops)
+        record_stage("accept_probe", time.perf_counter() - t0,
+                     items=n_probed)
+        return prep_cache, by_table, presence
 
     # ------------------------------------------------------ create_block --
 
