@@ -104,15 +104,41 @@ Phases, one line each; any failure exits non-zero:
    must equal the resident accept's;
 15. ``push_block`` of the 8,160-tx block over HTTP to a node started
    with ``UPOW_DEVICE_UTXO_INDEX=1`` on a fresh copy: accepted through
-   the probe, the two tampered blocks rejected with their strings.
+   the probe, the two tampered blocks rejected with their strings;
+16. kernel vs plain, P-256 at w = 5 (kernel B7, ``jac_w5_kernel_vs_plain``,
+   right after phase 3): the Jacobian ladder's w = 5 instantiation
+   against its plain version on the same 8,192 lanes and the 1,026-, 33-
+   and 1-lane shapes, bit for bit with the collision lanes flagged;
+   times with 10 launches queued beside w = 4's in the same call, the
+   bound, shared bytes, registers and local bytes;
+17. the accept at w = 5 (``main_path_w5``): ``device.verify_window = 5``
+   applied through ``DeviceConfig.apply_kernel_overrides``, the 8,160-tx
+   accept on B7 alone (no w = 4 launch) to the w = 4 accept's UTXO hash;
+18. the sharded verify (``mesh_verify``): ``verify_packed_sharded`` with
+   4 shards on the card equal to the unsharded launch lane for lane,
+   times; the accept with ``verify_mesh_devices = 0`` (one card: no
+   mesh) and with an explicit 4-shard mesh, each to the same UTXO hash;
+19. the mesh search (``mesh_search``): ``MeshEngine`` on the visible
+   cards and on an explicit 4-shard mesh on the card, against one
+   ``pow_search`` launch and the plain search (a hit, a miss, a ragged
+   round, empty shards, the top of the nonce space), shards that would
+   wrap past 2^32, a 2^24 round on 4 shards against one launch, the
+   engine's host time a round; then ``miner.run(device="mesh")`` against
+   the port's node, its block accepted;
+20. two processes on the one card (``multihost``, after phase 12)
+   rendezvous over gloo, each mines its planned half of 2^26 nonces with
+   B2, and an ``all_reduce(MIN)`` agrees on the winner of one search of
+   the whole range.
 
 The line before the last is the kernels' JSON record; each kernel's
 ``launches`` is one path's own count (the accept's for the Jacobian
-kernel, the HTTP push_block's under complete for the complete kernel,
-``miner.run``'s for the sha256 search kernel, the sync's for the txid
-kernel, the resident accept's for the probe kernel), and the complete
-kernel's ``launches_by_path`` gives each path it ran on.  Every phase
-that can reach the txid batch (6, 7, 8, 10, 11, 14 and 15) counts its
+kernel, the w = 5 accept's for B7, the HTTP push_block's under complete
+for the complete kernel, ``miner.run``'s for the sha256 search kernel,
+the sync's for the txid kernel, the resident accept's for the probe
+kernel, the 4-shard accept's for the sharded verify and the mesh
+miner's for the mesh search), and the complete kernel's
+``launches_by_path`` gives each path it ran on.  Every phase that can
+reach the txid batch (6, 7, 8, 10, 11, 14, 15, 17 and 18) counts its
 txid kernel launches and fails if hashlib stood in for a device digest
 there (``txid.sample_mismatch`` or ``sync.host_txid_retry`` above 0).
 The last is ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -129,6 +155,7 @@ import os
 import random
 import re
 import shutil
+import socket
 import sqlite3
 import statistics
 import subprocess
@@ -143,7 +170,7 @@ import numpy as np
 import torch
 
 from upow_tpu_torch import _build, device as tdevice, trace
-from upow_tpu_torch.config import Config
+from upow_tpu_torch.config import Config, DeviceConfig
 from upow_tpu_torch.core import clock, curve, point_to_string
 from upow_tpu_torch.core.constants import CURVE_GX, CURVE_GY, CURVE_N, CURVE_P
 from upow_tpu_torch.core.difficulty import (
@@ -152,8 +179,10 @@ from upow_tpu_torch.core.merkle import merkle_root
 from upow_tpu_torch.core.tx import Tx, TxInput, TxOutput
 from upow_tpu_torch.crypto import p256, sha256 as tsha
 from upow_tpu_torch.mine import engine as mine_engine, miner
+from upow_tpu_torch.mine import mesh_engine
 from upow_tpu_torch.node.app import Node
 from upow_tpu_torch.node.http import fetch
+from upow_tpu_torch.parallel import mesh as pmesh
 from upow_tpu_torch.state import ChainState, device_index as tdi
 from upow_tpu_torch.verify import BlockManager, txverify
 
@@ -689,14 +718,16 @@ async def build_chain(dev: torch.device, kit: Kit, path: str,
 
 
 async def accept_path(dev: torch.device, kit: Kit, path: str, leaves,
-                      content: str) -> dict:
-    """BlockManager(state).create_block of the big block on the card,
-    then the tampered candidates.  The chain is loaded into an in-memory
-    database, as in every accept measured since the first slice."""
+                      content: str, kernel_name: str = "p256_verify_kernel",
+                      **manager_kw) -> dict:
+    """BlockManager(state, **manager_kw).create_block of the big block on
+    the card, then the tampered candidates.  The chain is loaded into an
+    in-memory database, as in every accept measured since the first
+    slice."""
     state = ChainState()
     with sqlite3.connect(path) as src:
         src.backup(state.db)
-    manager = BlockManager(state, device=dev)
+    manager = BlockManager(state, device=dev, **manager_kw)
     pre_hash = await state.get_unspent_outputs_hash()
     chain_difficulty = (await manager.calculate_difficulty())[0]
 
@@ -705,14 +736,17 @@ async def accept_path(dev: torch.device, kit: Kit, path: str, leaves,
     trace.reset()
     p256.reset_counts()
     tsha.reset_counts()
+    pmesh.reset_counts()
     prof = start_profiler()
     errors = []
     t0 = time.perf_counter()
     ok = await manager.create_block(content, leaves, errors=errors)
     accept_s = time.perf_counter() - t0
     launches, exc_lanes = p256.LAUNCHES, p256.EXCEPTION_LANES
+    by_window = dict(p256.LAUNCHES_BY_WINDOW)
+    sharded = pmesh.VERIFY_LAUNCHES
     txid_launches = tsha.BLOCKS_LAUNCHES
-    device = device_busy(prof, "p256_verify_kernel")
+    device = device_busy(prof, kernel_name)
     breakdown = accept_breakdown(trace.snapshot())
     if not ok:
         fail(f"{len(leaves)}-tx block rejected: {errors}")
@@ -745,7 +779,8 @@ async def accept_path(dev: torch.device, kit: Kit, path: str, leaves,
     state.close()
     return {"txs": len(leaves), "accept_s": accept_s,
             "launches": launches, "exception_lanes": exc_lanes,
-            "txid_launches": txid_launches,
+            "by_window": by_window, "sharded_launches": sharded,
+            "utxo_hash": post_hash, "txid_launches": txid_launches,
             "rejected": rejected, "breakdown": breakdown, "device": device,
             "difficulty": chain_difficulty}
 
@@ -1481,6 +1516,372 @@ def push_block_resident_path(dev: torch.device, kit: Kit, workdir: Path,
 
 # --- phase 7: the hash rate ---------------------------------------------------
 
+# --- phases 16-20: the w = 5 ladder, the mesh variants, two processes ----
+
+def w5_phase(dev: torch.device, mix: tuple) -> dict:
+    """Kernel B7 (the Jacobian ladder at w = 5) against its plain version
+    at 8,192, 1,026, 33 and 1 lanes, bit for bit, the collision lanes
+    flagged; CUDA-event times with 10 launches queued beside w = 4's in
+    the same call (w = 4, w = 5, w = 5, w = 4); the bound; resources."""
+    digests, sigs, pubs, kinds = mix
+    fused, zs, rs, ss, qxs, qys = p256._pack_device_inputs(
+        digests, sigs, pubs, LANES)
+    packed = p256.packed_tensor(fused, dev)
+    got = p256.verify_packed(packed, window=5)
+    torch.cuda.synchronize()
+    plain = p256.verify_plain(packed, 5)
+    torch.cuda.synchronize()
+    max_abs_err = int((got.long() - plain.long()).abs().max())
+    if not torch.equal(got, plain):
+        bad = torch.nonzero(got != plain).flatten()[:8].tolist()
+        fail(f"w = 5 kernel != plain on {int((got != plain).sum())} lanes, "
+             f"first {bad}")
+    bits = got.cpu().numpy()
+    exc = [i for i in range(LANES) if bits[i] & 2]
+    if not {i for i, k in enumerate(kinds) if k == "collision"} <= set(exc):
+        fail("w = 5: crafted collision lanes were not flagged")
+    for i, kind in enumerate(kinds):
+        want = {"valid": 1, "big_digest": 1, "big_coord": 1,
+                "bad_s": 0, "off_curve": 0, "zero_pub": 0}.get(kind)
+        if want is not None and (bits[i] & 1) != want:
+            fail(f"w = 5 lane {i} ({kind}): verdict {bits[i] & 1}")
+    parts = {LANES: packed}
+    for width in (1026, 33, 1):
+        parts[width] = packed[:, :width].contiguous()
+        if not torch.equal(p256.verify_packed(parts[width], window=5),
+                           plain[:width]):
+            fail(f"w = 5 kernel != plain at the {width}-lane launch shape")
+    times = {}
+    for width in (LANES, 1026, 1):
+        for w in (4, 5, 5, 4):
+            times.setdefault((w, width), []).append(cuda_ms(
+                lambda: p256.verify_packed(parts[width], window=w),
+                reps=5, per=10))
+    ms = {k: statistics.mean(v) for k, v in times.items()}
+    plain_ms = cuda_ms(lambda: p256.verify_plain(packed, 5), reps=1, warm=0)
+    props = torch.cuda.get_device_properties(dev)
+    clock_mhz = tdevice.max_sm_clock_mhz() or props.clock_rate / 1000
+    ops = p256.mul_ops_needed(zs, rs, ss, qxs, qys, w=5)
+    ops_ms = ops / (props.multi_processor_count * IMUL_PER_SM_CLK
+                    * clock_mhz * 1e6) * 1e3
+    bytes_ms = LANES * (p256.PACKED_ROWS * 4 + 4) / HBM_BYTES_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    phase("jac_w5_kernel_vs_plain", lanes=LANES, equal=True,
+          equal_shapes=json.dumps([1026, 33, 1]), exception_lanes=len(exc),
+          ms=round(ms[(5, LANES)], 4), ms_w4=round(ms[(4, LANES)], 4),
+          turns_8192=json.dumps([round(t, 4) for t in
+                                 times[(4, LANES)][:1] + times[(5, LANES)]
+                                 + times[(4, LANES)][1:]]),
+          ms_1026_lanes=round(ms[(5, 1026)], 4),
+          ms_1026_lanes_w4=round(ms[(4, 1026)], 4),
+          ms_1_lane=round(ms[(5, 1)], 4), ms_1_lane_w4=round(ms[(4, 1)], 4),
+          plain_ms=round(plain_ms, 1), bound_ms=round(bound_ms, 4),
+          bound_share=round(bound_ms / ms[(5, LANES)], 4),
+          int_mul_ops=ops,
+          products_per_lane=sum(p256.mults_per_lane("jac", 5).values()),
+          products_per_lane_w4=sum(p256.mults_per_lane("jac", 4).values()),
+          **p256.kernel_attributes("p256_verify", dev, window=5))
+    return {"name": "p256_verify_w5", "route": "cuda",
+            "source": "upow_tpu_torch/csrc/p256_verify.cu",
+            "replaces": "upow_tpu/crypto/p256.py:1016",
+            "launches": 0, "max_abs_err": max_abs_err,
+            "ms": ms[(5, LANES)], "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None}
+
+
+def accept_w5(dev: torch.device, kit: Kit, path: str, leaves, content: str,
+              want_hash: str) -> dict:
+    """The accept with ``device.verify_window = 5`` applied through the
+    config: kernel B7 only, and the w = 4 accept's UTXO hash."""
+    DeviceConfig(verify_window=5).apply_kernel_overrides()
+    try:
+        out = asyncio.run(accept_path(dev, kit, path, leaves, content,
+                                      kernel_name="p256_verify_w5_kernel"))
+    finally:
+        DeviceConfig(verify_window=4).apply_kernel_overrides()
+    if out["by_window"][5] == 0 or out["by_window"][4] != 0:
+        fail(f"the w = 5 accept's launches by window: {out['by_window']}")
+    if out["utxo_hash"] != want_hash:
+        fail("the w = 5 accept reached another UTXO hash")
+    return out
+
+
+# (start, count) of the engine checks: a hit, a miss (difficulty 9), a
+# ragged last round, fewer nonces than shards (empty shards), and a round
+# ending at 2^32 - 1
+ENGINE_CASES = [("hit", "5", 0, SEARCH_BATCH),
+                ("miss", "9", 1 << 28, SEARCH_BATCH),
+                ("ragged", "4", 3 << 24, SEARCH_BATCH - 12345),
+                ("fewer_than_shards", "1", 1000, 3),
+                ("ends_at_2^32-1", "3", (1 << 32) - 1 - (1 << 20), 1 << 20)]
+
+
+def engine_check(dev: torch.device, eng, addr: str) -> tuple:
+    """Each case through the engine against one pow_search on one device
+    and against the plain search; returns (hits, the largest difference
+    between the engine's nonce and the plain search's)."""
+    hits = worst = 0
+    for name, diff, start, count in ENGINE_CASES:
+        job = mine_engine.MiningJob.from_header_fields(
+            previous_hash=random.Random(start).randbytes(32).hex(),
+            address=addr, merkle_root=hashlib.sha256(b"mesh").hexdigest(),
+            timestamp=1_760_000_000, difficulty=diff)
+        eng.set_job(job)
+        got = int(eng.dispatch(start, count))
+        template = tsha.make_template(job.prefix)
+        target = tsha.pack_target(tsha.target_spec(job.previous_hash, diff))
+        one = int(tsha.pow_search(template, target, start, count, device=dev))
+        plain = int(tsha.pow_search_plain(template, target, start, count,
+                                          dev))
+        worst = max(worst, abs(got - plain))
+        if not got == one == plain:
+            fail(f"mesh {name} on {eng.n_devices} shards: engine {got}, "
+                 f"one launch {one}, plain {plain}")
+        if name == "miss" and got != SENTINEL:
+            fail(f"mesh {name}: a hit at {got}")
+        if got != SENTINEL and not job.check(got):
+            fail(f"mesh {name}: {got} fails the hashlib check")
+        hits += got != SENTINEL
+    return hits, worst
+
+
+def mesh_search_phase(dev: torch.device, kit: Kit, workdir: Path) -> dict:
+    """The mesh search: MeshEngine on the visible cards (one here) and on
+    an explicit 4-shard mesh on the card, each against one pow_search
+    launch and the plain search (hit, miss, ragged round, empty shards,
+    the top of the nonce space); a range wrapping past 2^32 through
+    pow_search_resident; a 2^24 round on 4 shards against one launch of
+    2^24, and the engine's host time a round; then ``miner.run`` with
+    ``device="mesh"`` against the port's node, its block accepted."""
+    mesh_engine.reset_mesh_engine()
+    one = mesh_engine.get_mesh_engine(mesh_devices=0, round_hint=SEARCH_BATCH)
+    one.arm()
+    four = mesh_engine.MeshEngine(round_hint=SEARCH_BATCH,
+                                  devices=[dev] * 4)
+    four.arm()
+    if one.n_devices != torch.cuda.device_count() or four.n_devices != 4:
+        fail(f"mesh sizes {one.n_devices} and {four.n_devices}")
+    (h1, w1), (h4, w4) = (engine_check(dev, eng, kit.addr)
+                          for eng in (one, four))
+    # shards whose lanes would pass 2^32: those lanes drop out
+    job = mine_engine.MiningJob.from_header_fields(
+        previous_hash=random.Random(32).randbytes(32).hex(), address=kit.addr,
+        merkle_root=hashlib.sha256(b"wrap").hexdigest(),
+        timestamp=1_760_000_000, difficulty="1.5")
+    template = tsha.make_template(job.prefix)
+    target = tsha.pack_target(tsha.target_spec(job.previous_hash, "1.5"))
+    top = (1 << 32) - 3000
+    bases, limits = [top, top + 1000, 5, top + 2000], \
+        [(1 << 32) - 1, (1 << 32) - 1, 5, (1 << 32) - 1]
+    wrap = int(pmesh.pow_search_resident(
+        template.midstate, template.tail_words, bases, limits, target, 4096,
+        template.nonce_spec, four.mesh))
+    want = int(tsha.pow_search_plain(template, target, top,
+                                     (1 << 32) - 1 - top, dev))
+    if wrap != want or wrap == SENTINEL:
+        fail(f"wrapping shards: {wrap}, the plain search {want}")
+
+    # a 2^24 round on 4 shards against one launch of the same nonces (the
+    # sweep's template: no hit), and the engine's host time a round
+    sweep = sweep_job(kit.addr)
+    template = tsha.make_template(sweep.prefix)
+    target = tsha.pack_target(tsha.target_spec(sweep.previous_hash,
+                                               sweep.difficulty))
+    four.set_job(sweep)
+    one.set_job(sweep)
+    t = {"one_launch": [], "four_shards": []}
+    for _ in range(2):
+        t["one_launch"].append(cuda_ms(lambda: tsha.pow_search(
+            template, target, 0, SEARCH_BATCH, device=dev), reps=5, per=10))
+        t["four_shards"].append(cuda_ms(lambda: pmesh.pow_search_sharded(
+            template, target, 0, SEARCH_BATCH // 4, four.mesh), reps=5,
+            per=10))
+    rounds = 20
+    host = {}
+    for name, fn in (
+            ("direct", lambda: int(mine_engine._ReadBack(tsha.pow_search(
+                template, target, 0, SEARCH_BATCH, device=dev)))),
+            ("engine_1", lambda: int(one.dispatch(0, SEARCH_BATCH))),
+            ("engine_4", lambda: int(four.dispatch(0, SEARCH_BATCH)))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            fn()
+        host[name] = (time.perf_counter() - t0) / rounds * 1e3
+    plain_ms = cuda_ms(lambda: tsha.pow_search_plain(
+        template, target, 0, SEARCH_BATCH, dev), reps=1, warm=0)
+
+    # the miner with --device mesh against the port's node: the engine
+    # armed inside the path, a coinbase-only block 4 accepted
+    db = str(workdir / "mesh_miner.db")
+    shutil.copyfile(workdir / "base.db", db)
+    node = NodeThread(dev, db, "jac")
+    try:
+        mesh_engine.reset_mesh_engine()
+        clock.advance(60)
+        tsha.reset_counts()
+        pmesh.reset_counts()
+        t0 = time.perf_counter()
+        rc = miner.run(kit.addr, node.url, "mesh", SEARCH_BATCH, 90.0,
+                       once=True, mesh_devices=0)
+        run_s = time.perf_counter() - t0
+        launches = pmesh.SEARCH_LAUNCHES
+        tip = node.call(node.node.state.get_last_block())
+        stats = mesh_engine.engine_stats()
+    finally:
+        node.close()
+    if rc != 0 or tip["id"] != 4:
+        fail(f"miner.run --device mesh: rc {rc}, tip {tip['id']}")
+    if launches == 0 or not stats["armed"]:
+        fail(f"the mesh miner's launches {launches}, stats {stats}")
+    phase("mesh_search", cases=2 * len(ENGINE_CASES), equal=True,
+          hits=h1 + h4, wrap_hit=wrap, shards=json.dumps([1, 4]),
+          round_2e24_ms_one_launch=json.dumps(
+              [round(x, 4) for x in t["one_launch"]]),
+          round_2e24_ms_four_shards=json.dumps(
+              [round(x, 4) for x in t["four_shards"]]),
+          host_ms_a_round=json.dumps({k: round(v, 4)
+                                      for k, v in host.items()}),
+          plain_ms=round(plain_ms, 1), miner_rc=rc, miner_tip=tip["id"],
+          miner_launches=launches, miner_rounds=stats["dispatches"],
+          miner_s=round(run_s, 3), arm=json.dumps(stats["arm_ladder"]))
+    return {"launches": launches, "max_abs_err": max(w1, w4),
+            "ms": statistics.mean(t["four_shards"]),
+            "one_launch_ms": statistics.mean(t["one_launch"]),
+            "plain_ms": plain_ms}
+
+
+def mesh_verify_phase(dev: torch.device, kit: Kit, path: str, leaves,
+                      content: str, want_hash: str, mix: tuple) -> dict:
+    """The sharded verify: verify_packed_sharded with 4 shards on the card
+    equal to the unsharded launch lane for lane (8,192 lanes and the
+    1,026-lane shape), times; then the accept with ``verify_mesh_devices
+    = 0`` (one card: no mesh) and with an explicit 4-shard mesh, each to
+    the w = 4 accept's UTXO hash."""
+    digests, sigs, pubs, _kinds = mix
+    fused = p256._pack_device_inputs(digests, sigs, pubs, LANES)[0]
+    packed = p256.packed_tensor(fused, dev)
+    four = pmesh.make_mesh([dev] * 4)
+    max_abs_err = 0
+    for width in (LANES, 1026, 3):
+        part = packed[:, :width].contiguous()
+        got = pmesh.verify_packed_sharded(part, four)
+        want = p256.verify_packed(part)
+        torch.cuda.synchronize()
+        max_abs_err = max(max_abs_err,
+                          int((got.long() - want.long()).abs().max()))
+        if not torch.equal(got, want):
+            fail(f"sharded verify != unsharded at {width} lanes")
+    t = {"unsharded": [], "four_shards": []}
+    for _ in range(2):
+        t["unsharded"].append(cuda_ms(lambda: p256.verify_packed(packed),
+                                      reps=5, per=10))
+        t["four_shards"].append(cuda_ms(
+            lambda: pmesh.verify_packed_sharded(packed, four), reps=5,
+            per=10))
+    zero = asyncio.run(accept_path(dev, kit, path, leaves, content,
+                                   verify_mesh_devices=0))
+    sharded = asyncio.run(accept_path(dev, kit, path, leaves, content,
+                                      verify_mesh_devices=four))
+    if zero["utxo_hash"] != want_hash or sharded["utxo_hash"] != want_hash:
+        fail("an accept on a mesh reached another UTXO hash")
+    if zero["sharded_launches"] != 0 or sharded["sharded_launches"] == 0:
+        fail(f"sharded launches: mesh 0 {zero['sharded_launches']}, "
+             f"explicit 4 {sharded['sharded_launches']}")
+    phase("mesh_verify", lanes=LANES, shards=4, equal=True,
+          equal_shapes=json.dumps([LANES, 1026, 3]),
+          ms_unsharded=json.dumps([round(x, 4) for x in t["unsharded"]]),
+          ms_four_shards=json.dumps([round(x, 4) for x in t["four_shards"]]),
+          accept_mesh0_s=round(zero["accept_s"], 3),
+          accept_mesh0_launches=zero["launches"],
+          accept_four_shards_s=round(sharded["accept_s"], 3),
+          accept_four_shards_launches=sharded["sharded_launches"],
+          same_utxo_hash=True)
+    return {"launches": sharded["sharded_launches"],
+            "ms": statistics.mean(t["four_shards"]),
+            "max_abs_err": max_abs_err}
+
+
+_MULTIHOST_CHILD = r"""
+import json, sys
+sys.path.insert(0, {root!r})
+import torch
+import torch.distributed as dist
+from upow_tpu_torch.mine import engine
+from upow_tpu_torch.parallel import multihost
+
+assert multihost.initialize({coord!r}, num_processes=2, process_id={pid},
+                            timeout=120.0)
+lo, hi = multihost.my_nonce_range(0, {span})
+job = engine.MiningJob({prefix!r}, {prev!r}, __import__("decimal").Decimal({diff!r}))
+res = engine.mine(job, {backend!r}, start=lo, stride_end=hi, batch=1 << 24)
+local = res.nonce if res.nonce is not None else 0xFFFFFFFF
+best = torch.tensor([local], dtype=torch.int64)
+dist.all_reduce(best, op=dist.ReduceOp.MIN)
+print("RESULT " + json.dumps({{"range": [lo, hi], "local": local,
+                               "global": int(best)}}), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def multihost_phase(addr: str, backend: str = "cuda",
+                    span: int = 1 << 26) -> dict:
+    """Two processes on the one card rendezvous over gloo
+    (``multihost.initialize``); each mines its planned half of ``span``
+    nonces with kernel B2 (built by this process already, so the children
+    only load it), and an all_reduce(MIN) agrees on the winner, which
+    must equal this process's search of the whole range."""
+    job = mine_engine.MiningJob.from_header_fields(
+        previous_hash=random.Random(26).randbytes(32).hex(), address=addr,
+        merkle_root=hashlib.sha256(b"multihost").hexdigest(),
+        timestamp=1_760_000_000, difficulty="5.5")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("UPOW_COORDINATOR_ADDRESS", "WORLD_SIZE", "RANK")}
+    root = str(Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MULTIHOST_CHILD.format(
+            root=root, coord=f"127.0.0.1:{port}", pid=i, span=span,
+            backend=backend,
+            prefix=job.prefix, prev=job.previous_hash,
+            diff=str(job.difficulty))],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for i in range(2)]
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=240)
+            if p.returncode != 0:
+                fail(f"multihost child rc {p.returncode}: {err[-1500:]}")
+            line = [x for x in out.splitlines() if x.startswith("RESULT ")]
+            if len(line) != 1:
+                fail(f"multihost child printed no result: {out[-500:]}")
+            results.append(json.loads(line[0][7:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    whole = mine_engine.mine(job, backend, start=0, stride_end=span,
+                             batch=SEARCH_BATCH).nonce
+    whole = SENTINEL if whole is None else whole
+    ranges = [r["range"] for r in results]
+    if ranges != [[0, span // 2], [span // 2, span]]:
+        fail(f"multihost ranges {ranges}")
+    if any(r["global"] != whole for r in results) or whole == SENTINEL \
+            or min(r["local"] for r in results) != whole:
+        fail(f"multihost winners {results}, one search {whole}")
+    phase("multihost", processes=2, backend="gloo", span=span,
+          winner=whole, locals=json.dumps([r["local"] for r in results]),
+          wall_s=round(wall_s, 3))
+    return {"winner": whole}
+
+
 def hashrate_phase(key: tuple) -> dict:
     addr = point_to_string(key[1])
     job = sweep_job(addr)
@@ -1641,6 +2042,7 @@ def main() -> int:
 
     mix = signature_mix(LANES)
     record = kernel_phase(dev, mix)
+    w5_record = w5_phase(dev, mix)
     complete_record = complete_phase(dev, mix)
     key = curve.keygen(rng=KEY_SEED)
     sha_record = sha_phase(dev, point_to_string(key[1]))
@@ -1656,6 +2058,11 @@ def main() -> int:
                                       leaves, content))
         resident = asyncio.run(accept_resident_path(
             dev, kit, str(workdir / "base.db"), leaves, content))
+        res_w5 = accept_w5(dev, kit, str(workdir / "base.db"), leaves,
+                           content, res["utxo_hash"])
+        mverify = mesh_verify_phase(dev, kit, str(workdir / "base.db"),
+                                    leaves, content, res["utxo_hash"], mix)
+        msearch = mesh_search_phase(dev, kit, workdir)
         nres = node_path(dev, kit, workdir, leaves)
         pushes = {k: push_block_path(dev, kit, workdir, leaves, content, k)
                   for k in ("complete", "jac")}
@@ -1676,6 +2083,7 @@ def main() -> int:
             server.close()
     clock.reset()
     txid_record["launches"] = synced["b5"]
+    w5_record["launches"] = res_w5["by_window"][5]
     probe_record["launches"] = resident["b6"]
     record["launches"] = res["launches"]
     sha_record["launches"] = nres["miner"]["launches"]
@@ -1699,6 +2107,14 @@ def main() -> int:
           rejected=json.dumps(res["rejected"]), card=json.dumps(card))
     phase("accept_breakdown", **res["breakdown"])
     device_phase("device_profile", res["device"], res["accept_s"])
+    phase("main_path_w5", txs=res_w5["txs"], verify_window=5,
+          accept_s=round(res_w5["accept_s"], 3),
+          tx_per_s=round(res_w5["txs"] / res_w5["accept_s"], 1),
+          w5_launches=res_w5["by_window"][5],
+          w4_launches=res_w5["by_window"][4],
+          exception_lanes=res_w5["exception_lanes"],
+          same_utxo_hash_as_w4=True, card=json.dumps(card))
+    device_phase("device_profile_w5", res_w5["device"], res_w5["accept_s"])
     phase("node_burst", verify_kernel="complete", push_tx=nres["burst"],
           accepted=nres["burst"], seconds=round(nres["burst_s"], 3),
           tx_per_s=round(nres["burst"] / nres["burst_s"], 1),
@@ -1787,15 +2203,42 @@ def main() -> int:
     device_phase("hashrate_device_profile", rate["device"], rate["seconds"])
     phase("difficulty_6_3", nonce=rate["nonce_6_3"], hashlib_checked=True,
           hashes=rate["tried_6_3"], seconds=round(rate["seconds_6_3"], 4))
+    multihost_phase(point_to_string(key[1]))
 
     # kernels 3 and 4 of the TPU package are one CUDA kernel: one record
     # for each TPU kernel it replaces, with the same measurements
     stacked_record = dict(complete_record,
                           replaces="upow_tpu/crypto/p256.py:468",
                           same_kernel_as="upow_tpu/crypto/p256.py:548")
-    print(json.dumps({"kernels": [record, complete_record, stacked_record,
-                                  sha_record, txid_record, probe_record]}),
-          flush=True)
+    # the mesh programs (ROADMAP B8): each shard one launch of B1 or B2;
+    # their bounds are the unsharded kernel's for the same work.  The
+    # JAX package's two mesh searches (:74 fixed target, :101 resident)
+    # are one wrapper here, so one measurement serves both records
+    verify_sharded_record = {
+        "name": "p256_verify_sharded", "route": "cuda",
+        "source": "upow_tpu_torch/csrc/p256_verify.cu",
+        "replaces": "upow_tpu/crypto/p256.py:1289",
+        "launches": mverify["launches"],
+        "max_abs_err": mverify["max_abs_err"], "ms": mverify["ms"],
+        "plain_ms": record["plain_ms"], "bound_ms": record["bound_ms"],
+        "bound_by": record["bound_by"], "library_ms": None}
+    search_mesh_record = {
+        "name": "sha256_search_mesh", "route": "cuda",
+        "source": "upow_tpu_torch/csrc/sha256_search.cu",
+        "replaces": "upow_tpu/parallel/mesh.py:101",
+        "launches": msearch["launches"],
+        "max_abs_err": msearch["max_abs_err"], "ms": msearch["ms"],
+        "plain_ms": msearch["plain_ms"], "bound_ms": sha_record["bound_ms"],
+        "bound_by": sha_record["bound_by"], "library_ms": None,
+        "one_launch_ms": msearch["one_launch_ms"]}
+    search_sharded_record = dict(
+        search_mesh_record, name="sha256_search_sharded",
+        replaces="upow_tpu/parallel/mesh.py:74",
+        same_kernel_as="upow_tpu/parallel/mesh.py:101")
+    print(json.dumps({"kernels": [
+        record, w5_record, complete_record, stacked_record, sha_record,
+        txid_record, probe_record, verify_sharded_record, search_mesh_record,
+        search_sharded_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -139,7 +139,8 @@ def test_every_port_module_imports_without_jax():
                  "mine.engine", "mine.miner", "mempool", "mempool.pool",
                  "mempool.intake", "mempool.template", "node.app",
                  "node.http", "node.peers", "node.ratelimit",
-                 "node.ipfilter", "node.run", "state.device_index"):
+                 "node.ipfilter", "node.run", "state.device_index",
+                 "parallel.mesh", "mine.mesh_engine"):
         assert "upow_tpu_torch." + must in names, must
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(

@@ -4,8 +4,9 @@
   ``mine(job, "jnp")``: the same first hit and ``hashes_tried`` through the
   same depth-2 pipelined rounds;
 * ``build_job``, ``plan_nonce_ranges`` and ``Config.load`` parity;
-* the port's backend names, its supervisor's child command, its refusal
-  of a multi-host coordinator and of a card it does not have;
+* the port's backend names, its supervisor's child command, its loud
+  failure on a multi-host coordinator it cannot join and its refusal of
+  a card it does not have;
 * end to end: ``miner.run(..., device="cpu", once=True)`` against a
   stdlib stub node over the port's ``ChainState`` pushes the same bytes
   as JAX ``run(..., device="jnp", once=True)`` against a twin stub over a
@@ -187,8 +188,7 @@ def test_select_backend_names():
     assert tminer.select_backend("python") == "python"
     with pytest.raises(NotImplementedError, match="A7"):
         tminer.select_backend("native")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tminer.select_backend("mesh")
+    assert tminer.select_backend("mesh") == "mesh"
     for name in ("tpu", "pallas", "jnp"):  # the JAX package's, not ours
         with pytest.raises(SystemExit):
             tminer.select_backend(name)
@@ -228,8 +228,13 @@ def test_workers_refuse_the_card():
 
 
 def test_coordinator_address_raises(monkeypatch):
+    """A configured coordinator the process cannot join (here: no
+    WORLD_SIZE or RANK) fails loudly, as the JAX bring-up does, instead
+    of every host mining the whole nonce space."""
     monkeypatch.setenv("UPOW_COORDINATOR_ADDRESS", "10.0.0.1:1234")
-    with pytest.raises(NotImplementedError, match="A11"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(RuntimeError, match="bring-up failed"):
         tminer.main([ADDR, "--device", "cpu", "--once",
                      "--node", "http://127.0.0.1:1/"])
     monkeypatch.delenv("UPOW_COORDINATOR_ADDRESS")

@@ -265,9 +265,9 @@ def test_port_node_answers_like_the_jax_node(tmp_path, monkeypatch, kernel):
     ran = {"jac": 0, "complete": 0}
     for name, fn in (("jac", "verify_plain"),
                      ("complete", "verify_complete_plain")):
-        def spy(packed, _real=getattr(p256, fn), _name=name):
+        def spy(packed, *args, _real=getattr(p256, fn), _name=name, **kw):
             ran[_name] += 1
-            return _real(packed)
+            return _real(packed, *args, **kw)
         monkeypatch.setattr(p256, fn, spy)
     asyncio.run(main())
     assert p256.VERIFY_KERNEL == kernel

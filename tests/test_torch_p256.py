@@ -279,9 +279,10 @@ int main(int argc, char** argv) {
 """
 
 
-def build_group_kernel(tmp: Path, name: str) -> Path:
-    """csrc/<name>.cu built by the host's g++ under _GROUP_SHIM; returns
-    the binary, which reads (constants, n, packed) and writes n int32."""
+def build_group_kernel(tmp: Path, name: str, kernel: str = "") -> Path:
+    """csrc/<name>.cu built by the host's g++ under _GROUP_SHIM, running
+    its ``kernel`` (by default ``<name>_kernel``); returns the binary,
+    which reads (constants, n, packed) and writes n int32."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
@@ -293,7 +294,7 @@ def build_group_kernel(tmp: Path, name: str) -> Path:
     shutil.copy(csrc / "p256_common.cuh", tmp)
     (tmp / "kernel.cpp").write_text(src)
     (tmp / "main.cpp").write_text('#include "kernel.cpp"\n' + _GROUP_MAIN
-                                  .replace("KERNEL", f"{name}_kernel"))
+                                  .replace("KERNEL", kernel or f"{name}_kernel"))
     subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-I", str(tmp),
                     str(tmp / "main.cpp"), "-o", str(tmp / "kernel")],
                    check=True, capture_output=True, timeout=300)

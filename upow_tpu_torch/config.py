@@ -8,9 +8,9 @@ JSON config file, ``UPOW_<SECTION>_<FIELD>`` environment variables
 package's names and precedence, so a config file or environment that the
 JAX node reads configures the port's node the same way.  Sections and
 fields the port does not have yet (the resilience, cache, snapshot,
-archive, telemetry and watchtower settings, ``device.verify_window``,
-the node's peer and gossip settings with ``node.self_url``, and
-``mempool.allow_rbf``) come with the slices that read them (ROADMAP.md);
+archive, telemetry and watchtower settings, the node's peer and gossip
+settings with ``node.self_url``, and ``mempool.allow_rbf``) come with the
+slices that read them (ROADMAP.md);
 a config file naming them is read, and they are skipped.  So is
 ``mempool.enabled``: the port's node always admits through the
 coalescing intake, whose replies are byte for byte those of the JAX
@@ -37,6 +37,14 @@ class DeviceConfig:
                                     # package's name, means the device)
     search_batch: int = 1 << 24     # nonces per device dispatch
     verify_kernel: str = ""         # "" = default (jac) | jac | complete
+    verify_window: int = 0          # 0 = default (4) | 4 | 5: the jac
+                                    # ladder's window (5 is kernel B7);
+                                    # the JAX package's [2, 13] range is
+                                    # checked, and a window with no
+                                    # kernel raises NotImplementedError
+    mesh_devices: int = 0           # cards the mesh verify and the mesh
+                                    # miner span: 0 = all visible, N =
+                                    # the first N (parallel/mesh.py)
     verify_microbatch: int = 1024   # txs per check_block micro-batch:
                                     # digest prep of batch N overlaps the
                                     # in-flight sig verify of batch N-1
@@ -55,18 +63,33 @@ class DeviceConfig:
                                     # (state/device_index.py)
 
     def apply_kernel_overrides(self) -> None:
-        """Push ``verify_kernel`` into ``crypto.p256.VERIFY_KERNEL``
-        (module-level, so node, tests and chip_smoke.py see one value).
-        No-op at the default."""
-        if not self.verify_kernel:
+        """Push ``verify_kernel`` and ``verify_window`` into
+        ``crypto.p256.VERIFY_KERNEL`` and ``VERIFY_WINDOW`` (module-level,
+        so node, tests and chip_smoke.py see one value).  No-op at the
+        defaults.  Validation is the JAX package's; a window in [2, 13]
+        that has no kernel here raises NotImplementedError before
+        anything is set."""
+        if not (self.verify_kernel or self.verify_window):
             return
-        from .crypto import p256
-
-        if self.verify_kernel not in p256.VERIFY_KERNELS:
+        if self.verify_kernel and self.verify_kernel not in ("jac",
+                                                             "complete"):
             raise ValueError(
                 f"device.verify_kernel must be 'jac' or 'complete', "
                 f"not {self.verify_kernel!r}")
-        p256.VERIFY_KERNEL = self.verify_kernel
+        window = self.verify_window
+        if window and (not isinstance(window, int) or isinstance(window, bool)
+                       or not 2 <= window <= 13):
+            raise ValueError(
+                f"device.verify_window must be an int in [2, 13], "
+                f"not {window!r}")
+        from .crypto import p256
+
+        if window:
+            p256.check_window(window)
+        if self.verify_kernel:
+            p256.VERIFY_KERNEL = self.verify_kernel
+        if window:
+            p256.VERIFY_WINDOW = window
 
 
 @dataclass

@@ -7,24 +7,26 @@ hand-written CUDA launch, four threads to a signature, in either of two
 kernels that share their field arithmetic and scalar prep
 (``csrc/p256_common.cuh``): s^-1 mod n by Fermat (fixed 4-bit window over
 n - 2), u1 = z * s^-1 and u2 = r * s^-1, the on-curve check and the
-window digits; then a w = 4 Strauss ladder for u1*G + u2*Q:
+window digits; then a Strauss ladder for u1*G + u2*Q:
 
 * ``csrc/p256_verify.cu`` (``VERIFY_KERNEL = "jac"``, the default) ports
-  ``_ladder_kernel_jac``: Jacobian coordinates, each of 64 rounds 4
-  doublings (dbl-2001-b), a mixed add (madd-2007-bl) from the constant
-  affine G table and a general add (add-2007-bl) from a 15-entry Q table
-  built per lane.  A zero digit keeps the accumulator, a not-yet-started
-  accumulator takes the picked point, and H == 0 with both operands real
-  sets the lane's exception flag; accept <=> X == r*Z^2 or (r + n < p and
+  ``_ladder_kernel_jac`` at either window the JAX package runs it with
+  (:data:`VERIFY_WINDOW`: 4, the default, or 5, kernel B7): Jacobian
+  coordinates, each of ceil(256 / w) rounds w doublings (dbl-2001-b), a
+  mixed add (madd-2007-bl) from the constant affine G table and a general
+  add (add-2007-bl) from a 2^w - 1 entry Q table built per lane.  A zero
+  digit keeps the accumulator, a not-yet-started accumulator takes the
+  picked point, and H == 0 with both operands real sets the lane's
+  exception flag; accept <=> X == r*Z^2 or (r + n < p and
   X == (r+n)*Z^2), R finite.  Output bit 0 is the verdict, bit 1 the
   exception flag; flagged lanes (cryptographically unreachable for
   honest signatures) are re-verified on the host oracle, exactly as the
   JAX package does, and both bits match the JAX kernel lane for lane.
 * ``csrc/p256_complete.cu`` (``VERIFY_KERNEL = "complete"``) ports
   ``_ladder_kernel_list`` and ``_ladder_kernel``: the RCB16 complete
-  formulas (a = -3, homogeneous projective), a 16-entry Q table with the
-  identity at 0, and accept <=> X == r*Z or (r + n < p and X == (r+n)*Z),
-  Z != 0.  Complete formulas have no exceptional inputs, so bit 1 is
+  formulas (a = -3, homogeneous projective), w = 4 always, a 16-entry Q
+  table with the identity at 0, and accept <=> X == r*Z or (r + n < p
+  and X == (r+n)*Z), Z != 0.  Complete formulas have no exceptional inputs, so bit 1 is
   always 0 and no lane reaches the host oracle.
 
 Beside each kernel lives its plain PyTorch version (:func:`verify_plain`,
@@ -38,8 +40,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import logging
+import os
 import threading
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,10 +55,25 @@ from ..core.constants import CURVE_B, CURVE_N, CURVE_P
 from ..device import DeviceLike, resolve
 from . import fp
 
-WINDOW = 4
-ROUNDS = 256 // WINDOW     # 64 ladder rounds
-TABLE = (1 << WINDOW) - 1  # 15 table entries, [1]P .. [15]P
 PACKED_ROWS = 42           # z, r, s, qx, qy (8 words each), range_ok, rn_ok
+WINDOWS = (4, 5)           # the Jacobian ladder's windows with a kernel
+DEFAULT_WINDOW = 4         # the JAX package's default, and the complete
+                           # ladder's only window
+INV_WINDOW = 4             # the prep's fixed window over n - 2 (s^-1),
+                           # whatever the ladder's: as the JAX package's
+                           # _mod_n_inv_mont
+G_ENTRIES = (1 << max(WINDOWS)) - 1  # [k]G in the kernels' constant table
+
+
+def rounds(w: int) -> int:
+    """Ladder rounds of a w-bit window: ceil(256 / w) (64 at w = 4, 52
+    at w = 5, whose top digit reads zero bits past 256)."""
+    return -(-256 // w)
+
+
+def table(w: int) -> int:
+    """Table entries of a w-bit window, [1]P .. [2^w - 1]P."""
+    return (1 << w) - 1
 
 FP = fp.Field(CURVE_P)
 FN = fp.Field(CURVE_N)
@@ -67,10 +86,49 @@ FN = fp.Field(CURVE_N)
 VERIFY_KERNEL = "jac"
 VERIFY_KERNELS = ("jac", "complete")
 
+
+def _env_window() -> int:
+    """The JAX package's parse of ``UPOW_JAC_WINDOW`` (``p256.py``
+    ``_env_choice``): 4 or 5; anything else logs and keeps 4, so a node
+    never starts on an unvetted window."""
+    name = "UPOW_JAC_WINDOW"
+    raw = os.environ.get(name)
+    if raw is None:
+        return DEFAULT_WINDOW
+    try:
+        val = int(raw.strip())
+    except ValueError:
+        val = None
+    if val not in WINDOWS:
+        logging.getLogger("upow_tpu_torch.crypto").warning(
+            "%s=%r invalid (allowed %s); using %d", name, raw,
+            sorted(WINDOWS), DEFAULT_WINDOW)
+        return DEFAULT_WINDOW
+    return val
+
+
+# The Jacobian ladder's window (the JAX package's PALLAS_JAC_WINDOW): read
+# from UPOW_JAC_WINDOW at import; config.DeviceConfig.apply_kernel_overrides
+# sets it from device.verify_window.
+VERIFY_WINDOW = _env_window()
+
+
+def check_window(w: int) -> int:
+    """``w`` if a kernel runs that window; NotImplementedError else."""
+    if w not in WINDOWS:
+        raise NotImplementedError(
+            f"the Jacobian ladder has no kernel for window {w!r}: windows "
+            f"other than {WINDOWS} are ROADMAP B7b (from w = 6 their "
+            "tables do not fit the kernel's shared memory)")
+    return w
+
 # Plain integers, read by chip_smoke.py: launches of each kernel, and lanes
 # the Jacobian kernel or its plain version flagged for the host oracle.
 # Verifies run on executor threads, so updates take the lock.
+# LAUNCHES counts the Jacobian kernel at every window, LAUNCHES_BY_WINDOW
+# splits it by window.
 LAUNCHES = 0
+LAUNCHES_BY_WINDOW = {w: 0 for w in WINDOWS}
 COMPLETE_LAUNCHES = 0
 EXCEPTION_LANES = 0
 _COUNT_LOCK = threading.Lock()
@@ -80,6 +138,8 @@ def reset_counts() -> None:
     global LAUNCHES, COMPLETE_LAUNCHES, EXCEPTION_LANES
     with _COUNT_LOCK:
         LAUNCHES = 0
+        for w in LAUNCHES_BY_WINDOW:
+            LAUNCHES_BY_WINDOW[w] = 0
         COMPLETE_LAUNCHES = 0
         EXCEPTION_LANES = 0
 
@@ -165,26 +225,28 @@ def _host_verify_prehashed(z: int, r: int, s: int, qx: int, qy: int) -> bool:
 # --- the plain PyTorch version -------------------------------------------
 
 def _nm2_digits() -> list:
-    """w-bit digits of the fixed exponent n - 2, most significant first."""
-    e = CURVE_N - 2
-    return [(e >> (WINDOW * (ROUNDS - 1 - k))) & TABLE for k in range(ROUNDS)]
+    """INV_WINDOW-bit digits of the fixed exponent n - 2, most
+    significant first."""
+    e, n = CURVE_N - 2, rounds(INV_WINDOW)
+    return [(e >> (INV_WINDOW * (n - 1 - k))) & table(INV_WINDOW)
+            for k in range(n)]
 
 
 @functools.lru_cache(maxsize=None)
 def _g_multiples() -> Tuple[Tuple[int, int], ...]:
-    """Affine [k]G for k = 1..15."""
+    """Affine [k]G for k = 1..G_ENTRIES."""
     return tuple(host_curve.point_mul(k, host_curve.G)
-                 for k in range(1, TABLE + 1))
+                 for k in range(1, G_ENTRIES + 1))
 
 
-_G_PLAIN = {}  # device -> (15, 2, 12) int64 Montgomery limbs of [k]G
+_G_PLAIN = {}  # (device, w) -> (2^w - 1, 2, 12) int64 Montgomery limbs
 
 
-def _g_table_plain(device) -> torch.Tensor:
-    key = str(device)
+def _g_table_plain(device, w: int = DEFAULT_WINDOW) -> torch.Tensor:
+    key = (str(device), w)
     if key not in _G_PLAIN:
         rows = [[fp.int_to_limbs(FP.to_mont(c)) for c in pt]
-                for pt in _g_multiples()]
+                for pt in _g_multiples()[:table(w)]]
         _G_PLAIN[key] = torch.tensor(rows, dtype=torch.int64, device=device)
     return _G_PLAIN[key]
 
@@ -199,11 +261,14 @@ def _words_to_limbs(words: torch.Tensor) -> torch.Tensor:
     return v & fp.LIMB_MASK
 
 
-def _digits(limbs: torch.Tensor) -> torch.Tensor:
-    """(12, N) canonical 24-bit limbs -> (64, N) 4-bit digits, MSB first."""
-    shifts = torch.arange(0, fp.LIMB_BITS, WINDOW, device=limbs.device)
-    nib = (limbs[:, None, :] >> shifts[None, :, None]) & TABLE
-    return nib.reshape(-1, limbs.shape[1])[:ROUNDS].flip(0)
+def _digits(limbs: torch.Tensor, w: int = DEFAULT_WINDOW) -> torch.Tensor:
+    """(12, N) canonical 24-bit limbs -> (rounds(w), N) w-bit digits, MSB
+    first (the JAX package's ``_digits_from_limbs``).  A digit may span
+    two limbs; the top digit of an uneven split reads zero bits past 256."""
+    bit = torch.arange(rounds(w), device=limbs.device) * w
+    j, off = bit // fp.LIMB_BITS, (bit % fp.LIMB_BITS)[:, None]
+    v = (limbs[j] >> off) | (limbs[j + 1] << (fp.LIMB_BITS - off))
+    return (v & table(w)).flip(0)
 
 
 def _jac_dbl(P):
@@ -273,10 +338,11 @@ def _apply_add(acc, res, H, pick, dg, started, exc):
     return out, started | ~pick_id, exc
 
 
-def _prep_plain(packed: torch.Tensor):
+def _prep_plain(packed: torch.Tensor, w: int = DEFAULT_WINDOW):
     """The kernels' shared scalar prep (csrc/p256_common.cuh) on (42, N)
-    packed inputs: window digits of u1 and u2 (64, N), Montgomery forms
-    of qx, qy, r and r + n mod p, and the valid / rn_ok lane masks."""
+    packed inputs: w-bit window digits of u1 and u2 (rounds(w), N),
+    Montgomery forms of qx, qy, r and r + n mod p, and the valid / rn_ok
+    lane masks.  s^-1 takes INV_WINDOW bits a step whatever w is."""
     dev = packed.device
     n = packed.shape[1]
     z, r, s, qx, qy = (_words_to_limbs(packed[8 * i:8 * i + 8])
@@ -290,11 +356,11 @@ def _prep_plain(packed: torch.Tensor):
     r2n = FN.const(FN.r2_mod_m, dev)
     s_m = nmul(s, r2n)
     pows = [FN.const(FN.r_mod_m, dev).expand(-1, n), s_m]
-    for _ in range(TABLE - 1):
+    for _ in range(table(INV_WINDOW) - 1):
         pows.append(nmul(pows[-1], s_m))
     w_m = pows[0]
     for d in _nm2_digits():
-        for _ in range(WINDOW):
+        for _ in range(INV_WINDOW):
             w_m = nmul(w_m, w_m)
         w_m = nmul(w_m, pows[d])
     u1 = fp.canonical_from_mont(nmul(nmul(z, r2n), w_m), FN)
@@ -308,31 +374,34 @@ def _prep_plain(packed: torch.Tensor):
     rhs = fp.mul(fp.sqr(qx_m, FP), qx_m, FP) - 3 * qx_m \
         + FP.const(FP.to_mont(CURVE_B), dev)
     valid = range_ok & fp.eq(fp.sqr(qy_m, FP), rhs, FP)
-    return _digits(u1), _digits(u2), qx_m, qy_m, r_m, rn_m, valid, rn_ok
+    return (_digits(u1, w), _digits(u2, w), qx_m, qy_m, r_m, rn_m, valid,
+            rn_ok)
 
 
-def verify_plain(packed: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: (42, N) int32 packed
-    inputs -> (N,) int32, bit 0 verdict and bit 1 exception flag."""
+def verify_plain(packed: torch.Tensor, w: int = DEFAULT_WINDOW
+                 ) -> torch.Tensor:
+    """The kernel's function in plain PyTorch at window ``w``: (42, N)
+    int32 packed inputs -> (N,) int32, bit 0 verdict and bit 1 exception
+    flag."""
     dev = packed.device
     n = packed.shape[1]
-    d1, d2, qx_m, qy_m, r_m, rn_m, valid, rn_ok = _prep_plain(packed)
+    d1, d2, qx_m, qy_m, r_m, rn_m, valid, rn_ok = _prep_plain(packed, w)
 
     # Q table: [1]Q = (qx, qy, 1), [2]Q = dbl, then [k]Q = [k-1]Q + Q
     one = FP.const(FP.r_mod_m, dev).expand(-1, n)
     qtab = [(qx_m, qy_m, one)]
     qtab.append(_jac_dbl(qtab[0]))
-    while len(qtab) < TABLE:
+    while len(qtab) < table(w):
         qtab.append(_jac_madd(qtab[-1], qx_m, qy_m)[0])
-    qtab = torch.stack([torch.stack(e) for e in qtab])   # (15, 3, 12, N)
-    gtab = _g_table_plain(dev)                            # (15, 2, 12)
+    qtab = torch.stack([torch.stack(e) for e in qtab])   # (2^w-1, 3, 12, N)
+    gtab = _g_table_plain(dev, w)                         # (2^w-1, 2, 12)
     lanes = torch.arange(n, device=dev)
 
     acc = (one, one, torch.zeros_like(one))
     started = torch.zeros(n, dtype=torch.bool, device=dev)
     exc = torch.zeros(n, dtype=torch.bool, device=dev)
-    for k in range(ROUNDS):
-        for _ in range(WINDOW):
+    for k in range(rounds(w)):
+        for _ in range(w):
             acc = _jac_dbl(acc)
         g = gtab[(d1[k] - 1).clamp(min=0)].permute(1, 2, 0)  # (2, 12, N)
         res, H = _jac_madd(acc, g[0], g[1])
@@ -421,7 +490,7 @@ def _g_table_complete(device) -> torch.Tensor:
         one = fp.int_to_limbs(FP.r_mod_m)
         rows = [[fp.int_to_limbs(0), one, fp.int_to_limbs(0)]]
         rows += [[fp.int_to_limbs(FP.to_mont(c)) for c in pt] + [one]
-                 for pt in _g_multiples()]
+                 for pt in _g_multiples()[:table(DEFAULT_WINDOW)]]
         _G_COMPLETE[key] = torch.tensor(rows, dtype=torch.int64,
                                         device=device)
     return _G_COMPLETE[key]
@@ -445,15 +514,15 @@ def verify_complete_plain(packed: torch.Tensor) -> torch.Tensor:
     Q = (qx_m, qy_m, one)
 
     qtab = [identity, Q]
-    while len(qtab) < TABLE + 1:
+    while len(qtab) < table(DEFAULT_WINDOW) + 1:
         qtab.append(_point_add_rcb16(qtab[-1], Q, b))
     qtab = torch.stack([torch.stack(e) for e in qtab])   # (16, 3, 12, N)
     gtab = _g_table_complete(dev)                         # (16, 3, 12)
     lanes = torch.arange(n, device=dev)
 
     acc = identity
-    for k in range(ROUNDS):
-        for _ in range(WINDOW):
+    for k in range(rounds(DEFAULT_WINDOW)):
+        for _ in range(DEFAULT_WINDOW):
             acc = _point_dbl_rcb16(acc, b)
         g = gtab[d1[k]].permute(1, 2, 0)                  # (3, 12, N)
         acc = _point_add_rcb16(acc, (g[0], g[1], g[2]), b)
@@ -470,7 +539,7 @@ def verify_complete_plain(packed: torch.Tensor) -> torch.Tensor:
 
 # Layout of the kernels' __constant__ table, in 32-bit words; mirrored by
 # the C_* offsets in csrc/p256_common.cuh.
-_C_WORDS = 314
+_C_WORDS = 72 + 16 * G_ENTRIES + 2
 
 
 def _words_le(x: int) -> list:
@@ -480,7 +549,8 @@ def _words_le(x: int) -> list:
 def kernel_constants() -> np.ndarray:
     """The kernels' constant table (R = 2^256 Montgomery, 8 x 32-bit
     limbs): p, n, R^2 mod p, R^2 mod n, R mod p, R mod n, b*R mod p,
-    n*R mod p, n - 2, the affine [k]G table, -p^-1 and -n^-1 mod 2^32."""
+    n*R mod p, n - 2, the affine [k]G table (k = 1..31: the w = 4 ladders
+    read its first 15 entries), -p^-1 and -n^-1 mod 2^32."""
     R = 1 << 256
     words = []
     for x in (CURVE_P, CURVE_N, R * R % CURVE_P, R * R % CURVE_N,
@@ -496,6 +566,10 @@ def kernel_constants() -> np.ndarray:
 
 
 _LIBS = {}  # (kernel name, cuda device index) -> armed ctypes library
+# each source's kernels, by the prefix of their launch and attribute
+# entry points
+_ENTRIES = {"p256_verify": ("p256_verify", "p256_verify_w5"),
+            "p256_complete": ("p256_complete",)}
 
 
 def _kernel_lib(name: str, device: torch.device):
@@ -510,10 +584,11 @@ def _kernel_lib(name: str, device: torch.device):
         lib = _build.load(name)
         lib.p256_set_constants.argtypes = [ctypes.c_void_p, ctypes.c_int]
         lib.p256_set_constants.restype = ctypes.c_int
-        launch = getattr(lib, f"{name}_launch")
-        launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        launch.restype = ctypes.c_int
+        for entry in _ENTRIES[name]:
+            launch = getattr(lib, f"{entry}_launch")
+            launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_int, ctypes.c_void_p]
+            launch.restype = ctypes.c_int
         consts = kernel_constants()
         with torch.cuda.device(index):
             rc = lib.p256_set_constants(consts.ctypes.data, consts.size)
@@ -523,9 +598,11 @@ def _kernel_lib(name: str, device: torch.device):
     return lib
 
 
-def _run(name: str, packed: torch.Tensor, plain) -> torch.Tensor:
+def _run(name: str, entry: str, packed: torch.Tensor, plain
+         ) -> torch.Tensor:
     """Check the packed input; run ``plain`` for a CPU tensor, else
-    launch kernel ``name`` on the current stream (no fallback)."""
+    launch the kernel ``entry`` of ``csrc/<name>.cu`` on the current
+    stream (no fallback)."""
     if packed.dtype != torch.int32 or packed.dim() != 2 \
             or packed.shape[0] != PACKED_ROWS:
         raise ValueError(f"expected (42, N) int32, got {tuple(packed.shape)}"
@@ -542,40 +619,53 @@ def _run(name: str, packed: torch.Tensor, plain) -> torch.Tensor:
     lib = _kernel_lib(name, packed.device)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, f"{name}_launch")(packed.data_ptr(),
-                                            out.data_ptr(), n, stream)
+        rc = getattr(lib, f"{entry}_launch")(packed.data_ptr(),
+                                             out.data_ptr(), n, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     return out
 
 
-def kernel_attributes(name: str, device: torch.device) -> dict:
-    """Kernel ``name``'s (``p256_verify`` or ``p256_complete``) launch
-    shape and resources on a card (``cudaFuncGetAttributes``): threads a
-    signature and a block, shared memory bytes a block, registers and
-    local-memory bytes a thread."""
+def _verify_entry(w: int) -> str:
+    """The Jacobian kernel's entry point at window ``w``."""
+    return "p256_verify" if check_window(w) == 4 else f"p256_verify_w{w}"
+
+
+def kernel_attributes(name: str, device: torch.device,
+                      window: int = DEFAULT_WINDOW) -> dict:
+    """Kernel ``name``'s (``p256_verify``, at ``window``, or
+    ``p256_complete``) launch shape and resources on a card
+    (``cudaFuncGetAttributes``): threads a signature and a block, shared
+    memory bytes a block, registers and local-memory bytes a thread."""
     lib = _kernel_lib(name, device)
+    entry = _verify_entry(window) if name == "p256_verify" else name
     vals = (ctypes.c_int * 5)()
-    fn = getattr(lib, f"{name}_attributes")
+    fn = getattr(lib, f"{entry}_attributes")
     fn.argtypes = [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         rc = fn(ctypes.addressof(vals))
     if rc != 0:
-        raise RuntimeError(f"{name}_attributes: CUDA error {rc}")
+        raise RuntimeError(f"{entry}_attributes: CUDA error {rc}")
     return dict(zip(("group", "threads", "smem_bytes", "registers",
                      "local_bytes"), vals))
 
 
-def verify_packed(packed: torch.Tensor) -> torch.Tensor:
+def verify_packed(packed: torch.Tensor, window: Optional[int] = None
+                  ) -> torch.Tensor:
     """(42, N) int32 packed inputs -> (N,) int32 (bit 0 verdict, bit 1
     exception).  A CUDA tensor launches the Jacobian kernel
-    (csrc/p256_verify.cu); a CPU tensor runs :func:`verify_plain`."""
+    (csrc/p256_verify.cu) at ``window`` (:data:`VERIFY_WINDOW` when
+    None: ``p256_verify_kernel`` at 4, kernel B7 ``p256_verify_w5_kernel``
+    at 5); a CPU tensor runs :func:`verify_plain` at that window."""
     global LAUNCHES
-    out = _run("p256_verify", packed, verify_plain)
+    w = VERIFY_WINDOW if window is None else window
+    out = _run("p256_verify", _verify_entry(w), packed,
+               functools.partial(verify_plain, w=w))
     if packed.device.type == "cuda" and out.numel():
         with _COUNT_LOCK:
             LAUNCHES += 1
+            LAUNCHES_BY_WINDOW[w] += 1
     return out
 
 
@@ -585,7 +675,8 @@ def verify_complete_packed(packed: torch.Tensor) -> torch.Tensor:
     (csrc/p256_complete.cu); a CPU tensor runs
     :func:`verify_complete_plain`."""
     global COMPLETE_LAUNCHES
-    out = _run("p256_complete", packed, verify_complete_plain)
+    out = _run("p256_complete", "p256_complete", packed,
+               verify_complete_plain)
     if packed.device.type == "cuda" and out.numel():
         with _COUNT_LOCK:
             COMPLETE_LAUNCHES += 1
@@ -601,15 +692,20 @@ ADD = {"p_mul": 11, "p_sqr": 5}   # add-2007-bl
 DBL_RCB16 = {"p_mul": 8, "p_sqr": 6}  # RCB16 doubling, 2 products by b
 ADD_RCB16 = {"p_mul": 14}             # RCB16 Algorithm 4, 2 products by b
 
-# Per kernel: the Q-table build, the round's doubling, G add and Q add,
-# and the final test against r (the test against r + n costs one more
-# multiply): X == r*Z^2 (jac) or X == r*Z (complete).
-_LADDERS = {
-    "jac": ([(DBL, 1), (MADD, TABLE - 2)], DBL, MADD, ADD,
-            {"p_mul": 1, "p_sqr": 1}),
-    "complete": ([(ADD_RCB16, TABLE - 1)], DBL_RCB16, ADD_RCB16, ADD_RCB16,
-                 {"p_mul": 1}),
-}
+
+
+def _ladder(kernel: str, w: int) -> tuple:
+    """A kernel's Q-table build at window ``w``, the round's doubling, G
+    add and Q add, and the final test against r (the test against r + n
+    costs one more multiply): X == r*Z^2 (jac) or X == r*Z (complete,
+    w = 4 only)."""
+    if kernel == "jac":
+        return ([(DBL, 1), (MADD, table(w) - 2)], DBL, MADD, ADD,
+                {"p_mul": 1, "p_sqr": 1})
+    if kernel != "complete" or w != DEFAULT_WINDOW:
+        raise ValueError(f"no {kernel!r} ladder at w = {w}")
+    return ([(ADD_RCB16, table(w) - 1)], DBL_RCB16, ADD_RCB16, ADD_RCB16,
+            {"p_mul": 1})
 
 # The least 32-bit multiply operations each kind needs.  A wide 32x32->64
 # product is 2 (low and high halves), a low-half one 1.  A multiply of two
@@ -625,35 +721,38 @@ def _add(total: dict, kind: dict, times: int = 1) -> None:
         total[k] = total.get(k, 0) + v * times
 
 
-def mults_per_lane(kernel: str = "jac") -> dict:
-    """Field products a kernel does per lane, by kind: s*R^2, 14 table
-    and 64 x (4 squarings + 1 multiply) window products, z and r into
-    Montgomery form, times w and out of it; the forms of qx, qy and r and
-    the on-curve check; the Q table (jac: dbl + 13 madd; complete: 14
-    adds); 64 rounds of 4 doublings + G add + Q add; and the final test
-    against r and r + n."""
-    table, dbl, g_add, q_add, final = _LADDERS[kernel]
-    total = {"n_mul": 1 + (TABLE - 1) + ROUNDS + 2 * 2,
-             "n_sqr": ROUNDS * WINDOW, "n_red": 2,
+def mults_per_lane(kernel: str = "jac", w: int = DEFAULT_WINDOW) -> dict:
+    """Field products a kernel does per lane at window ``w``, by kind:
+    s*R^2, 14 table and 64 x (4 squarings + 1 multiply) window products
+    of s^-1 (INV_WINDOW, whatever w), z and r into Montgomery form, times
+    s^-1 and out of it; the forms of qx, qy and r and the on-curve check;
+    the Q table (jac: dbl + 2^w - 3 madd; complete: 14 adds); rounds(w)
+    rounds of w doublings + G add + Q add; and the final test against r
+    and r + n."""
+    qtable, dbl, g_add, q_add, final = _ladder(kernel, w)
+    inv_rounds = rounds(INV_WINDOW)
+    total = {"n_mul": 1 + (table(INV_WINDOW) - 1) + inv_rounds + 2 * 2,
+             "n_sqr": inv_rounds * INV_WINDOW, "n_red": 2,
              "p_mul": 3 + 1 + 1, "p_sqr": 2}
-    for kind, times in table:
+    for kind, times in qtable:
         _add(total, kind, times)
-    _add(total, dbl, ROUNDS * WINDOW)
-    _add(total, g_add, ROUNDS)
-    _add(total, q_add, ROUNDS)
+    _add(total, dbl, rounds(w) * w)
+    _add(total, g_add, rounds(w))
+    _add(total, q_add, rounds(w))
     _add(total, final)
     return total
 
 
-def mul_ops_needed(zs, rs, ss, qxs, qys, kernel: str = "jac") -> int:
+def mul_ops_needed(zs, rs, ss, qxs, qys, kernel: str = "jac",
+                   w: int = DEFAULT_WINDOW) -> int:
     """The least 32-bit multiply operations these lanes need with the
-    formulas of ``kernel``, counted from their data: a lane that fails
-    the range checks needs none and an off-curve lane only its on-curve
+    formulas of ``kernel`` at window ``w``, counted from their data: a
+    lane that fails the range checks needs none and an off-curve lane only its on-curve
     check; the window over n - 2 squares nothing before its first digit
     and multiplies for no zero digit; the ladder doubles nothing before
     its first nonzero digit, and adds for no zero digit (a complete add
     of the identity changes nothing)."""
-    table, dbl, g_add, q_add, final = _LADDERS[kernel]
+    qtable, dbl, g_add, q_add, final = _ladder(kernel, w)
     nm2 = _nm2_digits()
     fermat_mul = sum(1 for d in nm2[1:] if d)
     total: dict = {}
@@ -663,19 +762,19 @@ def mul_ops_needed(zs, rs, ss, qxs, qys, kernel: str = "jac") -> int:
         _add(total, {"p_mul": 3, "p_sqr": 2})  # qx, qy forms; y^2, x^2, x^3
         if not is_on_curve((qx % CURVE_P, qy % CURVE_P)):
             continue
-        _add(total, {"n_mul": 1 + (TABLE - 1) + fermat_mul + 2 * 2,
-                     "n_sqr": WINDOW * (ROUNDS - 1), "n_red": 2})
-        for kind, times in table:
+        _add(total, {"n_mul": 1 + (table(INV_WINDOW) - 1) + fermat_mul + 2 * 2,
+                     "n_sqr": INV_WINDOW * (len(nm2) - 1), "n_red": 2})
+        for kind, times in qtable:
             _add(total, kind, times)
-        w = pow(s, -1, CURVE_N)
-        u1, u2 = z * w % CURVE_N, r * w % CURVE_N
+        s_inv = pow(s, -1, CURVE_N)
+        u1, u2 = z * s_inv % CURVE_N, r * s_inv % CURVE_N
         started = False
-        for k in range(ROUNDS):
+        for k in range(rounds(w)):
             if started:
-                _add(total, dbl, WINDOW)
-            shift = WINDOW * (ROUNDS - 1 - k)
+                _add(total, dbl, w)
+            shift = w * (rounds(w) - 1 - k)
             for u, kind in ((u1, g_add), (u2, q_add)):
-                if (u >> shift) & TABLE:
+                if (u >> shift) & table(w):
                     if started:
                         _add(total, kind)
                     started = True
@@ -692,20 +791,28 @@ def verify_batch_prehashed(
     signatures: Sequence[Tuple[int, int]],
     pubkeys: Sequence[Tuple[int, int]],
     device: DeviceLike = None,
+    mesh: Optional[Sequence[torch.device]] = None,
 ) -> np.ndarray:
     """Batch-verify ECDSA signatures over already-hashed messages.
     Returns (N,) bool.  Semantics match ``fastecdsa.ecdsa.verify`` as the
     reference uses it: big-endian digest integer, range-checked r and s,
     coordinates reduced mod p, on-curve pubkeys.
 
-    The ladder is :data:`VERIFY_KERNEL`'s.  Runs on the card unless
-    ``device="cpu"``; raises when no card is there and none was
-    declined."""
+    The ladder is :data:`VERIFY_KERNEL`'s, the Jacobian one at
+    :data:`VERIFY_WINDOW`.  Runs on the card unless ``device="cpu"``;
+    raises when no card is there and none was declined.  ``mesh`` (a
+    ``parallel.mesh.make_mesh`` tuple) splits the lanes into one
+    contiguous shard a device (``parallel.mesh.verify_packed_sharded``,
+    the JAX package's ``_prep_and_verify_pallas_jac_sharded``); then the
+    mesh's devices run it and ``device`` is not read.  Only the Jacobian
+    ladder is sharded, as in the JAX package."""
     global EXCEPTION_LANES
     if VERIFY_KERNEL not in VERIFY_KERNELS:
         raise ValueError(f"VERIFY_KERNEL must be one of {VERIFY_KERNELS}, "
                          f"not {VERIFY_KERNEL!r}")
-    dev = resolve(device)
+    if mesh is not None and VERIFY_KERNEL != "jac":
+        raise ValueError("a mesh is wired for the Jacobian kernel only")
+    dev = resolve(device) if mesh is None else None
     n = len(digests)
     if len(signatures) != n or len(pubkeys) != n:
         raise ValueError(f"{n} digests, {len(signatures)} signatures, "
@@ -714,9 +821,15 @@ def verify_batch_prehashed(
         return np.zeros(0, dtype=bool)
     fused, zs, rs, ss, qxs, qys = _pack_device_inputs(
         digests, signatures, pubkeys, n)
-    kernel = (verify_complete_packed if VERIFY_KERNEL == "complete"
-              else verify_packed)
-    res = kernel(packed_tensor(fused, dev)).cpu().numpy()
+    if mesh is not None:
+        from ..parallel.mesh import verify_packed_sharded
+
+        res = verify_packed_sharded(packed_tensor(fused, "cpu"), mesh)
+    elif VERIFY_KERNEL == "complete":
+        res = verify_complete_packed(packed_tensor(fused, dev))
+    else:
+        res = verify_packed(packed_tensor(fused, dev))
+    res = res.cpu().numpy()
     trace.record_batch("p256_verify", real=n, padded=n)
     out = (res & 1) != 0
     exc = np.nonzero(res & 2)[0]

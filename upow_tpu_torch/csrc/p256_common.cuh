@@ -8,7 +8,7 @@
 // crypto/p256.py::_pack_device_inputs (z, r, s, qx, qy as 8 little-endian
 // 32-bit words each, lane-minor, then range_ok and rn_ok) and computes what
 // the JAX package's _scalar_prep does: s^-1 mod n by Fermat (fixed 4-bit
-// window over n - 2), u1 = z s^-1 and u2 = r s^-1 (plain, for the window
+// window over n - 2, whatever the ladder's window), u1 = z s^-1 and u2 = r s^-1 (plain, for the window
 // digits), the Montgomery forms of qx, qy, r and r + n mod p, and the
 // range and on-curve checks.
 #pragma once
@@ -32,10 +32,11 @@ typedef uint64_t u64;
 #define C_BP 48    // b * R mod p
 #define C_NP 56    // n * R mod p
 #define C_NM2 64   // n - 2, plain
-#define C_G 72     // [k]G, k = 1..15: x*R mod p (8 words), y*R mod p (8)
-#define C_PINV 312 // -p^-1 mod 2^32
-#define C_NINV 313 // -n^-1 mod 2^32
-#define C_WORDS 314
+#define C_G 72     // [k]G, k = 1..31: x*R mod p (8 words), y*R mod p (8);
+                   // the w = 4 ladders read the first 15, w = 5 all 31
+#define C_PINV 568 // -p^-1 mod 2^32
+#define C_NINV 569 // -n^-1 mod 2^32
+#define C_WORDS 570
 
 __constant__ u32 c_k[C_WORDS];
 
@@ -175,12 +176,6 @@ __device__ __forceinline__ void fsub(Fe& r, const Fe& a, const Fe& b) {
 // the scalar field mod n (only products are needed there)
 __device__ __forceinline__ void nmul(Fe& r, const Fe& a, const Fe& b) {
   mont_mul<C_N, C_NINV>(r, a, b);
-}
-
-__device__ __forceinline__ u32 digit_of(const Fe& x, int k) {
-  // k-th 4-bit digit from the most significant end (k = 0..63)
-  const int bit = 4 * (63 - k);
-  return (x.v[bit >> 5] >> (bit & 31)) & 0xFu;
 }
 
 // What the ladders need from one lane: u1, u2 plain (window digits), Q and

@@ -2,7 +2,10 @@
 // launch, four threads to a signature.
 //
 // Replaces upow_tpu/crypto/p256.py::_ladder_kernel_jac (the Pallas kernel)
-// together with the XLA program _scalar_prep that fed it.  Input: the fused
+// together with the XLA program _scalar_prep that fed it, at both windows
+// the JAX package runs it with (PALLAS_JAC_WINDOW, UPOW_JAC_WINDOW or
+// device.verify_window): p256_verify_kernel at w = 4 (the default) and
+// p256_verify_w5_kernel at w = 5, one body templated on W.  Input: the fused
 // (42, N) int32 array of crypto/p256.py::_pack_device_inputs, lane-minor
 // (z, r, s, qx, qy as 8 little-endian 32-bit words each, then range_ok and
 // rn_ok).  Output: one int32 per lane, bit 0 the verdict, bit 1 the
@@ -10,10 +13,12 @@
 // those lanes).  The plain PyTorch version of the same function is
 // crypto/p256.py::verify_plain.
 //
-// Per signature: the shared scalar prep (p256_common.cuh); a 15-entry Q
-// table [1]Q, [2]Q = dbl, [k]Q = [k-1]Q + Q by madd; 64 rounds of 4
-// doublings (dbl-2001-b), a mixed add of the affine G pick (madd-2007-bl)
-// and a general add of the Q pick (add-2007-bl), MSB-first 4-bit digits; a
+// Per signature: the shared scalar prep (p256_common.cuh); a 2^W - 1 entry
+// Q table [1]Q, [2]Q = dbl, [k]Q = [k-1]Q + Q by madd; ceil(256 / W) rounds
+// of W doublings (dbl-2001-b), a mixed add of the affine G pick
+// (madd-2007-bl) and a general add of the Q pick (add-2007-bl), MSB-first
+// W-bit digits (at w = 5, 52 rounds whose top digit reads zero bits past
+// 256, as the JAX package's _digits_from_limbs); a
 // zero digit keeps the accumulator, a not-yet-started accumulator takes the
 // pick, H == 0 with both operands real flags the lane; then accept <=>
 // X == r Z^2 or (r + n < p and X == (r + n) Z^2), with the result finite.
@@ -71,12 +76,19 @@
 //   R = 2^256, values always fully reduced, so a sum's canonical value
 //   does not depend on the order of its terms and the grouped formulas
 //   equal the sequential ones bit for bit (exception bits included).
-// - Tables in shared memory: the Q table one copy a signature (15 x 160
-//   B: X, Y, Z, Z^2, Z^3), the affine [k]G table (15 x 64 B) once a block.
-//   No local-memory table and no divergent __constant__ reads in the
-//   ladder.  A block needs 90,560 B, above the 48 KB static limit, so it is
-//   dynamic shared memory raised by cudaFuncSetAttribute in the launch
-//   function; two 128-thread blocks fit an SM.
+// - Tables in shared memory: the Q table one copy a signature (2^W - 1
+//   entries of 160 B: X, Y, Z, Z^2, Z^3), the affine [k]G table (2^W - 1
+//   entries of 64 B) once a block.  No local-memory table and no divergent
+//   __constant__ reads in the ladder.  A block needs 90,560 B at w = 4 and
+//   173,504 B at w = 5 (Ladder<W>::SMEM_BYTES), above the 48 KB static
+//   limit, so it is dynamic shared memory raised by cudaFuncSetAttribute in
+//   the launch function; two 128-thread blocks fit an SM at w = 4, one at
+//   w = 5 (32 signatures an SM either way at w = 5: 16 signatures a block
+//   would fit two blocks of half the size, the same count).
+// - w = 5's digits straddle the 32-bit words of u1 and u2 (bit 5 k + 4 may
+//   lie in the next word); window_digit joins the two words, and the top
+//   digit (bits 255..259) reads only word 7.  The scalar prep's inversion
+//   keeps its own fixed 4-bit window whatever W, as in the JAX package.
 // - The scalar prep (341 serial mod-n products) runs on rank 0 and hands
 //   u1, u2, Q, r and r + n to the group through shared memory.  Rank 0
 //   makes the final test and writes the verdict.
@@ -89,20 +101,40 @@
 #define GROUP 4                     // threads a signature
 #define THREADS 128                 // threads a block
 #define SIGS (THREADS / GROUP)      // signatures a block
-#define TABLE 15                    // [1]P .. [15]P
 #define G_ENTRY (2 * NW)            // affine x, y
 #define Q_ENTRY (5 * NW)            // X, Y, Z, Z^2, Z^3
-#define G_WORDS (TABLE * G_ENTRY)
 
-// one signature's shared area, in 32-bit words
-#define S_SLOT (TABLE * Q_ENTRY)    // two sets of GROUP product slots
-#define S_U1 (S_SLOT + 2 * GROUP * NW)  // u1, plain (window digits)
-#define S_U2 (S_U1 + NW)            // u2, plain
-#define S_RM (S_U2 + NW)            // r R mod p
-#define S_RNM (S_RM + NW)           // (r + n) R mod p
-#define S_FLAGS (S_RNM + NW)        // bit 0 valid, bit 1 r + n < p
-#define SIG_WORDS (S_FLAGS + 4)     // padded to 16 bytes
-#define SMEM_BYTES (4 * (G_WORDS + SIGS * SIG_WORDS))
+// The ladder of window W and its shared memory, in 32-bit words: the
+// block's [k]G table, then one area a signature.
+template <int W>
+struct Ladder {
+  static constexpr int ROUNDS = (256 + W - 1) / W;  // 64 at w = 4, 52 at 5
+  static constexpr int TABLE = (1 << W) - 1;        // [1]P .. [TABLE]P
+  static constexpr int G_WORDS = TABLE * G_ENTRY;
+  static constexpr int S_SLOT = TABLE * Q_ENTRY;    // two sets of GROUP
+                                                    // product slots
+  static constexpr int S_U1 = S_SLOT + 2 * GROUP * NW;  // u1, plain (digits)
+  static constexpr int S_U2 = S_U1 + NW;            // u2, plain
+  static constexpr int S_RM = S_U2 + NW;            // r R mod p
+  static constexpr int S_RNM = S_RM + NW;           // (r + n) R mod p
+  static constexpr int S_FLAGS = S_RNM + NW;        // bit 0 valid, bit 1
+                                                    // r + n < p
+  static constexpr int SIG_WORDS = S_FLAGS + 4;     // padded to 16 bytes
+  static constexpr int SMEM_BYTES = 4 * (G_WORDS + SIGS * SIG_WORDS);
+};
+
+// The k-th W-bit digit of the plain 256-bit value u (8 little-endian
+// words), from the most significant end.  A digit may straddle two words
+// (never at w = 4); the top digit of an uneven split reads zero bits past
+// 256.
+template <int W>
+__device__ __forceinline__ u32 window_digit(const u32* u, int k) {
+  const int bit = W * (Ladder<W>::ROUNDS - 1 - k);
+  const int word = bit >> 5, off = bit & 31;
+  u32 v = u[word] >> off;
+  if (off + W > 32 && word + 1 < NW) v |= u[word + 1] << (32 - off);
+  return v & ((1u << W) - 1);
+}
 
 __device__ __forceinline__ void ld(Fe& r, const u32* s) {
 #pragma unroll
@@ -340,24 +372,27 @@ __device__ __forceinline__ void apply_add(Pt& acc, const Pt& res,
   sel3(acc.z, sel, acc.z, pz, res.z);
 }
 
-__global__ void __launch_bounds__(THREADS)
-p256_verify_kernel(const u32* __restrict__ packed, int32_t* __restrict__ out,
-                   int n) {
-  extern __shared__ u32 smem[];
+// One signature's verify on its group of four, at window W; smem is the
+// block's dynamic shared memory (Ladder<W>::SMEM_BYTES).
+template <int W>
+__device__ __forceinline__ void verify_body(const u32* __restrict__ packed,
+                                            int32_t* __restrict__ out, int n,
+                                            u32* smem) {
+  typedef Ladder<W> L;
   const int rank = threadIdx.x & (GROUP - 1);
   const int local = threadIdx.x / GROUP;
   const int sig = blockIdx.x * SIGS + local;
-  u32* gtab = smem;                                    // the block's [k]G
-  u32* area = smem + G_WORDS + local * SIG_WORDS;      // this signature's
+  u32* gtab = smem;                                 // the block's [k]G
+  u32* area = smem + L::G_WORDS + local * L::SIG_WORDS;  // this signature's
   u32* qtab = area;
 
   // ---- the affine [k]G table, once a block ----------------------------
-  for (int i = threadIdx.x; i < G_WORDS; i += THREADS)
+  for (int i = threadIdx.x; i < L::G_WORDS; i += THREADS)
     gtab[i] = c_k[C_G + i];
   __syncthreads();
   if (sig >= n) return;  // the whole group: all four ranks share sig
   Group g;
-  g.slots = area + S_SLOT;
+  g.slots = area + L::S_SLOT;
   g.rank = rank;
   g.mask = 0xFu << (threadIdx.x & 31 & ~(GROUP - 1));
   g.set = 0;
@@ -369,11 +404,11 @@ p256_verify_kernel(const u32* __restrict__ packed, int32_t* __restrict__ out,
   if (rank == 0) {
     Prep pr;
     scalar_prep(packed, n, sig, pr);
-    st(area + S_U1, pr.u1);
-    st(area + S_U2, pr.u2);
-    st(area + S_RM, pr.r_m);
-    st(area + S_RNM, pr.rn_m);
-    area[S_FLAGS] = (pr.valid ? 1u : 0u) | (pr.rn_ok ? 2u : 0u);
+    st(area + L::S_U1, pr.u1);
+    st(area + L::S_U2, pr.u2);
+    st(area + L::S_RM, pr.r_m);
+    st(area + L::S_RNM, pr.rn_m);
+    area[L::S_FLAGS] = (pr.valid ? 1u : 0u) | (pr.rn_ok ? 2u : 0u);
     st(qtab, pr.qx_m);                   // [1]Q = (qx, qy, 1), Z^2 = Z^3 = 1
     st(qtab + NW, pr.qy_m);
     st(qtab + 2 * NW, one_m);
@@ -393,39 +428,38 @@ p256_verify_kernel(const u32* __restrict__ packed, int32_t* __restrict__ out,
   Fe d = one_m;                          // 1^2
   dbl_group(acc, d, g);
 #pragma unroll 1
-  for (int k = 2; k <= TABLE; ++k) {
+  for (int k = 2; k <= L::TABLE; ++k) {
     u32* e = qtab + (k - 1) * Q_ENTRY;   // [k]Q: ranks store X, Y, Z, Z^2
     Fe f;
     pick(f, rank, acc.x, acc.y, acc.z, d);
     st(e + rank * NW, f);
-    if (k == TABLE) break;
+    if (k == L::TABLE) break;
     madd_group(res, H, zc, acc, d, qx, qy, one_m, 2, g);
     if (rank == 0) st(e + 4 * NW, zc);   // Z^3 of [k]Q
     acc = res;
   }
   {
-    const u32* s = step(g, acc.z, d);    // Z^3 of [15]Q
+    const u32* s = step(g, acc.z, d);    // Z^3 of [TABLE]Q
     if (rank == 0) {
       Fe f;
       ld(f, s);
-      st(qtab + (TABLE - 1) * Q_ENTRY + 4 * NW, f);
+      st(qtab + (L::TABLE - 1) * Q_ENTRY + 4 * NW, f);
     }
   }                                      // the ladder's first sync orders
                                          // these stores before any read
 
-  // ---- ladder: 64 rounds of 4 dbl + G madd + Q add ----------------------
+  // ---- ladder: ROUNDS rounds of W dbl + G madd + Q add ----------------
   acc.x = one_m;
   acc.y = one_m;
   fe_zero(acc.z);
   fe_zero(d);                            // 0^2
   bool started = false, exc = false;
 #pragma unroll 1
-  for (int k = 0; k < 64; ++k) {
-    const int bit = 4 * (63 - k);
-    const u32 d1 = (area[S_U1 + (bit >> 5)] >> (bit & 31)) & 0xFu;
-    const u32 d2 = (area[S_U2 + (bit >> 5)] >> (bit & 31)) & 0xFu;
+  for (int k = 0; k < L::ROUNDS; ++k) {
+    const u32 d1 = window_digit<W>(area + L::S_U1, k);
+    const u32 d2 = window_digit<W>(area + L::S_U2, k);
 #pragma unroll 1
-    for (int q = 0; q < 4; ++q) dbl_group(acc, d, g);
+    for (int q = 0; q < W; ++q) dbl_group(acc, d, g);
 
     Fe gx, gy;
     const u32* ge = gtab + (d1 ? d1 - 1 : 0) * G_ENTRY;
@@ -449,15 +483,15 @@ p256_verify_kernel(const u32* __restrict__ packed, int32_t* __restrict__ out,
 
   // ---- accept <=> X == r Z^2 or (rn_ok and X == (r+n) Z^2), R finite ---
   Fe r_m, rn_m, a;
-  ld(r_m, area + S_RM);
-  ld(rn_m, area + S_RNM);
+  ld(r_m, area + L::S_RM);
+  ld(rn_m, area + L::S_RNM);
   pick(a, rank, r_m, rn_m, rn_m, rn_m);
   const u32* s = step(g, a, d);          // d = Z^2
   if (rank == 0) {
     Fe rz, rnz;
     ld(rz, s);
     ld(rnz, s + NW);
-    const u32 flags = area[S_FLAGS];
+    const u32 flags = area[L::S_FLAGS];
     const bool at_inf = fe_is_zero(acc.z) || !started;
     const bool ok = fe_eq(acc.x, rz) || ((flags & 2u) && fe_eq(acc.x, rnz));
     const bool verdict = ok && !at_inf && (flags & 1u);
@@ -465,30 +499,69 @@ p256_verify_kernel(const u32* __restrict__ packed, int32_t* __restrict__ out,
   }
 }
 
+__global__ void __launch_bounds__(THREADS)
+p256_verify_kernel(const u32* __restrict__ packed, int32_t* __restrict__ out,
+                   int n) {
+  extern __shared__ u32 smem[];
+  verify_body<4>(packed, out, n, smem);
+}
+
+__global__ void __launch_bounds__(THREADS)
+p256_verify_w5_kernel(const u32* __restrict__ packed,
+                      int32_t* __restrict__ out, int n) {
+  extern __shared__ u32 smem[];
+  verify_body<5>(packed, out, n, smem);
+}
+
 extern "C" int p256_verify_launch(const void* packed, void* out, int n,
                                   void* stream) {
   if (n <= 0) return 0;
+  const int smem = Ladder<4>::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      p256_verify_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      p256_verify_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + SIGS - 1) / SIGS;
-  p256_verify_kernel<<<blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const u32*)packed, (int32_t*)out, n);
+  p256_verify_kernel<<<(n + SIGS - 1) / SIGS, THREADS, smem,
+                       (cudaStream_t)stream>>>((const u32*)packed,
+                                               (int32_t*)out, n);
   return (int)cudaGetLastError();
 }
 
-// The launch's shape and the kernel's resources: threads a signature,
+// kernel B7: the same ladder at w = 5
+extern "C" int p256_verify_w5_launch(const void* packed, void* out, int n,
+                                     void* stream) {
+  if (n <= 0) return 0;
+  const int smem = Ladder<5>::SMEM_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      p256_verify_w5_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  p256_verify_w5_kernel<<<(n + SIGS - 1) / SIGS, THREADS, smem,
+                          (cudaStream_t)stream>>>((const u32*)packed,
+                                                  (int32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+// The launch's shape and a kernel's resources: threads a signature,
 // threads a block, shared bytes a block, registers a thread, local
 // (stack) bytes a thread.
-extern "C" int p256_verify_attributes(int* out5) {
+static int attributes(const void* kernel, int smem, int* out5) {
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, p256_verify_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return (int)err;
   out5[0] = GROUP;
   out5[1] = THREADS;
-  out5[2] = SMEM_BYTES;
+  out5[2] = smem;
   out5[3] = fa.numRegs;
   out5[4] = (int)fa.localSizeBytes;
   return 0;
+}
+
+extern "C" int p256_verify_attributes(int* out5) {
+  return attributes((const void*)p256_verify_kernel, Ladder<4>::SMEM_BYTES,
+                    out5);
+}
+
+extern "C" int p256_verify_w5_attributes(int* out5) {
+  return attributes((const void*)p256_verify_w5_kernel,
+                    Ladder<5>::SMEM_BYTES, out5);
 }

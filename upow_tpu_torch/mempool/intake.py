@@ -232,7 +232,9 @@ class IntakeCoordinator:
             with trace.span("mempool.sig_dispatch", n=len(flat)):
                 verdicts = await get_front().submit(
                     flat, backend=node.config.device.sig_backend,
-                    device=node.device, source="mempool")
+                    device=node.device,
+                    mesh_devices=node.config.device.mesh_devices,
+                    source="mempool")
 
         # -- phase C: finalize in batch order ------------------------------
         claimed: Dict[tuple, str] = {}  # intra-batch outpoint claims

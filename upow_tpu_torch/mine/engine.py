@@ -9,12 +9,14 @@ an early exit.
 Backends (SEARCH_BACKENDS):
     cuda    — the hand-written kernel on the card (csrc/sha256_search.cu)
     torch   — its plain PyTorch version, on the CPU
+    mesh    — each round split over a mesh of cards (mesh_engine.py,
+              parallel/mesh.py); ``device="cpu"`` meshes the plain version
     python  — hashlib loop (reference-shaped oracle)
 
-The JAX package's ``native`` (C++ host loop) and ``mesh`` backends come
-with ROADMAP A7 and A11 and raise NotImplementedError until then.  Its
-dispatches go through the device runtime (``_through_runtime``); the
-port has no runtime yet (A7), so rounds are launched directly.
+The JAX package's ``native`` (C++ host loop) comes with ROADMAP A7 and
+raises NotImplementedError until then.  Its dispatches go through the
+device runtime (``_through_runtime``); the port has no runtime yet (A7),
+so rounds are launched directly.
 """
 
 from __future__ import annotations
@@ -30,14 +32,14 @@ import torch
 from ..core.difficulty import check_pow_hash
 from ..core.header import BlockHeader
 from ..crypto import sha256 as sha_kernel
+from ..device import DeviceLike, resolve
 
-SEARCH_BACKENDS = ("cuda", "torch", "python")
+SEARCH_BACKENDS = ("cuda", "torch", "mesh", "python")
 # Backend names of the JAX package that the port does not have yet, with
 # the ROADMAP.md item that brings each.
 LATER_BACKENDS = {
     "native": "ROADMAP A7 (the C++ host search comes with the device "
               "runtime and the native host batch)",
-    "mesh": "ROADMAP A11 (the multi-GPU mesh search)",
 }
 
 
@@ -114,17 +116,33 @@ class _ReadBack:
         return int(self.host)
 
 
-def _make_dispatcher(job: MiningJob, backend: str) -> Optional[Callable]:
+def _make_dispatcher(job: MiningJob, backend: str, mesh_devices: int = 0,
+                     batch: Optional[int] = None,
+                     device: DeviceLike = None) -> Optional[Callable]:
     """For tensor backends: dispatch(start, count) -> an async handle.
 
     The handle resolves via ``int()``; keeping several dispatches in
     flight keeps the card busy while the host reads a result.  ``cuda``
-    raises here without a card."""
+    raises here without a card.
+
+    ``backend='mesh'`` routes rounds through the process's mesh engine
+    (mesh_engine.py): each round split over ``mesh_devices`` cards (0 =
+    all visible) by ``shard_bounds``, the least hit taken over the
+    shards.  ``batch`` is the round size mine() will dispatch: the engine
+    sizes its shards from it at first use.  ``device`` is the mesh's
+    device type (None: the cards; "cpu": ``mesh_devices`` shards of the
+    plain version); the other backends name their device themselves."""
     check_search_backend(backend)
+    if backend == "mesh":
+        from .mesh_engine import get_mesh_engine
+
+        return get_mesh_engine(mesh_devices=mesh_devices, round_hint=batch,
+                               device=device).dispatcher(job)
+    if device is not None:
+        raise ValueError(f"backend {backend!r} names its device; device= "
+                         "is the mesh backend's")
     if backend not in ("cuda", "torch"):
         return None
-    from ..device import resolve
-
     device = resolve("cuda" if backend == "cuda" else "cpu")
     template = sha_kernel.make_template(job.prefix)
     target = sha_kernel.pack_target(
@@ -167,19 +185,23 @@ class MineResult:
 def mine(job: MiningJob, backend: str = "cuda", *, start: int = 0,
          stride_end: int = NONCE_SPACE, batch: int = 1 << 22,
          ttl: float = 90.0,
-         progress: Optional[Callable] = None) -> MineResult:
+         progress: Optional[Callable] = None,
+         mesh_devices: int = 0, device: DeviceLike = None) -> MineResult:
     """Search [start, stride_end) in fixed rounds until hit or TTL.
 
     ``start``/``stride_end`` let a coordinator hand disjoint nonce ranges to
     multiple chips/hosts (the reference's worker striding, miner.py:140-148,
     without the per-nonce interleave that would defeat batching).
+    ``mesh_devices`` and ``device`` are the ``mesh`` backend's (see
+    :func:`_make_dispatcher`).
     """
     stride_end = min(stride_end, MAX_SEARCH_END)
     t0 = time.time()
     tried = 0
     cursor = start
 
-    dispatch = _make_dispatcher(job, backend)
+    dispatch = _make_dispatcher(job, backend, mesh_devices=mesh_devices,
+                                batch=batch, device=device)
     if dispatch is not None:
         # Pipelined device rounds: keep `depth` dispatches in flight so the
         # card never idles while the host blocks on a result.  Each round
@@ -197,6 +219,11 @@ def mine(job: MiningJob, backend: str = "cuda", *, start: int = 0,
             tried += count
             if hit != int(sha_kernel.SENTINEL):
                 if job.check(hit):
+                    if backend == "mesh":
+                        from .mesh_engine import get_mesh_engine
+
+                        get_mesh_engine(mesh_devices=mesh_devices,
+                                        device=device).note_hit()
                     return MineResult(hit, tried, time.time() - t0)
                 raise AssertionError(
                     f"backend {backend} returned nonce {hit} failing host check")

@@ -1,7 +1,7 @@
 """Mining client CLI — wire-compatible with the reference miner.
 
 Usage:
-    python -m upow_tpu_torch.mine.miner <address> [--device cuda|cpu|...]
+    python -m upow_tpu_torch.mine.miner <address> [--device cuda|cpu|mesh|...]
                                         [--node URL] [--batch N] [--ttl S]
                                         [--shard i/k] [--once]
 
@@ -14,7 +14,12 @@ communication needed until a hit).
 
 ``--device cuda`` (the default) searches with the hand-written kernel on
 the card and raises without one; ``--device cpu`` runs its plain PyTorch
-version (the JAX package's C++ host loop, ``native``, is ROADMAP A7).
+version (the JAX package's C++ host loop, ``native``, is ROADMAP A7);
+``--device mesh`` splits each round over ``device.mesh_devices`` cards
+(``UPOW_DEVICE_MESH_DEVICES``, 0 = all visible).  With
+``UPOW_COORDINATOR_ADDRESS`` (and ``WORLD_SIZE``, ``RANK``) set and no
+``--shard``, the process joins a ``torch.distributed`` run and mines its
+slot of the plan.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from .engine import MiningJob, check_search_backend, mine
 
 GENESIS_PREV_HASH = (18_884_643).to_bytes(32, "little").hex()  # miner.py:37-40
 # backends whose rounds are tensor dispatches: watched and supervised
-TENSOR_BACKENDS = ("cuda", "torch")
+TENSOR_BACKENDS = ("cuda", "torch", "mesh")
 
 
 def _http_json(url: str, payload: Optional[dict] = None, timeout: float = 20.0) -> dict:
@@ -80,8 +85,8 @@ def push_block(node: str, block_content: str, txs: list, block_no: int) -> dict:
 def select_backend(device: str) -> str:
     """``--device`` -> search backend: ``cuda``/``gpu`` the kernel,
     ``cpu`` its plain version, or an explicit backend name
-    (``cuda|torch|python``).  ``native`` and ``mesh`` raise
-    NotImplementedError naming their ROADMAP item."""
+    (``cuda|torch|mesh|python``).  ``native`` raises NotImplementedError
+    naming its ROADMAP item."""
     if device == "gpu":
         return "cuda"
     if device == "cpu":
@@ -152,7 +157,8 @@ def _start_hang_watchdog(heartbeat: dict, limit: float, _exit=None):
 
 def run(address: str, node: str, device: str = "cuda", batch: int = 1 << 24,
         ttl: float = 90.0, shard: tuple = (0, 1), once: bool = False,
-        hang_grace: float = 90.0, first_round_grace: float = 240.0) -> int:
+        mesh_devices: int = 0, hang_grace: float = 90.0,
+        first_round_grace: float = 240.0) -> int:
     backend = select_backend(device)
     i, k = shard
     from ..parallel.multihost import plan_nonce_ranges
@@ -187,7 +193,7 @@ def run(address: str, node: str, device: str = "cuda", batch: int = 1 << 24,
             print(f"{tried / elapsed / 1e6:.2f} MH/s ({tried} hashes)")
 
         result = mine(job, backend, start=lo, stride_end=hi, batch=batch,
-                      ttl=ttl, progress=progress)
+                      ttl=ttl, progress=progress, mesh_devices=mesh_devices)
         if result.nonce is None:
             print(f"template expired after {result.hashes_tried} hashes; refreshing")
             if once:
@@ -272,10 +278,11 @@ def _run_workers(args) -> int:
     whole card, so fanning out there would just contend for it."""
     import subprocess
 
-    if args.device in ("cuda", "gpu"):
-        print("workers>1 with --device cuda would have every process fight "
-              "over the one card; use --device cpu, or give each card or "
-              "host its own --shard i/k", file=sys.stderr)
+    if args.device in ("cuda", "gpu", "mesh"):
+        print("workers>1 with --device cuda or mesh would have every "
+              "process fight over the cards; use --device cpu, or give each "
+              "card or host its own --shard i/k (or UPOW_COORDINATOR_"
+              "ADDRESS)", file=sys.stderr)
         return 2
     import os
 
@@ -314,7 +321,8 @@ def main(argv=None) -> int:
                     help="reference-compatible positional node URL")
     ap.add_argument("--node", default="http://localhost:3006/")
     ap.add_argument("--device", default="cuda",
-                    help="cuda|gpu|cpu or explicit backend cuda|torch|python")
+                    help="cuda|gpu|cpu or explicit backend "
+                         "cuda|torch|mesh|python")
     ap.add_argument("--batch", type=int, default=0,
                     help="nonces per dispatch (0 = config device.search_batch)")
     ap.add_argument("--ttl", type=float, default=90.0)
@@ -342,15 +350,17 @@ def main(argv=None) -> int:
     if not 0 <= i < k:
         raise SystemExit("--shard must be i/k with 0 <= i < k")
     if (i, k) == (0, 1):
-        # a multi-host run (UPOW_COORDINATOR_ADDRESS set) raises here
-        # until the bring-up is ported, instead of every host mining the
-        # whole nonce space
+        # multi-host run (UPOW_COORDINATOR_ADDRESS set): each process
+        # takes its slot in the deterministic nonce plan
         from ..parallel import multihost
 
-        multihost.initialize()
+        if multihost.initialize():
+            i, k = multihost.process_slot()
+            print(f"distributed mining: process {i}/{k}")
     node = args.node.rstrip("/") + "/"
     return run(args.address, node, args.device, args.batch, args.ttl,
-               shard=(i, k), once=args.once)
+               shard=(i, k), once=args.once,
+               mesh_devices=cfg.device.mesh_devices)
 
 
 if __name__ == "__main__":

@@ -90,6 +90,7 @@ class Node:
             device=self.device)
         self.manager = BlockManager(
             self.state, device=self.device,
+            verify_mesh_devices=dcfg.mesh_devices,
             verify_microbatch=dcfg.verify_microbatch,
             txid_backend=dcfg.txid_backend,
             txid_min_batch=dcfg.txid_min_batch)
@@ -230,7 +231,9 @@ class Node:
 
     # ------------------------------------------------------- tx intake ----
     def make_tx_verifier(self) -> TxVerifier:
-        return TxVerifier(self.state)
+        return TxVerifier(
+            self.state,
+            verify_mesh_devices=self.config.device.mesh_devices)
 
     async def accept_tx_effects(self, tx: Tx, tx_hash: str,
                                 first_address: Optional[str],
@@ -786,8 +789,9 @@ class Node:
                        for _b, txs, _cb in parsed for tx in txs)
         if n_inputs == 0 or not self._prefill_worthwhile(n_inputs):
             return None
-        verifier = TxVerifier(self.manager.state, is_syncing=True,
-                              tx_overlay=overlay)
+        verifier = TxVerifier(
+            self.manager.state, is_syncing=True, tx_overlay=overlay,
+            verify_mesh_devices=self.config.device.mesh_devices)
         checks = []
         for _block, txs, _cb in parsed:
             for tx in txs:
@@ -805,7 +809,8 @@ class Node:
         with trace.span("sync.page_sig_prefill", n=len(checks)):
             verdicts = await run_sig_checks_async(
                 checks, backend=self.config.device.sig_backend,
-                device=self.device)
+                device=self.device,
+                mesh_devices=self.config.device.mesh_devices)
         return dict(zip(checks, verdicts))
 
 

@@ -165,12 +165,17 @@ class BlockManager:
     """Difficulty, check_block, create_block over one ChainState."""
 
     def __init__(self, state: ChainState, device: DeviceLike = None,
+                 verify_mesh_devices: int = 1,
                  verify_microbatch: int = VERIFY_MICROBATCH,
                  txid_backend: str = DeviceConfig.txid_backend,
                  txid_min_batch: int = DeviceConfig.txid_min_batch):
         self.state = state
         # the card unless the caller asks for the CPU; raises without one
         self.device = resolve(device)
+        # shard the signature batches over a mesh (txverify._verify_mesh):
+        # 0 = every visible card, 1 = one device, N = the first N, or an
+        # explicit parallel.mesh.make_mesh tuple
+        self.verify_mesh_devices = verify_mesh_devices
         self.verify_microbatch = verify_microbatch
         # the digest prep's backend (config device.txid_backend; "host"
         # is hashlib) and its least batch, defaulting to the config's
@@ -296,7 +301,8 @@ class BlockManager:
         # full rules loop, so error ordering is byte-identical to the old
         # serial path: a rules failure always surfaces before a signature
         # verdict, and the error strings are unchanged.
-        verifier = TxVerifier(self.state, is_syncing=self.is_syncing)
+        verifier = TxVerifier(self.state, is_syncing=self.is_syncing,
+                              verify_mesh_devices=self.verify_mesh_devices)
         front = get_front()
         loop = asyncio.get_running_loop()
         mb = self.verify_microbatch or max(len(transactions), 1)
@@ -333,6 +339,7 @@ class BlockManager:
             if chunk_checks:
                 dispatches.append(asyncio.ensure_future(front.submit(
                     chunk_checks, device=self.device,
+                    mesh_devices=self.verify_mesh_devices,
                     precomputed=self.page_sig_verdicts, source="block")))
         if failed_tx is not None:
             for d in dispatches:

@@ -17,8 +17,8 @@ The JAX package forwards a coalesced group to its weighted-fair device
 runtime; the port dispatches it straight to ``run_sig_checks_async``
 (the runtime is a later slice, ROADMAP.md).  The coalescing key is the
 JAX front's, less the fields the port has no counterpart yet for (pad
-block, device timeout, mesh size, an injected dispatch callable), plus
-the device: (backend, device, identity of the chain-sync page
+block, device timeout, an injected dispatch callable), plus the device:
+(backend, device, mesh size, identity of the chain-sync page
 verdicts).
 """
 
@@ -61,18 +61,20 @@ class SigDispatchFront:
     async def submit(self, checks: Sequence[tuple], *,
                      backend: str = "auto",
                      device: DeviceLike = None,
+                     mesh_devices: int = 1,
                      precomputed: Optional[dict] = None,
                      source: str = "other") -> List[bool]:
         """Queue one batch of sig checks; resolves to its verdict list.
 
-        Submissions sharing (backend, device, ``precomputed`` identity)
-        coalesce into one dispatch; incompatible ones dispatch separately
-        in arrival order.  ``precomputed`` (a sync page's verdicts)
-        answers the checks it holds (:func:`txverify.run_sig_checks`).
+        Submissions sharing (backend, device, ``mesh_devices``,
+        ``precomputed`` identity) coalesce into one dispatch; incompatible
+        ones dispatch separately in arrival order.  ``precomputed`` (a
+        sync page's verdicts) answers the checks it holds
+        (:func:`txverify.run_sig_checks`).
         """
         if not checks:
             return []
-        key = (backend, device,
+        key = (backend, device, mesh_devices,
                id(precomputed) if precomputed is not None else None)
         fut: asyncio.Future = self._loop.create_future()
         self._queue.append(_Submission(list(checks), key, precomputed, fut))
@@ -100,7 +102,7 @@ class SigDispatchFront:
         for s in group:
             slices.append((len(flat), len(flat) + len(s.checks)))
             flat.extend(s.checks)
-        backend, device, _ = group[0].key
+        backend, device, mesh_devices, _ = group[0].key
         self.dispatches += 1
         trace.inc("pipeline.front.dispatches")
         trace.observe("pipeline.front.coalesced", len(group))
@@ -108,7 +110,8 @@ class SigDispatchFront:
         try:
             verdicts = await txverify.run_sig_checks_async(
                 flat, backend=backend, device=device,
-                precomputed=group[0].precomputed)
+                precomputed=group[0].precomputed,
+                mesh_devices=mesh_devices)
         except Exception as e:
             # not swallowed: every submitter in the group re-raises it
             log.debug("coalesced sig dispatch failed (%d submissions): %s",

@@ -19,6 +19,9 @@ Where the JAX package differs from this module, by design:
   device, which is the kernel on a CUDA device and the plain PyTorch
   version on ``device="cpu"``; smaller batches take the pure-Python
   host oracle.
+
+``mesh_devices`` shards a device batch's lanes over a mesh of cards as
+the JAX package does (:func:`_verify_mesh`; ``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -96,13 +99,48 @@ def _dedup_sig_checks(tx: Tx, voter: bool, address_of,
 async def run_sig_checks_async(checks: Sequence[tuple],
                                backend: str = "auto",
                                device: DeviceLike = None,
-                               precomputed: Optional[dict] = None
-                               ) -> List[bool]:
+                               precomputed: Optional[dict] = None,
+                               mesh_devices: int = 1) -> List[bool]:
     """Executor-wrapped :func:`run_sig_checks`: the verify (and its wait
     on the card) must not block the event loop."""
     return await asyncio.get_running_loop().run_in_executor(
         None, functools.partial(run_sig_checks, checks, backend=backend,
-                                device=device, precomputed=precomputed))
+                                device=device, precomputed=precomputed,
+                                mesh_devices=mesh_devices))
+
+
+_VERIFY_MESH: dict = {}  # (mesh_devices, device) -> mesh | None
+_VERIFY_MESH_LOCK = threading.Lock()  # intake and block verify race this
+# cache from different executor threads
+
+
+def _verify_mesh(mesh_devices, device: DeviceLike = None):
+    """The mesh a device verify is sharded over (the JAX package's
+    ``_verify_mesh``): 1 = no mesh, 0 = every visible card, N = the first
+    N (``parallel.mesh.plan_devices``; on ``device="cpu"``, N shards of
+    the plain version on the host), or an explicit mesh (a
+    ``parallel.mesh.make_mesh`` tuple, whose devices may repeat) as
+    given.  A mesh of one device is None: a one-card host keeps the
+    unsharded launch.  The complete kernel has no sharded path and keeps
+    the unsharded dispatch too.  Built once a process for each
+    (mesh_devices, device)."""
+    if mesh_devices == 1:
+        return None
+    from ..crypto import p256
+
+    if p256.VERIFY_KERNEL == "complete":
+        return None
+    if isinstance(mesh_devices, tuple):
+        return mesh_devices if len(mesh_devices) > 1 else None
+    key = (mesh_devices, str(device))
+    with _VERIFY_MESH_LOCK:
+        if key not in _VERIFY_MESH:
+            from ..parallel.mesh import make_mesh, plan_devices
+
+            devices = plan_devices(mesh_devices, device)
+            _VERIFY_MESH[key] = make_mesh(devices) if len(devices) > 1 \
+                else None
+        return _VERIFY_MESH[key]
 
 
 _SIG_VERDICTS: "OrderedDict[tuple, bool]" = OrderedDict()
@@ -168,7 +206,8 @@ def _resolve_backend(backend: str, n_checks: int) -> str:
 def run_sig_checks(checks: Sequence[tuple], backend: str = "auto",
                    device: DeviceLike = None,
                    use_cache: bool = True,
-                   precomputed: Optional[dict] = None) -> List[bool]:
+                   precomputed: Optional[dict] = None,
+                   mesh_devices: int = 1) -> List[bool]:
     """Verify deferred checks in one (or two) batched device calls.
 
     Pass 1 verifies against the raw-bytes digest; only failures re-try the
@@ -187,6 +226,8 @@ def run_sig_checks(checks: Sequence[tuple], backend: str = "auto",
     batched dispatch: the checks it holds are answered from it, the rest
     verify as above.  It lives only for that page's accept loop, so it
     carries exactly the trust of the per-block dispatch it replaces.
+
+    ``mesh_devices`` shards each device batch (:func:`_verify_mesh`).
     """
     if not checks:
         return []
@@ -196,7 +237,8 @@ def run_sig_checks(checks: Sequence[tuple], backend: str = "auto",
         if rest_idx:
             rest = run_sig_checks([checks[i] for i in rest_idx],
                                   backend=backend, device=device,
-                                  use_cache=use_cache)
+                                  use_cache=use_cache,
+                                  mesh_devices=mesh_devices)
             for i, v in zip(rest_idx, rest):
                 out_pre[i] = v
         return out_pre  # type: ignore[return-value]
@@ -223,7 +265,8 @@ def run_sig_checks(checks: Sequence[tuple], backend: str = "auto",
                 dispatch_checks = miss_checks + list(canary)
                 canaries = len(canary)
             fresh = run_sig_checks(dispatch_checks, backend=resolved,
-                                   device=device, use_cache=False)
+                                   device=device, use_cache=False,
+                                   mesh_devices=mesh_devices)
             cacheable = resolved == "host"
             if canaries:
                 canary_ok = tuple(fresh[-canaries:]) == _CANARY_EXPECTED
@@ -248,7 +291,8 @@ def run_sig_checks(checks: Sequence[tuple], backend: str = "auto",
     if _resolve_backend(backend, len(checks)) == "host":
         verify = _host_batch
     else:
-        verify = functools.partial(_device_batch, device=device)
+        verify = functools.partial(_device_batch, device=device,
+                                   mesh=_verify_mesh(mesh_devices, device))
     out = verify([c[0] for c in checks], [c[2] for c in checks],
                  [c[3] for c in checks])
     retry = [i for i, ok in enumerate(out) if not ok]
@@ -265,13 +309,17 @@ def _host_batch(digests, sigs, pubs) -> List[bool]:
     return [_host_verify_digest(d, s, p) for d, s, p in zip(digests, sigs, pubs)]
 
 
-def _device_batch(digests, sigs, pubs, device: DeviceLike = None) -> List[bool]:
+def _device_batch(digests, sigs, pubs, device: DeviceLike = None,
+                  mesh=None) -> List[bool]:
     import time
 
     from ..crypto import p256
 
     t0 = time.perf_counter()
-    ok = p256.verify_batch_prehashed(digests, sigs, pubs, device=device)
+    if mesh is None:
+        ok = p256.verify_batch_prehashed(digests, sigs, pubs, device=device)
+    else:  # the mesh's devices run it
+        ok = p256.verify_batch_prehashed(digests, sigs, pubs, mesh=mesh)
     trace.observe("kernel.p256_verify.dispatch_seconds",
                   time.perf_counter() - t0)
     return [bool(v) for v in ok]
@@ -299,9 +347,12 @@ class TxVerifier:
     """
 
     def __init__(self, state: ChainState, is_syncing: bool = False,
-                 tx_overlay: Optional[Dict[str, Tx]] = None):
+                 tx_overlay: Optional[Dict[str, Tx]] = None,
+                 verify_mesh_devices: int = 1):
         self.state = state
         self.is_syncing = is_syncing
+        # the mesh a signature batch is sharded over (_verify_mesh)
+        self.verify_mesh_devices = verify_mesh_devices
         # not-yet-accepted source txs (chain-sync page prefill): input
         # resolution consults these before the chain state, so signature
         # checks for a whole sync page can be collected up front even
@@ -593,7 +644,8 @@ class TxVerifier:
         if checks is None:
             return False
         return all(await run_sig_checks_async(
-            checks, backend=sig_backend, device=device))
+            checks, backend=sig_backend, device=device,
+            mesh_devices=self.verify_mesh_devices))
 
     async def prepare_pending(self, tx: Tx) -> Optional[List[tuple]]:
         """Host-side half of add-pending verification: every rule check
