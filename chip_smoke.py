@@ -59,9 +59,14 @@ Phases, one line each; any failure exits non-zero:
    shape (1,024 txs x 3 payloads: signing bytes, their hex form and the
    txid payload), on the sync page (every tx of the chain with the
    8,160-tx block) and on the padding edges (0, 1, 55, 56, 63, 64, 119,
-   120 and 1,000 bytes); per bucket the kernel's time with 10 launches
-   queued, the host pack, the host-to-device copy and hashlib on the
-   same payloads, and which backend ``auto`` picks for each shape; then
+   120 and 1,000 bytes); per bucket, launched alone, the kernel's time
+   with 10 launches queued, the host pack, the host-to-device copy and
+   hashlib on the same payloads; then each shape as the main path sends
+   it, one ragged launch (``sha256_batch`` must make exactly one), its
+   time with 10 queued and alone under the profiler, ``sha256_batch``
+   whole on the host clock, and the longest message's chain floor (its
+   compressions times one compression's SASS instructions at the maximum
+   SM clock); and which backend ``auto`` picks for each shape; then
    ``txid_batch`` whole on the card against hashlib at 256 to 24,480
    payloads of the accept's mix, the measurement ``auto``'s size rule
    (``crypto.sha256.TXID_AUTO_DEVICE_MIN``) is set from;
@@ -86,11 +91,18 @@ Phases, one line each; any failure exits non-zero:
    micro-batch) into 2^24 and 2^20 sorted random keys built on the card
    from a seeded generator (a mid-size chain's UTXO set: 402.7 MB
    resident), with planted cases (a 12-entry run on one high lane, 64-bit
-   twins, a high lane of I32_MAX) and an empty and a one-row index;
-   times with 10 launches queued, the plain version's, and
-   ``torch.searchsorted`` alone on the same tensors; the bound from the
-   bytes the run's probes need (``probe_bytes_needed``), registers and
-   local bytes;
+   twins, a high lane of I32_MAX) and an empty and a one-row index, and
+   on the fence's edges (a run of equal high lanes longer than the
+   fence's stride across fence points, queries at every fence point and
+   the row before it, 0, 1 and 3 * 2^shift + 5 live rows at explicit
+   shifts); times with 10 launches queued on the index's path (prepared
+   arguments, ``device_index.launch``) beside ``torch.searchsorted``
+   alone on the same tensors in the same call, the kernel alone under
+   the profiler, and the plain version's; the launch path piece by
+   piece (``utxo_probe_launch_path``: host microseconds a call over
+   1,000 calls, and the C side's lookup timed in C); the bound from the
+   bytes the run's probes need (``probe_bytes_needed``), registers,
+   local and shared bytes;
 14. the resident accept: an in-memory copy of the accept's chain with
    2^20 synthetic rows added to ``unspent_outputs``,
    ``enable_device_index()`` and the first upload timed apart, then the
@@ -128,7 +140,11 @@ Phases, one line each; any failure exits non-zero:
 20. two processes on the one card (``multihost``, after phase 12)
    rendezvous over gloo, each mines its planned half of 2^26 nonces with
    B2, and an ``all_reduce(MIN)`` agrees on the winner of one search of
-   the whole range.
+   the whole range;
+21. the txid kernel on a ragged batch (``txid_ragged_kernel_vs_plain``,
+   right after phase 13): 1,187 messages (one of every block count
+   from 2 to 154, the padding edges and 1,024 of 1-4 blocks) in one
+   launch, against its plain version on the card and hashlib.
 
 The line before the last is the kernels' JSON record; each kernel's
 ``launches`` is one path's own count (the accept's for the Jacobian
@@ -143,6 +159,11 @@ txid kernel launches and fails if hashlib stood in for a device digest
 there (``txid.sample_mismatch`` or ``sync.host_txid_retry`` above 0).
 The last is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero and prints no result.
+
+    python3 chip_smoke.py --only utxo_probe
+
+runs the card line, the build and the named kernel phases alone (a
+comma-separated list of ``KERNEL_PHASES``) and prints no result.
 """
 
 from __future__ import annotations
@@ -976,10 +997,78 @@ def page_payloads(db: str) -> list:
             "SELECT tx_hex FROM transactions")]
 
 
+def cuda_once(fn) -> tuple:
+    """(``fn()``, its milliseconds between two CUDA events): one run, for
+    a slow plain version that is run once anyway for its result."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def blocks_chain_floor_ms(max_blocks: int, clock_mhz: float) -> tuple:
+    """(ms, SASS instructions a compression): the least time of the
+    longest message's chain of compressions, one compression's
+    instructions (the kernel's block loop, cuobjdump) issued one a clock
+    at the card's maximum SM clock, or (None, 0) without cuobjdump."""
+    _total, loop = sass_counts("sha256_blocks")
+    per_block = sum(loop.values())
+    if not per_block:
+        return None, 0
+    return max_blocks * per_block / (clock_mhz * 1e3), per_block
+
+
+def ragged_check(dev: torch.device, payloads: list, where: str) -> dict:
+    """One ragged launch of ``payloads`` (packed and staged as the main
+    path does it) against the plain version on the card and hashlib;
+    the launch's time with 10 queued, the plain version's (one run), and
+    ``sha256_batch`` whole on the host clock (pack, stage, one copy, one
+    launch, one read-back; median of 5)."""
+    words, table, order = tsha.pack_ragged(payloads)
+    on_card = tsha._Staging.fill(dev, (words.view(np.int32), table))
+    table_ptr = on_card.data_ptr() + 4 * words.size
+    rows = len(payloads)
+    launches = tsha.BLOCKS_LAUNCHES
+    got = tsha._launch(on_card, table_ptr, 0, rows)
+    if tsha.BLOCKS_LAUNCHES != launches + 1:
+        fail(f"txid ragged launch on {where}: "
+             f"{tsha.BLOCKS_LAUNCHES - launches} launches")
+    plain, plain_ms = cuda_once(lambda: tsha.sha256_ragged_plain(
+        on_card[:words.size], on_card[words.size:].view(-1, 2)))
+    if not torch.equal(got, plain):
+        fail(f"txid ragged kernel != plain on {where}")
+    digests = np.empty((rows, 8), dtype=np.uint32)
+    digests[order] = got.cpu().numpy().view(np.uint32)
+    if [r.astype(">u4").tobytes() for r in digests] != [
+            hashlib.sha256(m).digest() for m in payloads]:
+        fail(f"txid ragged kernel != hashlib on {where}")
+    ms = cuda_ms(lambda: tsha._launch(on_card, table_ptr, 0, rows),
+                 reps=5, warm=2, per=10)
+    own_ms = kernel_only_ms(lambda: tsha._launch(on_card, table_ptr, 0, rows),
+                            "sha256_blocks_kernel", calls=10)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tsha.sha256_batch(payloads, device=dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return {"ms": ms, "kernel_only_ms": own_ms, "plain_ms": plain_ms,
+            "rows": rows,
+            "compressions": int(table[:, 1].sum()),
+            "max_blocks": int(table[0, 1]) if rows else 0,
+            "batch_ms": statistics.median(walls),
+            "max_abs_err": int((got.long() - plain.long()).abs().max())}
+
+
 def txid_phase(dev: torch.device, shapes: dict) -> dict:
     """The batched-digest kernel against its plain version (on the card)
-    and hashlib on each shape, bucket by bucket, with times; returns
-    the kernel's record (its ms and bound at the sync page's shape)."""
+    and hashlib on each shape: bucket by bucket (a uniform table, one
+    launch a length bucket), then the shape as the main path sends it, one
+    ragged launch, with times, the throughput bound and the longest
+    message's chain floor; returns the kernel's record (its ms and
+    bounds at the sync page's shape)."""
     props = torch.cuda.get_device_properties(dev)
     clock_mhz = tdevice.max_sm_clock_mhz() or props.clock_rate / 1000
     clocks = max(tsha.BLOCK_ALU_OPS / INT_OPS_PER_SM_CLK,
@@ -988,8 +1077,12 @@ def txid_phase(dev: torch.device, shapes: dict) -> dict:
     totals, worst = {}, 0
     for shape, payloads in shapes.items():
         want = [hashlib.sha256(m).digest() for m in payloads]
+        launches = tsha.BLOCKS_LAUNCHES
         if tsha.sha256_batch(payloads, device=dev) != want:
             fail(f"txid batch != hashlib on the {shape} shape")
+        if tsha.BLOCKS_LAUNCHES != launches + 1:
+            fail(f"txid batch on the {shape} shape: "
+                 f"{tsha.BLOCKS_LAUNCHES - launches} launches, not 1")
         buckets = tsha.n_blocks_of(np.array([len(m) for m in payloads]))
         tot = collections.Counter()
         for n_blocks in np.unique(buckets).tolist():
@@ -1003,14 +1096,13 @@ def txid_phase(dev: torch.device, shapes: dict) -> dict:
             torch.cuda.synchronize()
             h2d_ms = (time.perf_counter() - t0) * 1e3
             got = tsha.sha256_blocks(on_card, n_blocks)
-            plain = tsha.sha256_blocks_plain(on_card, n_blocks)
+            plain, plain_ms = cuda_once(lambda: tsha.sha256_blocks_plain(
+                on_card, n_blocks))
             worst = max(worst, int((got.long() - plain.long()).abs().max()))
             if not torch.equal(got, plain):
                 fail(f"txid kernel != plain: {shape}, {n_blocks} blocks")
             ms = cuda_ms(lambda: tsha.sha256_blocks(on_card, n_blocks),
                          reps=5, warm=2, per=10)
-            plain_ms = cuda_ms(lambda: tsha.sha256_blocks_plain(
-                on_card, n_blocks), reps=2, warm=1)
             t0 = time.perf_counter()
             for m in msgs:
                 hashlib.sha256(m).digest()
@@ -1027,35 +1119,81 @@ def txid_phase(dev: torch.device, shapes: dict) -> dict:
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
                   f"pack_ms={pack_ms:.3f} h2d_ms={h2d_ms:.3f} "
                   f"hashlib_ms={hashlib_ms:.3f}", flush=True)
+        ragged = ragged_check(dev, payloads, f"the {shape} shape")
+        worst = max(worst, ragged["max_abs_err"])
+        chain_ms, per_block = blocks_chain_floor_ms(ragged["max_blocks"],
+                                                    clock_mhz)
         auto = tsha.txid_auto_backend(len(payloads), dev)
-        totals[shape] = dict(tot, auto=auto)
+        totals[shape] = dict(tot, auto=auto, ragged=ragged,
+                             chain_ms=chain_ms)
         phase(f"txid_{shape}", payloads=len(payloads), equal=True,
               buckets=tot["launches"], rows=tot["rows"],
               compressions=tot["compressions"],
-              kernel_ms=round(tot["ms"], 4), plain_ms=round(tot["plain_ms"], 3),
+              one_launch_ms=round(ragged["ms"], 4),
+              kernel_only_ms=ragged["kernel_only_ms"],
+              one_launch_plain_ms=round(ragged["plain_ms"], 3),
+              batch_ms=round(ragged["batch_ms"], 3),
+              bucket_kernel_ms=round(tot["ms"], 4),
+              bucket_plain_ms=round(tot["plain_ms"], 3),
               pack_ms=round(tot["pack_ms"], 3),
               h2d_ms=round(tot["h2d_ms"], 3),
               hashlib_ms=round(tot["hashlib_ms"], 3),
               bound_ms=round(max(tot["ops_ms"], tot["bytes_ms"]), 5),
-              auto_picks=auto)
+              longest_blocks=ragged["max_blocks"],
+              chain_floor_ms="not_measured" if chain_ms is None
+              else round(chain_ms, 5),
+              sass_per_block=per_block, auto_picks=auto)
     page = totals["sync_page"]
     bound_ms = max(page["ops_ms"], page["bytes_ms"])
     attrs = tsha.blocks_kernel_attributes(dev)
     phase("txid_kernel_vs_plain", shapes=json.dumps(sorted(shapes)),
-          equal=True, bound_share=round(bound_ms / page["ms"], 4),
+          equal=True, bound_share=round(bound_ms / page["ragged"]["ms"], 4),
           alu_ops_per_block=tsha.BLOCK_ALU_OPS,
           add_ops_per_block=tsha.BLOCK_ADD_OPS, clock_mhz=clock_mhz,
           **attrs)
     return {"name": "sha256_blocks", "route": "cuda",
             "source": "upow_tpu_torch/csrc/sha256_blocks.cu",
             "replaces": "upow_tpu/crypto/sha256.py:429",
-            "launches": 0, "max_abs_err": worst, "ms": page["ms"],
-            "plain_ms": page["plain_ms"], "bound_ms": bound_ms,
+            "redesigned": "PR 10",
+            "launches": 0, "max_abs_err": worst, "ms": page["ragged"]["ms"],
+            "plain_ms": page["ragged"]["plain_ms"], "bound_ms": bound_ms,
             "bound_by": "operations" if page["ops_ms"] >= page["bytes_ms"]
             else "bytes",
-            "library_ms": None, "share": bound_ms / page["ms"],
+            "library_ms": None, "share": bound_ms / page["ragged"]["ms"],
+            "chain_floor_ms": page["chain_ms"],
             "registers": attrs["registers"],
-            "ms_micro_batch": totals["micro_batch"]["ms"]}
+            "ms_buckets": page["ms"],
+            "ms_micro_batch": totals["micro_batch"]["ragged"]["ms"]}
+
+
+def ragged_mix(seed: int = 0x7A6) -> list:
+    """A ragged batch of 1- to 154-block messages: one of every block
+    count from 1 to 154 (the sync page's fan tx is 154), the padding
+    edges, and 1,024 messages of 0-247 bytes (1-4 blocks), shuffled."""
+    rng = random.Random(seed)
+    lengths = [64 * b - 9 - rng.randrange(56) for b in range(2, 155)]
+    lengths += [0] + TXID_EDGES + [rng.randrange(248) for _ in range(1024)]
+    msgs = [rng.randbytes(n) for n in lengths]
+    rng.shuffle(msgs)
+    return msgs
+
+
+def txid_ragged_phase(dev: torch.device) -> dict:
+    """B5 on a ragged batch of 1- to 154-block messages in one launch,
+    against its plain version on the card and hashlib."""
+    msgs = ragged_mix()
+    counts = {int(c) for c in tsha.n_blocks_of(np.array(
+        [len(m) for m in msgs]))}
+    if counts != set(range(1, 155)):
+        fail(f"the ragged mix covers {len(counts)} block counts, not 154")
+    out = ragged_check(dev, msgs, "the 1- to 154-block mix")
+    phase("txid_ragged_kernel_vs_plain", messages=len(msgs), equal=True,
+          block_counts="1-154", launches=1, ms=round(out["ms"], 4),
+          kernel_only_ms=out["kernel_only_ms"],
+          plain_ms=round(out["plain_ms"], 3),
+          batch_ms=round(out["batch_ms"], 3),
+          compressions=out["compressions"])
+    return out
 
 
 def txid_crossover(dev: torch.device, payloads: list) -> None:
@@ -1229,10 +1367,16 @@ def probe_queries(lanes: torch.Tensor, n_live: int, q: int,
     return qs.contiguous()
 
 
-def probe_check(lanes, n_live: int, qs, where: str = "") -> tuple:
+def probe_check(lanes, n_live: int, qs, where: str = "",
+                args=None) -> tuple:
     """The kernel against its plain version on the card, all five
-    outputs bit for bit; (max abs error, the kernel's outputs)."""
-    got = tdi.probe(*lanes, n_live, *qs)
+    outputs bit for bit: through ``tdi.probe`` (its own fence), or
+    through ``tdi.launch`` on prepared ``args`` (a fence shift of the
+    caller's, or the index's own); (max abs error, the kernel's
+    outputs)."""
+    q = int(qs.shape[1])
+    got = tdi.probe(*lanes, n_live, *qs) if args is None else \
+        tdi.split_results(tdi.launch(args, qs), q)
     want = tdi.probe_plain(*lanes, n_live, *qs)
     torch.cuda.synchronize()
     err = max((int((g.long() - w.long()).abs().max()) if g.numel() else 0)
@@ -1242,20 +1386,144 @@ def probe_check(lanes, n_live: int, qs, where: str = "") -> tuple:
         if g.dtype != w.dtype or not torch.equal(g, w):
             bad = torch.nonzero(g != w).flatten()[:8].tolist()
             fail(f"utxo_probe != plain on {name} at {n_live} keys of "
-                 f"{lanes[0].shape[0]}, {qs.shape[1]} queries{where}: "
-                 f"first {bad}")
+                 f"{lanes[0].shape[0]}, {q} queries{where}: first {bad}")
     return err, got
+
+
+def probe_launch_path(args, qs, calls: int = 1000) -> dict:
+    """Host microseconds a call of each piece of B6's launch path: the
+    steps of ``tdi.launch`` (the path the index takes once an upload has
+    prepared its arguments) re-enacted ``calls`` times on the card with
+    ``time.perf_counter`` around each piece (the query lanes' checks, the
+    output buffer, the current-device test, the raw stream, the
+    ``data_ptr`` calls, the ctypes call); the same ctypes call at 0
+    queries (argument conversion and return alone); the C side's
+    configuration lookup timed in C (``utxo_probe_query_ns``); and
+    ``tdi.launch`` whole, ``calls`` calls queued with no synchronisation
+    between them."""
+    import ctypes
+
+    lib = tdi._kernel_lib()
+    lib.utxo_probe_query_ns.argtypes = [ctypes.c_int]
+    lib.utxo_probe_query_ns.restype = ctypes.c_double
+    dev, window, q = args.device_index, tdi.PROBE_WINDOW, int(qs.shape[1])
+    spent = collections.Counter()
+    clk = time.perf_counter
+    torch.cuda.synchronize()
+    for _ in range(calls):
+        t0 = clk()
+        tdi._check_lane(qs, (4, q), dev)
+        t1 = clk()
+        out = torch.empty(11 * q, dtype=torch.uint8, device=dev)
+        t2 = clk()
+        current = tdevice.current_index() == dev
+        t3 = clk()
+        stream = tdevice.raw_stream(dev)
+        t4 = clk()
+        ptrs = (qs.data_ptr(), out.data_ptr())
+        t5 = clk()
+        rc = lib.utxo_probe_launch(args.block_ptr, ptrs[0], q, window,
+                                   ptrs[1], stream)
+        t6 = clk()
+        if rc != 0 or not current:
+            fail(f"utxo_probe launch in the launch-path timing: {rc}")
+        spent.update(checks=t1 - t0, outputs=t2 - t1, device=t3 - t2,
+                     stream=t4 - t3, data_ptr=t5 - t4, ctypes_call=t6 - t5)
+    torch.cuda.synchronize()
+    t0 = clk()
+    for _ in range(calls):
+        lib.utxo_probe_launch(args.block_ptr, ptrs[0], 0, window, ptrs[1],
+                              stream)
+    spent["ctypes_call_q0"] = clk() - t0
+    c_queries_us = lib.utxo_probe_query_ns(calls) / 1e3
+    torch.cuda.synchronize()
+    t0 = clk()
+    for _ in range(calls):
+        tdi.launch(args, qs)
+    spent["whole"] = clk() - t0
+    torch.cuda.synchronize()
+    out = {k: v / calls * 1e6 for k, v in spent.items()}
+    out["c_queries"] = c_queries_us
+    return out
+
+
+def fence_edge_lanes(lanes: torch.Tensor, n_live: int, shift: int,
+                     gen: torch.Generator) -> tuple:
+    """A run of equal high lanes 2.5 fence strides long planted one row
+    past a fence point of ``lanes`` (in place: the run takes its first
+    row's high lane, so the keys stay sorted); returns ((4, q) queries,
+    the run's length).  The queries: every fence point and the row
+    before it, every row of the run, the run's high lane with absent
+    low lanes (64), and random keys (64)."""
+    stride = 1 << shift
+    start = min(stride + 1, n_live // 3)
+    length = min(n_live - start, 2 * stride + stride // 2 + 1)
+    lanes[0, start:start + length] = lanes[0, start].clone()
+    rows = torch.cat([
+        torch.arange(0, n_live, stride, device=lanes.device),
+        torch.arange(stride - 1, n_live, stride, device=lanes.device),
+        torch.arange(start, start + length, device=lanes.device)])
+    qs = lanes[:4, rows]
+    other = qs[:, -64:].clone()
+    other[1] ^= 0x55555555
+    rand = torch.randint(-2 ** 31, 2 ** 31, (4, 64), dtype=torch.int64,
+                         device=lanes.device, generator=gen).to(torch.int32)
+    return torch.cat([qs, other, rand], dim=1).contiguous(), length
+
+
+def probe_fence_edges(dev: torch.device, gen: torch.Generator) -> tuple:
+    """B6 against its plain version on the fence's edge cases: at the
+    main shape's own fence (2^24 keys, a stride of 2,048 rows) and at the
+    resident shape's (2^20 + 8,163 keys, not a multiple of its stride),
+    with a planted run longer than the stride across fence points (every
+    query of the run past the window must flag overflow); and on small
+    indexes of 3 * 2^shift + 5 keys at explicit shifts, cut to 0, 1 and
+    all of them live.  Returns (max abs error, the cases)."""
+    worst, cases = 0, []
+    pads = torch.tensor([I32_MAX, I32_MAX, 0, 0, 0, 0], dtype=torch.int32,
+                        device=dev)[:, None]
+    for n, cap in (PROBE_SHAPES[0], PROBE_SHAPES[2]):
+        lanes, _planted = probe_lanes(dev, n, cap, gen)
+        shift = tdi.fence_shift(n)
+        qs, length = fence_edge_lanes(lanes, n, shift, gen)
+        args = tdi.ProbeArgs(lanes.unbind(0), n)
+        err, got = probe_check(lanes, n, qs, f" at fence shift {shift}", args)
+        if length <= 1 << shift or not bool(
+                got[2][-128 - length:-128].all()):
+            fail(f"utxo_probe fence edges at {n} keys: the planted run of "
+                 f"{length} rows did not flag overflow")
+        worst = max(worst, err)
+        cases.append([n, cap, shift, int(qs.shape[1])])
+        del lanes, qs, args
+    for shift in (4, 6, 9):
+        n = 3 * (1 << shift) + 5
+        lanes, _planted = probe_lanes(dev, n, tdi._pow2(n), gen)
+        qs, _length = fence_edge_lanes(lanes, n, shift, gen)
+        for n_live in (0, 1, n):
+            cut = lanes.clone()
+            cut[:, n_live:] = pads
+            args = tdi.ProbeArgs(cut.unbind(0), n_live, shift)
+            worst = max(worst, probe_check(cut, n_live, qs,
+                                           f" at fence shift {shift}",
+                                           args)[0])
+            cases.append([n_live, int(cut.shape[1]), shift,
+                          int(qs.shape[1])])
+    return worst, cases
 
 
 def probe_phase(dev: torch.device) -> dict:
     """Kernel B6 alone against its plain version at the main path's
-    shapes, with times and the bound; returns its record."""
+    shapes and on the fence's edges, with times (the index's path:
+    prepared arguments, ``tdi.launch``) beside ``torch.searchsorted`` in
+    the same call, the launch path's breakdown and the bound; returns its
+    record."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(PROBE_SEED)
     worst, times = 0, {}
     for n, cap in PROBE_SHAPES:
         t0 = time.perf_counter()
         lanes, planted = probe_lanes(dev, n, cap, gen)
+        args = tdi.ProbeArgs(lanes.unbind(0), n)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         for q in PROBE_QUERIES:
@@ -1264,30 +1532,43 @@ def probe_phase(dev: torch.device) -> dict:
             qs[0, -1] = I32_MAX   # absent, on the pads' high lane
             err, (hit, key_hit, overflow, _lo, _hi) = probe_check(
                 lanes, n, qs)
-            worst = max(worst, err)
+            worst = max(worst, err, probe_check(lanes, n, qs, "", args)[0])
             if not (bool(overflow[:12].all()) and bool(hit[12:15].all())
                     and bool(key_hit[15]) and not bool(hit[15])
                     and not bool(key_hit[-(q // 4):].any())):
                 fail(f"utxo_probe at {n} keys, {q} queries: the planted "
                      "cases did not answer as planted")
-            ms = cuda_ms(lambda: tdi.probe(*lanes, n, *qs), reps=10, warm=3,
+            ms = cuda_ms(lambda: tdi.launch(args, qs), reps=10, warm=3,
                          per=10)
-            plain_ms = cuda_ms(lambda: tdi.probe_plain(*lanes, n, *qs),
-                               reps=5, warm=1)
             lib_ms = cuda_ms(lambda: torch.searchsorted(lanes[0], qs[0]),
                              reps=10, warm=3, per=10)
+            own_ms = kernel_only_ms(lambda: tdi.launch(args, qs),
+                                    "utxo_probe_kernel")
+            plain_ms = cuda_ms(lambda: tdi.probe_plain(*lanes, n, *qs),
+                               reps=5, warm=1)
             nbytes = tdi.probe_bytes_needed(lanes[0], n, qs[0])
             bound_ms = nbytes / HBM_BYTES_S * 1e3
-            times[(n, cap, q)] = (ms, plain_ms, lib_ms, bound_ms)
+            times[(n, cap, q)] = (ms, plain_ms, lib_ms, bound_ms, own_ms)
             print(f"  utxo_probe keys={n} capacity={cap} queries={q} "
-                  f"kernel_ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} searchsorted_ms={lib_ms:.4f} "
+                  f"fence_shift={args.shift} fence={args.fence.shape[0]} "
+                  f"kernel_ms={ms:.4f} searchsorted_ms={lib_ms:.4f} "
+                  f"kernel_only_ms={own_ms} "
+                  f"plain_ms={plain_ms:.4f} "
                   f"bound_bytes={nbytes} bound_ms={bound_ms:.6f} "
                   f"share={bound_ms / ms:.4f} build_s={build_s:.2f} "
                   f"hits={int(hit.sum())} key_only="
                   f"{int((key_hit & ~hit).sum())} "
                   f"overflow={int(overflow.sum())}", flush=True)
-        del lanes, qs
+        if (n, cap) == PROBE_SHAPES[0]:
+            path = probe_launch_path(args, probe_queries(
+                lanes, n, PROBE_QUERIES[0], gen, planted))
+            print("  utxo_probe_launch_path "
+                  f"keys={n} queries={PROBE_QUERIES[0]} calls=1000 "
+                  + " ".join(f"{k}_us={v:.3f}" for k, v in path.items()),
+                  flush=True)
+        del lanes, qs, args
+    err, fence_cases = probe_fence_edges(dev, gen)
+    worst = max(worst, err)
     # the edges: an empty index (its one pad row) and one live row
     pad = torch.tensor([[I32_MAX], [I32_MAX], [0], [0], [0], [0]],
                        dtype=torch.int32, device=dev)
@@ -1297,28 +1578,39 @@ def probe_phase(dev: torch.device) -> dict:
         qs = probe_queries(one, 1, 64, gen, [0])
         qs[0, 1] = I32_MAX
         worst = max(worst, probe_check(lanes, n_live, qs)[0])
-    ms, plain_ms, lib_ms, bound_ms = times[PROBE_SHAPES[0]
-                                          + (PROBE_QUERIES[0],)]
+    ms, plain_ms, lib_ms, bound_ms, own_ms = times[PROBE_SHAPES[0]
+                                                  + (PROBE_QUERIES[0],)]
     attrs = tdi.kernel_attributes(dev)
     phase("utxo_probe_kernel_vs_plain", equal=True,
           shapes=json.dumps([list(k) for k in times]
                             + [[0, 1, 64], [1, 1, 64]]),
+          fence_cases=json.dumps(fence_cases),
           resident_mb=round(6 * 4 * PROBE_SHAPES[0][1] / 1e6, 1),
           ms=round(ms, 4), plain_ms=round(plain_ms, 4),
           searchsorted_ms=round(lib_ms, 4), bound_ms=round(bound_ms, 6),
           bound_share=round(bound_ms / ms, 4),
           ms_by_shape=json.dumps({f"{n}/{cap}x{q}": round(t[0], 4)
                                   for (n, cap, q), t in times.items()}),
-          **attrs)
+          searchsorted_ms_by_shape=json.dumps(
+              {f"{n}/{cap}x{q}": round(t[2], 4)
+               for (n, cap, q), t in times.items()}),
+          kernel_only_ms_by_shape=json.dumps(
+              {f"{n}/{cap}x{q}": t[4] for (n, cap, q), t in times.items()}),
+          launch_path_us=round(path["whole"], 3), **attrs)
     return {"name": "utxo_probe", "route": "cuda",
             "source": "upow_tpu_torch/csrc/utxo_probe.cu",
             "replaces": "upow_tpu/state/device_index.py:171",
+            "redesigned": "PR 10",
             "launches": 0, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": lib_ms, "registers": attrs["registers"],
+            "shared_bytes": attrs["shared_bytes"],
+            "kernel_only_ms": own_ms, "launch_path_us": path,
             "ms_micro_batch": times[PROBE_SHAPES[0] + (PROBE_QUERIES[1],)][0],
             "ms_by_shape": {f"{n}/{cap}x{q}": t[0]
-                            for (n, cap, q), t in times.items()}}
+                            for (n, cap, q), t in times.items()},
+            "library_ms_by_shape": {f"{n}/{cap}x{q}": t[2]
+                                    for (n, cap, q), t in times.items()}}
 
 
 def synthetic_utxos(n: int, seed: int) -> list:
@@ -1335,16 +1627,22 @@ def resident_probe_check(state, sample, where: str) -> dict:
     """B6 against its plain version on the card, bit for bit on all five
     outputs, on the lanes of the state's ``unspent_outputs`` index (its
     capacity and pad rows, as the accept probes them) with the queries of
-    ``sample``: the whole of it, and one micro-batch's worth of it."""
+    ``sample``: the whole of it, and one micro-batch's worth of it, each
+    through the index's own prepared arguments (its fence) and through
+    ``tdi.probe``."""
     index = state.resident_indexes()["unspent_outputs"]
     lanes, n_live = index._device_state()
+    args = index._probe_args()
     ops = [tuple(o) for o in sample]
     qs = torch.from_numpy(tdi.query_lanes(
         tdi.fingerprint_batch(ops), tdi.check_batch(ops))).to(lanes.device)
     if n_live >= lanes.shape[1]:
         fail(f"resident probe check {where}: no pad row at {n_live} keys")
-    err, got = probe_check(lanes, n_live, qs, f" {where}")
-    err_mb = probe_check(lanes, n_live, qs[:, :MICROBATCH], f" {where}")[0]
+    err, got = probe_check(lanes, n_live, qs, f" {where}", args)
+    mb = qs[:, :MICROBATCH].contiguous()
+    err = max(err, probe_check(lanes, n_live, qs, f" {where}")[0])
+    err_mb = max(probe_check(lanes, n_live, mb, f" {where}", args)[0],
+                 probe_check(lanes, n_live, mb, f" {where}")[0])
     return {"n_live": n_live, "capacity": int(lanes.shape[1]),
             "queries": int(qs.shape[1]), "hits": int(got[0].sum()),
             "max_abs_err": max(err, err_mb)}
@@ -1912,6 +2210,22 @@ def hashrate_phase(key: tuple) -> dict:
             "seconds_6_3": s63}
 
 
+def kernel_only_ms(fn, kernel_name: str, calls: int = 20):
+    """The named kernel's mean device time over ``calls`` calls of
+    ``fn`` under the profiler (the kernel alone, without the host's
+    launch path), rounded to 0.1 us; "not_measured" where the profiler
+    sees no such kernel."""
+    fn()
+    torch.cuda.synchronize()
+    prof = start_profiler()
+    for _ in range(calls):
+        fn()
+    use = device_busy(prof, kernel_name)
+    if not use.get("kernel_events"):
+        return "not_measured"
+    return round(use["kernel_s"] / use["kernel_events"] * 1e3, 4)
+
+
 def start_profiler():
     """A CUDA-activity-only ``torch.profiler`` session, or None where the
     machine's profiler cannot start (then the idle share is reported as
@@ -2009,6 +2323,11 @@ def sass_counts(name: str, inside: str = "") -> tuple:
     return len(code), loop
 
 
+# the kernel phases that need no chain, by the name ``--only`` takes
+KERNEL_PHASES = {"utxo_probe": probe_phase,
+                 "txid_ragged": txid_ragged_phase}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2040,6 +2359,12 @@ def main() -> int:
               + " ".join(f"{op}={n}" for op, n in loop.most_common(12)),
               flush=True)
 
+    if sys.argv[1:2] == ["--only"]:
+        # a partial run: the card, the build and the named kernel phases
+        for name in sys.argv[2].split(","):
+            KERNEL_PHASES[name](dev)
+        print("chip_smoke: partial run; no result", flush=True)
+        return 0
     mix = signature_mix(LANES)
     record = kernel_phase(dev, mix)
     w5_record = w5_phase(dev, mix)
@@ -2047,6 +2372,7 @@ def main() -> int:
     key = curve.keygen(rng=KEY_SEED)
     sha_record = sha_phase(dev, point_to_string(key[1]))
     probe_record = probe_phase(dev)
+    txid_ragged_phase(dev)
 
     kit = Kit(key)
     clock.freeze(int(time.time()) - 3600)

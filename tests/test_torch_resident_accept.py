@@ -122,7 +122,7 @@ def test_fused_scan_is_taken_and_hashes_once(monkeypatch):
     from the probes (never the serial SQL scan) and digests each
     micro-batch once, in the probe's call."""
     calls = {"prep": 0, "probe": 0}
-    real_prep, real_probe = tblock._fused_digest_prep, tdi.probe
+    real_prep, real_probe = tblock._fused_digest_prep, tdi.launch
 
     def prep(*a, **k):
         calls["prep"] += 1
@@ -142,7 +142,7 @@ def test_fused_scan_is_taken_and_hashes_once(monkeypatch):
         txs = [chain.spend([leaf]) for leaf in leaves]
         chain.manager.verify_microbatch = 5   # 12 txs: 3 micro-batches
         monkeypatch.setattr(tblock, "_fused_digest_prep", prep)
-        monkeypatch.setattr(tdi, "probe", probe)
+        monkeypatch.setattr(tdi, "launch", probe)
         monkeypatch.setattr(chain.manager, "_check_block_double_spends",
                             serial)
         return await chain.submit(txs)
@@ -188,7 +188,7 @@ def test_failing_probe_fails_the_accept_without_sql(monkeypatch):
             def __getattr__(self, name):
                 return getattr(real_execute.__self__, name)
 
-        monkeypatch.setattr(tdi, "probe", _broken_probe)
+        monkeypatch.setattr(tdi, "launch", _broken_probe)
         state.db = Spy()
         with pytest.raises(RuntimeError, match="utxo_probe launch failed"):
             await chain.submit(txs)
@@ -264,9 +264,10 @@ def test_node_probes_and_a_failing_probe_is_a_500(tmp_path, monkeypatch):
             txs = [pushed] + [chain.spend([leaf]) for leaf in leaves[1:]]
             block = json.dumps({"block_content": await chain.header(txs),
                                 "txs": [t.hex() for t in txs]}).encode()
-            monkeypatch.setattr(tdi, "probe", _broken_probe)
+            real_launch = tdi.launch
+            monkeypatch.setattr(tdi, "launch", _broken_probe)
             failed = await fetch(url + "push_block", "POST", block)
-            monkeypatch.setattr(tdi, "probe", tdi.probe_plain)
+            monkeypatch.setattr(tdi, "launch", real_launch)
             accepted = await fetch(url + "push_block", "POST", block)
             tip = await node.state.get_last_block()
             return admitted, probes, failed, accepted, tip["id"]

@@ -281,18 +281,18 @@ def test_sync_page_one_txid_batch_and_one_signature_verify(tmp_path,
     fresh hash of its tx."""
     verifies, digest_rows = [], []
     real_verify = p256.verify_batch_prehashed
-    real_blocks = tsha.sha256_blocks_plain
+    real_blocks = tsha.sha256_ragged_plain
 
     def spy_verify(digests, sigs, pubs, device=None):
         verifies.append(len(digests))
         return real_verify(digests, sigs, pubs, device=device)
 
-    def spy_blocks(words, n_blocks):
-        digest_rows.append(int(words.shape[0]))
-        return real_blocks(words, n_blocks)
+    def spy_blocks(words, table):
+        digest_rows.append(int(table.shape[0]))
+        return real_blocks(words, table)
 
     monkeypatch.setattr(p256, "verify_batch_prehashed", spy_verify)
-    monkeypatch.setattr(tsha, "sha256_blocks_plain", spy_blocks)
+    monkeypatch.setattr(tsha, "sha256_ragged_plain", spy_blocks)
     cfg = _tcfg(tmp_path, "b")
     cfg.device.txid_backend = "device"
     cfg.device.txid_min_batch = 2

@@ -24,16 +24,22 @@ Both return a 0-d int64 tensor whose ``int()`` is the least nonce in
 
 The batched digests of whole messages (txids and signing digests, the
 JAX package's ``_sha256_blocks_jnp``, ``sha256_batch_jnp`` and
-``txid_batch``) follow the same pattern:
+``txid_batch``) follow the same pattern, one kernel launch a batch
+whatever its lengths:
 
-* :func:`sha256_blocks_plain` — the plain PyTorch version over
-  pre-padded words of one length bucket;
-* :func:`sha256_blocks` — the wrapper: a CUDA tensor launches
-  ``csrc/sha256_blocks.cu``, a CPU tensor runs the plain version;
-* :func:`sha256_batch` pads and buckets messages, and :func:`txid_batch`
-  chooses between hashlib and the device under the JAX package's
-  ``host | device | auto`` names (``auto`` a size rule here) and keeps
-  its integrity sample.
+* :func:`pack_ragged` pads every message into one word buffer with a
+  ``(block offset, n_blocks)`` table, longest first;
+* :func:`sha256_ragged_plain` — the plain PyTorch version of the ragged
+  batch, and :func:`sha256_blocks_plain` of one length bucket;
+* :func:`sha256_ragged` — the wrapper: on a card it stages the words and
+  the table in one pinned buffer, copies them in one copy and launches
+  ``csrc/sha256_blocks.cu`` once; on the CPU it runs the plain version;
+  :func:`sha256_blocks` launches the same kernel on one bucket (a
+  uniform table);
+* :func:`sha256_batch` digests messages in input order, and
+  :func:`txid_batch` chooses between hashlib and the device under the
+  JAX package's ``host | device | auto`` names (``auto`` a size rule
+  here) and keeps its integrity sample.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ import numpy as np
 import torch
 
 from .. import trace
-from ..device import DeviceLike, resolve
+from ..device import DeviceLike, current_index, raw_stream, resolve
 
 log = logging.getLogger("upow_tpu_torch.crypto")
 
@@ -348,8 +354,8 @@ _ENTRIES = {
     "sha256_search": ("sha256_search_launch", [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
     "sha256_blocks": ("sha256_blocks_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]),
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
 }
 
 
@@ -406,9 +412,12 @@ def pow_search(template: SearchTemplate, target, nonce_base: int, count: int,
 #
 # A message of length L is padded as the JAX package pads it, to
 # n_blocks = (L + 8) // 64 + 1 blocks: the bytes, 0x80, (55 - L) % 64
-# zero bytes and the bit length as 8 big-endian bytes.  Messages of one
-# block count form a bucket; a bucket is one kernel launch (or one plain
-# pass) over (rows, n_blocks * 16) big-endian words.
+# zero bytes and the bit length as 8 big-endian bytes.  A batch is one
+# word buffer of its padded messages back to back, longest first, and a
+# table of one (block offset, n_blocks) row a message: one kernel launch
+# (or one plain pass a length bucket) over it.  Messages of one block
+# count alone can also go as (rows, n_blocks * 16) words, a uniform
+# table.
 
 def sha256_blocks_plain(words: torch.Tensor, n_blocks: int) -> torch.Tensor:
     """(batch, n_blocks * 16) padded big-endian message words (any integer
@@ -426,23 +435,131 @@ def sha256_blocks_plain(words: torch.Tensor, n_blocks: int) -> torch.Tensor:
     return torch.stack(state, dim=1).to(torch.int32)
 
 
+def sha256_ragged_plain(words: torch.Tensor,
+                        table: torch.Tensor) -> torch.Tensor:
+    """The ragged batch's plain version: ``words`` (W,) padded big-endian
+    message words back to back (any integer dtype holding the 32-bit
+    pattern), ``table`` (rows, 2) int32 of (block offset, n_blocks) ->
+    (rows, 8) int32 digest words in table order.  One pass a block index
+    up to the longest message, as the kernel's threads chain: block b of
+    every message that has one, compressed together, int64 arithmetic
+    masked to 32 bits as in :func:`sha256_blocks_plain`."""
+    _check_table(int(words.shape[0]), table.cpu().numpy())
+    rows, dev = int(table.shape[0]), words.device
+    w = words.to(torch.int64) & MASK32
+    offsets, counts = table[:, 0].long(), table[:, 1].long()
+    state = [torch.full((rows,), int(h), dtype=torch.int64, device=dev)
+             for h in _H0]
+    cols = torch.arange(16, device=dev)
+    for b in range(int(counts.max()) if rows else 0):
+        live = torch.nonzero(counts > b).flatten()
+        block = w[((offsets[live] + b) * 16)[:, None] + cols[None, :]]
+        new = _compress_plain([s[live] for s in state],
+                              [block[:, i] for i in range(16)])
+        for s, n in zip(state, new):
+            s[live] = n
+    if not rows:
+        return torch.empty((0, 8), dtype=torch.int32, device=dev)
+    # int64 -> int32 keeps the low 32 bits: the same bit pattern
+    return torch.stack(state, dim=1).to(torch.int32)
+
+
 def _check_words(words: torch.Tensor, n_blocks: int) -> None:
     if n_blocks < 1 or words.dim() != 2 or words.shape[1] != n_blocks * 16:
         raise ValueError(f"expected (batch, {n_blocks * 16}) words for "
                          f"{n_blocks} blocks, got {tuple(words.shape)}")
 
 
+def _check_table(n_words: int, table: np.ndarray) -> None:
+    """Every row of a (rows, 2) table names whole blocks inside a buffer
+    of ``n_words`` words, or ValueError: the kernel reads where the
+    table points."""
+    if table.ndim != 2 or table.shape[1] != 2:
+        raise ValueError(f"expected a (rows, 2) table, got {table.shape}")
+    if not table.shape[0]:
+        return
+    offsets, counts = table[:, 0].astype(np.int64), table[:, 1]
+    if int(offsets.min()) < 0 or int(counts.min()) < 1 \
+            or int((offsets + counts).max()) * 16 > n_words:
+        raise ValueError(f"a table row lies outside {n_words} words")
+
+
+class _Staging:
+    """One pinned host buffer a card, reused from batch to batch, with
+    the event of the last copy out of it: a refill waits for that copy
+    (the host never overwrites words the card has not read)."""
+
+    _lock = threading.Lock()
+    _by_device: dict = {}
+
+    def __init__(self):
+        self.host = torch.empty(0, dtype=torch.int32)
+        self.event: Optional[torch.cuda.Event] = None
+
+    @classmethod
+    def fill(cls, device: torch.device, parts: Sequence[np.ndarray]
+             ) -> torch.Tensor:
+        """The int32 ``parts`` back to back on ``device``: written into
+        the card's pinned buffer (grown as needed) and copied in one
+        asynchronous host-to-device copy on the current stream."""
+        n = sum(int(p.size) for p in parts)
+        with cls._lock:
+            stage = cls._by_device.setdefault(device.index, cls())
+            if stage.event is not None:
+                stage.event.synchronize()
+            if stage.host.shape[0] < n:
+                stage.host = torch.empty(max(n, 2 * stage.host.shape[0]),
+                                         dtype=torch.int32, pin_memory=True)
+            host = stage.host.numpy()
+            at = 0
+            for part in parts:
+                host[at:at + part.size] = part.ravel()
+                at += part.size
+            on_card = torch.empty(n, dtype=torch.int32, device=device)
+            on_card.copy_(stage.host[:n], non_blocking=True)
+            stage.event = torch.cuda.Event()
+            stage.event.record(torch.cuda.current_stream(device))
+        return on_card
+
+
+def _launch(words: torch.Tensor, table_ptr: Optional[int], n_blocks: int,
+            rows: int) -> torch.Tensor:
+    """One launch of ``csrc/sha256_blocks.cu`` on the current stream over
+    the card's ``words`` (16-byte aligned): ``rows`` digests from the
+    table at ``table_ptr`` (a device pointer) or, when it is None, from a
+    uniform batch of ``n_blocks`` blocks a row.  Returns (rows, 8) int32,
+    not yet complete; raises on a failed build, load or launch."""
+    global BLOCKS_LAUNCHES
+    out = torch.empty((rows, 8), dtype=torch.int32, device=words.device)
+    if rows == 0:
+        return out
+    lib = _kernel_lib("sha256_blocks")
+    dev = words.get_device()
+    args = (words.data_ptr(), table_ptr, n_blocks, out.data_ptr(), rows, dev,
+            raw_stream(dev))
+    if current_index() == dev:
+        rc = lib.sha256_blocks_launch(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.sha256_blocks_launch(*args)
+    if rc != 0:
+        raise RuntimeError(f"sha256_blocks launch failed: CUDA error {rc}")
+    with _COUNT_LOCK:
+        BLOCKS_LAUNCHES += 1
+    return out
+
+
 def sha256_blocks(words, n_blocks: int,
                   device: DeviceLike = None) -> torch.Tensor:
     """(batch, n_blocks * 16) padded big-endian message words -> (batch, 8)
-    int32 digest words.
+    int32 digest words: one length bucket.
 
     ``words`` is a tensor, which runs where it lies, or a numpy uint32
     array, which is copied to ``device`` (the card unless ``"cpu"``).  A
-    CUDA tensor launches ``csrc/sha256_blocks.cu`` on the current stream
-    and returns at once; a CPU tensor runs :func:`sha256_blocks_plain`.
-    No fallback between the two: a failed build, load or launch raises."""
-    global BLOCKS_LAUNCHES
+    CUDA tensor makes one launch of ``csrc/sha256_blocks.cu`` with a
+    uniform table on the current stream and returns at once; a CPU
+    tensor runs :func:`sha256_blocks_plain`.  No fallback between the
+    two: a failed build, load or launch raises."""
     if isinstance(words, np.ndarray):
         words = torch.from_numpy(
             np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
@@ -456,20 +573,36 @@ def sha256_blocks(words, n_blocks: int,
     words = words.contiguous()
     if words.data_ptr() % 16:  # the kernel reads 16 bytes at a time
         words = words.clone()
-    batch = words.shape[0]
-    out = torch.empty((batch, 8), dtype=torch.int32, device=words.device)
-    if batch == 0:
-        return out
-    lib = _kernel_lib("sha256_blocks")
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.sha256_blocks_launch(words.data_ptr(), out.data_ptr(),
-                                      batch, n_blocks, stream)
-    if rc != 0:
-        raise RuntimeError(f"sha256_blocks launch failed: CUDA error {rc}")
-    with _COUNT_LOCK:
-        BLOCKS_LAUNCHES += 1
-    return out
+    return _launch(words, None, n_blocks, words.shape[0])
+
+
+def sha256_ragged(words: np.ndarray, table: np.ndarray,
+                  device: DeviceLike = None) -> torch.Tensor:
+    """The ragged batch: ``words`` (W,) uint32 padded messages back to
+    back and ``table`` (rows, 2) int32 of (block offset, n_blocks), both
+    on the host (:func:`pack_ragged`) -> (rows, 8) int32 digest words in
+    table order on ``device`` (the card unless ``"cpu"``).
+
+    On a card: the words and the table go into the card's reused pinned
+    staging buffer, one asynchronous copy, and one launch of
+    ``csrc/sha256_blocks.cu`` on the current stream; the result is not
+    yet complete when this returns.  On the CPU:
+    :func:`sha256_ragged_plain`.  The table is checked against the words
+    on the host first; a failed build, load or launch raises."""
+    dev = resolve(device)
+    words = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
+    table = np.ascontiguousarray(table, dtype=np.int32)
+    _check_table(words.size, table)
+    if dev.type == "cpu":
+        return sha256_ragged_plain(torch.from_numpy(words),
+                                   torch.from_numpy(table))
+    rows = table.shape[0]
+    if rows == 0:
+        return torch.empty((0, 8), dtype=torch.int32, device=dev)
+    on_card = _Staging.fill(dev, (words, table))
+    # words first: the allocation is aligned, and the table follows whole
+    # blocks of 64 bytes
+    return _launch(on_card, on_card.data_ptr() + 4 * words.size, 0, rows)
 
 
 def blocks_kernel_attributes(device: DeviceLike = None) -> dict:
@@ -516,38 +649,52 @@ def pack_bucket(messages: Sequence[bytes], n_blocks: int) -> np.ndarray:
     return buf.view(">u4").astype(np.uint32)
 
 
+def pack_ragged(messages: Sequence[bytes]) -> tuple:
+    """Pad every message of a batch into one buffer, longest first:
+    ``(words, table, order)`` with ``words`` (W,) uint32, ``table``
+    (rows, 2) int32 of (block offset, n_blocks) and ``order`` the input
+    index of each table row.  Each length bucket is packed by
+    :func:`pack_bucket` into its own contiguous run of rows."""
+    n = len(messages)
+    lens = np.fromiter(map(len, messages), dtype=np.int64, count=n)
+    counts = n_blocks_of(lens)
+    order = np.argsort(-counts, kind="stable")
+    sorted_counts = counts[order]
+    offsets = np.cumsum(sorted_counts) - sorted_counts
+    words = np.empty(int(sorted_counts.sum()) * 16, dtype=np.uint32)
+    at = 0
+    for n_blocks in sorted(np.unique(counts).tolist(), reverse=True):
+        idxs = order[at:at + int((counts == n_blocks).sum())]
+        lo = int(offsets[at]) * 16
+        words[lo:lo + len(idxs) * n_blocks * 16] = pack_bucket(
+            [messages[i] for i in idxs.tolist()], n_blocks).ravel()
+        at += len(idxs)
+    table = np.stack([offsets, sorted_counts], axis=1).astype(np.int32)
+    return words, table, order
+
+
 def _digest_array(messages: Sequence[bytes],
                   device: DeviceLike = None) -> np.ndarray:
-    """(len(messages), 32) uint8 digests in input order: one
-    :func:`sha256_blocks` per bucket, every bucket launched before the
-    first is read back."""
+    """(len(messages), 32) uint8 digests in input order: the batch packed
+    by :func:`pack_ragged`, one :func:`sha256_ragged` (one launch on a
+    card), one read-back."""
     dev = resolve(device)
+    t0 = time.perf_counter()
+    words, table, order = pack_ragged(messages)
+    digests = sha256_ragged(words, table, dev).cpu().numpy().view(np.uint32)
     out = np.empty((len(messages), 32), dtype=np.uint8)
-    lens = np.fromiter(map(len, messages), dtype=np.int64,
-                       count=len(messages))
-    buckets = n_blocks_of(lens)
-    pending = []
-    for n_blocks in np.unique(buckets).tolist():
-        idxs = np.nonzero(buckets == n_blocks)[0]
-        rows = pack_bucket([messages[i] for i in idxs.tolist()], n_blocks)
-        t0 = time.perf_counter()
-        pending.append((idxs, n_blocks, t0,
-                        sha256_blocks(rows, n_blocks, dev)))
-    for idxs, n_blocks, t0, digest in pending:
-        words = digest.cpu().numpy().view(np.uint32)
-        out[idxs] = words.astype(">u4").view(np.uint8).reshape(-1, 32)
-        trace.record_batch("sha256_txid", real=int(lens[idxs].sum()),
-                           padded=len(idxs) * n_blocks * 64,
-                           seconds=time.perf_counter() - t0)
+    out[order] = digests.astype(">u4").view(np.uint8).reshape(-1, 32)
+    trace.record_batch("sha256_txid",
+                       real=sum(map(len, messages)), padded=words.size * 4,
+                       seconds=time.perf_counter() - t0)
     return out
 
 
 def sha256_batch(messages: Sequence[bytes],
                  device: DeviceLike = None) -> List[bytes]:
     """sha256 of every message, in input order (the JAX package's
-    ``sha256_batch_jnp``): bucketed by padded block count, one
-    :func:`sha256_blocks` per bucket on ``device`` (the card unless
-    ``"cpu"``)."""
+    ``sha256_batch_jnp``): one ragged batch on ``device`` (the card
+    unless ``"cpu"``), one launch on a card."""
     raw = _digest_array(messages, device).tobytes()
     return [raw[i:i + 32] for i in range(0, len(raw), 32)]
 

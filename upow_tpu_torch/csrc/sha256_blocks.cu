@@ -1,31 +1,38 @@
-// Batched SHA-256 of pre-padded messages of one length bucket: the txids
-// and the two signing digests of every tx in a sync page or a block's
-// verify micro-batch.
+// Batched SHA-256 of pre-padded messages of any lengths in one launch:
+// the txids and the two signing digests of every tx in a sync page or a
+// block's verify micro-batch.
 //
 // Replaces upow_tpu/crypto/sha256.py::_sha256_blocks_jnp (an XLA program
-// jitted per (rows, n_blocks), called by sha256_batch_jnp and txid_batch).
-// Input: (batch, n_blocks * 16) message words, each the big-endian reading
-// of 4 padded bytes (crypto/sha256.py::pack_bucket pads as the JAX package
-// does); output: (batch, 8) digest words.  The plain PyTorch version of the
-// same function is crypto/sha256.py::sha256_blocks_plain.
+// jitted per (rows, n_blocks), called by sha256_batch_jnp and txid_batch
+// once a length bucket).  Input: the padded messages' big-endian words
+// back to back (crypto/sha256.py::pack_ragged pads as the JAX package
+// does) and a table of one (block offset, n_blocks) pair a message, or no
+// table and one block count for a uniform batch (row m at m * n_blocks
+// blocks); output: 8 digest words a table row.  The plain PyTorch version
+// of the same function is crypto/sha256.py::sha256_ragged_plain (and
+// sha256_blocks_plain for a uniform batch).
 //
-// What bounds it: 32-bit integer operations.  A compression over 16
-// unknown words needs about 1,024 SHF and LOP3 (ALU pipe only, 64 per SM
-// per clock) and 360 adds (crypto/sha256.py::BLOCK_ALU_OPS/BLOCK_ADD_OPS):
-// about 16 clocks a compression per SM, so a sync page of 8,000 txs (about
-// 40,000 compressions) is a few microseconds of work on 132 SMs.  Its
-// bytes (64 a compression in, 32 a message out) take less.  At the main
-// path's sizes the launch and the host-to-device copy of the padded words
-// cost more than either.
+// What bounds it: 32-bit integer operations in aggregate.  A compression
+// over 16 unknown words needs about 1,024 SHF and LOP3 (ALU pipe only, 64
+// per SM per clock) and 360 adds (crypto/sha256.py::BLOCK_ALU_OPS and
+// BLOCK_ADD_OPS): about 16 clocks a compression per SM, so a sync page of
+// 8,420 txs (about 30,000 compressions) is a few microseconds of work on
+// 132 SMs; its bytes take less.  But a message's blocks are serial
+// (Merkle-Damgard), so the longest message is one thread's chain of
+// compressions whatever the layout: a page's 154-block fan tx is at least
+// 154 compressions of about 1,431 instructions issued in a row.
 //
-// What the design does about it: nothing beyond the simplest right kernel.
-// One thread hashes one message in a grid-stride loop, chaining
-// sha256_common.cuh's fully unrolled compression from the initial state
-// over its blocks, with 16-byte loads and stores; threads past the batch
-// never run.  A thread's loads are its own message's words, so a warp's
-// loads are strided by the message width and not coalesced: left as it is
-// while the copy and the launch dominate.
+// What the design does about it.  One launch a batch: one thread a table
+// row in a grid-stride loop over one resident wave, the rows longest
+// first (the wrapper orders them), so the longest chain starts in the
+// first warp at once and the short messages fill the other SMs while it
+// runs.  A thread chains sha256_common.cuh's fully unrolled compression
+// over its blocks from the initial state, and loads the next block's four
+// 16-byte words before it compresses the current one, so the loads of a
+// long chain overlap its arithmetic.  The launch reads the grid's wave
+// from a per-device cache filled at the first launch on a device.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -40,25 +47,45 @@ __constant__ const u32 kH0[8] = {0x6A09E667u, 0xBB67AE85u, 0x3C6EF372u,
                                  0xA54FF53Au, 0x510E527Fu, 0x9B05688Cu,
                                  0x1F83D9ABu, 0x5BE0CD19u};
 
+// table: rows (block offset, n_blocks), or null for a uniform batch of
+// `uniform_blocks` blocks a row
 __global__ void __launch_bounds__(BLOCKS_THREADS)
     sha256_blocks_kernel(const uint4* __restrict__ words,
-                         uint4* __restrict__ out, int batch, int n_blocks) {
+                         const int2* __restrict__ table, int uniform_blocks,
+                         uint4* __restrict__ out, int rows) {
   const u64 stride = (u64)gridDim.x * blockDim.x;
-  for (u64 m = (u64)blockIdx.x * blockDim.x + threadIdx.x; m < (u64)batch;
+  for (u64 m = (u64)blockIdx.x * blockDim.x + threadIdx.x; m < (u64)rows;
        m += stride) {
-    const uint4* msg = words + m * (u64)n_blocks * 4;
+    u64 offset;
+    int n_blocks;
+    if (table != nullptr) {
+      const int2 row = table[m];
+      offset = (u64)row.x;
+      n_blocks = row.y;
+    } else {
+      offset = m * (u64)uniform_blocks;
+      n_blocks = uniform_blocks;
+    }
+    const uint4* msg = words + offset * 4;
     u32 st[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) st[k] = kH0[k];
+    uint4 next[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) next[q] = msg[q];
     for (int b = 0; b < n_blocks; ++b) {
       u32 w[16];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const uint4 v = msg[b * 4 + q];
-        w[4 * q] = v.x;
-        w[4 * q + 1] = v.y;
-        w[4 * q + 2] = v.z;
-        w[4 * q + 3] = v.w;
+        w[4 * q] = next[q].x;
+        w[4 * q + 1] = next[q].y;
+        w[4 * q + 2] = next[q].z;
+        w[4 * q + 3] = next[q].w;
+      }
+      // the next block's words in flight while this one is compressed
+      if (b + 1 < n_blocks) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) next[q] = msg[(b + 1) * 4 + q];
       }
       sha256::compress(st, w);
     }
@@ -67,28 +94,53 @@ __global__ void __launch_bounds__(BLOCKS_THREADS)
   }
 }
 
-// words: batch * n_blocks * 16 device words; out: batch * 8 device words,
-// both 16-byte aligned.  Launches on `stream` and returns the CUDA error of
-// the launch (0 on success); it does not synchronise.
-extern "C" int sha256_blocks_launch(const void* words, void* out, int batch,
-                                    int n_blocks, void* stream) {
-  if (batch < 0 || n_blocks < 1) return (int)cudaErrorInvalidValue;
-  if (batch == 0) return 0;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sha256_blocks_kernel, BLOCKS_THREADS, 0);
+// --- the host side: the launch path --------------------------------------
+
+// Blocks in one resident wave of the kernel on device `dev`, asked of the
+// runtime at the first launch on that device and kept (0: not yet asked).
+#define MAX_DEVICES 64
+static std::atomic<int> g_wave[MAX_DEVICES];
+
+static cudaError_t wave_blocks(int dev, int* blocks) {
+  int wave = g_wave[dev].load(std::memory_order_relaxed);
+  if (wave == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, sha256_blocks_kernel, BLOCKS_THREADS, 0);
+    if (err != cudaSuccess) return err;
+    wave = sms * (per_sm > 0 ? per_sm : 1);
+    g_wave[dev].store(wave, std::memory_order_relaxed);
+  }
+  *blocks = wave;
+  return cudaSuccess;
+}
+
+// words: the messages' device words, 16-byte aligned; table: `rows` int32
+// (block offset, n_blocks) pairs on the device, or null with
+// uniform_blocks >= 1; out: rows * 8 device words, 16-byte aligned; the
+// current device must be `device`.  Launches on `stream` and returns the
+// CUDA error of the launch (0 on success); it does not synchronise.  The
+// table's offsets and counts are the caller's to keep inside `words`.
+extern "C" int sha256_blocks_launch(const void* words, const void* table,
+                                    int uniform_blocks, void* out, int rows,
+                                    int device, void* stream) {
+  if (rows < 0 || (table == nullptr && uniform_blocks < 1) || device < 0
+      || device >= MAX_DEVICES)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  int wave = 0;
+  const cudaError_t err = wave_blocks(device, &wave);
   if (err != cudaSuccess) return (int)err;
   // one resident wave of blocks at most; the grid-stride loop covers the
   // rest
-  const u64 need = ((u64)batch + BLOCKS_THREADS - 1) / BLOCKS_THREADS;
-  const u64 wave = (u64)sms * (u64)(per_sm > 0 ? per_sm : 1);
-  const int blocks = (int)(need < wave ? need : wave);
+  const u64 need = ((u64)rows + BLOCKS_THREADS - 1) / BLOCKS_THREADS;
+  const int blocks = (int)(need < (u64)wave ? need : (u64)wave);
   sha256_blocks_kernel<<<blocks, BLOCKS_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint4*)words, (uint4*)out, batch, n_blocks);
+      (const uint4*)words, (const int2*)table, uniform_blocks, (uint4*)out,
+      rows);
   return (int)cudaGetLastError();
 }
 

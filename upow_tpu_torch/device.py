@@ -29,6 +29,18 @@ def resolve(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def current_index() -> int:
+    """The calling thread's current card, by ordinal."""
+    return torch._C._cuda_getDevice()
+
+
+def raw_stream(index: int) -> int:
+    """The current stream of card ``index`` as a raw ``cudaStream_t`` for
+    a kernel launched through ctypes, without the ``torch.cuda.Stream``
+    object ``current_stream()`` builds."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def card_line() -> Optional[str]:
     """``name, power.limit`` of the first card as nvidia-smi prints them,
     or None where nvidia-smi is missing."""

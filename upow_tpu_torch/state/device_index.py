@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from .. import trace
-from ..device import DeviceLike, resolve
+from ..device import DeviceLike, current_index, raw_stream, resolve
 
 Outpoint = Tuple[str, int]
 
@@ -199,6 +199,76 @@ def probe_plain(keys_hi, keys_lo, chk_a, chk_b, amt_lo, amt_hi, n_live: int,
     return hit, key_hit, overflow, amt_lo[row], amt_hi[row]
 
 
+#: fence entries the kernel keeps in shared memory (FENCE_MAX in
+#: csrc/utxo_probe.cu): every 2^shift-th live keys_hi, at the least shift
+#: that fits
+FENCE_MAX = 8192
+
+
+def fence_shift(n_live: int) -> int:
+    """The least shift whose fence of every 2^shift-th of ``n_live`` keys
+    fits :data:`FENCE_MAX` entries."""
+    shift = 0
+    while (n_live + (1 << shift) - 1) >> shift > FENCE_MAX:
+        shift += 1
+    return shift
+
+
+def _check_lane(t: torch.Tensor, shape: tuple, device_index: int) -> None:
+    """A contiguous int32 tensor of ``shape`` on the device whose
+    ``get_device()`` is ``device_index`` (-1: the CPU), or ValueError."""
+    if t.dtype != torch.int32 or t.shape != shape or not t.is_contiguous() \
+            or t.get_device() != device_index:
+        raise ValueError(
+            f"expected a contiguous {shape} int32 tensor on device "
+            f"{device_index}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+class ProbeArgs:
+    """B6's resident side, checked and laid out once (at an upload of the
+    index, or once a :func:`probe` call): the six lanes, ``n_live``, the
+    fence of every 2^``shift``-th live ``keys_hi`` (a strided copy on the
+    lanes' device), and the kernel's prepared argument block, an int64
+    array of the lanes' and the fence's pointers, ``n_live``, ``cap``,
+    the fence's length, ``shift`` and the device ordinal, which the
+    launch hands to the C side as one pointer."""
+
+    __slots__ = ("lanes", "n_live", "device_index", "shift", "fence",
+                 "block", "block_ptr")
+
+    def __init__(self, lanes: Sequence[torch.Tensor], n_live: int,
+                 shift: Optional[int] = None):
+        lanes = tuple(lanes)
+        if len(lanes) != 6:
+            raise ValueError(f"expected six resident lanes, got {len(lanes)}")
+        dev, cap = lanes[0].device, int(lanes[0].shape[0]) \
+            if lanes[0].dim() == 1 else -1
+        if cap < 1:
+            raise ValueError(f"resident lanes of shape "
+                             f"{tuple(lanes[0].shape)}")
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {dev}")
+        self.device_index = lanes[0].get_device()
+        for t in lanes:
+            _check_lane(t, (cap,), self.device_index)
+        if not 0 <= n_live <= cap:
+            raise ValueError(f"n_live {n_live} of capacity {cap}")
+        self.lanes, self.n_live = lanes, n_live
+        self.shift = fence_shift(n_live) if shift is None else shift
+        if (n_live + (1 << self.shift) - 1) >> self.shift > FENCE_MAX:
+            raise ValueError(f"a fence at shift {self.shift} of {n_live} "
+                             f"keys exceeds {FENCE_MAX} entries")
+        # a fresh allocation: contiguous and 16-byte aligned, as the
+        # kernel's vector loads of it need
+        self.fence = lanes[0][:n_live:1 << self.shift].clone(
+            memory_format=torch.contiguous_format)
+        self.block = np.array(
+            [t.data_ptr() for t in lanes] + [
+                self.fence.data_ptr(), n_live, cap, self.fence.shape[0],
+                self.shift, max(self.device_index, 0)], dtype=np.int64)
+        self.block_ptr = self.block.ctypes.data
+
+
 _LIB = None
 _LIB_LOCK = threading.Lock()
 
@@ -214,9 +284,8 @@ def _kernel_lib():
 
             lib = _build.load("utxo_probe")
             lib.utxo_probe_launch.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int]
-                + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int]
-                + [ctypes.c_void_p] * 6)
+                [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] * 2)
             lib.utxo_probe_launch.restype = ctypes.c_int
             lib.utxo_probe_attributes.argtypes = [ctypes.c_void_p]
             lib.utxo_probe_attributes.restype = ctypes.c_int
@@ -224,23 +293,69 @@ def _kernel_lib():
     return _LIB
 
 
-def _check_lanes(resident: Sequence[torch.Tensor], n_live: int,
-                 queries: Sequence[torch.Tensor], window: int) -> None:
-    lanes = list(resident) + list(queries)
-    dev = lanes[0].device
-    for t in lanes:
-        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous() \
-                or t.device != dev:
-            raise ValueError(
-                f"expected contiguous 1-D int32 lanes on {dev}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    cap, q = resident[0].shape[0], queries[0].shape[0]
-    if cap < 1 or any(t.shape[0] != cap for t in resident) \
-            or any(t.shape[0] != q for t in queries):
-        raise ValueError(f"resident lanes of {[t.shape[0] for t in resident]}"
-                         f" rows, queries of {[t.shape[0] for t in queries]}")
-    if not 0 <= n_live <= cap or window < 1:
-        raise ValueError(f"n_live {n_live} of capacity {cap}, window {window}")
+def _pack(results: tuple) -> torch.Tensor:
+    """The five results of :func:`probe_plain` as the kernel's one output
+    buffer: q amt_lo words, q amt_hi words, then q bytes each of hit,
+    key_hit and overflow."""
+    hit, key_hit, overflow, amt_lo, amt_hi = results
+    return torch.cat([amt_lo.view(torch.uint8), amt_hi.view(torch.uint8),
+                      hit.to(torch.uint8), key_hit.to(torch.uint8),
+                      overflow.to(torch.uint8)])
+
+
+def split_results(out: torch.Tensor, q: int) -> tuple:
+    """(hit, key_hit, overflow, amt_lo, amt_hi) as views of one output
+    buffer of 11 * q bytes (a tensor)."""
+    amts = out[:8 * q].view(torch.int32)
+    flags = out[8 * q:].view(torch.bool)
+    return flags[:q], flags[q:2 * q], flags[2 * q:], amts[:q], amts[q:]
+
+
+def split_host(out: np.ndarray, q: int) -> tuple:
+    """:func:`split_results` of a buffer read back to the host, numpy
+    views."""
+    amts = out[:8 * q].view(np.int32)
+    flags = out[8 * q:].view(np.bool_)
+    return flags[:q], flags[q:2 * q], flags[2 * q:], amts[:q], amts[q:]
+
+
+def launch(args: ProbeArgs, queries: torch.Tensor,
+           window: int = PROBE_WINDOW) -> torch.Tensor:
+    """The probe of ``queries``, (4, q) int32 lanes (key high and low,
+    check a and b), into ``args``' lanes; returns the one output buffer
+    of 11 * q bytes (:func:`split_results`).
+
+    The slim path both :func:`probe` and the index take: the query
+    lanes' check, one ``torch.empty``, one ctypes call with the prepared
+    block's pointer and the raw current stream, and
+    ``torch.cuda.device`` only when the lanes' card is not the current
+    one.  CPU lanes run :func:`probe_plain` and pack its results into
+    the same buffer.  A failed build, load or launch raises."""
+    global PROBE_LAUNCHES
+    q = int(queries.shape[-1])
+    _check_lane(queries, (4, q), args.device_index)
+    if window < 1:
+        raise ValueError(f"window {window}")
+    if args.device_index < 0:
+        return _pack(probe_plain(*args.lanes, args.n_live, *queries, window))
+    dev = args.device_index
+    out = torch.empty(11 * q, dtype=torch.uint8, device=dev)
+    if q == 0:
+        return out
+    lib = _LIB if _LIB is not None else _kernel_lib()
+    if current_index() == dev:
+        rc = lib.utxo_probe_launch(args.block_ptr, queries.data_ptr(), q,
+                                   window, out.data_ptr(), raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.utxo_probe_launch(args.block_ptr, queries.data_ptr(), q,
+                                       window, out.data_ptr(),
+                                       raw_stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"utxo_probe launch failed: CUDA error {rc}")
+    with _COUNT_LOCK:
+        PROBE_LAUNCHES += 1
+    return out
 
 
 def probe(keys_hi, keys_lo, chk_a, chk_b, amt_lo, amt_hi, n_live: int,
@@ -248,53 +363,36 @@ def probe(keys_hi, keys_lo, chk_a, chk_b, amt_lo, amt_hi, n_live: int,
     """The windowed sorted probe (kernel B6); arguments and results as
     :func:`probe_plain`.
 
-    CPU tensors run :func:`probe_plain`.  CUDA tensors launch
-    ``csrc/utxo_probe.cu`` on the current stream and return at once: the
-    three flags are one byte each, the amounts int32, all five views of
-    one output buffer.  A failed build, load or launch raises."""
-    global PROBE_LAUNCHES
-    resident = (keys_hi, keys_lo, chk_a, chk_b, amt_lo, amt_hi)
-    queries = (q_hi, q_lo, q_ca, q_cb)
-    _check_lanes(resident, n_live, queries, window)
-    dev = keys_hi.device
-    if dev.type == "cpu":
-        return probe_plain(*resident, n_live, *queries, window)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    cap, q = keys_hi.shape[0], q_hi.shape[0]
-    out = torch.empty(11 * q, dtype=torch.uint8, device=dev)
-    amts = out[:8 * q].view(torch.int32)
-    flags = out[8 * q:].view(torch.bool)
-    results = (flags[:q], flags[q:2 * q], flags[2 * q:], amts[:q], amts[q:])
-    if q == 0:
-        return results
-    lib = _kernel_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.utxo_probe_launch(
-            *(t.data_ptr() for t in resident), n_live, cap,
-            *(t.data_ptr() for t in queries), q, window,
-            *(t.data_ptr() for t in results), stream)
-    if rc != 0:
-        raise RuntimeError(f"utxo_probe launch failed: CUDA error {rc}")
-    with _COUNT_LOCK:
-        PROBE_LAUNCHES += 1
-    return results
+    The lanes are checked and their fence built (:class:`ProbeArgs`),
+    the four query lanes stacked, then :func:`launch`: CPU tensors run
+    :func:`probe_plain`, CUDA tensors launch ``csrc/utxo_probe.cu`` on
+    the current stream and return at once.  The three flags are one byte
+    each, the amounts int32, all five views of one output buffer.  A
+    failed build, load or launch raises."""
+    args = ProbeArgs((keys_hi, keys_lo, chk_a, chk_b, amt_lo, amt_hi),
+                     n_live)
+    q = q_hi.shape[0]
+    for t in (q_hi, q_lo, q_ca, q_cb):
+        _check_lane(t, (q,), args.device_index)
+    queries = torch.stack((q_hi, q_lo, q_ca, q_cb))
+    return split_results(launch(args, queries, window), q)
 
 
 def kernel_attributes(device: DeviceLike = None) -> dict:
-    """Threads a block, registers and local-memory bytes a thread of the
-    probe kernel on a card (``cudaFuncGetAttributes``)."""
+    """Threads a block, registers and local-memory bytes a thread and
+    static shared bytes a block of the probe kernel on a card
+    (``cudaFuncGetAttributes``)."""
     import ctypes
 
     dev = resolve(device)
     lib = _kernel_lib()
-    vals = (ctypes.c_int * 3)()
+    vals = (ctypes.c_int * 4)()
     with torch.cuda.device(dev):
         rc = lib.utxo_probe_attributes(ctypes.addressof(vals))
     if rc != 0:
         raise RuntimeError(f"utxo_probe_attributes: CUDA error {rc}")
-    return dict(zip(("threads", "registers", "local_bytes"), vals))
+    return dict(zip(("threads", "registers", "local_bytes", "shared_bytes"),
+                    vals))
 
 
 def probe_bytes_needed(keys_hi, n_live: int, q_hi,
@@ -374,6 +472,10 @@ class DeviceUtxoIndex:
         self._host_amount = np.zeros(0, dtype=np.int64)  # aligned values
         self._dirty = True
         self._dev: Optional[torch.Tensor] = None       # (6, cap) lanes
+        # the probe's prepared arguments and the lanes' (pointer, shape,
+        # device) they were prepared from, both set at each upload
+        self._args: Optional[ProbeArgs] = None
+        self._dev_seal: Optional[tuple] = None
         self._staging: Optional[torch.Tensor] = None   # (6, cap) host
         self._undo: deque = deque(maxlen=self.UNDO_DEPTH)
         self._probes = 0
@@ -553,10 +655,28 @@ class DeviceUtxoIndex:
                     self._dev = torch.empty((6, cap), dtype=torch.int32,
                                             device=self.device)
                 self._dev.copy_(self._staging)
+            self._args = ProbeArgs(self._dev.unbind(0), n)
+            self._dev_seal = self._seal(self._dev)
             self._dirty = False
             trace.record_batch("utxo_apply", real=n, padded=cap,
                                seconds=time.perf_counter() - t0)
         return self._dev, len(self._host_keys)
+
+    @staticmethod
+    def _seal(lanes: torch.Tensor) -> tuple:
+        return lanes.data_ptr(), lanes.shape, lanes.device
+
+    def _probe_args(self) -> ProbeArgs:
+        """The prepared probe arguments of the current lanes (uploaded
+        first when the host state changed).  Raises when the resident
+        lanes changed pointer, shape or device since they were
+        prepared."""
+        self._device_state()
+        if self._seal(self._dev) != self._dev_seal:
+            raise ValueError(
+                f"the resident lanes changed since the upload: "
+                f"{self._seal(self._dev)} against {self._dev_seal}")
+        return self._args
 
     def materialize(self) -> None:
         """Upload the current host state now (the ``utxo_apply`` batch),
@@ -586,29 +706,29 @@ class DeviceUtxoIndex:
                 sorted(self._twin_fps), dtype=np.uint64)
         return self._twins_arr
 
-    def _probe_launch(self, fps: np.ndarray, chks: np.ndarray) -> tuple:
-        """Upload the queries and launch the probe; returns the five
-        device results and host buffers they are being copied into (not
-        yet complete on a card)."""
-        lanes, n_live = self._device_state()
-        queries = torch.from_numpy(query_lanes(fps, chks)).to(self.device)
-        results = probe(*lanes, n_live, *queries, window=PROBE_WINDOW)
+    def _probe_launch(self, fps: np.ndarray,
+                      chks: np.ndarray) -> np.ndarray:
+        """Upload the queries and launch the probe; returns the host
+        buffer its one output buffer is being copied into (not yet
+        complete on a card; :func:`split_host` splits it)."""
+        args = self._probe_args()
+        lanes = query_lanes(fps, chks)
         if self.device.type == "cpu":
-            return results
-        host = []
-        for r in results:
-            h = torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
-            h.copy_(r, non_blocking=True)
-            host.append(h)
-        return tuple(host)
+            return launch(args, torch.from_numpy(lanes)).numpy()
+        staged = torch.empty(lanes.shape, dtype=torch.int32, pin_memory=True)
+        staged.numpy()[:] = lanes
+        out = launch(args, staged.to(self.device, non_blocking=True))
+        host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        return host.numpy()
 
     def _probe_finish(self, ops: Sequence[Outpoint], fps: np.ndarray,
-                      results: tuple, t0: float) -> tuple:
-        """The host post-process of one probe whose results are on the
-        host: ambiguity, shadow consults, amounts.  Returns (present
+                      out: np.ndarray, t0: float) -> tuple:
+        """The host post-process of one probe whose output buffer is on
+        the host: ambiguity, shadow consults, amounts.  Returns (present
         bool[N], maybe bool[N], amounts int64[N], shadow_consults)."""
         n = len(ops)
-        hit, key_hit, overflow, amt_lo, amt_hi = (r.numpy() for r in results)
+        hit, key_hit, overflow, amt_lo, amt_hi = split_host(out, n)
         ambiguous = overflow.copy()
         twins = self._twins_sorted()
         if twins.size:
@@ -637,9 +757,9 @@ class DeviceUtxoIndex:
         """One probe and its host post-process (see
         :meth:`_probe_finish`)."""
         t0 = time.perf_counter()
-        results = self._probe_launch(fps, chks)
+        out = self._probe_launch(fps, chks)
         _synchronize(self.device)
-        return self._probe_finish(ops, fps, results, t0)
+        return self._probe_finish(ops, fps, out, t0)
 
     def _probe(self, outpoints: Sequence[Outpoint]) -> tuple:
         ops = [tuple(o) for o in outpoints]

@@ -19,8 +19,8 @@ its integrity sample, ``crypto/sha256.py``) and ``sync.host_txid_retry``
 (a sync page's device-seeded txids gave a merkle mismatch and the page
 was hashed again on the host, ``node/app.py``).  ``snapshot_recommended``
 counts syncs whose peer was further ahead than the reorg window, and
-``kernel.sha256_txid.batches`` the batched-digest buckets (kernel
-launches on a card; their plain integer count is
+``kernel.sha256_txid.batches`` the batched-digest batches (one kernel
+launch each on a card; the plain integer count of launches is
 ``crypto.sha256.BLOCKS_LAUNCHES``).
 
 The resident UTXO index (``state/device_index.py``) records the JAX
