@@ -144,7 +144,23 @@ Phases, one line each; any failure exits non-zero:
 21. the txid kernel on a ragged batch (``txid_ragged_kernel_vs_plain``,
    right after phase 13): 1,187 messages (one of every block count
    from 2 to 154, the padding edges and 1,024 of 1-4 blocks) in one
-   launch, against its plain version on the card and hashlib.
+   launch, against its plain version on the card and hashlib;
+22. gossip between node processes (``gossip_path``, after phase 11):
+   node A (this process) and nodes B and C, each ``python -m
+   upow_tpu_torch.node.run --device cuda`` in a process of its own on
+   the card (its own verdict cache and launch counters), on copies of
+   the chain, with no seed, their peer books in the work directory,
+   ``node.self_url`` their own address and rate limits off.  B is added
+   to A's book by ``/add_node`` beside a dead URL; the 8,160-tx block
+   pushed to A reaches B through A's gossip, and B's ``/`` counters must
+   show kernel-1 batches on its card; 256 ``push_tx`` to A must reach
+   B's pool, the same hashes; the dead peer's breaker must be open in
+   A's ``/debug/breakers`` with no send to B cut at
+   ``resilience.propagate_deadline``; C, seeded with A, bootstraps on
+   one request with a non-local ``Host``: it must learn B, announce
+   itself to A and sync with no ``node_url`` (kernel 1 and B5 on its
+   card, ``device.txid_backend = device``).  A, B and C must end on one
+   tip and UTXO hash; the hop's, the burst's and C's walls are printed.
 
 The line before the last is the kernels' JSON record; each kernel's
 ``launches`` is one path's own count (the accept's for the Jacobian
@@ -154,9 +170,10 @@ the sync's for the txid kernel, the resident accept's for the probe
 kernel, the 4-shard accept's for the sharded verify and the mesh
 miner's for the mesh search), and the complete kernel's
 ``launches_by_path`` gives each path it ran on.  Every phase that can
-reach the txid batch (6, 7, 8, 10, 11, 14, 15, 17 and 18) counts its
-txid kernel launches and fails if hashlib stood in for a device digest
-there (``txid.sample_mismatch`` or ``sync.host_txid_retry`` above 0).
+reach the txid batch (6, 7, 8, 10, 11, 14, 15, 17, 18 and 22) counts
+its txid kernel launches and fails if hashlib stood in for a device
+digest there (``txid.sample_mismatch`` or ``sync.host_txid_retry`` above
+0; in phase 22 read from each node's ``/``).
 The last is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero and prints no result.
 
@@ -176,6 +193,7 @@ import os
 import random
 import re
 import shutil
+import signal
 import socket
 import sqlite3
 import statistics
@@ -214,6 +232,7 @@ FAN, PER = 255, 32          # 8,160 leaf spends: one full block
 GENESIS_PREV = (18_884_643).to_bytes(32, "little").hex()
 SEARCH_BATCH = 1 << 24      # the miner's dispatch (config device.search_batch)
 BURST = 1024                # concurrent push_tx in the node's burst
+GOSSIP_BURST = 256          # push_tx to node A gossiped to node B
 MICROBATCH = 1024           # txs per check_block micro-batch (the default)
 TXID_EDGES = [0, 1, 55, 56, 63, 64, 119, 120, 1000]
 # payload counts of the txid batch's card-against-hashlib sweep
@@ -806,15 +825,33 @@ async def accept_path(dev: torch.device, kit: Kit, path: str, leaves,
             "difficulty": chain_difficulty}
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http(url: str, path: str, body=None, host: str = "") -> dict:
+    """One request from this thread; the decoded body."""
+    data = None if body is None else json.dumps(body).encode()
+    _status, raw = asyncio.run(fetch(
+        url.rstrip("/") + "/" + path, "GET" if data is None else "POST",
+        data, headers={"Host": host} if host else None))
+    return json.loads(raw)
+
+
 class NodeThread:
     """The port's Node serving HTTP on its own event-loop thread (the
     loop owns the node's sqlite connection), configured as ``python -m
     upow_tpu_torch.node.run --device cuda`` would be: ``Config.load`` over
-    the environment, the database file, a free port."""
+    the environment, the database file, a free port, no seed and the
+    peer book beside the database."""
 
     def __init__(self, dev: torch.device, db: str, kernel_env: str,
                  **overrides):
         os.environ["UPOW_DEVICE_VERIFY_KERNEL"] = kernel_env
+        overrides = {"node__seed_url": "",
+                     "node__peers_file": db + ".nodes.json", **overrides}
         try:
             self.cfg = Config.load(node__db_path=db, node__ip_config_file="",
                                    node__host="127.0.0.1", node__port=0,
@@ -838,11 +875,7 @@ class NodeThread:
 
     def request(self, path: str, body=None) -> dict:
         """One request from this (client) thread; the decoded body."""
-        data = None if body is None else json.dumps(body).encode()
-        status, raw = asyncio.run(fetch(self.url + path,
-                                        "GET" if data is None else "POST",
-                                        data))
-        return json.loads(raw)
+        return http(self.url, path, body)
 
     def close(self) -> None:
         self.call(self.node.close())
@@ -1314,6 +1347,208 @@ def reorg_path(dev: torch.device, kit: Kit, workdir: Path,
         node.close()
     return {"wall_s": wall_s, "fork_id": fork["id"], "removed": removed,
             "b5": b5, "jac": jac, "tip": tip}
+
+
+# --- phase 22: gossip between node processes ----------------------------------
+
+def until(what: str, pred, timeout: float = 240.0, every: float = 0.02):
+    """Poll ``pred`` until it is truthy; its value and the seconds it took."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            value = pred()
+        except (OSError, ValueError, KeyError, TypeError):
+            value = None  # a node still starting, or a body not there yet
+        if value:
+            return value, time.perf_counter() - t0
+        if time.perf_counter() - t0 > timeout:
+            fail(f"gossip: timed out waiting for {what}")
+        time.sleep(every)
+
+
+class NodeProcess:
+    """``python -m upow_tpu_torch.node.run --device cuda`` in a process of
+    its own on the card: its own verdict cache and launch counters, read
+    back through its ``/`` counters.  It loads the kernels this process
+    built; its log goes to ``<db>.log``."""
+
+    def __init__(self, db: str, **env):
+        self.port = free_port()
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.log = open(db + ".log", "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "upow_tpu_torch.node.run", "--device",
+             "cuda", "--db", db, "--port", str(self.port)],
+            cwd=str(Path(__file__).resolve().parent), stdout=self.log,
+            stderr=subprocess.STDOUT,
+            env={**os.environ, "UPOW_NODE_HOST": "127.0.0.1",
+                 "UPOW_NODE_SEED_URL": "",
+                 "UPOW_NODE_PEERS_FILE": db + ".nodes.json",
+                 "UPOW_NODE_SELF_URL": self.url,
+                 "UPOW_NODE_IP_CONFIG_FILE": "",
+                 "UPOW_NODE_RATE_LIMITS_ENABLED": "0",
+                 "UPOW_NODE_SYNC_FETCH_INTERVAL": "0",
+                 "UPOW_DEVICE_VERIFY_KERNEL": "jac", **env})
+
+    def wait_ready(self) -> float:
+        if self.proc.poll() is not None:
+            fail(f"node process {self.url} exited: {self.tail()}")
+        return until(f"{self.url} to serve",
+                     lambda: self.proc.poll() is None
+                     and http(self.url, "get_nodes")["ok"])[1]
+
+    def tail(self) -> str:
+        self.log.flush()
+        return Path(self.log.name).read_text()[-2000:]
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)  # the node's close()
+            try:
+                self.proc.wait(30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.log.close()
+
+
+def tip(url: str) -> str:
+    return http(url, "get_mining_info")["result"]["last_block"]["hash"]
+
+
+def tip_and_utxo(url: str) -> tuple:
+    return tip(url), http(url, "")["unspent_outputs_hash"]
+
+
+def pending_hashes(url: str) -> list:
+    return sorted(hashlib.sha256(bytes.fromhex(h)).hexdigest()
+                  for h in http(url, "get_pending_transactions")["result"])
+
+
+def kernel_counts(url: str) -> dict:
+    """A node process's launches and fallbacks, from its ``/``."""
+    root = http(url, "")
+    counters = root["counters"]
+    out = {k: int(counters.get(f"kernel.{k}.batches", 0))
+           for k in ("p256_verify", "sha256_txid")}
+    out.update({k: int(counters.get(k, 0)) for k in (
+        "txid.sample_mismatch", "sync.host_txid_retry")})
+    for span in ("block_accept", "sync.page_txids", "sync.page_sig_prefill"):
+        out[span] = root["timings"].get(span, {}).get("seconds", 0.0)
+    return out
+
+
+def gossip_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
+                content: str) -> dict:
+    """Node A (this process) and nodes B and C (processes of their own,
+    each on the card): B is added to A's book beside a dead URL; the
+    8,160-tx block pushed to A reaches B through A's gossip and B accepts
+    it on its card; a burst of push_tx to A reaches B's pool; the dead
+    peer's breaker opens; C, seeded with A, bootstraps on its first
+    request from outside, learns B, announces itself and syncs (B5 and
+    kernel 1 on its card).  A, B and C end on one tip and UTXO hash."""
+    for name in ("a", "b", "c"):
+        shutil.copyfile(workdir / "base.db", workdir / f"gossip_{name}.db")
+    a = NodeThread(dev, str(workdir / "gossip_a.db"), "jac",
+                   node__rate_limits_enabled=False)
+    a.node.self_url = a.url.rstrip("/")
+    b = NodeProcess(str(workdir / "gossip_b.db"))
+    c = NodeProcess(str(workdir / "gossip_c.db"),
+                    UPOW_NODE_SEED_URL=a.url.rstrip("/"),
+                    UPOW_DEVICE_TXID_BACKEND="device")
+    dead = f"http://127.0.0.1:{free_port()}"
+    out = {"rate_limits": "off", "dead": dead}
+    try:
+        out["b_start_s"] = b.wait_ready()
+        out["c_start_s"] = c.wait_ready()
+        added = http(a.url, "add_node?url=" + quote(b.url, safe=""))
+        if added != {"ok": True, "result": "Node added"}:
+            fail(f"gossip: add_node of B on A: {added}")
+        a.call(_add_peer(a.node, dead))
+        nodes = http(a.url, "get_nodes")["result"]
+        if b.url not in nodes or dead not in nodes:
+            fail(f"gossip: A's get_nodes {nodes}")
+
+        # the block: pushed to A, gossiped to B
+        txverify.clear_sig_verdicts()
+        trace.reset()
+        p256.reset_counts()
+        reply = a.request("push_block", {"block_content": content,
+                                         "txs": [t.hex() for t in leaves]})
+        if reply != {"ok": True}:
+            fail(f"gossip: push_block to A: {reply}")
+        a_tip = a.call(a.node.state.get_last_block())["hash"]
+        _, out["hop_s"] = until("block 4 on B", lambda: tip(b.url) == a_tip)
+        out["a_jac"] = p256.LAUNCHES
+        out["b_block"] = kernel_counts(b.url)
+        if out["b_block"]["p256_verify"] == 0:
+            fail(f"gossip: B accepted with no kernel-1 launch: {out}")
+        if tip_and_utxo(b.url) != (a_tip, a.call(
+                a.node.state.get_unspent_outputs_hash())):
+            fail("gossip: B's UTXO hash differs from A's")
+
+        # the burst: pushed to A, gossiped to B's pool
+        spends = [kit.spend([(t.hash(), 0)], [TxOutput(kit.addr,
+                                                        t.outputs[0].amount)])
+                  for t in leaves[-GOSSIP_BURST:]]
+        t0 = time.perf_counter()
+        replies = asyncio.run(_burst(a.url, [t.hex() for t in spends]))
+        out["burst_push_s"] = time.perf_counter() - t0
+        if not all(r.get("ok") for r in replies):
+            fail(f"gossip burst: {[r for r in replies if not r.get('ok')][:3]}")
+        want = sorted(t.hash() for t in spends)
+        _, out["burst_hop_s"] = until(
+            "the burst in B's pool", lambda: pending_hashes(b.url) == want)
+        if pending_hashes(a.url) != want:
+            fail("gossip: A's pending set is not the burst")
+        out["b_burst"] = kernel_counts(b.url)
+        breakers = http(a.url, "debug/breakers")["result"]
+        out["breakers"] = breakers
+        if breakers["peers"].get(dead, {}).get("state") != "open" or \
+                breakers["peers"].get(b.url, {}).get("state") != "closed":
+            fail(f"gossip: A's breakers {breakers}")
+        counters = trace.snapshot()["counters"]
+        out["propagate_timeouts"] = int(counters.get(
+            "resilience.propagate_timeouts", 0))
+        if out["propagate_timeouts"]:
+            fail(f"gossip: {out['propagate_timeouts']} sends cut at "
+                 f"propagate_deadline")
+        out["a_counters"] = host_digest_fallbacks("gossip on A")
+
+        # C: bootstrap on the first request from outside, then sync
+        t0 = time.perf_counter()
+        http(c.url, "get_supply_info", host=f"node-c.example:{c.port}")
+        until("C at A's tip", lambda: tip(c.url) == a_tip)
+        out["c_bootstrap_s"] = time.perf_counter() - t0
+        c_nodes = http(c.url, "get_nodes")["result"]
+        if b.url not in c_nodes or c.url in c_nodes:
+            fail(f"gossip: C's book after its bootstrap {c_nodes}")
+        until("A to learn C", lambda: c.url in http(a.url, "get_nodes")[
+            "result"])
+        out["c"] = kernel_counts(c.url)
+        if out["c"]["p256_verify"] == 0 or out["c"]["sha256_txid"] == 0:
+            fail(f"gossip: C synced without launches {out['c']}")
+        for where, counts in (("B", out["b_burst"]), ("C", out["c"])):
+            if counts["txid.sample_mismatch"] or \
+                    counts["sync.host_txid_retry"]:
+                fail(f"gossip: hashlib stood in on {where}: {counts}")
+        ends = {tip_and_utxo(url) for url in (a.url, b.url, c.url)}
+        if len(ends) != 1:
+            fail(f"gossip: A, B and C end apart: {ends}")
+        out["tip"] = a_tip
+    except SystemExit:
+        for node in (b, c):
+            print(f"  node log {node.url}: {node.tail()}", file=sys.stderr)
+        raise
+    finally:
+        a.close()
+        for node in (b, c):
+            node.close()
+    return out
+
+
+async def _add_peer(node: Node, url: str) -> None:
+    node.peers.add(url)
 
 
 # --- phases 13-15: the UTXO probe and the resident accept ------------------
@@ -2134,9 +2369,7 @@ def multihost_phase(addr: str, backend: str = "cuda",
         previous_hash=random.Random(26).randbytes(32).hex(), address=addr,
         merkle_root=hashlib.sha256(b"multihost").hexdigest(),
         timestamp=1_760_000_000, difficulty="5.5")
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = free_port()
     env = {k: v for k, v in os.environ.items()
            if k not in ("UPOW_COORDINATOR_ADDRESS", "WORLD_SIZE", "RANK")}
     root = str(Path(__file__).resolve().parent)
@@ -2407,6 +2640,7 @@ def main() -> int:
             reorged = reorg_path(dev, kit, workdir, server)
         finally:
             server.close()
+        gossiped = gossip_path(dev, kit, workdir, leaves, content)
     clock.reset()
     txid_record["launches"] = synced["b5"]
     w5_record["launches"] = res_w5["by_window"][5]
@@ -2484,6 +2718,30 @@ def main() -> int:
           wall_s=round(reorged["wall_s"], 3),
           txid_launches=reorged["b5"], jac_launches=reorged["jac"],
           txid_backend="auto", tip=reorged["tip"][:16],
+          card=json.dumps(card))
+
+    g = gossiped
+    phase("gossip_path", rate_limits=g["rate_limits"],
+          b_start_s=round(g["b_start_s"], 3),
+          c_start_s=round(g["c_start_s"], 3),
+          hop_s=round(g["hop_s"], 3),
+          b_accept_s=round(g["b_block"]["block_accept"], 3),
+          b_jac_batches=g["b_block"]["p256_verify"],
+          b_txid_batches=g["b_block"]["sha256_txid"],
+          a_jac_launches=g["a_jac"], burst=GOSSIP_BURST,
+          burst_push_s=round(g["burst_push_s"], 3),
+          burst_hop_s=round(g["burst_hop_s"], 3),
+          b_burst_jac_batches=g["b_burst"]["p256_verify"]
+          - g["b_block"]["p256_verify"],
+          dead_breaker=json.dumps(g["breakers"]["peers"][g["dead"]]),
+          state_counts=json.dumps(g["breakers"]["state_counts"]),
+          propagate_timeouts=g["propagate_timeouts"],
+          c_bootstrap_to_tip_s=round(g["c_bootstrap_s"], 3),
+          c_jac_batches=g["c"]["p256_verify"],
+          c_txid_batches=g["c"]["sha256_txid"],
+          c_page_txids_s=round(g["c"]["sync.page_txids"], 4),
+          c_page_sig_prefill_s=round(g["c"]["sync.page_sig_prefill"], 4),
+          sample_mismatch=0, host_txid_retry=0, tip=g["tip"][:16],
           card=json.dumps(card))
 
     stats = resident["stats"]

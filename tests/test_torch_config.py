@@ -1,0 +1,145 @@
+"""``Config.load`` of the port against the JAX package's.
+
+The same files, environments and keyword overrides go into both
+packages' ``Config.load``; each must give the same values in every field
+the port reads, or raise the same error with the same text.  A key of
+the JAX schema that the port does not read yet is skipped; any other key
+raises the JAX package's ``KeyError`` (``unknown config section <s>``,
+``unknown config field <s>.<f>``), in a file and in an override alike.
+The peer, gossip and resilience fields of the port's ``NodeConfig`` and
+``ResilienceConfig`` are held one by one, from a file and from
+``UPOW_<SECTION>_<FIELD>``.
+"""
+
+import dataclasses
+import json
+
+import pytest
+
+import upow_tpu.config as jconfig
+import upow_tpu_torch.config as tconfig
+
+NEW_FIELDS = [
+    # section, field, a value that is not the default, its UPOW_* text
+    ("node", "seed_url", "http://10.1.2.3:3006", "http://10.1.2.3:3006"),
+    ("node", "peers_file", "peers/book.json", "peers/book.json"),
+    ("node", "self_url", "http://10.0.0.9:3006", "http://10.0.0.9:3006"),
+    ("node", "trust_proxy_headers", True, "true"),
+    ("node", "max_peers", 7, "7"),
+    ("node", "active_within", 3600, "3600"),
+    ("node", "prune_after", 7200, "7200"),
+    ("node", "propagate_sample", 3, "3"),
+    ("resilience", "rpc_attempts", 5, "5"),
+    ("resilience", "rpc_backoff_base", 0.5, "0.5"),
+    ("resilience", "rpc_backoff_max", 4.0, "4.0"),
+    ("resilience", "rpc_backoff_multiplier", 3.0, "3"),
+    ("resilience", "rpc_jitter", 0.1, "0.1"),
+    ("resilience", "rpc_deadline", 12.5, "12.5"),
+    ("resilience", "propagate_deadline", 2.0, "2"),
+    ("resilience", "breaker_failure_threshold", 2, "2"),
+    ("resilience", "breaker_open_secs", 1.5, "1.5"),
+    ("resilience", "breaker_half_open_max", 3, "3"),
+    ("resilience", "faults", "rpc:error:p=0.5;rpc.push_tx:latency:delay=0.1",
+     "rpc:error:p=0.5;rpc.push_tx:latency:delay=0.1"),
+    ("resilience", "faults_seed", 9, "9"),
+]
+
+
+def _load(pkg, path=None, **overrides):
+    """("ok", every port-read field's value) or (error type, text)."""
+    try:
+        cfg = pkg.Config.load(path, **overrides)
+    except (KeyError, AttributeError) as e:
+        return type(e).__name__, str(e)
+    return "ok", {(s.name, f.name): getattr(getattr(cfg, s.name), f.name)
+                  for s in dataclasses.fields(tconfig.Config)
+                  for f in dataclasses.fields(getattr(cfg, s.name))}
+
+
+def _both(tmp_path, data=None, **overrides):
+    path = None
+    if data is not None:
+        path = tmp_path / "cfg.json"
+        path.write_text(json.dumps(data))
+        path = str(path)
+    got = _load(tconfig, path, **overrides)
+    want = _load(jconfig, path, **overrides)
+    assert got[0] == want[0]
+    if got[0] == "ok":
+        diff = {k: (v, want[1][k]) for k, v in got[1].items()
+                if v != want[1][k]}
+        assert not diff
+    else:
+        assert got == want
+    return got
+
+
+@pytest.mark.parametrize("data, error", [
+    ({"node": {"prot": 3007}}, "'unknown config field node.prot'"),
+    ({"bogus": {"x": 1}}, "'unknown config section bogus'"),
+    ({"node": {"port": 3007}, "mempool": {"nope": 1}},
+     "'unknown config field mempool.nope'"),
+])
+def test_unknown_key_in_a_file_raises_the_jax_error(tmp_path, data, error):
+    assert _both(tmp_path, data) == ("KeyError", error)
+
+
+@pytest.mark.parametrize("overrides, want", [
+    ({"node__prot": 3007}, ("KeyError", "'unknown config field node__prot'")),
+    ({"bogus__x": 1},
+     ("AttributeError", "'Config' object has no attribute 'bogus'")),
+])
+def test_unknown_override_raises_the_jax_error(tmp_path, overrides, want):
+    assert _both(tmp_path, **overrides) == want
+
+
+@pytest.mark.parametrize("how", ["file", "override"])
+@pytest.mark.parametrize("section, field, value", [
+    ("ws", "enabled", False),
+    ("cache", "enabled", False),
+    ("mempool", "allow_rbf", True),
+    ("mempool", "enabled", False),
+    ("resilience", "device_failure_limit", 9),
+    ("resilience", "device_cooldown", 1.0),
+    ("telemetry", "debug_endpoints", False),
+])
+def test_known_key_the_port_does_not_read_is_skipped(tmp_path, how, section,
+                                                     field, value):
+    if how == "file":
+        status, values = _both(tmp_path, {section: {field: value},
+                                          "node": {"port": 3111}})
+        assert values[("node", "port")] == 3111
+    else:
+        status, values = _both(tmp_path, **{f"{section}__{field}": value})
+    assert status == "ok" and (section, field) not in values
+
+
+@pytest.mark.parametrize("section, field, value, raw", NEW_FIELDS,
+                         ids=[f"{s}.{f}" for s, f, _v, _r in NEW_FIELDS])
+def test_new_field_from_a_file(tmp_path, section, field, value, raw):
+    status, values = _both(tmp_path, {section: {field: value}})
+    assert status == "ok" and values[(section, field)] == value
+
+
+@pytest.mark.parametrize("section, field, value, raw", NEW_FIELDS,
+                         ids=[f"{s}.{f}" for s, f, _v, _r in NEW_FIELDS])
+def test_new_field_from_the_environment(tmp_path, monkeypatch, section,
+                                        field, value, raw):
+    monkeypatch.setenv(f"UPOW_{section.upper()}_{field.upper()}", raw)
+    status, values = _both(tmp_path)
+    assert status == "ok" and values[(section, field)] == value
+
+
+def test_defaults_are_the_jax_defaults(tmp_path):
+    status, values = _both(tmp_path)
+    assert status == "ok"
+    assert values[("node", "seed_url")] == jconfig.DEFAULT_SEED_URL
+    assert tconfig.DEFAULT_SEED_URL == jconfig.DEFAULT_SEED_URL
+
+
+def test_schema_is_the_jax_schema():
+    """The port's copy of the JAX section and field names."""
+    jax = jconfig.Config()
+    want = {s.name: tuple(f.name for f in dataclasses.fields(
+        getattr(jax, s.name))) for s in dataclasses.fields(jax)}
+    assert tconfig.JAX_SCHEMA == want

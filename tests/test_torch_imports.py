@@ -1,9 +1,10 @@
-"""The port imports with ``jax``, the JAX package and ``aiohttp`` out of
-reach.
+"""The port imports with ``jax``, the JAX package, ``aiohttp`` and
+``filelock`` out of reach.
 
 A subprocess puts a finder on ``sys.meta_path`` that refuses ``jax``,
-``jaxlib``, ``upow_tpu`` (but not ``upow_tpu_torch``) and ``aiohttp`` (the
-JAX node's server; the port's node serves on the standard library), then
+``jaxlib``, ``upow_tpu`` (but not ``upow_tpu_torch``), ``aiohttp`` (the
+JAX node's server; the port's node serves on the standard library) and
+``filelock`` (the JAX peer book's lock; the port's is ``fcntl``), then
 imports every module of the port, and ``chip_smoke.py`` with it.  A second
 subprocess starts the port's node under the same finder, with its
 resident UTXO index armed on the CPU, and serves a request; a third builds a two-block chain on one port node and syncs a
@@ -22,7 +23,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKER = r"""
 import importlib, importlib.abc, sys
 
-BLOCKED = ("jax", "jaxlib", "upow_tpu", "aiohttp")
+BLOCKED = ("jax", "jaxlib", "upow_tpu", "aiohttp", "filelock")
 
 
 class Block(importlib.abc.MetaPathFinder):
@@ -42,7 +43,8 @@ def serve():
     from upow_tpu_torch.node.http import fetch
 
     async def main():
-        cfg = Config.load(node__db_path="", node__ip_config_file="")
+        cfg = Config.load(node__db_path="", node__ip_config_file="",
+                          node__seed_url="", node__peers_file="")
         cfg.device.verify_kernel = "complete"
         cfg.device.utxo_index = True
         node = Node(cfg, device="cpu")
@@ -77,6 +79,7 @@ def sync():
 
     async def main():
         nodes = [Node(Config.load(node__db_path="", node__ip_config_file="",
+                                  node__seed_url="", node__peers_file="",
                                   node__sync_fetch_interval=0), device="cpu")
                  for _ in range(2)]
         try:
@@ -140,7 +143,9 @@ def test_every_port_module_imports_without_jax():
                  "mempool.intake", "mempool.template", "node.app",
                  "node.http", "node.peers", "node.ratelimit",
                  "node.ipfilter", "node.run", "state.device_index",
-                 "parallel.mesh", "mine.mesh_engine"):
+                 "parallel.mesh", "mine.mesh_engine", "resilience",
+                 "resilience.policy", "resilience.breaker",
+                 "resilience.faultinject"):
         assert "upow_tpu_torch." + must in names, must
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(

@@ -138,6 +138,8 @@ def _configs(tmp_path, kernel):
     jcfg.log.path = ""
     jcfg.log.console = False
     tcfg = tconfig.Config.load(node__db_path=str(tmp_path / "port.db"),
+                               node__seed_url="",
+                               node__peers_file=str(tmp_path / "port.nodes.json"),
                                node__ip_config_file="",
                                node__rate_limits_enabled=False)
     tcfg.device.verify_kernel = kernel
@@ -347,7 +349,8 @@ def test_node_on_the_card_raises_without_one(tmp_path):
 
 def test_config_reads_the_jax_file_and_environment(tmp_path, monkeypatch):
     """One config file and one environment configure both packages'
-    nodes alike; fields the port does not read yet are skipped."""
+    nodes alike; fields of the JAX schema the port does not read yet are
+    skipped."""
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps({
         "node": {"port": 3111, "mempool_clean_interval": 30,
@@ -378,9 +381,9 @@ def test_config_reads_the_jax_file_and_environment(tmp_path, monkeypatch):
     assert got.mempool.reinject_on_reorg is False
     # read by the JAX node, skipped by the port's until a slice reads them
     assert not want.mempool.enabled and want.mempool.allow_rbf
-    for section, name in (("mempool", "enabled"), ("mempool", "allow_rbf"),
-                          ("node", "self_url")):
+    for section, name in (("mempool", "enabled"), ("mempool", "allow_rbf")):
         assert not hasattr(getattr(got, section), name)
+    assert got.node.self_url == want.node.self_url == "http://10.0.0.1:3111"
     got.device.apply_kernel_overrides()
     assert p256.VERIFY_KERNEL == "complete"
     got.device.verify_kernel = "rcb"

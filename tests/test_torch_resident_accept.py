@@ -212,6 +212,7 @@ def _node_config(tmp_path, monkeypatch, how):
         path.write_text(json.dumps({"device": {"utxo_index": True}}))
     got = tconfig.Config.load(str(path), node__db_path=str(
         tmp_path / "port.db"), node__ip_config_file="",
+        node__seed_url="", node__peers_file="",
         node__rate_limits_enabled=False)
     want = jconfig.Config.load(str(path))
     assert got.device.utxo_index is True and want.device.utxo_index is True

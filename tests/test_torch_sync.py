@@ -131,6 +131,7 @@ def _jcfg(tmp_path, name, db=None, **node):
 def _tcfg(tmp_path, name, db=None, **node):
     cfg = tconfig.Config.load(
         node__db_path=str(tmp_path / f"{db or name}.db"),
+        node__seed_url="", node__peers_file=str(tmp_path / f"{name}.nodes.json"),
         node__ip_config_file="", node__rate_limits_enabled=False,
         node__sync_fetch_interval=0)
     for key, value in node.items():
@@ -252,8 +253,8 @@ def test_sync_multi_page_with_prefetch(tmp_path):
     async def scenario(session, cl, _leaves):
         real = cl.nodes["b"].iface_factory
 
-        def factory(url, cfg):
-            iface = real(url, cfg)
+        def factory(url, cfg, **kw):
+            iface = real(url, cfg, **kw)
             get_blocks = iface.get_blocks
 
             async def spy(offset, limit):

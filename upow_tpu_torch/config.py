@@ -28,6 +28,60 @@ from typing import Optional
 
 log = logging.getLogger("upow_tpu_torch.config")
 
+DEFAULT_SEED_URL = "https://api.upow.ai/"
+
+# every section and field of the JAX package's Config (upow_tpu/config.py)
+JAX_SCHEMA = {
+    "device": ("device", "search_backend", "sig_backend", "search_batch",
+               "verify_pad_block", "verify_device_timeout", "mesh_devices",
+               "utxo_index", "verify_kernel", "verify_window",
+               "txid_backend", "txid_min_batch", "verify_microbatch"),
+    "device_runtime": ("arm_timeout", "aot_warm", "compile_cache_dir",
+                       "weights", "queue_max", "max_coalesce"),
+    "node": ("host", "port", "db_backend", "db_path", "pg_dsn", "seed_url",
+             "peers_file", "ip_config_file", "self_url",
+             "trust_proxy_headers", "max_peers", "active_within",
+             "prune_after", "propagate_sample", "response_cap",
+             "http_timeout", "sync_reorg_window", "sync_page",
+             "sync_fetch_interval", "mempool_clean_interval",
+             "rate_limits_enabled"),
+    "ws": ("enabled", "max_connections", "max_per_user", "max_message_bytes",
+           "rate_limit_per_minute", "heartbeat_interval", "connection_expiry",
+           "cleanup_interval", "send_queue_max", "channels"),
+    "miner": ("address", "node_url", "workers", "ttl", "refresh"),
+    "log": ("path", "level", "max_bytes", "backups", "console",
+            "json_format"),
+    "resilience": ("rpc_attempts", "rpc_backoff_base", "rpc_backoff_max",
+                   "rpc_backoff_multiplier", "rpc_jitter", "rpc_deadline",
+                   "propagate_deadline", "breaker_failure_threshold",
+                   "breaker_open_secs", "breaker_half_open_max",
+                   "device_failure_limit", "device_cooldown", "faults",
+                   "faults_seed"),
+    "mempool": ("enabled", "coalesce_window_ms", "max_intake_batch",
+                "max_pool_bytes_hex", "tx_ttl", "tx_cache_size",
+                "tx_cache_ttl", "allow_rbf", "reinject_on_reorg"),
+    "cache": ("enabled", "class_cap_bytes", "class_caps", "max_entry_bytes",
+              "revalidate_interval"),
+    "snapshot": ("dir", "chunk_bytes", "blocks_tail", "keep",
+                 "chunk_retries", "max_chunks", "max_chunk_bytes",
+                 "max_payload_bytes", "rebuild_interval_blocks",
+                 "rebuild_jitter_blocks"),
+    "archive": ("dir", "segment_blocks", "safety_window",
+                "reader_cache_segments", "max_segment_bytes", "max_segments"),
+    "telemetry": ("trace_requests", "trace_recent", "trace_slowest",
+                  "max_trace_spans", "events_buffer", "max_metric_names",
+                  "debug_endpoints", "instance_scope"),
+    "watchtower": ("enabled", "interval", "slo_target", "fast_burn",
+                   "slow_burn", "window_scale", "for_fast", "for_slow",
+                   "verify_min_rate", "verify_z", "mempool_spike_ratio",
+                   "mempool_spike_floor", "sync_lag_limit",
+                   "breaker_storm_window", "breaker_storm_opens",
+                   "ws_drop_limit", "arm_flap_window", "arm_flaps",
+                   "stuck_height_deadline", "history", "bench_events"),
+    "profile": ("enabled", "trace_dir", "max_capture_seconds",
+                "cost_analysis"),
+}
+
 
 @dataclass
 class DeviceConfig:
@@ -119,11 +173,46 @@ class MempoolConfig:
 
 
 @dataclass
+class ResilienceConfig:
+    """Retries, deadlines and per-peer circuit breakers of outbound RPC
+    (resilience/), and fault injection at its ``rpc.<path>`` sites.
+    Operational only: nodes with different settings stay bit-identical
+    on chain state."""
+
+    rpc_attempts: int = 3           # total tries per logical call
+    rpc_backoff_base: float = 0.25  # first retry delay (seconds)
+    rpc_backoff_max: float = 2.0    # per-retry delay ceiling
+    rpc_backoff_multiplier: float = 2.0
+    rpc_jitter: float = 0.5         # +/- fraction of each delay
+    rpc_deadline: float = 45.0      # total budget per logical call
+                                    # (attempts + backoffs); 0 = none
+    propagate_deadline: float = 10.0  # per-peer bound on gossip sends
+    breaker_failure_threshold: int = 5   # consecutive failures -> open
+    breaker_open_secs: float = 30.0      # open -> half-open probe delay
+    breaker_half_open_max: int = 1       # trial calls while half-open
+    faults: str = ""                # fault spec (resilience/faultinject.py);
+                                    # empty = no injection
+    faults_seed: int = 0
+
+
+@dataclass
 class NodeConfig:
     host: str = "0.0.0.0"
     port: int = 3006                # reference run_node.py port
     db_path: str = "upow_tpu.db"    # sqlite file ('' -> in-memory)
+    seed_url: str = DEFAULT_SEED_URL  # the peer a fresh book starts from
+    peers_file: str = "nodes.json"  # the peer book ('' -> not saved)
     ip_config_file: str = "ip_config.json"
+    self_url: str = ""              # this node's URL: the Sender-Node of
+                                    # its RPC; from the first request's
+                                    # Host when empty
+    trust_proxy_headers: bool = False  # take the client IP from
+                                    # X-Forwarded-For / X-Real-IP
+    max_peers: int = 100            # nodes_manager.py:26
+    active_within: int = 7 * 86400  # a peer that messaged us this recently
+                                    # is active (nodes_manager.py:24)
+    prune_after: int = 90 * 86400   # forget peers silent this long (:25)
+    propagate_sample: int = 10      # gossip sample per class (:144-149)
     response_cap: int = 20 * 1024 * 1024  # request body cap, and the
                                     # cap on a peer's response
     http_timeout: float = 30.0      # seconds for one request to a peer
@@ -141,6 +230,7 @@ class Config:
     device: DeviceConfig = field(default_factory=DeviceConfig)
     node: NodeConfig = field(default_factory=NodeConfig)
     mempool: MempoolConfig = field(default_factory=MempoolConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
 
     @classmethod
     def load(cls, path: Optional[str] = None, **overrides) -> "Config":
@@ -153,25 +243,41 @@ class Config:
             _apply_env_fields(getattr(cfg, f.name), f.name)
         for key, value in overrides.items():
             section, _, fname = key.partition("__")
-            sub = getattr(cfg, section, None)
-            if sub is None or not hasattr(sub, fname):
+            if _unread(section, fname):
+                continue
+            if section not in JAX_SCHEMA:  # the JAX package's getattr
+                raise AttributeError(
+                    f"'Config' object has no attribute '{section}'")
+            if fname not in JAX_SCHEMA[section]:
                 raise KeyError(f"unknown config field {key}")
-            setattr(sub, fname, value)
+            setattr(getattr(cfg, section), fname, value)
         return cfg
+
+
+def _unread(section: str, fname: str) -> bool:
+    """A key of the JAX schema that the port does not read yet."""
+    if fname not in JAX_SCHEMA.get(section, ()):
+        return False
+    sub = _SECTIONS.get(section)
+    return sub is None or fname not in {f.name for f in dataclasses.fields(sub)}
+
+
+_SECTIONS = {"device": DeviceConfig, "node": NodeConfig,
+             "mempool": MempoolConfig, "resilience": ResilienceConfig}
 
 
 def _merge_dict(cfg: Config, data: dict) -> None:
     for section, values in data.items():
-        sub = getattr(cfg, section, None)
-        if sub is None:
-            log.info("config section %s is not read by the port yet", section)
-            continue
+        if section not in JAX_SCHEMA:
+            raise KeyError(f"unknown config section {section}")
         for fname, value in values.items():
-            if not hasattr(sub, fname):
+            if fname not in JAX_SCHEMA[section]:
+                raise KeyError(f"unknown config field {section}.{fname}")
+            if _unread(section, fname):
                 log.info("config field %s.%s is not read by the port yet",
                          section, fname)
                 continue
-            setattr(sub, fname, value)
+            setattr(getattr(cfg, section), fname, value)
 
 
 def _apply_env_fields(sub, section: str) -> None:

@@ -1,16 +1,21 @@
-"""The node: the HTTP write path, the reads a miner needs, and chain sync.
+"""The node: HTTP API, peer gossip and chain sync.
 
 The port of the JAX package's ``node/app.py`` (reference
 upow/node/main.py), served by the standard-library server in
 :mod:`.http` instead of ``aiohttp.web``.  Routes: ``/``, ``/push_tx``,
 ``/push_block``, ``/sync_blockchain``, ``/get_mining_info``,
-``/get_pending_transactions``, ``/get_transaction``, ``/get_block`` and
-``/get_blocks``.  Every body
-is byte for byte the JAX node's: the ``{"ok": bool, ...}`` envelope, the
-reference's error strings, GET query params merged with a POST JSON
-body, and the middleware's IP filter, path normalisation, rate limits
-and 403/422/429/500 envelopes.  ``/`` carries this node's own timings
-and counters (``trace.py``) where the JAX node carries its telemetry's.
+``/add_node``, ``/get_nodes``, ``/get_pending_transactions``,
+``/get_transaction``, ``/get_block``, ``/get_blocks``, the explorer,
+address and governance reads (``/get_address_info``,
+``/get_address_transactions``, ``/get_block_details``,
+``/get_blocks_details``, ``/get_validators_info``,
+``/get_delegates_info``, ``/dobby_info``, ``/get_supply_info``) and
+``/debug/breakers``.  Every body is byte for byte the JAX node's: the
+``{"ok": bool, ...}`` envelope, the reference's error strings, GET query
+params merged with a POST JSON body, and the middleware's IP filter,
+path normalisation, rate limits and 403/422/429/500 envelopes.  ``/``
+carries this node's own timings and counters (``trace.py``) where the
+JAX node carries its telemetry's.
 
 Transactions come in through the coalescing intake
 (:mod:`..mempool.intake`), so a burst of concurrent ``push_tx`` requests
@@ -19,20 +24,30 @@ the P-256 kernel that ``device.verify_kernel`` selects, on the card
 unless the node was started with ``device="cpu"``; without a card the
 node refuses to start.
 
-Chain sync (``/sync_blockchain?node_url=``, and a ``push_block`` whose
-gap names a ``Sender-Node``) downloads a peer's blocks in pages, with
-fork detection inside ``node.sync_reorg_window`` and a reorg through
-``ChainState.remove_blocks``.  A page's txids are one ``txid_batch``
-(the txid kernel under ``device.txid_backend``) and its signatures one
-batched verify before the per-block accept.  As in the JAX package,
-the signing digests are hashed twice: with hashlib when the page's
-checks are collected, and again in each block's digest prep
+Peers (:mod:`.peers`): the node keeps a peer book seeded from
+``node.seed_url``, learns a peer from each request's ``Sender-Node``,
+and on its first request with a non-local ``Host`` learns its seed's
+peers, announces itself and syncs.  An accepted tx or block, and the
+tip a sync moved, is gossiped to a sample of the book
+(:meth:`Node.propagate`), each send cut at
+``resilience.propagate_deadline`` and every RPC under the peer's circuit
+breaker and the retry policy; journal txs not gossiped for 300 s are
+sent again after a later request.
+
+Chain sync (``/sync_blockchain[?node_url=]``, a ``push_block`` whose
+gap names a ``Sender-Node``, and the bootstrap) downloads a peer's
+blocks in pages, with fork detection inside ``node.sync_reorg_window``
+and a reorg through ``ChainState.remove_blocks``; with no ``node_url``
+it tries up to 3 sampled peers in health order.  A page's txids are one
+``txid_batch`` (the txid kernel under ``device.txid_backend``) and its
+signatures one batched verify before the per-block accept.  As in the
+JAX package, the signing digests are hashed twice: with hashlib when the
+page's checks are collected, and again in each block's digest prep
 (``verify/block.py``), whose check keys the page's verdicts answer.
 
-Not ported yet (ROADMAP.md): the peer book, gossip and ``propagate``
-(sync takes an explicit ``node_url``), the explorer, address and
-governance views, ``ws/``, the hot read cache, telemetry scopes and SLO
-capture, snapshots and the archive tier.
+Not ported yet (ROADMAP.md): ``send_to_address`` (with the wallet),
+``ws/``, replace-by-fee, the hot read cache, telemetry scopes, SLO
+capture and the trace header, snapshots and the archive tier.
 """
 
 from __future__ import annotations
@@ -40,27 +55,34 @@ from __future__ import annotations
 import asyncio
 import functools
 import hashlib
+import json
 import logging
+import random
 import re
 import time
+from decimal import Decimal
 from typing import List, Optional
 
 from .. import trace
 from ..config import Config
-from ..core.constants import ENDIAN, MAX_BLOCK_SIZE_HEX, VERSION
+from ..core.clock import timestamp
+from ..core.constants import (ENDIAN, MAX_BLOCK_SIZE_HEX, MAX_SUPPLY,
+                              SMALLEST, VERSION)
 from ..core.header import block_to_bytes, split_block_content
 from ..core.merkle import merkle_root
+from ..core.rewards import get_circulating_supply
 from ..core.tx import AmbiguousSignatureError, CoinbaseTx, Tx, tx_from_hex
 from ..crypto.sha256 import txid_batch
 from ..device import DeviceLike, resolve
 from ..mempool import IntakeCoordinator, Mempool, MiningInfoCache, TTLSet
+from ..resilience import BreakerRegistry, ResilienceContext, faultinject
 from ..state.storage import ChainState
 from ..verify.block import BlockManager
 from ..verify.txverify import TxVerifier, _resolve_backend, run_sig_checks_async
 from .http import (BodyTooLarge, HttpServer, Request, Response, json_response,
                    text_response)
-from .ipfilter import IpFilter
-from .peers import NodeInterface
+from .ipfilter import IpFilter, is_local_ip
+from .peers import NodeInterface, PeerBook, _normalize
 from .ratelimit import RateLimiter
 
 log = logging.getLogger("upow_tpu_torch.node")
@@ -69,6 +91,28 @@ log = logging.getLogger("upow_tpu_torch.node")
 _BANNED_ADDRESSES = {"DgQKikeDqS2Fzue23KuA36L4eJSFh649zA9jJ6zwbzUMp"}
 GENESIS_PREV_HASH = (18_884_643).to_bytes(32, ENDIAN).hex()
 _SYNCING = {"ok": False, "error": "Node is already syncing"}
+
+
+class _BadParam(Exception):
+    """A malformed integer query parameter: the middleware answers 422."""
+
+
+def _int_q(q, name: str, default: int, cap: Optional[int] = None) -> int:
+    """An integer query parameter clamped into [0, int64 max] (and
+    ``cap``); raises :class:`_BadParam` when it is not an integer."""
+    raw = q.get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        value = int(raw)
+    except ValueError:
+        raise _BadParam(name) from None
+    value = max(0, min(value, 2 ** 63 - 1))
+    return min(value, cap) if cap is not None else value
+
+
+def _fmt_amount(smallest_units: int) -> str:
+    return "{:f}".format(Decimal(smallest_units) / SMALLEST)
 
 
 class Node:
@@ -104,6 +148,18 @@ class Node:
         # from the pool directly; the stamp-driven sync() stays the
         # reconciliation backstop
         self.manager.on_pending_removed = self.pool.remove
+        rcfg = self.config.resilience
+        self.breakers = BreakerRegistry(
+            failure_threshold=rcfg.breaker_failure_threshold,
+            open_secs=rcfg.breaker_open_secs,
+            half_open_max=rcfg.breaker_half_open_max)
+        if rcfg.faults:
+            faultinject.install(rcfg.faults, rcfg.faults_seed)
+        self.resilience = ResilienceContext.from_config(
+            rcfg, breakers=self.breakers)
+        self.peers = PeerBook(self.config.node, breakers=self.breakers)
+        self.started = False  # the first-request bootstrap ran
+        self.self_url = self.config.node.self_url
         self.intake = IntakeCoordinator(self, _BANNED_ADDRESSES)
         self.mining_cache = MiningInfoCache()
         # txs of reorged-out blocks go back into the journal (JAX
@@ -111,7 +167,7 @@ class Node:
         self.state.reinject_reorg_txs = bool(mcfg.reinject_on_reorg)
         self.tx_cache = TTLSet(mcfg.tx_cache_size, mcfg.tx_cache_ttl)
         self.is_syncing = False
-        # the outbound RPC client of chain sync (a test may swap it)
+        # the outbound RPC client of sync and gossip (a test may swap it)
         self.iface_factory = NodeInterface
         self._last_mempool_clean: Optional[float] = None  # monotonic
         self._closing = False
@@ -123,10 +179,22 @@ class Node:
         for path, handler in (
                 ("/sync_blockchain", self.h_sync_blockchain),
                 ("/get_mining_info", self.h_get_mining_info),
+                ("/get_validators_info", self.h_get_validators_info),
+                ("/get_delegates_info", self.h_get_delegates_info),
+                ("/get_address_info", self.h_get_address_info),
+                ("/get_address_transactions",
+                 self.h_get_address_transactions),
+                ("/add_node", self.h_add_node),
+                ("/get_nodes", self.h_get_nodes),
                 ("/get_pending_transactions", self.h_get_pending_transactions),
                 ("/get_transaction", self.h_get_transaction),
                 ("/get_block", self.h_get_block),
-                ("/get_blocks", self.h_get_blocks)):
+                ("/get_block_details", self.h_get_block_details),
+                ("/get_blocks", self.h_get_blocks),
+                ("/get_blocks_details", self.h_get_blocks_details),
+                ("/dobby_info", self.h_dobby_info),
+                ("/get_supply_info", self.h_get_supply_info),
+                ("/debug/breakers", self.h_debug_breakers)):
             self.routes[("GET", path)] = handler
         self.server: Optional[HttpServer] = None
 
@@ -178,12 +246,83 @@ class Node:
                 pass
         return params
 
+    def _client_ip(self, request: Request) -> str:
+        """The socket peer, or behind a trusted proxy
+        (``node.trust_proxy_headers``) the rightmost ``X-Forwarded-For``
+        entry, the one our proxy appended, then ``X-Real-IP``."""
+        if self.config.node.trust_proxy_headers:
+            xff = request.headers.get("x-forwarded-for", "")
+            if xff:
+                return xff.split(",")[-1].strip()
+            real = request.headers.get("x-real-ip")
+            if real:
+                return real
+        return request.peer_ip
+
+    # ----------------------------------------------------------- gossip ---
+    async def propagate(self, path: str, args: dict,
+                        ignore_url: Optional[str] = None) -> None:
+        """Send ``path`` to the gossip sample of the book
+        (main.py:79-94), all at once, each send cut at
+        ``resilience.propagate_deadline``."""
+        self_base = _normalize(self.self_url)
+        ignore_base = _normalize(ignore_url or "")
+        deadline = self.config.resilience.propagate_deadline
+        aws = []
+        for node_url in self.peers.propagate_nodes():
+            iface = self.iface_factory(node_url, self.config.node,
+                                       resilience=self.resilience)
+            if iface.base_url in (self_base, ignore_base):
+                continue
+            aws.append(self._propagate_one(iface, path, args, self_base,
+                                           deadline))
+        await asyncio.gather(*aws)
+
+    async def _propagate_one(self, iface: NodeInterface, path: str,
+                             args: dict, self_base: str,
+                             deadline: float) -> None:
+        try:
+            await asyncio.wait_for(iface.request(path, args, self_base),
+                                   deadline or None)
+        except asyncio.TimeoutError:
+            trace.inc("resilience.propagate_timeouts")
+            # the send was cut inside the wrapper, which recorded nothing
+            self.breakers.record_failure(iface.base_url)
+            log.debug("propagate to %s timed out after %.1fs",
+                      iface.base_url, deadline)
+        except Exception as e:
+            log.debug("propagate error: %s", e)
+
+    async def _propagate_old_transactions(self) -> None:
+        """Gossip again the journal txs last sent over 300 s ago."""
+        for tx_hex in await self.state.get_need_propagate_transactions():
+            tx_hash = hashlib.sha256(bytes.fromhex(tx_hex)).hexdigest()
+            await self.state.update_pending_transaction_propagation(tx_hash)
+            await self.propagate("push_tx", {"tx_hex": tx_hex})
+
+    async def _bootstrap(self) -> None:
+        """Learn the seed's peers, drop ourselves from the book, announce
+        ourselves, then catch up (main.py:324-361)."""
+        try:
+            seeds = self.peers.recent_nodes()
+            if not seeds:
+                return
+            iface = self.iface_factory(seeds[0], self.config.node,
+                                       resilience=self.resilience)
+            for url in await iface.get_nodes():
+                self.peers.add(url)
+            self.peers.remove(self.self_url)
+            await self.propagate("add_node", {"url": self.self_url})
+            self._spawn(self.sync_blockchain())
+        except Exception as e:
+            log.debug("bootstrap failed: %s", e)
+
     # -------------------------------------------------------- middleware --
     async def handle(self, request: Request) -> Response:
         """The JAX node's middleware (app.py:475-570, less telemetry
-        scopes, SLO capture, peer learning, the first-request peer
-        bootstrap and gossip), then the route."""
-        client_ip = request.peer_ip
+        scopes, SLO capture and the trace header), then the route, then
+        the old txs' gossip."""
+        client_ip = self._client_ip(request)
         if not self.ip_filter.allowed(client_ip):
             return json_response(
                 {"ok": False, "error": "Access forbidden."}, status=403)
@@ -203,6 +342,18 @@ class Node:
             return json_response(
                 {"ok": False, "error": "Rate limit exceeded"}, status=429)
 
+        sender = request.headers.get("sender-node")
+        if sender:
+            self.peers.add(sender)
+        # the first request from outside (by its Host header) bootstraps
+        host = request.host.split(":")[0] if request.host else ""
+        if normalized != "/get_nodes" and not self.started and \
+                not (is_local_ip(host) or host == "localhost"):
+            self.started = True
+            if not self.self_url:
+                self.self_url = f"{request.scheme}://{request.host}"
+            self._spawn(self._bootstrap())
+
         # aiohttp's add_get serves HEAD by the GET handler, and its 405
         # names the route's methods in Allow
         method = "GET" if request.method == "HEAD" else request.method
@@ -220,6 +371,10 @@ class Node:
             response = await handler(request)
         except BodyTooLarge as e:  # aiohttp's 413, past the envelope
             return text_response(str(e), 413)
+        except _BadParam as e:
+            return json_response(
+                {"ok": False, "error": f"Invalid integer parameter {e}"},
+                status=422)
         except Exception as e:  # exception envelope (main.py:394-406)
             log.error("Error on %s, %s: %s", request.path, type(e).__name__,
                       e, exc_info=True)
@@ -227,6 +382,7 @@ class Node:
                 {"ok": False, "error": f"Uncaught {type(e).__name__} exception"},
                 status=500)
         response.headers["Access-Control-Allow-Origin"] = "*"
+        self._spawn(self._propagate_old_transactions())
         return response
 
     # ------------------------------------------------------- tx intake ----
@@ -238,10 +394,13 @@ class Node:
     async def accept_tx_effects(self, tx: Tx, tx_hash: str,
                                 first_address: Optional[str],
                                 sender: Optional[str]) -> None:
-        """Post-acceptance side effects of the intake: the dedup cache
-        and the log line (gossip and the WS broadcast come with their
-        slices)."""
+        """Post-acceptance side effects of the intake: peer bookkeeping,
+        the gossip fan-out, the dedup cache and the log line (the WS
+        broadcast comes with ``ws/``)."""
+        if sender:
+            self.peers.update_last_message(sender)
         trace.event("tx_seen", hash=tx_hash)
+        self._spawn(self.propagate("push_tx", {"tx_hex": tx.hex()}))
         self.tx_cache.append(tx_hash)
         log.info("Transaction has been accepted: %s", tx_hash)
 
@@ -409,6 +568,14 @@ class Node:
                 block_content, final_transactions, errors=errors):
             return json_response(
                 {"ok": False, "error": errors[0]} if errors else {"ok": False})
+        if sender:
+            self.peers.update_last_message(sender)
+        self._spawn(self.propagate("push_block", {
+            "block_content": block_content,
+            "txs": ([tx.hex() for tx in final_transactions]
+                    if len(final_transactions) < 10 else txs),
+            "block_no": block_no,
+        }))
         return json_response({"ok": True})
 
     async def h_sync_blockchain(self, request: Request) -> Response:
@@ -489,6 +656,212 @@ class Node:
         blocks = await self.state.get_blocks(offset, limit, size_capped=True)
         return json_response({"ok": True, "result": blocks})
 
+    async def h_get_blocks_details(self, request: Request) -> Response:
+        q = request.query
+        offset, err = self._page_param(q, "offset", 0, 2 ** 63 - 1)
+        if err is None:
+            limit, err = self._page_param(q, "limit", 100, 1000)
+        if err is not None:
+            return err
+        blocks = await self.state.get_blocks(offset, limit, tx_details=True,
+                                             size_capped=True)
+        return json_response({"ok": True, "result": blocks})
+
+    async def h_get_block_details(self, request: Request) -> Response:
+        info = await self._block_lookup(request.query.get("block", ""))
+        if not info:
+            return json_response({"ok": False, "error": "Block not found"})
+        txs = await self.state.get_block_nice_transactions(info["hash"])
+        return json_response({"ok": True, "result": {
+            "block": _json_block(info), "transactions": txs}})
+
+    # ---------------------------------------- explorer and governance ----
+    async def h_get_validators_info(self, request: Request) -> Response:
+        """Inode ballot grouped by voting validator (main.py:698-725)."""
+        q = request.query
+        rows = await self.state.get_ballots(
+            "inodes_ballot", q.get("inode"), offset=_int_q(q, "offset", 0),
+            limit=_int_q(q, "limit", 100, cap=1000))
+        by_validator: dict = {}
+        stakes: dict = {}  # one stake computation per validator
+        for row in rows:
+            ent = by_validator.setdefault(row["voter"], {
+                "validator": row["voter"], "vote": []})
+            ent["vote"].append(_vote(row))
+            if row["voter"] not in stakes:
+                stakes[row["voter"]] = str(
+                    await self.state.get_validators_stake(
+                        row["voter"], check_pending_txs=True))
+            ent["totalStake"] = stakes[row["voter"]]
+        return json_response(list(by_validator.values()))
+
+    async def h_get_delegates_info(self, request: Request) -> Response:
+        """Validator ballot grouped by voting delegate (main.py:727-764)."""
+        q = request.query
+        rows = await self.state.get_ballots(
+            "validators_ballot", q.get("validator"),
+            offset=_int_q(q, "offset", 0),
+            limit=_int_q(q, "limit", 100, cap=1000))
+        stakes = await self.state.get_multiple_address_stakes(
+            {row["voter"] for row in rows if row["voter"]},
+            check_pending_txs=True)
+        by_delegate: dict = {}
+        for row in rows:
+            ent = by_delegate.setdefault(row["voter"], {
+                "delegate": row["voter"], "vote": [], "totalStake": "0"})
+            ent["vote"].append(_vote(row))
+            ent["totalStake"] = str(stakes.get(row["voter"], Decimal(0)))
+        return json_response(list(by_delegate.values()))
+
+    async def h_get_address_info(self, request: Request) -> Response:
+        q = request.query
+        address = q.get("address")
+        if not address:
+            return json_response(
+                {"ok": False, "error": "Missing address"}, status=422)
+
+        def flag(name):
+            return q.get(name, "false").lower() in ("1", "true", "yes")
+
+        def out_list(rows):
+            return [{"amount": _fmt_amount(r["amount"]),
+                     "tx_hash": r["tx_hash"], "index": r["index"]}
+                    for r in rows]
+
+        def vote_list(rows):
+            return [{"amount": str(r["vote"]), "tx_hash": r["tx_hash"],
+                     "index": r["index"]} for r in rows]
+
+        state = self.state
+        outputs = await state.get_spendable_outputs(address)
+        stake = await state.get_address_stake(address)
+        result = {
+            "balance": _fmt_amount(sum(o.amount for o in outputs)),
+            "stake": str(stake),
+            "spendable_outputs": [
+                {"amount": _fmt_amount(o.amount), "tx_hash": o.tx_hash,
+                 "index": o.index} for o in outputs],
+            "pending_transactions": None,
+            "pending_spent_outputs": None,
+            "stake_outputs": None,
+            "delegate_spent_votes": None,
+            "delegate_unspent_votes": None,
+            "inode_registration_outputs": None,
+            "validator_unspent_votes": None,
+            "validator_spent_votes": None,
+            "is_inode": None,
+            "is_inode_active": None,
+            "is_validator": None,
+        }
+        if flag("show_pending"):
+            result["pending_transactions"] = [
+                await state.get_nice_transaction(
+                    tx.hash(), address if flag("verify") else None)
+                for tx in await state.get_address_pending_transactions(address)]
+            result["pending_spent_outputs"] = [
+                {"tx_hash": h, "index": i} for h, i in
+                await state.get_address_pending_spent_outpoints(address)]
+        if flag("stake_outputs"):
+            result["stake_outputs"] = out_list(
+                await state.get_outputs_by_address(
+                    "unspent_outputs", address, is_stake=True))
+        if flag("delegate_spent_votes"):
+            result["delegate_spent_votes"] = vote_list(
+                await state.get_delegates_spent_votes(address))
+        if flag("delegate_unspent_votes"):
+            result["delegate_unspent_votes"] = out_list(
+                await state.get_outputs_by_address(
+                    "delegates_voting_power", address))
+        if flag("inode_registration_outputs"):
+            result["inode_registration_outputs"] = out_list(
+                await state.get_outputs_by_address(
+                    "inode_registration_output", address))
+        if flag("validator_unspent_votes"):
+            result["validator_unspent_votes"] = out_list(
+                await state.get_outputs_by_address(
+                    "validators_voting_power", address))
+        if flag("validator_spent_votes"):
+            result["validator_spent_votes"] = vote_list(
+                await state.get_validators_spent_votes(address))
+        if flag("address_state"):
+            is_inode = await state.is_inode_registered(address)
+            result["is_inode"] = is_inode
+            result["is_inode_active"] = is_inode and any(
+                e.get("wallet") == address
+                for e in await self.manager.get_active_inodes_cached())
+            result["is_validator"] = await state.is_validator_registered(
+                address)
+        return json_response({"ok": True, "result": result})
+
+    async def h_get_address_transactions(self, request: Request) -> Response:
+        q = request.query
+        page, err = self._page_param(q, "page", 1, 2 ** 63 - 1)
+        if err is None:
+            limit, err = self._page_param(q, "limit", 5, 1000)
+        if err is not None:
+            return err
+        # the product can pass int64 with both factors clamped
+        offset = min((max(page, 1) - 1) * limit, 2 ** 63 - 1)
+        rows = await self.state.get_address_transactions(
+            q.get("address"), limit=limit, offset=offset)
+        return json_response({"ok": True, "result": {"transactions": [
+            await self.state.get_nice_transaction(r["tx_hash"])
+            for r in rows]}})
+
+    async def h_dobby_info(self, request: Request) -> Response:
+        data = [
+            {**item, "emission": f"{item['emission']:.2f}%"
+             if isinstance(item["emission"], Decimal)
+             else str(item["emission"]) + "%"}
+            for item in await self.manager.get_active_inodes_cached()]
+        return json_response({"ok": True, "result": data}, dumps=_json_dumps)
+
+    async def h_get_supply_info(self, request: Request) -> Response:
+        last_block = await self.state.get_last_block()
+        last_id = last_block["id"] if last_block else 0
+        return json_response({"ok": True, "result": {
+            "max_supply": float(MAX_SUPPLY),
+            "circulating_supply": float(get_circulating_supply(last_id)),
+            "last_block": _json_block(last_block),
+        }})
+
+    # ------------------------------------------------------------ peers ---
+    async def h_add_node(self, request: Request) -> Response:
+        url = request.query.get("url", "").strip("/")
+        if not url:
+            return json_response(
+                {"ok": False, "error": "Missing url"}, status=422)
+        if _normalize(url) == _normalize(self.self_url):
+            return json_response(
+                {"ok": False, "error": "Recursively adding node"})
+        if self.peers.contains(url):
+            return json_response(
+                {"ok": False, "error": "Node already present"})
+        # one quick attempt, outside the breakers: the candidate may never
+        # be admitted to the book
+        try:
+            await self.iface_factory(url, self.config.node).get("")
+        except Exception as e:
+            log.debug("add_node: probe of %s failed: %s", url, e)
+            return json_response({"ok": False, "error": "Could not add node"})
+        self._spawn(self.propagate("add_node", {"url": url}, ignore_url=url))
+        self.peers.add(url)
+        return json_response({"ok": True, "result": "Node added"})
+
+    async def h_get_nodes(self, request: Request) -> Response:
+        return json_response(
+            {"ok": True, "result": self.peers.recent_nodes()[:100]})
+
+    async def h_debug_breakers(self, request: Request) -> Response:
+        """Each peer's circuit state and EWMA score, what gossip and sync
+        rank peers by.  The JAX node serves it under
+        ``telemetry.debug_endpoints``; the port serves it always until
+        its telemetry (ROADMAP.md, A12)."""
+        return json_response({"ok": True, "result": {
+            "peers": self.breakers.snapshot(),
+            "state_counts": self.breakers.state_counts(),
+        }})
+
 
     # ------------------------------------------------------------ sync ----
     @staticmethod
@@ -504,11 +877,11 @@ class Node:
         return {"ok": False, "error": error, "peer": peer}
 
     async def sync_blockchain(self, node_url: Optional[str] = None) -> dict:
-        """Guarded sync from ``node_url`` (main.py:230-243), as
-        ``{ok, error, peer}``.  Without a url the JAX node tries peers of
-        its book; the port's has none until A5c, so it answers as the
-        JAX node with an empty book does.  The running sync is one of the
-        node's background tasks, so :meth:`close` cancels it."""
+        """Guarded sync (main.py:230-243) as ``{ok, error, peer}``: from
+        ``node_url``, or else from up to 3 peers sampled from the book and
+        tried in health order until one succeeds.  The running sync is
+        one of the node's background tasks, so :meth:`close` cancels
+        it."""
         if self.is_syncing:
             return self._sync_result("Node is already syncing", None)
         self.is_syncing = True
@@ -516,10 +889,27 @@ class Node:
         task = asyncio.current_task()
         self._background.add(task)
         try:
-            if not node_url:
+            if node_url:
+                return self._sync_result(
+                    await self._sync_blockchain(node_url), node_url)
+            nodes = self.peers.recent_nodes()
+            if not nodes:
                 return self._sync_result("No nodes found.", None)
-            return self._sync_result(await self._sync_blockchain(node_url),
-                                     node_url)
+            result = self._sync_result("no peers tried", None)
+            candidates = random.sample(nodes, min(3, len(nodes)))
+            for url in self.peers.ranked(candidates):
+                try:
+                    outcome = await self._sync_blockchain(url)
+                except Exception as e:
+                    # a dead peer raises from the fork-detection fetches:
+                    # try the next one
+                    outcome = e
+                result = self._sync_result(outcome, url)
+                if result["ok"]:
+                    return result
+                log.warning("sync from %s did not complete (%s); trying "
+                            "another peer", url, result["error"])
+            return result
         except Exception as e:
             log.warning("sync_blockchain error: %s: %s", type(e).__name__, e)
             return self._sync_result(e, node_url)
@@ -532,7 +922,7 @@ class Node:
         """Fork detection + paged download (main.py:153-227) from one
         named peer: True, or the error."""
         cfg = self.config.node
-        iface = self.iface_factory(node_url, cfg)
+        iface = self.iface_factory(node_url, cfg, resilience=self.resilience)
         prefetch: Optional[asyncio.Task] = None
         prefetch_from = None
         try:
@@ -624,9 +1014,11 @@ class Node:
                     log.error("sync fetch failed: %s", e)
                     return f"sync fetch failed: {e}"
                 try:
+                    _, last_block = await self.manager.calculate_difficulty()
                     if not blocks:
                         log.info("syncing complete")
-                        # A5c: propagate the new tip to the peers here
+                        if last_block and last_block.get("id", 0) > starting_from:
+                            await self._propagate_tip(node_url)
                         return True
                     if not await self.create_blocks(blocks, errors):
                         raise RuntimeError("page not accepted")
@@ -643,6 +1035,18 @@ class Node:
                 prefetch.add_done_callback(
                     lambda t: t.cancelled() or t.exception())
             await iface.close()
+
+    async def _propagate_tip(self, node_url: str) -> None:
+        """After a sync that moved the tip: the peer was heard from, and
+        a tip less than a day old is gossiped to everyone but it."""
+        self.peers.update_last_message(node_url)
+        tip = await self.state.get_last_block()
+        if tip and timestamp() - tip["timestamp"] < 86400:
+            hashes = await self.state.get_block_transaction_hashes(
+                tip["hash"])
+            await self.propagate("push_block", {
+                "block_content": tip["content"], "txs": hashes,
+                "block_no": tip["id"]}, ignore_url=node_url)
 
     async def create_blocks(self, blocks: list,
                             errors: Optional[list] = None,
@@ -812,6 +1216,20 @@ class Node:
                 device=self.device,
                 mesh_devices=self.config.device.mesh_devices)
         return dict(zip(checks, verdicts))
+
+
+def _vote(row: dict) -> dict:
+    return {"wallet": row["recipient"], "vote_count": str(row["vote"]),
+            "tx_hash": row["tx_hash"], "index": row["index"]}
+
+
+def _json_dumps(obj) -> str:
+    """``json.dumps`` with Decimals as strings."""
+    def default(o):
+        if isinstance(o, Decimal):
+            return str(o)
+        raise TypeError(type(o))
+    return json.dumps(obj, default=default)
 
 
 def _json_block(block: Optional[dict]) -> dict:

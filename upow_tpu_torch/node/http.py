@@ -13,8 +13,8 @@ JAX node sends.  As aiohttp does, a body at or over the cap raises
 aiohttp's 413 text), a HEAD response keeps the Content-Length of the body
 it leaves out, and an HTTP/1.0 request is answered in HTTP/1.0.
 
-:func:`fetch` is the matching client, one request per connection, for
-the tests and chip_smoke.py.
+:func:`fetch` is the matching client, one request per connection: the
+node's peer RPC (``peers.py``), the tests and chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -72,8 +72,12 @@ class Request:
         self.max_body = max_body
         self.peer_ip = peer_ip
 
+    # the server speaks plain HTTP; a proxy in front may terminate TLS
+    scheme = "http"
+
     @property
     def host(self) -> str:
+        """The ``Host`` header (aiohttp's ``request.host``)."""
         return self.headers.get("host", "")
 
     def read(self) -> bytes:
@@ -98,8 +102,8 @@ class Response:
         self.headers = dict(headers or {})
 
 
-def json_response(data, status: int = 200) -> Response:
-    return Response(json.dumps(data).encode("utf-8"), status)
+def json_response(data, status: int = 200, dumps=json.dumps) -> Response:
+    return Response(dumps(data).encode("utf-8"), status)
 
 
 def text_response(text: str, status: int) -> Response:
@@ -292,20 +296,26 @@ async def fetch(url: str, method: str = "GET", body: Optional[bytes] = None,
                 headers: Optional[Dict[str, str]] = None,
                 max_bytes: Optional[int] = None) -> Tuple[int, bytes]:
     """One request to ``url`` (``http://host:port/path?query``) on its
-    own connection; returns (status, body).  A dict or list ``body`` is
-    not accepted: pass bytes (``json.dumps(...).encode()``).  A response
-    body longer than ``max_bytes`` raises ``ValueError``."""
+    own connection (TLS for ``https``); returns (status, body).  A dict
+    or list ``body`` is not accepted: pass bytes
+    (``json.dumps(...).encode()``).  A ``Host`` in ``headers`` replaces
+    the URL's.  A response body longer than ``max_bytes`` raises
+    ``ValueError``."""
     split = urlsplit(url)
     target = (split.path or "/") + (f"?{split.query}" if split.query else "")
-    reader, writer = await asyncio.open_connection(split.hostname,
-                                                   split.port or 80)
+    tls = split.scheme == "https"
+    reader, writer = await asyncio.open_connection(
+        split.hostname, split.port or (443 if tls else 80), ssl=tls or None)
     try:
-        lines = [f"{method} {target} HTTP/1.1", f"Host: {split.netloc}",
+        headers = dict(headers or {})
+        host = next((headers.pop(k) for k in list(headers)
+                     if k.lower() == "host"), split.netloc)
+        lines = [f"{method} {target} HTTP/1.1", f"Host: {host}",
                  "Connection: close"]
         if body is not None:
             lines += ["Content-Type: application/json",
                       f"Content-Length: {len(body)}"]
-        lines += [f"{k}: {v}" for k, v in (headers or {}).items()]
+        lines += [f"{k}: {v}" for k, v in headers.items()]
         writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
                      + (body or b""))
         await writer.drain()

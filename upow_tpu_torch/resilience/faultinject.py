@@ -1,0 +1,168 @@
+"""Seeded, deterministic fault injection (the port's copy of the JAX
+package's ``resilience/faultinject.py``).
+
+A :class:`FaultInjector` holds rules parsed from a spec string
+(``ResilienceConfig.faults`` or ``UPOW_RESILIENCE_FAULTS``)::
+
+    site:kind[:k=v,...][;site:kind...]
+
+    rpc:error:p=0.5,key=9001        every other RPC to a :9001 peer errors
+    rpc.push_tx:latency:delay=0.2   every push_tx send stalls 200 ms
+    rpc:hang:times=1,delay=30       one RPC hangs 30 s (deadline food)
+
+Sites are prefix-matched (``rpc`` matches ``rpc.get_blocks``) and
+``key`` substring-filters the call's key (the peer URL).  ``kind`` is
+``error`` (raise :class:`FaultInjected`), ``latency`` (sleep ``delay``,
+then go on), ``hang`` (sleep ``delay``, by default far past any
+deadline, then raise) or ``corrupt``, which the spec accepts as the JAX
+package's does and which no site of the port acts on yet.  ``p`` draws
+from one seeded ``random.Random``, so a fixed seed replays the exact
+schedule; ``times`` caps how often a rule fires (-1: no cap).
+
+The port fires the ``rpc.<path>`` sites (``node/peers.py``, one per RPC
+attempt).  The JAX package's device and intake sites come with the
+device runtime (ROADMAP.md, A7).  :func:`get_injector` is None unless
+:func:`install` ran with a non-empty spec.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import random
+import threading
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+from .. import trace
+
+log = logging.getLogger("upow_tpu_torch.faultinject")
+
+KINDS = ("error", "latency", "hang", "corrupt")
+_FLOW_KINDS = ("error", "latency", "hang")  # what fire() acts on
+_HANG_DEFAULT = 3600.0  # beyond any deadline
+
+
+class FaultInjected(ConnectionError):
+    """An injected failure; a ConnectionError, so the retry and breaker
+    layers treat it as a transport fault."""
+
+    def __init__(self, site: str, key: str = ""):
+        super().__init__(f"injected fault at {site}"
+                         + (f" ({key})" if key else ""))
+        self.site = site
+
+
+@dataclass
+class Fault:
+    site: str                   # prefix match against the fire() site
+    kind: str                   # error | latency | hang | corrupt
+    p: float = 1.0              # fire probability per matching call
+    times: int = -1             # max fires (-1 = unlimited)
+    delay: float = 0.0          # latency/hang sleep (hang defaults 3600)
+    key: str = ""               # substring filter on the per-call key
+    fired: int = 0              # how often it has fired
+
+    def matches(self, site: str, key: str) -> bool:
+        if self.times >= 0 and self.fired >= self.times:
+            return False
+        if not (site == self.site or site.startswith(self.site + ".")):
+            return False
+        return self.key in key if self.key else True
+
+
+def parse_spec(spec: str) -> List[Fault]:
+    faults = []
+    for part in filter(None, (p.strip() for p in spec.split(";"))):
+        bits = part.split(":", 2)
+        if len(bits) < 2:
+            raise ValueError(f"fault spec {part!r}: want site:kind[:k=v,..]")
+        site, kind = bits[0], bits[1]
+        if kind not in KINDS:
+            raise ValueError(f"fault kind {kind!r} not in {KINDS}")
+        kwargs: Dict[str, object] = {}
+        if len(bits) == 3 and bits[2]:
+            for pair in bits[2].split(","):
+                name, _, raw = pair.partition("=")
+                if name == "p":
+                    kwargs["p"] = float(raw)
+                elif name == "times":
+                    kwargs["times"] = int(raw)
+                elif name == "delay":
+                    kwargs["delay"] = float(raw)
+                elif name == "key":
+                    kwargs["key"] = raw
+                else:
+                    raise ValueError(f"fault spec {part!r}: unknown "
+                                     f"option {name!r}")
+        fault = Fault(site=site, kind=kind, **kwargs)
+        if fault.kind == "hang" and not fault.delay:
+            fault.delay = _HANG_DEFAULT
+        faults.append(fault)
+    return faults
+
+
+class FaultInjector:
+    """Evaluates fault rules at named sites, deterministically."""
+
+    def __init__(self, spec: str, seed: int = 0):
+        self.spec = spec
+        self.faults = parse_spec(spec)
+        self._rng = random.Random(seed)
+        self._lock = threading.Lock()
+
+    def _pick(self, site: str, key: str) -> Optional[Fault]:
+        with self._lock:
+            for fault in self.faults:
+                if fault.kind not in _FLOW_KINDS:
+                    continue
+                if fault.matches(site, key) and \
+                        (fault.p >= 1.0 or self._rng.random() < fault.p):
+                    fault.fired += 1
+                    return fault
+        return None
+
+    async def fire(self, site: str, key: str = "") -> None:
+        """Sleep and/or raise as the first matching rule says; nothing
+        when no rule matches."""
+        fault = self._pick(site, key)
+        if fault is None:
+            return
+        trace.inc("resilience.faults_injected")
+        trace.event("fault_injected", site=site, fault=fault.kind,
+                    key=key or None, fire=fault.fired)
+        log.info("fault injected: %s at %s key=%s (fire #%d)",
+                 fault.kind, site, key or "-", fault.fired)
+        if fault.kind == "latency":
+            await asyncio.sleep(fault.delay)
+            return
+        if fault.kind == "hang":
+            await asyncio.sleep(fault.delay)
+        raise FaultInjected(site, key)
+
+    def snapshot(self) -> List[dict]:
+        with self._lock:
+            return [{"site": f.site, "kind": f.kind, "fired": f.fired,
+                     "times": f.times} for f in self.faults]
+
+
+# one injector per process, None when injection is off
+_injector: Optional[FaultInjector] = None
+
+
+def install(spec: str, seed: int = 0) -> Optional[FaultInjector]:
+    """Install a process-wide injector; an empty spec uninstalls."""
+    global _injector
+    _injector = FaultInjector(spec, seed) if spec else None
+    if _injector is not None:
+        log.warning("fault injection ACTIVE: %s (seed=%d)", spec, seed)
+    return _injector
+
+
+def uninstall() -> None:
+    global _injector
+    _injector = None
+
+
+def get_injector() -> Optional[FaultInjector]:
+    return _injector

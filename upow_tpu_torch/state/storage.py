@@ -367,13 +367,16 @@ class ChainState(StateViews):
         return (r["m"] or 0) + 1
 
     async def get_blocks(self, offset: int, limit: int,
+                         tx_details: bool = False,
                          size_capped: bool = False) -> List[dict]:
         """Blocks with embedded full transaction hexes, ordered by id
         (reference database.py:380-408's get_blocks).  One transactions
         query per 900-block chunk of the page, grouped host-side.
-        ``size_capped`` truncates the page once the accumulated hex
-        passes 8 full blocks' worth (the HTTP layer passes it; the
-        reference caps inside Database.get_blocks unconditionally)."""
+        ``tx_details`` swaps each hex for the explorer's decoded tx (a tx
+        gone under a concurrent reorg is dropped).  ``size_capped``
+        truncates the page once the accumulated hex passes 8 full
+        blocks' worth (the HTTP layer passes it; the reference caps
+        inside Database.get_blocks unconditionally)."""
         rows = self.db.execute(
             "SELECT * FROM blocks WHERE id >= ? ORDER BY id LIMIT ?",
             (offset, limit),
@@ -384,20 +387,25 @@ class ChainState(StateViews):
             chunk = hashes[lo:lo + 900]
             marks = ",".join("?" * len(chunk))
             for t in self.db.execute(
-                    f"SELECT block_hash, tx_hex FROM transactions"
+                    f"SELECT block_hash, tx_hash, tx_hex FROM transactions"
                     f" WHERE block_hash IN ({marks})", chunk):
-                by_hash[t["block_hash"]].append(t["tx_hex"])
+                by_hash[t["block_hash"]].append((t["tx_hash"], t["tx_hex"]))
         out = []
         size = 0
         for r in rows:
             txs = by_hash[r["hash"]]
-            size += sum(len(h) for h in txs)
+            size += sum(len(h) for _th, h in txs)
             if size_capped and size > MAX_BLOCK_SIZE_HEX * 8:
                 break
             block = self._block_dict(r)
             block["difficulty"] = float(block["difficulty"])
             block["reward"] = str(block["reward"])
-            out.append({"block": block, "transactions": txs})
+            if tx_details:
+                nice = [await self.get_nice_transaction(th) for th, _h in txs]
+                tx_list = [t for t in nice if t is not None]
+            else:
+                tx_list = [h for _th, h in txs]
+            out.append({"block": block, "transactions": tx_list})
         return out
 
     async def remove_blocks(self, from_block_id: int) -> None:
@@ -656,10 +664,12 @@ class ChainState(StateViews):
         ).fetchall()
         return [r["tx_hash"] for r in rows]
 
-    async def get_nice_transaction(self, tx_hash: str) -> Optional[dict]:
+    async def get_nice_transaction(self, tx_hash: str,
+                                   address: Optional[str] = None) -> Optional[dict]:
         """Explorer-style decoded transaction (reference
         database.py:1606-1654), confirmed or pending.  Amounts are
-        coin-denominated floats like the reference's JSON."""
+        coin-denominated floats like the reference's JSON; with
+        ``address``, ``delta`` is what the tx moved into (or out of) it."""
         r = self.db.execute(
             "SELECT t.*, b.id AS block_no, b.timestamp AS block_ts FROM"
             " transactions t JOIN blocks b ON b.hash = t.block_hash"
@@ -688,6 +698,17 @@ class ChainState(StateViews):
                "block_no": column("block_no"),
                "datetime": column("block_ts")}
         if not tx.is_coinbase:
+            delta = None
+            if address is not None:
+                delta = 0
+                for i, tx_input in enumerate(tx.inputs):
+                    if i < len(inputs_addresses) and inputs_addresses[i] == address:
+                        amt = await self.get_output_amount(
+                            tx_input.tx_hash, tx_input.index)
+                        delta -= amt or 0
+                delta += sum(o.amount for o in tx.outputs
+                             if o.address == address)
+                delta = coins(delta)
             inputs = []
             for i, tx_input in enumerate(tx.inputs):
                 amt = await self.get_output_amount(tx_input.tx_hash,
@@ -704,7 +725,7 @@ class ChainState(StateViews):
                 "transaction_type": tx.transaction_type.name,
                 "is_confirm": is_confirm,
                 "inputs": inputs,
-                "delta": None,
+                "delta": delta,
                 "fees": coins(await self.tx_fees(tx)),
             })
         out["outputs"] = [
@@ -817,6 +838,51 @@ class ChainState(StateViews):
         ).fetchall()
         return [{"tx_hash": r["tx_hash"], "tx_hex": r["tx_hex"],
                  "fees": r["fees"]} for r in rows]
+
+    async def get_need_propagate_transactions(self, older_than: int = 300) -> List[str]:
+        """Journal txs last gossiped more than ``older_than`` seconds ago:
+        the re-propagation queue (reference database.py:188-207)."""
+        rows = self.db.execute(
+            "SELECT tx_hex FROM pending_transactions WHERE propagation_time < ?",
+            (now_ts() - older_than,),
+        ).fetchall()
+        return [r["tx_hex"] for r in rows]
+
+    async def update_pending_transaction_propagation(self, tx_hash: str) -> None:
+        self.db.execute(
+            "UPDATE pending_transactions SET propagation_time = ? WHERE tx_hash = ?",
+            (now_ts(), tx_hash),
+        )
+        self._commit()
+
+    async def get_address_pending_transactions(self, address: str) -> List[Tx]:
+        """Journal txs touching the address (an input's spender or an
+        output's recipient)."""
+        rows = self.db.execute(
+            "SELECT tx_hex, inputs_addresses FROM pending_transactions"
+        ).fetchall()
+        out = []
+        for r in rows:
+            tx = tx_from_hex(r["tx_hex"], check_signatures=False)
+            if address in json.loads(r["inputs_addresses"]) or any(
+                    o.address == address for o in tx.outputs):
+                out.append(tx)
+        return out
+
+    async def get_address_pending_spent_outpoints(
+            self, address: str) -> List[Tuple[str, int]]:
+        """Outpoints of the address that journal txs spend."""
+        rows = self.db.execute(
+            "SELECT tx_hex, inputs_addresses FROM pending_transactions"
+        ).fetchall()
+        out = []
+        for r in rows:
+            addrs = json.loads(r["inputs_addresses"])
+            tx = tx_from_hex(r["tx_hex"], check_signatures=False)
+            for i, tx_input in enumerate(tx.inputs):
+                if i < len(addrs) and addrs[i] == address:
+                    out.append((tx_input.tx_hash, tx_input.index))
+        return out
 
     async def get_pending_spent_outpoints(self, outpoints=None) -> set:
         """Pending-spent overlay; with ``outpoints`` only the matching
@@ -991,6 +1057,35 @@ class ChainState(StateViews):
                                 check_pending_txs: bool = False) -> List[TxInput]:
         return await self._outputs(address, 1, check_pending_txs)
 
+    async def get_address_transactions(self, address: str, limit: int = 50,
+                                       offset: int = 0) -> List[dict]:
+        """Confirmed txs naming the address, newest block first."""
+        rows = self.db.execute(
+            "SELECT t.*, b.id AS block_id, b.timestamp AS block_ts FROM transactions t"
+            " JOIN blocks b ON b.hash = t.block_hash"
+            " WHERE t.inputs_addresses LIKE ? OR t.outputs_addresses LIKE ?"
+            " ORDER BY b.id DESC LIMIT ? OFFSET ?",
+            (f'%"{address}"%', f'%"{address}"%', limit, offset),
+        ).fetchall()
+        return [dict(r) for r in rows]
+
+    async def get_outputs_by_address(self, table: str, address: str,
+                                     check_pending_txs: bool = False,
+                                     is_stake: Optional[bool] = None) -> List[dict]:
+        """One UTXO-class table's outputs of the address as {tx_hash,
+        index, amount} rows (the address-info sections)."""
+        sql = f"SELECT tx_hash, idx, amount FROM {table} WHERE address = ?"
+        params: list = [address]
+        if is_stake is not None and table == "unspent_outputs":
+            sql += " AND is_stake = ?"
+            params.append(int(is_stake))
+        rows = self.db.execute(sql, params).fetchall()
+        pending = await self._pending_filter(rows, check_pending_txs)
+        return [
+            {"tx_hash": r["tx_hash"], "index": r["idx"], "amount": r["amount"]}
+            for r in rows if (r["tx_hash"], r["idx"]) not in pending
+        ]
+
     # --------------------------------------------------------- governance --
 
     async def get_registered(self, table: str,
@@ -1090,4 +1185,59 @@ class ChainState(StateViews):
                 for o in tx.outputs:
                     if o.is_stake and o.address in want:
                         out[o.address] += Decimal(o.amount) / SMALLEST
+        return out
+
+    def _voter(self, info: Optional[dict], idx: int) -> Optional[str]:
+        """A ballot row's voter: its vote tx's ``inputs_addresses[idx]``."""
+        if info is not None and idx < len(info["inputs_addresses"]):
+            return info["inputs_addresses"][idx]
+        return None
+
+    async def get_ballot_by_recipient(self, table: str, recipient: str,
+                                      check_pending_txs: bool = False) -> List[dict]:
+        """Standing votes FOR ``recipient`` (a ballot row's address is
+        the recipient, reference database.py:939-1063), each with its
+        voter and vote count."""
+        rows = self.db.execute(
+            f"SELECT g.tx_hash, g.idx, g.amount FROM {table} g WHERE g.address = ?",
+            (recipient,),
+        ).fetchall()
+        pending = await self._pending_filter(rows, check_pending_txs)
+        out = []
+        for r in rows:
+            if (r["tx_hash"], r["idx"]) in pending:
+                continue
+            info = await self.get_transaction_info(r["tx_hash"])
+            out.append({
+                "tx_hash": r["tx_hash"], "index": r["idx"],
+                "voter": self._voter(info, r["idx"]),
+                "vote": Decimal(r["amount"]) / SMALLEST,
+            })
+        return out
+
+    async def get_ballots(self, table: str, recipient: Optional[str] = None,
+                          offset: int = 0, limit: int = 100) -> List[dict]:
+        """A page of a ballot table for the validators and delegates info
+        routes (reference get_inode_ballot / get_validator_ballot): rows
+        of {tx_hash, index, voter, recipient, vote}."""
+        if recipient is not None:
+            rows = self.db.execute(
+                f"SELECT tx_hash, idx, address, amount FROM {table}"
+                f" WHERE address = ? LIMIT ? OFFSET ?",
+                (recipient, limit, offset),
+            ).fetchall()
+        else:
+            rows = self.db.execute(
+                f"SELECT tx_hash, idx, address, amount FROM {table}"
+                f" LIMIT ? OFFSET ?", (limit, offset),
+            ).fetchall()
+        out = []
+        for r in rows:
+            info = await self.get_transaction_info(r["tx_hash"])
+            out.append({
+                "tx_hash": r["tx_hash"], "index": r["idx"],
+                "voter": self._voter(info, r["idx"]),
+                "recipient": r["address"],
+                "vote": Decimal(r["amount"]) / SMALLEST,
+            })
         return out

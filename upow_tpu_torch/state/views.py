@@ -4,15 +4,16 @@ The consensus-critical read logic — the active-inode vote cascade,
 stake aggregation, fee math, UTXO fingerprints — kept apart from the
 sqlite primitives of :class:`.storage.ChainState`, as the JAX package
 keeps it (there it is shared with a PostgreSQL backend, which the port
-does not have yet).  The views here are the ones block acceptance and
-its rule checks call.
+does not have yet).  The views here are the ones block acceptance, its
+rule checks and the node's explorer, address and governance routes call.
 
 Primitives the storage class provides:
     get_transaction_info, get_output_amount, get_registered,
     _all_ballot_rows, get_multiple_address_stakes, get_spendable_outputs,
     get_delegates_voting_power, get_pending_spent_outpoints,
     _pending_decoded, get_transaction_block_timestamp,
-    get_table_outpoints_hash, resolve_output_address, add_transactions.
+    get_table_outpoints_hash, resolve_output_address, add_transactions,
+    get_stake_outputs, get_ballot_by_recipient.
 
 Every method cites its reference counterpart.
 """
@@ -22,10 +23,11 @@ from __future__ import annotations
 import json
 import os
 from decimal import Decimal
-from typing import Dict, List, Union
+from typing import Dict, Iterable, List, Union
 
 from ..core.clock import timestamp as now_ts
 from ..core.codecs import OutputType, TransactionType
+from ..core.constants import SMALLEST
 from ..core.rewards import round_up_decimal
 from ..core.tx import CoinbaseTx, Tx
 
@@ -75,6 +77,14 @@ class StateViews:
 
     # ------------------------------------------------------ fingerprints --
 
+    async def get_transactions_info(self, tx_hashes: Iterable[str]) -> Dict[str, dict]:
+        out = {}
+        for h in tx_hashes:
+            info = await self.get_transaction_info(h)
+            if info is not None:
+                out[h] = info
+        return out
+
     async def get_unspent_outputs_hash(self) -> str:
         """UTXO-set fingerprint: sha256 over the sorted outpoint list —
         the cross-node state-equality oracle (reference database.py:827-830,
@@ -111,6 +121,19 @@ class StateViews:
                         balance += out.amount
         return balance
 
+    async def get_address_stake(self, address: str,
+                                check_pending_txs: bool = False) -> Decimal:
+        """Staked coins as Decimal (reference database.py:1189-1205)."""
+        stake = sum(i.amount for i in await self.get_stake_outputs(
+            address, check_pending_txs=check_pending_txs))
+        stake = Decimal(stake) / SMALLEST
+        if check_pending_txs:
+            for tx in (await self._pending_decoded()).values():
+                for out in tx.outputs:
+                    if out.address == address and out.is_stake:
+                        stake += Decimal(out.amount) / SMALLEST
+        return stake
+
     # ------------------------------------------------------- governance ---
 
     async def is_inode_registered(self, address: str,
@@ -134,6 +157,34 @@ class StateViews:
              "recipient": r["recipient"], "vote": r["vote"]}
             for r in rows if r["voter"] == voter
         ]
+
+    async def get_validators_stake(self, validator: str,
+                                   check_pending_txs: bool = False) -> Decimal:
+        """Sum of vote x delegate stake / 10 over the validator's ballot
+        (reference database.py:1127-1136)."""
+        ballot = await self.get_ballot_by_recipient(
+            "validators_ballot", validator, check_pending_txs)
+        total = Decimal(0)
+        for entry in ballot:
+            if entry["voter"] is None:
+                continue
+            stake = await self.get_address_stake(entry["voter"], check_pending_txs)
+            total += entry["vote"] * stake / 10
+        return round_up_decimal(total)
+
+    async def get_inode_vote_ratio_by_address(self, inode: str,
+                                              check_pending_txs: bool = False) -> Decimal:
+        """Sum of vote x validator stake / 10 over the votes FOR this
+        inode (reference database.py:1390-1418)."""
+        ballot = await self.get_ballot_by_recipient(
+            "inodes_ballot", inode, check_pending_txs)
+        total = Decimal(0)
+        for entry in ballot:
+            if entry["voter"] is None:
+                continue
+            stake = await self.get_validators_stake(entry["voter"], check_pending_txs)
+            total += entry["vote"] * stake / 10
+        return round_up_decimal(total)
 
     async def get_active_inodes(self, check_pending_txs: bool = False) -> List[dict]:
         """Registered inodes with power/emission; active = emission >= 1% or
@@ -212,6 +263,12 @@ class StateViews:
             (v["tx_hash"], v["index"])
             for v in await self.get_delegates_spent_votes(address, check_pending_txs))
         return power
+
+    async def get_validators_spent_votes(self, address: str,
+                                         check_pending_txs: bool = False) -> List[dict]:
+        """Standing inode votes cast by this validator."""
+        return await self.get_votes_by_voter(
+            "inodes_ballot", address, check_pending_txs)
 
     async def get_pending_stake_transactions(self, address: str) -> List[Tx]:
         """Pending txs that stake for this address (database.py:1157-1172)."""

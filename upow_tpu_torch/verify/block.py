@@ -186,6 +186,9 @@ class BlockManager:
         # set by the node's create_blocks around a page's accept loop
         self.page_sig_verdicts: Optional[dict] = None
         self._difficulty_cache: Optional[Tuple[Decimal, dict]] = None
+        # the read routes' active-inode list (get_active_inodes_cached)
+        self._inode_cache: Optional[List[dict]] = None
+        self._inode_cache_time = 0.0  # monotonic
         # mempool notification: called with the tx hashes of every
         # journal removal this manager performs (mined txs on block
         # acceptance, GC evictions), AFTER the removal committed.  The
@@ -201,6 +204,17 @@ class BlockManager:
 
     def invalidate_difficulty(self):
         self._difficulty_cache = None
+
+    async def get_active_inodes_cached(self, max_age: float = 300.0) -> List[dict]:
+        """The active inodes, cached ``max_age`` seconds (manager.py:30-32,
+        870-900): what ``dobby_info`` and ``get_address_info`` read; the
+        accept reads them fresh."""
+        if self._inode_cache is not None and \
+                time.monotonic() - self._inode_cache_time < max_age:
+            return self._inode_cache
+        self._inode_cache = await self.state.get_active_inodes()
+        self._inode_cache_time = time.monotonic()
+        return self._inode_cache
 
     def _notify_pending_removed(self, hashes: List[str]) -> None:
         if self.on_pending_removed is not None and hashes:
