@@ -162,6 +162,51 @@ Phases, one line each; any failure exits non-zero:
    card, ``device.txid_backend = device``).  A, B and C must end on one
    tip and UTXO hash; the hop's, the burst's and C's walls are printed.
 
+23. the device runtime (``runtime_path``, after phase 22; ``--only
+   runtime_path`` runs it alone on a block of 8,160 txs signed over
+   synthetic outpoints): the runtime's arm on the card (platform, card,
+   each kernel's warm launch with its status and seconds); 32 sources'
+   batches of 256 lanes of phase 3's mix held and released, one
+   dispatch, the verdicts of one direct ``run_sig_checks`` of the same
+   checks; 64 B2 rounds of 2^24 nonces (source ``mine``) queued ahead of
+   the block's micro-batches (source ``block``), held then released and
+   then with the flood already on the card: the block's queue wait and
+   its submit-to-verdicts time against one round's; a one-check batch
+   through the runtime against the same kernel work called directly, and
+   the bare queue and boxed hops, µs a call over 1,000 calls; a degrade
+   round trip (``device.verify:error:times=3``, ``device_failure_limit =
+   3``, a 1 s cooldown: three groups fail with the injected error, a
+   fourth is blocked with ``DeviceBlocked`` and no launch, none is served
+   on the host, then one re-probe launches kernel 1, gives the native
+   batch's verdicts and restores ``ok``); the native batch on the card's host in sigs/s at
+   8,192 and 1,024 checks against the pure-Python oracle on 64 (host
+   figures, with the CPU model and thread count) and the ``cpu`` miner
+   (``native``) equal to the plain search over 2^17 nonces.
+
+24. the deployed layout on one card (``shared_card``, after phase 22):
+   ``python -m upow_tpu_torch.node.run --device cuda`` and ``python -m
+   upow_tpu_torch.mine.miner --device cuda`` as processes of their own,
+   each with its own runtime and CUDA context.  The 8,160-tx block is
+   pushed over HTTP to one node process and a fresh node process syncs
+   it from that one, first with the card to themselves, then (on two
+   more copies) while the miner sweeps full templates of 2^32 nonces.
+   The miner takes its templates from a stub in this process at
+   difficulty 10, so no sweep finds a block; the stub's template
+   requests time the sweeps.  The walls, the sweep's GH/s alone and
+   during each wall, and each node's kernel-1 and txid batches are
+   printed; the four nodes must end on one tip and UTXO hash.
+
+Every path runs through the device runtime (``device/runtime.py``): the
+script arms a fresh runtime before each path, its warm launches before
+any count is reset (``runtime_arm`` prints the first), and fails when
+the verify path's degrade (``txverify.DEGRADE``) recorded any failure
+after a path other than ``runtime_path``'s fault phase, with the
+recorded error; the node processes of phase 22 report theirs on ``/``.
+The sweep (phase 12) is timed through the runtime and in direct-launch
+turns in the same call (``hashrate_turns``), and
+``walls_vs_before_runtime`` prints this run's walls beside those of the
+last run before the runtime.
+
 The line before the last is the kernels' JSON record; each kernel's
 ``launches`` is one path's own count (the accept's for the Jacobian
 kernel, the w = 5 accept's for B7, the HTTP push_block's under complete
@@ -180,16 +225,19 @@ the script exits non-zero and prints no result.
     python3 chip_smoke.py --only utxo_probe
 
 runs the card line, the build and the named kernel phases alone (a
-comma-separated list of ``KERNEL_PHASES``) and prints no result.
+comma-separated list of ``KERNEL_PHASES``: ``utxo_probe``,
+``txid_ragged``, ``runtime_path``) and prints no result.
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
 import hashlib
 import json
 import os
+import platform
 import random
 import re
 import shutil
@@ -208,7 +256,7 @@ from urllib.parse import quote
 import numpy as np
 import torch
 
-from upow_tpu_torch import _build, device as tdevice, trace
+from upow_tpu_torch import _build, device as tdevice, native, trace
 from upow_tpu_torch.config import Config, DeviceConfig
 from upow_tpu_torch.core import clock, curve, point_to_string
 from upow_tpu_torch.core.constants import CURVE_GX, CURVE_GY, CURVE_N, CURVE_P
@@ -217,11 +265,13 @@ from upow_tpu_torch.core.difficulty import (
 from upow_tpu_torch.core.merkle import merkle_root
 from upow_tpu_torch.core.tx import Tx, TxInput, TxOutput
 from upow_tpu_torch.crypto import p256, sha256 as tsha
+from upow_tpu_torch.device import runtime as truntime
 from upow_tpu_torch.mine import engine as mine_engine, miner
 from upow_tpu_torch.mine import mesh_engine
 from upow_tpu_torch.node.app import Node
 from upow_tpu_torch.node.http import fetch
 from upow_tpu_torch.parallel import mesh as pmesh
+from upow_tpu_torch.resilience import DeviceBlocked, faultinject
 from upow_tpu_torch.state import ChainState, device_index as tdi
 from upow_tpu_torch.verify import BlockManager, txverify
 
@@ -633,6 +683,13 @@ def sha_phase(dev: torch.device, addr: str) -> dict:
                                          device=dev), reps=10, warm=3, per=10)
     plain_ms = cuda_ms(lambda: tsha.pow_search_plain(
         template, target, 0, SEARCH_BATCH, dev), reps=3, warm=1)
+    # the launch path on the host: a 256-nonce round's pow_search call
+    # (the output's fill, the argument block and the ctypes launch; no
+    # CUDA runtime query, the wave is cached a device), then one
+    # synchronisation
+    launch_us = us_per_call(lambda: tsha.pow_search(
+        template, target, 0, 256, device=dev), 1000)
+    torch.cuda.synchronize()
     props = torch.cuda.get_device_properties(dev)
     clock_mhz = tdevice.max_sm_clock_mhz() or props.clock_rate / 1000
     alu, add = tsha.ops_per_nonce(template, target)
@@ -648,7 +705,8 @@ def sha_phase(dev: torch.device, addr: str) -> dict:
           plain_ms=round(plain_ms, 1), bound_ms=round(max(ops_ms, bytes_ms), 4),
           bound_share=round(max(ops_ms, bytes_ms) / ms, 4), bound_by=bound_by,
           alu_ops_per_nonce=alu, add_ops_per_nonce=add,
-          sms=props.multi_processor_count, clock_mhz=clock_mhz)
+          sms=props.multi_processor_count, clock_mhz=clock_mhz,
+          launch_path_us=round(launch_us, 3))
     return {"name": "sha256_search", "route": "cuda",
             "source": "upow_tpu_torch/csrc/sha256_search.cu",
             "replaces": "upow_tpu/crypto/sha256.py:344",
@@ -1425,16 +1483,169 @@ def pending_hashes(url: str) -> list:
                   for h in http(url, "get_pending_transactions")["result"])
 
 
-def kernel_counts(url: str) -> dict:
-    """A node process's launches and fallbacks, from its ``/``."""
+def kernel_counts(url: str, since: dict = None) -> dict:
+    """A node process's launches and fallbacks, from its ``/``, less
+    ``since`` (the counts after its start: its runtime's warm launches).
+    Fails on any failure the node's degrade recorded."""
     root = http(url, "")
     counters = root["counters"]
-    out = {k: int(counters.get(f"kernel.{k}.batches", 0))
+    health = counters["device_health"]
+    if health["errors"] or health["state"] != "ok":
+        fail(f"node {url}: the degrade recorded {health['errors']} "
+             f"failure(s), state {health['state']}: {health['last_error']}")
+    since = since or {}
+    out = {k: int(counters.get(f"kernel.{k}.batches", 0)) - since.get(k, 0)
            for k in ("p256_verify", "sha256_txid")}
     out.update({k: int(counters.get(k, 0)) for k in (
         "txid.sample_mismatch", "sync.host_txid_retry")})
     for span in ("block_accept", "sync.page_txids", "sync.page_sig_prefill"):
         out[span] = root["timings"].get(span, {}).get("seconds", 0.0)
+    out["runtime_dispatches"] = counters["device_runtime"]["dispatches"]
+    return out
+
+
+class TemplateStub:
+    """``get_mining_info`` for a miner process: the hash-rate template's
+    previous hash at difficulty 10 (no sweep of 2^32 nonces finds a
+    block), served on a thread of this process; each request's time is
+    kept, and the miner asks once a sweep."""
+
+    def __init__(self):
+        import http.server
+
+        job = sweep_job(point_to_string(curve.keygen(rng=KEY_SEED)[1]))
+        body = json.dumps({"ok": True, "result": {
+            "difficulty": "10", "pending_transactions_hashes": [],
+            "last_block": {"hash": job.previous_hash, "id": 1}}}).encode()
+        times = self.times = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                times.append(time.perf_counter())
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *_a):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/"
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+
+    def gh_s(self, t0: float, t1: float) -> float:
+        """The sweep's GH/s over [t0, t1]: whole sweeps between the first
+        and the last template request inside it."""
+        inside = [t for t in self.times if t0 <= t <= t1]
+        if len(inside) < 2:
+            return float("nan")
+        return (len(inside) - 1) * (2 ** 32) / (inside[-1] - inside[0]) / 1e9
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def shared_card_path(dev: torch.device, workdir: Path, leaves, content: str,
+                     card: str) -> dict:
+    """A node process's push_block of the 8,160-tx block and a fresh node
+    process's sync of it, alone on the card and then beside a miner
+    process sweeping on the same card."""
+    names = ("push_alone", "sync_alone", "push_swept", "sync_swept")
+    for name in names:
+        shutil.copyfile(workdir / "base.db", workdir / f"shared_{name}.db")
+    nodes = {n: NodeProcess(str(workdir / f"shared_{n}.db"),
+                            UPOW_DEVICE_TXID_BACKEND="device")
+             for n in names}
+    stub = TemplateStub()
+    miner_log = open(workdir / "shared_miner.log", "w")
+    miner_proc = None
+    out = {}
+    body = {"block_content": content, "txs": [t.hex() for t in leaves]}
+    try:
+        for node in nodes.values():
+            node.wait_ready()
+        since = {n: kernel_counts(node.url) for n, node in nodes.items()}
+
+        def turn(tag: str) -> None:
+            push, sync = nodes["push_" + tag], nodes["sync_" + tag]
+            t0 = time.perf_counter()
+            reply = http(push.url, "push_block", body)
+            t1 = time.perf_counter()
+            if reply != {"ok": True}:
+                fail(f"shared card ({tag}): push_block: {reply}")
+            reply = http(sync.url, "sync_blockchain?node_url="
+                         + quote(push.url, safe=""))
+            t2 = time.perf_counter()
+            if reply != {"ok": True, "peer": push.url}:
+                fail(f"shared card ({tag}): sync: {reply}")
+            out[tag] = {"push_s": t1 - t0, "sync_s": t2 - t1,
+                        "push_gh_s": stub.gh_s(t0, t1),
+                        "sync_gh_s": stub.gh_s(t1, t2),
+                        "push_counts": kernel_counts(push.url,
+                                                     since["push_" + tag]),
+                        "sync_counts": kernel_counts(sync.url,
+                                                     since["sync_" + tag])}
+
+        turn("alone")
+        miner_proc = subprocess.Popen(
+            [sys.executable, "-m", "upow_tpu_torch.mine.miner",
+             point_to_string(curve.keygen(rng=KEY_SEED)[1]), "--node",
+             stub.url, "--device", "cuda"],
+            cwd=str(Path(__file__).resolve().parent), stdout=miner_log,
+            stderr=subprocess.STDOUT,
+            env={**os.environ, "UPOW_MINER_CHILD": "1"})
+        # sweeping once two templates were asked for: then 2 s alone
+        until("the miner's second sweep", lambda: len(stub.times) >= 3
+              or miner_proc.poll() is not None, timeout=300.0)
+        if miner_proc.poll() is not None:
+            miner_log.flush()
+            fail("shared card: the miner exited: "
+                 + (workdir / "shared_miner.log").read_text()[-2000:])
+        t0 = time.perf_counter()
+        time.sleep(2.0)
+        out["sweep_alone_gh_s"] = stub.gh_s(t0, time.perf_counter())
+        turn("swept")
+        if miner_proc.poll() is not None:
+            fail("shared card: the miner exited during the turn")
+        tips = {n: tip_and_utxo(node.url) for n, node in nodes.items()}
+        if len(set(tips.values())) != 1:
+            fail(f"shared card: the nodes differ: {tips}")
+        for tag in ("alone", "swept"):
+            if out[tag]["push_counts"]["p256_verify"] == 0 or \
+                    out[tag]["sync_counts"]["sha256_txid"] == 0:
+                fail(f"shared card ({tag}): no kernel launch: {out[tag]}")
+        out["sweeps"] = len(stub.times)
+    finally:
+        if miner_proc is not None and miner_proc.poll() is None:
+            miner_proc.terminate()
+            try:
+                miner_proc.wait(30)
+            except subprocess.TimeoutExpired:
+                miner_proc.kill()
+                miner_proc.wait()
+        miner_log.close()
+        stub.close()
+        for node in nodes.values():
+            node.close()
+    a, w = out["alone"], out["swept"]
+    phase("shared_card", layout="node.run+miner.run, one card",
+          push_block_alone_s=round(a["push_s"], 3),
+          push_block_swept_s=round(w["push_s"], 3),
+          sync_alone_s=round(a["sync_s"], 3),
+          sync_swept_s=round(w["sync_s"], 3),
+          sweep_alone_gh_s=round(out["sweep_alone_gh_s"], 4),
+          sweep_during_push_gh_s=round(w["push_gh_s"], 4),
+          sweep_during_sync_gh_s=round(w["sync_gh_s"], 4),
+          push_jac_batches=json.dumps([a["push_counts"]["p256_verify"],
+                                       w["push_counts"]["p256_verify"]]),
+          sync_txid_batches=json.dumps([a["sync_counts"]["sha256_txid"],
+                                        w["sync_counts"]["sha256_txid"]]),
+          sweeps=out["sweeps"], card=json.dumps(card))
     return out
 
 
@@ -1461,6 +1672,9 @@ def gossip_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
     try:
         out["b_start_s"] = b.wait_ready()
         out["c_start_s"] = c.wait_ready()
+        # each node armed its runtime before serving (one warm launch of
+        # each kernel): counts are read from here on
+        b0, c0 = kernel_counts(b.url), kernel_counts(c.url)
         added = http(a.url, "add_node?url=" + quote(b.url, safe=""))
         if added != {"ok": True, "result": "Node added"}:
             fail(f"gossip: add_node of B on A: {added}")
@@ -1480,7 +1694,7 @@ def gossip_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
         a_tip = a.call(a.node.state.get_last_block())["hash"]
         _, out["hop_s"] = until("block 4 on B", lambda: tip(b.url) == a_tip)
         out["a_jac"] = p256.LAUNCHES
-        out["b_block"] = kernel_counts(b.url)
+        out["b_block"] = kernel_counts(b.url, b0)
         if out["b_block"]["p256_verify"] == 0:
             fail(f"gossip: B accepted with no kernel-1 launch: {out}")
         if tip_and_utxo(b.url) != (a_tip, a.call(
@@ -1501,7 +1715,7 @@ def gossip_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
             "the burst in B's pool", lambda: pending_hashes(b.url) == want)
         if pending_hashes(a.url) != want:
             fail("gossip: A's pending set is not the burst")
-        out["b_burst"] = kernel_counts(b.url)
+        out["b_burst"] = kernel_counts(b.url, b0)
         breakers = http(a.url, "debug/breakers")["result"]
         out["breakers"] = breakers
         if breakers["peers"].get(dead, {}).get("state") != "open" or \
@@ -1525,7 +1739,7 @@ def gossip_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
             fail(f"gossip: C's book after its bootstrap {c_nodes}")
         until("A to learn C", lambda: c.url in http(a.url, "get_nodes")[
             "result"])
-        out["c"] = kernel_counts(c.url)
+        out["c"] = kernel_counts(c.url, c0)
         if out["c"]["p256_verify"] == 0 or out["c"]["sha256_txid"] == 0:
             fail(f"gossip: C synced without launches {out['c']}")
         for where, counts in (("B", out["b_burst"]), ("C", out["c"])):
@@ -2427,6 +2641,21 @@ def hashrate_phase(key: tuple) -> dict:
     full = mine_engine.MAX_SEARCH_END
     if res.nonce is None and res.hashes_tried != full:
         fail(f"the sweep tried {res.hashes_tried} of {full} nonces")
+    # turns in the same call: rounds launched directly (no runtime), then
+    # through the runtime again, then directly again
+    turns = []
+    for how in ("direct", "runtime", "direct"):
+        t1 = time.perf_counter()
+        if how == "direct":
+            tried = direct_sweep(job)
+        else:
+            tried = mine_engine.mine(job, "cuda", batch=SEARCH_BATCH,
+                                     ttl=600.0).hashes_tried
+        torch.cuda.synchronize()
+        if tried != full:
+            fail(f"the {how} sweep tried {tried} of {full} nonces")
+        turns.append((how, round(tried / (time.perf_counter() - t1) / 1e9,
+                                 4)))
     # BASELINE config 2: a fractional difficulty mined to a checked hit
     job63 = mine_engine.MiningJob.from_header_fields(
         previous_hash=random.Random(63).randbytes(32).hex(), address=addr,
@@ -2440,7 +2669,29 @@ def hashrate_phase(key: tuple) -> dict:
     return {"tried": res.hashes_tried, "seconds": seconds,
             "hit": res.nonce, "launches": launches, "device": device,
             "nonce_6_3": res63.nonce, "tried_6_3": res63.hashes_tried,
-            "seconds_6_3": s63}
+            "seconds_6_3": s63, "turns": turns}
+
+
+def direct_sweep(job) -> int:
+    """The sweep's rounds launched straight from this thread, with
+    ``mine()``'s two rounds in flight and its read-back; the hashes
+    tried (the sweep's template has no hit)."""
+    dev = torch.device("cuda")
+    template = tsha.make_template(job.prefix)
+    target = tsha.pack_target(tsha.target_spec(job.previous_hash,
+                                               job.difficulty))
+    end, cursor, tried, inflight = mine_engine.MAX_SEARCH_END, 0, 0, []
+    while cursor < end or inflight:
+        while len(inflight) < 2 and cursor < end:
+            count = min(SEARCH_BATCH, end - cursor)
+            inflight.append((mine_engine._ReadBack(tsha.pow_search(
+                template, target, cursor, count, device=dev)), count))
+            cursor += count
+        handle, count = inflight.pop(0)
+        if int(handle) != SENTINEL:
+            fail("the sweep template hit in a direct round")
+        tried += count
+    return tried
 
 
 def kernel_only_ms(fn, kernel_name: str, calls: int = 20):
@@ -2556,9 +2807,324 @@ def sass_counts(name: str, inside: str = "") -> tuple:
     return len(code), loop
 
 
+# --- phase 23: the device runtime ------------------------------------------
+
+# the walls of the last run before the device runtime (PERF.md run AK,
+# printed by this script on an NVIDIA H100 80GB HBM3 at 700 W), printed
+# beside this run's
+BEFORE_RUNTIME = {"accept_s": 0.597, "node_burst_s": 2.663,
+           "push_block_jac_s": 2.023, "sync_s": 1.919, "gossip_hop_s": 1.932}
+RUNTIME_SOURCES = 32          # sig batches held, then released together
+RUNTIME_BATCH = 256           # checks in each
+FLOOD_ROUNDS = 64             # B2 rounds of 2^24 in the fair-share flood
+COST_CALLS = 1000             # one-check batches timed for the hop's cost
+
+
+def degrade_clean(where: str) -> None:
+    """Fails on any failure the verify path's degrade recorded since its
+    last reset: a degrade that hid a broken kernel fails the run."""
+    snap = txverify.DEGRADE.snapshot()
+    if snap["errors"] or snap["state"] != "ok":
+        fail(f"{where}: the degrade recorded {snap['errors']} failure(s), "
+             f"state {snap['state']}: {snap['last_error']}")
+
+
+def fresh_runtime(dev: torch.device, after: str) -> dict:
+    """Checks the degrade after the phase ``after``, then a fresh device
+    runtime armed on the card, its warm launches made before the next
+    phase resets any count."""
+    degrade_clean(after)
+    truntime.reset_runtime()
+    return truntime.get_runtime(dev).arm()
+
+
+def leaf_checks(txs, pub) -> list:
+    """The signature checks of one-input txs, as check_block collects
+    them: (digest, hex-form digest, signature, key)."""
+    out = []
+    for tx in txs:
+        signing = tx.hex(False)
+        out.append((hashlib.sha256(bytes.fromhex(signing)).digest(),
+                    hashlib.sha256(signing.encode()).digest(),
+                    tx.inputs[0].signature, pub))
+    return out
+
+
+def us_per_call(fn, calls: int) -> float:
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def runtime_arm_line(info: dict, card: str) -> None:
+    bad = [w for w in info["warmed"] if w["status"] != "ok"]
+    if info["platform"] != "cuda" or bad or len(info["warmed"]) < 4:
+        fail(f"runtime arm: {info}")
+    phase("runtime_arm", platform=info["platform"],
+          card_name=json.dumps(info["card"]),
+          probe_seconds=info["probe_seconds"],
+          warmed=json.dumps({w["kernel"]: [w["status"], w["seconds"]]
+                             for w in info["warmed"]}),
+          card=json.dumps(card))
+
+
+def runtime_path(dev: torch.device, block: list, mix: tuple,
+                 card: str) -> dict:
+    """The device runtime on the card: its arm, cross-source coalescing,
+    fair share against a miner flood, its own cost a dispatch, a degrade
+    round trip under injected faults, and the native host batch."""
+    out = {}
+    truntime.reset_runtime()
+    rt = truntime.get_runtime(dev)
+    runtime_arm_line(rt.arm(), card)
+
+    # 1. coalescing: 32 sources' batches of the mix held, then released
+    digests, sigs, pubs, _kinds = mix
+    checks = [(d, d, s, q) for d, s, q in zip(digests, sigs, pubs)]
+    parts = [checks[i * RUNTIME_BATCH:(i + 1) * RUNTIME_BATCH]
+             for i in range(RUNTIME_SOURCES)]
+    txverify.clear_sig_verdicts()
+    p256.reset_counts()
+    d0, s0 = rt.dispatches, rt.submissions
+    t0 = time.perf_counter()
+    with rt.hold():
+        futs = [rt.submit_sig_checks(part, backend="device",
+                                     source=f"src{i:02d}")
+                for i, part in enumerate(parts)]
+    got = [v for f in futs for v in f.result(timeout=300)]
+    held_s = time.perf_counter() - t0
+    launches = p256.LAUNCHES
+    dispatches, submissions = rt.dispatches - d0, rt.submissions - s0
+    want = txverify.run_sig_checks(sum(parts, []), backend="device",
+                                   device=dev, use_cache=False)
+    if got != want:
+        fail("runtime coalescing: the verdicts differ from one direct "
+             "run_sig_checks")
+    if dispatches != 1:
+        fail(f"runtime coalescing: {dispatches} dispatches for "
+             f"{submissions} submissions")
+    phase("runtime_coalescing", submissions=submissions,
+          dispatches=dispatches, checks=len(got), kernel1_launches=launches,
+          valid=sum(got), verdicts_equal_direct=True,
+          seconds=round(held_s, 4), card=json.dumps(card))
+
+    # 2. fair share: 64 B2 rounds queued (source mine) ahead of the
+    # block's micro-batches (source block), held then released, and then
+    # the same with the flood already on the card
+    sweep = sweep_job(point_to_string(curve.keygen(rng=KEY_SEED)[1]))
+    template = tsha.make_template(sweep.prefix)
+    target = tsha.pack_target(tsha.target_spec(sweep.previous_hash,
+                                               sweep.difficulty))
+    round_ms = cuda_ms(lambda: tsha.pow_search(
+        template, target, 0, SEARCH_BATCH, device=dev), reps=5, warm=1)
+    micro = [block[i:i + MICROBATCH] for i in range(0, len(block),
+                                                    MICROBATCH)]
+    served = []
+
+    def round_fn(k: int):
+        def fn():
+            served.append(k)
+            return mine_engine._ReadBack(tsha.pow_search(
+                template, target, k * SEARCH_BATCH, SEARCH_BATCH,
+                device=dev))
+        return fn
+
+    for held in (True, False):
+        txverify.clear_sig_verdicts()
+        served.clear()
+        truntime.reset_runtime()
+        rt = truntime.get_runtime(dev)
+        rt.arm()
+        position = []
+        t0 = time.perf_counter()
+        with (rt.hold() if held else contextlib.nullcontext()):
+            rounds = [rt.submit_call(round_fn(k), kernel="sha256_search",
+                                     source="mine")
+                      for k in range(FLOOD_ROUNDS)]
+            tb = time.perf_counter()
+            blocks = [rt.submit_sig_checks(m, source="block") for m in micro]
+            blocks[0].add_done_callback(
+                lambda _f: position.append(len(served)))
+        verdicts = [v for f in blocks for v in f.result(timeout=300)]
+        block_s = time.perf_counter() - tb
+        until("the block's serve position", lambda: bool(position), 10.0)
+        hits = [int(f.result(timeout=300)) for f in rounds]
+        flood_s = time.perf_counter() - t0
+        if not all(verdicts) or len(verdicts) != len(block):
+            fail("runtime fair share: the block's verdicts are not all true")
+        if any(h != SENTINEL for h in hits):
+            fail(f"runtime fair share: the sweep template hit: {hits}")
+        waits = rt.stats()["queue_waits"]
+        block_wait, mine_wait = max(waits["block"]), max(waits["mine"])
+        if held and (position[0] >= 12 or block_wait >= mine_wait / 4):
+            fail(f"runtime fair share: the block served after "
+                 f"{position[0]} rounds, waiting {block_wait:.4f} s "
+                 f"against the flood's {mine_wait:.4f} s")
+        phase("runtime_fair_share", held=held, mine_rounds=FLOOD_ROUNDS,
+              block_micro_batches=len(micro), block_checks=len(block),
+              rounds_issued_before_block=position[0],
+              block_queue_wait_max_ms=round(block_wait * 1e3, 4),
+              mine_queue_wait_max_ms=round(mine_wait * 1e3, 4),
+              block_submit_to_verdicts_ms=round(block_s * 1e3, 3),
+              flood_s=round(flood_s, 4), round_ms=round(round_ms, 4),
+              dispatches=rt.dispatches, card=json.dumps(card))
+        out["fair_held" if held else "fair_flood"] = {
+            "wait_ms": block_wait * 1e3, "latency_ms": block_s * 1e3,
+            "position": position[0]}
+    out["round_ms"] = round_ms
+
+    # 3. the runtime's own cost: a one-check batch through the runtime
+    # against the same kernel work called directly, and the bare hops
+    one = block[:1]
+    good, bad = txverify._canary_checks()
+    d1 = [one[0][0], good[0], bad[0]]
+    s1 = [one[0][2], good[2], bad[2]]
+    q1 = [one[0][3], good[3], bad[3]]
+
+    def through():
+        txverify.clear_sig_verdicts()
+        if rt.submit_sig_checks(one, backend="device").result(60) != [True]:
+            fail("runtime cost: the one-check batch was not valid")
+
+    def direct():  # pass 1 with the canaries, then the bad canary's pass 2
+        p256.verify_batch_prehashed(d1, s1, q1, device=dev)
+        p256.verify_batch_prehashed([bad[1]], [bad[2]], [bad[3]],
+                                    device=dev)
+
+    cost = {"through_us": us_per_call(through, COST_CALLS),
+            "direct_us": us_per_call(direct, COST_CALLS),
+            "call_hop_us": us_per_call(
+                lambda: rt.submit_call(lambda: None).result(60), COST_CALLS),
+            "boxed_hop_us": us_per_call(
+                lambda: rt.run_boxed(lambda: None, 60.0), COST_CALLS)}
+    cost["runtime_us"] = cost["through_us"] - cost["direct_us"]
+    phase("runtime_cost", calls=COST_CALLS,
+          **{k: round(v, 2) for k, v in cost.items()},
+          card=json.dumps(card))
+    out["cost"] = cost
+
+    # 4. a degrade round trip on the card: three injected device.verify
+    # errors fail three groups (recorded and raised, never served on the
+    # host), the fourth is blocked without a launch, and after the
+    # cooldown one re-probe launches kernel 1 and restores ok
+    groups = [block[1 + 64 * i:1 + 64 * (i + 1)] for i in range(5)]
+    want = txverify.run_sig_checks(groups[4], backend="host", use_cache=False)
+    degrade = txverify.DEGRADE
+    degrade.reset()
+    degrade.configure(3, 1.0)
+    faultinject.install("device.verify:error:times=3", seed=12)
+    trace.reset()
+    p256.reset_counts()
+    txverify.clear_sig_verdicts()
+    states = []
+    try:
+        for i, g in enumerate(groups):
+            if i == 4:
+                time.sleep(1.1)  # the cooldown
+            fut = rt.submit_sig_checks(g, backend="device", source="block")
+            try:
+                got, raised = fut.result(timeout=120), None
+            except (faultinject.FaultInjected, DeviceBlocked) as e:
+                got, raised = None, type(e).__name__
+            if i == 4 and got != want:
+                fail("degrade round trip: the re-probe's verdicts differ "
+                     "from the native batch's")
+            states.append((degrade.state, p256.LAUNCHES, raised))
+    finally:
+        faultinject.uninstall()
+    counters = trace.snapshot()["counters"]
+    if [(s, r) for s, _, r in states] != [
+            ("ok", "FaultInjected"), ("ok", "FaultInjected"),
+            ("degraded", "FaultInjected"), ("degraded", "DeviceBlocked"),
+            ("ok", None)] or states[3][1] != 0 or states[4][1] == 0:
+        fail(f"degrade round trip: states, launches and errors {states}")
+    if counters.get("resilience.device_fallback", 0) < 1 or \
+            counters.get("resilience.device_recovered") != 1:
+        fail(f"degrade round trip: counters {counters}")
+    phase("runtime_degrade", faults="device.verify:error:times=3",
+          failure_limit=3, cooldown_s=1.0,
+          states=json.dumps([s for s, _, _ in states]),
+          raised=json.dumps([r for _, _, r in states]),
+          kernel1_launches=json.dumps([n for _, n, _ in states]),
+          device_error=counters.get("resilience.device_error"),
+          device_degraded=counters.get("resilience.device_degraded"),
+          blocked=counters.get("resilience.device_fallback"),
+          reprobe=counters.get("resilience.device_reprobe"),
+          recovered=counters.get("resilience.device_recovered"),
+          card=json.dumps(card))
+    degrade.reset()
+    degrade.configure(3, 60.0)
+
+    # 5. native on the card's host: host figures, not the card's
+    if native.load() is None:
+        fail("the native library did not build on this machine")
+    cpu_model = next((line.split(":", 1)[1].strip() for line in
+                      Path("/proc/cpuinfo").read_text().splitlines()
+                      if line.lower().startswith(("model name", "cpu model"))),
+                     platform.processor() or platform.machine())
+    tiled = (block * (8192 // len(block) + 1))[:8192]
+    rates = {}
+    for n in (8192, 1024):
+        part = tiled[:n]
+        t0 = time.perf_counter()
+        got = native.p256_verify_batch([c[0] for c in part],
+                                       [c[2] for c in part],
+                                       [c[3] for c in part])
+        rates[n] = n / (time.perf_counter() - t0)
+        if not all(got):
+            fail(f"native batch: {got.count(False)} of {n} honest checks "
+                 "failed")
+    t0 = time.perf_counter()
+    oracle = [txverify._host_verify_digest(c[0], c[2], c[3])
+              for c in tiled[:64]]
+    oracle_rate = 64 / (time.perf_counter() - t0)
+    if not all(oracle):
+        fail("the pure-Python oracle failed an honest check")
+    backend = miner.select_backend("cpu")
+    job = mine_engine.MiningJob.from_header_fields(
+        previous_hash=random.Random(3).randbytes(32).hex(),
+        address=point_to_string(curve.keygen(rng=KEY_SEED)[1]),
+        merkle_root=hashlib.sha256(b"native").hexdigest(),
+        timestamp=1_760_000_000, difficulty="3")
+    kw = dict(start=0, stride_end=1 << 17, batch=1 << 15)
+    res = mine_engine.mine(job, backend, **kw)
+    plain = mine_engine.mine(job, "torch", **kw)
+    if backend != "native" or (res.nonce, res.hashes_tried) != (
+            plain.nonce, plain.hashes_tried) or res.nonce is None:
+        fail(f"the cpu miner ({backend}): {res} against the plain "
+             f"search's {plain}")
+    phase("runtime_native_host", host_cpu=json.dumps(cpu_model),
+          host_threads=os.cpu_count(), openmp=native.OPENMP,
+          sigs_per_s_8192=round(rates[8192], 1),
+          sigs_per_s_1024=round(rates[1024], 1),
+          oracle_sigs_per_s_64=round(oracle_rate, 1),
+          cpu_miner=backend, cpu_miner_nonce=res.nonce,
+          cpu_miner_hashes=res.hashes_tried, equal_to_plain_search=True,
+          figures="host")
+    out["native"] = {"8192": rates[8192], "1024": rates[1024],
+                     "oracle": oracle_rate, "cpu": cpu_model}
+    truntime.reset_runtime()
+    return out
+
+
+def runtime_only(dev: torch.device) -> None:
+    """``--only runtime_path``: the phase on a block of 8,160 one-input
+    txs signed over synthetic outpoints (no chain is built)."""
+    kit = Kit(curve.keygen(rng=KEY_SEED))
+    rng = random.Random(0xB10C)
+    txs = [kit.spend([(rng.randbytes(32).hex(), 0)],
+                     [TxOutput(kit.addr, 1 + i)]) for i in range(FAN * PER)]
+    runtime_path(dev, leaf_checks(txs, kit.pub), signature_mix(LANES),
+                 tdevice.card_line())
+    degrade_clean("runtime_path")
+
+
 # the kernel phases that need no chain, by the name ``--only`` takes
 KERNEL_PHASES = {"utxo_probe": probe_phase,
-                 "txid_ragged": txid_ragged_phase}
+                 "txid_ragged": txid_ragged_phase,
+                 "runtime_path": runtime_only}
 
 
 def main() -> int:
@@ -2598,6 +3164,10 @@ def main() -> int:
             KERNEL_PHASES[name](dev)
         print("chip_smoke: partial run; no result", flush=True)
         return 0
+    # every device dispatch of the paths below goes through the device
+    # runtime; each path gets a fresh one, armed before its counts reset,
+    # and the degrade must have recorded no failure after any of them
+    runtime_arm_line(fresh_runtime(dev, "the build"), card)
     mix = signature_mix(LANES)
     record = kernel_phase(dev, mix)
     w5_record = w5_phase(dev, mix)
@@ -2611,22 +3181,34 @@ def main() -> int:
     clock.freeze(int(time.time()) - 3600)
     with tempfile.TemporaryDirectory() as tmp:
         workdir = Path(tmp)
+        fresh_runtime(dev, "the kernel phases")
         leaves, content, setup_s = asyncio.run(build_chain(
             dev, kit, str(workdir / "base.db")))
+        fresh_runtime(dev, "build_chain")
         res = asyncio.run(accept_path(dev, kit, str(workdir / "base.db"),
                                       leaves, content))
+        fresh_runtime(dev, "accept_path")
         resident = asyncio.run(accept_resident_path(
             dev, kit, str(workdir / "base.db"), leaves, content))
+        fresh_runtime(dev, "accept_resident")
         res_w5 = accept_w5(dev, kit, str(workdir / "base.db"), leaves,
                            content, res["utxo_hash"])
+        fresh_runtime(dev, "main_path_w5")
         mverify = mesh_verify_phase(dev, kit, str(workdir / "base.db"),
                                     leaves, content, res["utxo_hash"], mix)
+        fresh_runtime(dev, "mesh_verify")
         msearch = mesh_search_phase(dev, kit, workdir)
+        fresh_runtime(dev, "mesh_search")
         nres = node_path(dev, kit, workdir, leaves)
-        pushes = {k: push_block_path(dev, kit, workdir, leaves, content, k)
-                  for k in ("complete", "jac")}
+        pushes, last = {}, "node_path"
+        for k in ("complete", "jac"):
+            fresh_runtime(dev, last)
+            pushes[k] = push_block_path(dev, kit, workdir, leaves, content, k)
+            last = "push_block " + k
+        fresh_runtime(dev, last)
         pushed_resident = push_block_resident_path(dev, kit, workdir, leaves,
                                                    content)
+        fresh_runtime(dev, "push_block_resident")
         txid_record = txid_phase(dev, {
             "micro_batch": micro_batch_payloads(leaves),
             "sync_page": page_payloads(str(workdir / "push_jac.db")),
@@ -2634,13 +3216,20 @@ def main() -> int:
         txid_crossover(dev, micro_batch_payloads(leaves, len(leaves)))
         # the server: the chain with the 8,160-tx block, as the jac
         # push_block left it
+        fresh_runtime(dev, "the txid phases")
         server = NodeThread(dev, str(workdir / "push_jac.db"), "jac")
         try:
             synced = sync_path(dev, workdir, server)
             reorged = reorg_path(dev, kit, workdir, server)
         finally:
             server.close()
+        fresh_runtime(dev, "sync and reorg")
         gossiped = gossip_path(dev, kit, workdir, leaves, content)
+        degrade_clean("gossip_path")
+        shared = shared_card_path(dev, workdir, leaves, content, card)
+        degrade_clean("shared_card")
+        runtime = runtime_path(dev, leaf_checks(leaves, kit.pub), mix, card)
+        fresh_runtime(dev, "runtime_path")
     clock.reset()
     txid_record["launches"] = synced["b5"]
     w5_record["launches"] = res_w5["by_window"][5]
@@ -2784,10 +3373,27 @@ def main() -> int:
           mh_s=round(rate["tried"] / rate["seconds"] / 1e6, 1),
           launches=rate["launches"], hit=rate["hit"], card=json.dumps(card),
           torch=torch.__version__, cuda=torch.version.cuda)
+    phase("hashrate_turns", profiled_runtime_gh_s=round(
+        rate["tried"] / rate["seconds"] / 1e9, 4),
+          turns_gh_s=json.dumps(rate["turns"]), card=json.dumps(card))
     device_phase("hashrate_device_profile", rate["device"], rate["seconds"])
     phase("difficulty_6_3", nonce=rate["nonce_6_3"], hashlib_checked=True,
           hashes=rate["tried_6_3"], seconds=round(rate["seconds_6_3"], 4))
+    fresh_runtime(dev, "hashrate")
     multihost_phase(point_to_string(key[1]))
+    degrade_clean("multihost")
+    walls = {"accept_s": res["accept_s"], "node_burst_s": nres["burst_s"],
+             "push_block_jac_s": pushes["jac"]["wall_s"],
+             "sync_s": synced["wall_s"], "gossip_hop_s": g["hop_s"]}
+    phase("walls_vs_before_runtime",
+          **{k: f"{round(v, 3)}/{BEFORE_RUNTIME[k]}"
+             for k, v in walls.items()},
+          accept_resident_s=round(resident["accept_s"], 3),
+          sweep_gh_s=round(rate["tried"] / rate["seconds"] / 1e9, 4),
+          runtime_us_a_dispatch=round(runtime["cost"]["runtime_us"], 2),
+          push_block_swept_s=round(shared["swept"]["push_s"], 3),
+          sync_swept_s=round(shared["swept"]["sync_s"], 3),
+          card=json.dumps(card))
 
     # kernels 3 and 4 of the TPU package are one CUDA kernel: one record
     # for each TPU kernel it replaces, with the same measurements

@@ -6,8 +6,9 @@ the port reads, or raise the same error with the same text.  A key of
 the JAX schema that the port does not read yet is skipped; any other key
 raises the JAX package's ``KeyError`` (``unknown config section <s>``,
 ``unknown config field <s>.<f>``), in a file and in an override alike.
-The peer, gossip and resilience fields of the port's ``NodeConfig`` and
-``ResilienceConfig`` are held one by one, from a file and from
+The peer, gossip, resilience, degrade and device-runtime fields of the
+port's ``NodeConfig``, ``ResilienceConfig``, ``DeviceConfig`` and
+``DeviceRuntimeConfig`` are held one by one, from a file and from
 ``UPOW_<SECTION>_<FIELD>``.
 """
 
@@ -42,6 +43,15 @@ NEW_FIELDS = [
     ("resilience", "faults", "rpc:error:p=0.5;rpc.push_tx:latency:delay=0.1",
      "rpc:error:p=0.5;rpc.push_tx:latency:delay=0.1"),
     ("resilience", "faults_seed", 9, "9"),
+    ("resilience", "device_failure_limit", 9, "9"),
+    ("resilience", "device_cooldown", 1.0, "1.0"),
+    ("device", "verify_pad_block", 64, "64"),
+    ("device", "verify_device_timeout", 30.0, "30"),
+    ("device_runtime", "arm_timeout", 5.0, "5"),
+    ("device_runtime", "aot_warm", False, "0"),
+    ("device_runtime", "weights", "block=8,mine=1", "block=8,mine=1"),
+    ("device_runtime", "queue_max", 16, "16"),
+    ("device_runtime", "max_coalesce", 4, "4"),
 ]
 
 
@@ -99,8 +109,8 @@ def test_unknown_override_raises_the_jax_error(tmp_path, overrides, want):
     ("cache", "enabled", False),
     ("mempool", "allow_rbf", True),
     ("mempool", "enabled", False),
-    ("resilience", "device_failure_limit", 9),
-    ("resilience", "device_cooldown", 1.0),
+    ("device_runtime", "compile_cache_dir", "cache"),
+    ("device", "search_backend", "jnp"),
     ("telemetry", "debug_endpoints", False),
 ])
 def test_known_key_the_port_does_not_read_is_skipped(tmp_path, how, section,
@@ -143,3 +153,13 @@ def test_schema_is_the_jax_schema():
     want = {s.name: tuple(f.name for f in dataclasses.fields(
         getattr(jax, s.name))) for s in dataclasses.fields(jax)}
     assert tconfig.JAX_SCHEMA == want
+
+
+def test_runtime_weights_parse_as_the_jax_ones():
+    for text in ("block=4, mine = 1,bad", tconfig.DeviceRuntimeConfig.weights,
+                 "a=0,b=-3,c=7"):
+        got = tconfig.DeviceRuntimeConfig(weights=text).parsed_weights()
+        assert got == jconfig.DeviceRuntimeConfig(
+            weights=text).parsed_weights()
+    with pytest.raises(ValueError, match="must be an integer"):
+        tconfig.DeviceRuntimeConfig(weights="block=x").parsed_weights()

@@ -7,8 +7,10 @@ JAX node's server; the port's node serves on the standard library) and
 ``filelock`` (the JAX peer book's lock; the port's is ``fcntl``), then
 imports every module of the port, and ``chip_smoke.py`` with it.  A second
 subprocess starts the port's node under the same finder, with its
-resident UTXO index armed on the CPU, and serves a request; a third builds a two-block chain on one port node and syncs a
-second from it over HTTP (``node/peers.py``'s client).
+resident UTXO index armed on the CPU, and serves requests (``/`` with
+its degrade state and device runtime); a third builds a two-block chain
+on one port node and syncs a second from it over HTTP
+(``node/peers.py``'s client).
 """
 
 import os
@@ -56,6 +58,10 @@ def serve():
             assert status == 200 and json.loads(body)["ok"], body
             status, body = await fetch(base + "/push_tx", "POST", b"{}")
             assert status == 422, body
+            status, body = await fetch(base + "/")
+            counters = json.loads(body)["counters"]
+            assert counters["device_health"]["state"] == "ok", counters
+            assert counters["device_runtime"]["device"] == "cpu", counters
         finally:
             await node.close()
     asyncio.run(main())
@@ -145,7 +151,8 @@ def test_every_port_module_imports_without_jax():
                  "node.ipfilter", "node.run", "state.device_index",
                  "parallel.mesh", "mine.mesh_engine", "resilience",
                  "resilience.policy", "resilience.breaker",
-                 "resilience.faultinject"):
+                 "resilience.faultinject", "resilience.degrade",
+                 "device.runtime", "native"):
         assert "upow_tpu_torch." + must in names, must
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(

@@ -489,10 +489,17 @@ def test_mempool_gc_matches_jax(tmp_path):
 
 
 def test_kernel_failure_is_no_reject(tmp_path, monkeypatch):
-    """A complete kernel that fails to build or launch reaches the
+    """On a card, a complete kernel that fails to launch reaches the
     client as the node's 500 envelope, never as the invalid-tx reject:
-    the tx is not admitted and not verified some other way, and once the
-    kernel works again the same tx is accepted."""
+    the tx is not admitted and not verified some other way, the degrade
+    records the failure (in ``txverify.DEGRADE`` and the node's ``/``),
+    and once the kernel works again the same tx is accepted.  The card's
+    rule runs here on the plain version (``host_may_serve`` answers as
+    for a card).  A runtime that failed to arm its device also reaches
+    the client as the 500 envelope."""
+    from upow_tpu_torch.device import runtime as truntime
+    from upow_tpu_torch.verify import txverify as ttxverify
+
     leaves = _build_chain(tmp_path / "chain.db")
     PORT.clock.freeze(T0 + 600)
     shutil.copyfile(tmp_path / "chain.db", tmp_path / "port.db")
@@ -503,28 +510,65 @@ def test_kernel_failure_is_no_reject(tmp_path, monkeypatch):
 
     def broken(packed):
         calls["broken"] += 1
-        raise RuntimeError("nvcc failed for p256_complete")
+        raise RuntimeError("launch failed for p256_complete")
+
+    def arm_fails(self, *a, **k):
+        raise truntime.ArmError("device runtime failed to arm cpu: nvcc")
+
+    ttxverify.DEGRADE.reset()
+    truntime.reset_runtime()
 
     async def main():
         tnode = tapp.Node(tcfg, device="cpu")
         tserver = await tnode.serve("127.0.0.1", 0)
-        url = f"http://127.0.0.1:{tserver.port}/push_tx"
-        tx = Chain(PORT, tnode.state).spend([leaves[0]])
+        base = f"http://127.0.0.1:{tserver.port}/"
+        chain = Chain(PORT, tnode.state)
+        tx, tx2 = chain.spend([leaves[0]]), chain.spend([leaves[1]])
+        counts = []
         try:
             async with aiohttp.ClientSession() as session:
+                monkeypatch.setattr(ttxverify, "host_may_serve",
+                                    lambda device=None: False)
                 monkeypatch.setattr(p256, "verify_complete_packed", broken)
-                async with session.post(url, json={"tx_hex": tx.hex()}) as r:
+                async with session.post(base + "push_tx",
+                                        json={"tx_hex": tx.hex()}) as r:
                     failed = (r.status, await r.json())
-                pending = await tnode.state.get_pending_transactions_count()
+                counts.append(
+                    await tnode.state.get_pending_transactions_count())
+                async with session.get(base) as r:
+                    health = (await r.json())["counters"]["device_health"]
                 monkeypatch.setattr(p256, "verify_complete_packed", real)
-                async with session.post(url, json={"tx_hex": tx.hex()}) as r:
+                async with session.post(base + "push_tx",
+                                        json={"tx_hex": tx.hex()}) as r:
                     again = (r.status, await r.json())
-            return failed, pending, again
+                truntime.reset_runtime()
+                monkeypatch.setattr(truntime.DeviceRuntime, "arm", arm_fails)
+                async with session.post(base + "push_tx",
+                                        json={"tx_hex": tx2.hex()}) as r:
+                    unarmed = (r.status, await r.json())
+                counts.append(
+                    await tnode.state.get_pending_transactions_count())
+                monkeypatch.undo()
+                truntime.reset_runtime()
+                async with session.post(base + "push_tx",
+                                        json={"tx_hex": tx2.hex()}) as r:
+                    armed = (r.status, await r.json())
+            return failed, health, again, unarmed, counts, armed
         finally:
             await tnode.close()
 
-    failed, pending, again = asyncio.run(main())
+    try:
+        failed, health, again, unarmed, counts, armed = asyncio.run(main())
+    finally:
+        ttxverify.DEGRADE.reset()
+        truntime.reset_runtime()
     assert failed == (500, {"ok": False,
                             "error": "Uncaught RuntimeError exception"})
-    assert calls["broken"] == 1 and pending == 0
+    assert calls["broken"] == 1 and counts[0] == 0
+    assert health["state"] == "ok" and health["errors"] == 1
+    assert "launch failed for p256_complete" in health["last_error"]
     assert again[0] == 200 and again[1]["ok"], again
+    assert unarmed == (500, {"ok": False,
+                             "error": "Uncaught ArmError exception"})
+    assert counts[1] == 1
+    assert armed[0] == 200 and armed[1]["ok"], armed

@@ -12,7 +12,10 @@ The node's write path, with the reads a miner needs:
       push_tx -> mempool.intake.IntakeCoordinator (coalesced batches)
       push_block -> verify.block.BlockManager.check_block / create_block
       -> verify.dispatch.SigDispatchFront (micro-batch coalescing)
-      -> verify.txverify.run_sig_checks (verdict cache, canaries, retry)
+      -> device.runtime.DeviceRuntime (one owner a card: its arm,
+         weighted fair share of sources, cross-source coalescing)
+      -> verify.txverify.run_sig_checks (verdict cache, canaries, retry;
+         the degrade, and the native C++ batch as the host path)
       -> crypto.p256.verify_batch_prehashed (VERIFY_KERNEL)
       -> csrc/p256_verify.cu (scalar prep + Jacobian ladder, one launch)
          or csrc/p256_complete.cu (scalar prep + RCB16 complete ladder)
@@ -22,6 +25,7 @@ package).  The miner:
 
     mine.miner (CLI: get_mining_info, build_job, push_block)
       -> mine.engine.mine (depth-2 pipelined rounds, TTL, hashlib check)
+      -> device.runtime.DeviceRuntime (source "mine")
       -> crypto.sha256.pow_search
       -> csrc/sha256_search.cu (one compression per nonce, least hit)
 

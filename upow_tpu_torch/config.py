@@ -89,6 +89,13 @@ class DeviceConfig:
 
     sig_backend: str = "auto"       # auto | device | host ("tpu", the JAX
                                     # package's name, means the device)
+    verify_pad_block: int = 128     # part of the signature dispatch's
+                                    # coalescing key, as in the JAX
+                                    # package; the port's kernels take
+                                    # any lane count and pad nothing
+    verify_device_timeout: float = 240.0  # seconds a boxed device verify
+                                    # may take before the degrade
+                                    # poisons the device path
     search_batch: int = 1 << 24     # nonces per device dispatch
     verify_kernel: str = ""         # "" = default (jac) | jac | complete
     verify_window: int = 0          # 0 = default (4) | 4 | 5: the jac
@@ -147,6 +154,55 @@ class DeviceConfig:
 
 
 @dataclass
+class DeviceRuntimeConfig:
+    """The per-process device runtime (``device/runtime.py``).
+    Operational only: the runtime changes who shares a dispatch, never
+    what is computed.  Every field is overridable as
+    ``UPOW_DEVICE_RUNTIME_<FIELD>``.  The JAX package's
+    ``compile_cache_dir`` (its persistent XLA cache) has no counterpart
+    and is skipped."""
+
+    arm_timeout: float = 90.0       # the arm's deadline: the kernels'
+                                    # build, load and warm launches
+    aot_warm: bool = True           # one warm launch of each kernel at
+                                    # arm time (on a card only)
+    weights: str = ("block=4,index=3,mempool=2,verify=2,"
+                    "mine=1,bench=1,other=1")
+                                    # fair-share weights per source; a
+                                    # served item charges cost/weight to
+                                    # its source's virtual pass, so
+                                    # block verify outruns a saturating
+                                    # miner stream 4:1
+    queue_max: int = 8192           # per-source pending-item cap;
+                                    # overflow raises (backpressure)
+    max_coalesce: int = 64          # sig submissions merged into one
+                                    # shared dispatch
+
+    def parsed_weights(self) -> dict:
+        weights = {}
+        for part in self.weights.split(","):
+            name, _, raw = part.strip().partition("=")
+            name, raw = name.strip(), raw.strip()
+            if name and raw:
+                try:
+                    weights[name] = max(1, int(raw))
+                except ValueError:
+                    raise ValueError(
+                        f"device_runtime.weights entry {part!r}: weight "
+                        f"must be an integer") from None
+        return weights
+
+    @classmethod
+    def from_env(cls) -> "DeviceRuntimeConfig":
+        """Defaults and ``UPOW_DEVICE_RUNTIME_*`` overrides: the runtime
+        arms before any Config exists, so it reads the environment
+        itself."""
+        cfg = cls()
+        _apply_env_fields(cfg, "device_runtime")
+        return cfg
+
+
+@dataclass
 class MempoolConfig:
     """Micro-batched mempool subsystem (upow_tpu_torch/mempool/).
 
@@ -174,8 +230,8 @@ class MempoolConfig:
 
 @dataclass
 class ResilienceConfig:
-    """Retries, deadlines and per-peer circuit breakers of outbound RPC
-    (resilience/), and fault injection at its ``rpc.<path>`` sites.
+    """Retries, deadlines and per-peer circuit breakers of outbound RPC,
+    the device path's degrade (resilience/), and fault injection.
     Operational only: nodes with different settings stay bit-identical
     on chain state."""
 
@@ -190,6 +246,9 @@ class ResilienceConfig:
     breaker_failure_threshold: int = 5   # consecutive failures -> open
     breaker_open_secs: float = 30.0      # open -> half-open probe delay
     breaker_half_open_max: int = 1       # trial calls while half-open
+    device_failure_limit: int = 3   # consecutive device verify errors
+                                    # -> degraded (resilience/degrade.py)
+    device_cooldown: float = 60.0   # degraded -> re-probe interval
     faults: str = ""                # fault spec (resilience/faultinject.py);
                                     # empty = no injection
     faults_seed: int = 0
@@ -228,6 +287,8 @@ class NodeConfig:
 @dataclass
 class Config:
     device: DeviceConfig = field(default_factory=DeviceConfig)
+    device_runtime: DeviceRuntimeConfig = field(
+        default_factory=DeviceRuntimeConfig)
     node: NodeConfig = field(default_factory=NodeConfig)
     mempool: MempoolConfig = field(default_factory=MempoolConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
@@ -262,7 +323,8 @@ def _unread(section: str, fname: str) -> bool:
     return sub is None or fname not in {f.name for f in dataclasses.fields(sub)}
 
 
-_SECTIONS = {"device": DeviceConfig, "node": NodeConfig,
+_SECTIONS = {"device": DeviceConfig, "device_runtime": DeviceRuntimeConfig,
+             "node": NodeConfig,
              "mempool": MempoolConfig, "resilience": ResilienceConfig}
 
 

@@ -352,7 +352,8 @@ _LIB_LOCK = threading.Lock()
 # each library's launch entry and its ctypes argument types
 _ENTRIES = {
     "sha256_search": ("sha256_search_launch", [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p]),
     "sha256_blocks": ("sha256_blocks_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
@@ -397,10 +398,14 @@ def pow_search(template: SearchTemplate, target, nonce_base: int, count: int,
     if count == 0:
         return out
     lib = _kernel_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.sha256_search_launch(args.ctypes.data, args.size,
-                                      out.data_ptr(), stream)
+    index = out.get_device()
+    launch_args = (args.ctypes.data, args.size, out.data_ptr(), index,
+                   raw_stream(index))
+    if current_index() == index:
+        rc = lib.sha256_search_launch(*launch_args)
+    else:
+        with torch.cuda.device(index):
+            rc = lib.sha256_search_launch(*launch_args)
     if rc != 0:
         raise RuntimeError(f"sha256_search launch failed: CUDA error {rc}")
     with _COUNT_LOCK:

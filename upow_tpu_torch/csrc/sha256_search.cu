@@ -34,6 +34,7 @@
 // every nonce, those that do not depend on it too: about 1,580 SASS
 // instructions a nonce for sm_90a, where the bound counts about 1,110.
 
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
@@ -108,27 +109,36 @@ __global__ void __launch_bounds__(SEARCH_THREADS)
 }
 
 // args: ARG_WORDS host words (crypto/sha256.py::kernel_args); out: a device
-// word holding 0xFFFFFFFF.  Launches on `stream` and returns the CUDA error
-// of the launch (0 on success); it does not synchronise.
+// word holding 0xFFFFFFFF; the current device must be `device`.  Launches on
+// `stream` and returns the CUDA error of the launch (0 on success); it does
+// not synchronise.  The grid's wave (SMs times resident blocks an SM) is
+// asked of the runtime at the first launch on a device and kept, as the
+// txid and probe kernels do: a miner's round makes no runtime query.
+#define SEARCH_MAX_DEVICES 64
 extern "C" int sha256_search_launch(const u32* args, int words, void* out,
-                                    void* stream) {
-  if (words != (int)(sizeof(SearchArgs) / sizeof(u32)))
+                                    int device, void* stream) {
+  static std::atomic<int> wave_cache[SEARCH_MAX_DEVICES];
+  if (words != (int)(sizeof(SearchArgs) / sizeof(u32)) || device < 0
+      || device >= SEARCH_MAX_DEVICES)
     return (int)cudaErrorInvalidValue;
   SearchArgs a;
   std::memcpy(&a, args, sizeof a);
   if (a.count == 0) return 0;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sha256_search_kernel, SEARCH_THREADS, 0);
-  if (err != cudaSuccess) return (int)err;
+  int wave = wave_cache[device].load(std::memory_order_relaxed);
+  if (wave == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, sha256_search_kernel, SEARCH_THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    wave = sms * (per_sm > 0 ? per_sm : 1);
+    wave_cache[device].store(wave, std::memory_order_relaxed);
+  }
   // one resident wave of blocks; the grid-stride loop covers the rest
   const u64 need = ((u64)a.count + SEARCH_THREADS - 1) / SEARCH_THREADS;
-  const u64 wave = (u64)sms * (u64)(per_sm > 0 ? per_sm : 1);
-  const int blocks = (int)(need < wave ? need : wave);
+  const int blocks = (int)(need < (u64)wave ? need : (u64)wave);
   sha256_search_kernel<<<blocks, SEARCH_THREADS, 0, (cudaStream_t)stream>>>(
       a, (u32*)out);
   return (int)cudaGetLastError();

@@ -4,6 +4,7 @@ The entry points (``BlockManager``, ``verify_batch_prehashed``) run on
 ``torch.device("cuda")`` unless the caller passes ``device="cpu"``.
 Without a CUDA device and without an explicit ``"cpu"`` they raise: a
 node that asked for the card never carries on quietly on the host.
+:mod:`.runtime` is the one owner of each device's dispatches.
 """
 
 from __future__ import annotations

@@ -7,24 +7,27 @@ host-side rule checks on its own, and every surviving signature check of
 the whole batch goes to P-256 verification in ONE submission to the
 shared dispatch front (verify/dispatch.py): N concurrent requests cost
 one verify call, and an intake batch landing while block verify is in
-flight shares ITS call too.  Under the ``auto`` policy a batch of 8
+flight shares ITS call too; the front hands it to the device runtime
+with ``source="mempool"``.  Under the ``auto`` policy a batch of 8
 checks or more runs on the device, through the kernel that
-``device.verify_kernel`` selects (crypto/p256.py ``VERIFY_KERNEL``);
-smaller ones take the host oracle.
+``device.verify_kernel`` selects (crypto/p256.py ``VERIFY_KERNEL``),
+while the degrade allows it; smaller ones take the native host batch.
 
 Wire compatibility is the hard constraint: every waiter resolves with a
 result dict byte-identical to the JAX node's serial path
 (``Node._verify_and_push_tx`` there, under ``mempool.enabled = False``):
 same strings, same order of precedence between rejection reasons
 (coinbase/unsigned, dedup cache, banned address, already pending,
-rule/signature failure).  A failure that is no verdict (a kernel that
-does not build or launch on the card, a state read) is never answered
-as a reject: every waiter of the batch re-raises it, and the node
-answers with its 500 envelope.
+rule/signature failure).  A failure that is no verdict (a runtime that
+failed to arm its card, a state read) is never answered as a reject:
+every waiter of the batch re-raises it, and the node answers with its
+500 envelope.  A device verify that raises is the degrade's to serve on
+the host (verify/txverify.py).
 
-Left out until the resilience package is ported (ROADMAP.md): the JAX
-intake's ``mempool.intake`` fault-injection site, and the cross-task
-trace attribution of the telemetry package.
+The ``mempool.intake`` fault site fires once a batch (keyed by its
+size); an injected fault rejects the whole batch, as in the JAX node.
+Left out until the telemetry package is ported (ROADMAP.md): the JAX
+intake's cross-task trace attribution.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import time
 from typing import Dict, List, Optional
 
 from .. import trace
+from ..resilience.faultinject import FaultInjected, get_injector
 from ..verify.dispatch import get_front
 from .pool import MempoolEntry
 
@@ -170,6 +174,16 @@ class IntakeCoordinator:
         trace.inc("mempool.intake_txs", len(batch))
         trace.observe("mempool.intake_batch_size", len(batch))
 
+        injector = get_injector()
+        if injector is not None:
+            try:
+                await injector.fire("mempool.intake", key=str(len(batch)))
+            except FaultInjected:
+                trace.inc("mempool.intake_faults")
+                for req in batch:
+                    self._resolve(req, _reject(ERR_NOT_ADDED))
+                return
+
         # pull in other journal writers (block accept) before membership
         # checks: the pool is the intake authority.  stamp0 anchors the
         # end-of-batch reconcile.
@@ -227,14 +241,15 @@ class IntakeCoordinator:
             flat.extend(req.checks)
         verdicts: List[bool] = []
         if flat:
-            # a kernel that fails to build or launch raises out of the
-            # batch (see _process): no verdict is guessed
+            # a runtime that failed to arm raises out of the batch (see
+            # _process): no verdict is guessed
+            dev = node.config.device
             with trace.span("mempool.sig_dispatch", n=len(flat)):
                 verdicts = await get_front().submit(
-                    flat, backend=node.config.device.sig_backend,
-                    device=node.device,
-                    mesh_devices=node.config.device.mesh_devices,
-                    source="mempool")
+                    flat, backend=dev.sig_backend, device=node.device,
+                    pad_block=dev.verify_pad_block,
+                    device_timeout=dev.verify_device_timeout,
+                    mesh_devices=dev.mesh_devices, source="mempool")
 
         # -- phase C: finalize in batch order ------------------------------
         claimed: Dict[tuple, str] = {}  # intra-batch outpoint claims

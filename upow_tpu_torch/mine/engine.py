@@ -11,12 +11,16 @@ Backends (SEARCH_BACKENDS):
     torch   — its plain PyTorch version, on the CPU
     mesh    — each round split over a mesh of cards (mesh_engine.py,
               parallel/mesh.py); ``device="cpu"`` meshes the plain version
+    native  — the C++ midstate loop on the host (``native/``)
     python  — hashlib loop (reference-shaped oracle)
 
-The JAX package's ``native`` (C++ host loop) comes with ROADMAP A7 and
-raises NotImplementedError until then.  Its dispatches go through the
-device runtime (``_through_runtime``); the port has no runtime yet (A7),
-so rounds are launched directly.
+Every round of a tensor backend is issued through the device runtime
+(``_through_runtime``: source ``mine``, kernel ``sha256_search``, or
+``sha256_search_mesh`` from the mesh engine), so miner rounds share the
+card fairly with verify and index batches.  The closure launches and
+returns the round's handle without synchronising; the miner thread
+waits on the handle, so the pipelining depth of :func:`mine` keeps its
+overlap.
 """
 
 from __future__ import annotations
@@ -29,29 +33,19 @@ from typing import Callable, Optional
 
 import torch
 
-from ..core.difficulty import check_pow_hash
+from ..core.difficulty import check_pow_hash, pow_target
 from ..core.header import BlockHeader
 from ..crypto import sha256 as sha_kernel
 from ..device import DeviceLike, resolve
+from ..device.runtime import get_runtime
 
-SEARCH_BACKENDS = ("cuda", "torch", "mesh", "python")
-# Backend names of the JAX package that the port does not have yet, with
-# the ROADMAP.md item that brings each.
-LATER_BACKENDS = {
-    "native": "ROADMAP A7 (the C++ host search comes with the device "
-              "runtime and the native host batch)",
-}
+SEARCH_BACKENDS = ("cuda", "torch", "mesh", "native", "python")
 
 
 def check_search_backend(name: str) -> str:
-    """``name`` if the port has that backend; NotImplementedError naming
-    its ROADMAP item for a JAX backend still to come; ValueError else."""
+    """``name`` if the port has that backend; ValueError else."""
     if name in SEARCH_BACKENDS:
         return name
-    if name in LATER_BACKENDS:
-        raise NotImplementedError(
-            f"search backend {name!r} is not ported yet: "
-            f"{LATER_BACKENDS[name]}")
     raise ValueError(f"unknown search backend {name!r}")
 
 
@@ -148,17 +142,46 @@ def _make_dispatcher(job: MiningJob, backend: str, mesh_devices: int = 0,
     target = sha_kernel.pack_target(
         sha_kernel.target_spec(job.previous_hash, job.difficulty))
 
-    def dispatch(start: int, count: int):
+    def launch(start: int, count: int):
         out = sha_kernel.pow_search(template, target, start, count,
                                     device=device)
         return _ReadBack(out) if device.type == "cuda" else out
+
+    return _through_runtime(launch, "sha256_search", device)
+
+
+def _through_runtime(launch: Callable, kernel: str,
+                     device: DeviceLike) -> Callable:
+    """``launch`` issued by ``device``'s runtime (source ``mine``): the
+    drainer launches and returns the round's handle at once, and the
+    miner thread blocks on ``int()`` of it, not the drainer."""
+    runtime = get_runtime(device)
+
+    def dispatch(start: int, count: int):
+        return runtime.submit_call(lambda: launch(start, count),
+                                   kernel=kernel, source="mine").result()
 
     return dispatch
 
 
 def _make_searcher(job: MiningJob, backend: str) -> Callable[[int, int], Optional[int]]:
-    """For the ``python`` backend: search(start, count) -> first hit
-    nonce or None, one hashlib call per nonce."""
+    """For the host backends: search(start, count) -> first hit nonce or
+    None; ``native`` is the C++ loop, ``python`` one hashlib call per
+    nonce."""
+    if backend == "native":
+        from .. import native
+
+        if native.load() is None:
+            raise RuntimeError("native backend requested but no C++ "
+                               "toolchain built it")
+        prefix_hex, _, charset = pow_target(job.previous_hash,
+                                            job.difficulty)
+
+        def search(start: int, count: int) -> Optional[int]:
+            return native.pow_search(job.prefix, prefix_hex, charset,
+                                     start, count)
+
+        return search
     if backend != "python":
         raise ValueError(f"{backend!r} has no host searcher")
 

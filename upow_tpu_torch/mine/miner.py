@@ -13,10 +13,11 @@ multi-host scale-out story (each shard is one device or one host; no
 communication needed until a hit).
 
 ``--device cuda`` (the default) searches with the hand-written kernel on
-the card and raises without one; ``--device cpu`` runs its plain PyTorch
-version (the JAX package's C++ host loop, ``native``, is ROADMAP A7);
-``--device mesh`` splits each round over ``device.mesh_devices`` cards
-(``UPOW_DEVICE_MESH_DEVICES``, 0 = all visible).  With
+the card and raises without one; ``--device cpu`` runs the C++ host loop
+(``native``), or the kernel's plain PyTorch version (``torch``) where no
+g++ builds the native library; ``--device mesh`` splits each round over
+``device.mesh_devices`` cards (``UPOW_DEVICE_MESH_DEVICES``, 0 = all
+visible).  With
 ``UPOW_COORDINATOR_ADDRESS`` (and ``WORLD_SIZE``, ``RANK``) set and no
 ``--shard``, the process joins a ``torch.distributed`` run and mines its
 slot of the plan.
@@ -84,13 +85,15 @@ def push_block(node: str, block_content: str, txs: list, block_no: int) -> dict:
 
 def select_backend(device: str) -> str:
     """``--device`` -> search backend: ``cuda``/``gpu`` the kernel,
-    ``cpu`` its plain version, or an explicit backend name
-    (``cuda|torch|mesh|python``).  ``native`` raises NotImplementedError
-    naming its ROADMAP item."""
+    ``cpu`` the native C++ loop (its plain PyTorch version where the
+    native library does not build), or an explicit backend name
+    (``cuda|torch|mesh|native|python``)."""
     if device == "gpu":
         return "cuda"
     if device == "cpu":
-        return "torch"
+        from .. import native
+
+        return "native" if native.load() is not None else "torch"
     try:
         return check_search_backend(device)
     except ValueError:
@@ -98,10 +101,12 @@ def select_backend(device: str) -> str:
 
 
 def _runtime_arm_reason() -> Optional[str]:
-    """The device runtime's arm-failure reason, for the watchdog's exit
-    message.  The port has no device runtime yet (ROADMAP A7), so there
-    is never one."""
-    return None
+    """The device runtime's recorded ``arm_failure_reason``, read WITHOUT
+    blocking: the watchdog fires exactly when dispatches are stuck, so it
+    must not wait on an arm.  None when no runtime recorded one."""
+    from ..device import runtime
+
+    return runtime.arm_failure_reason()
 
 
 #: watchdog exit codes the supervisor decodes in its respawn log
@@ -322,7 +327,7 @@ def main(argv=None) -> int:
     ap.add_argument("--node", default="http://localhost:3006/")
     ap.add_argument("--device", default="cuda",
                     help="cuda|gpu|cpu or explicit backend "
-                         "cuda|torch|mesh|python")
+                         "cuda|torch|mesh|native|python")
     ap.add_argument("--batch", type=int, default=0,
                     help="nonces per dispatch (0 = config device.search_batch)")
     ap.add_argument("--ttl", type=float, default=90.0)

@@ -14,15 +14,20 @@ address and governance reads (``/get_address_info``,
 ``{"ok": bool, ...}`` envelope, the reference's error strings, GET query
 params merged with a POST JSON body, and the middleware's IP filter,
 path normalisation, rate limits and 403/422/429/500 envelopes.  ``/``
-carries this node's own timings and counters (``trace.py``) where the
-JAX node carries its telemetry's.
+carries this node's own timings and counters (``trace.py``), among the
+counters the verify device path's degrade state (``device_health``) and
+its device runtime's counts and arm (``device_runtime``), where the JAX
+node carries its telemetry's and serves the degrade on ``/metrics``.
 
 Transactions come in through the coalescing intake
 (:mod:`..mempool.intake`), so a burst of concurrent ``push_tx`` requests
 shares one signature verify; blocks through ``BlockManager``.  Both run
 the P-256 kernel that ``device.verify_kernel`` selects, on the card
 unless the node was started with ``device="cpu"``; without a card the
-node refuses to start.
+node refuses to start.  Every device dispatch goes through the
+process's device runtime (``device/runtime.py``), and
+``resilience.device_failure_limit`` and ``device_cooldown`` configure
+the degrade of the verify path (``txverify.DEGRADE``) at startup.
 
 Peers (:mod:`.peers`): the node keeps a peer book seeded from
 ``node.seed_url``, learns a peer from each request's ``Sender-Node``,
@@ -74,10 +79,12 @@ from ..core.rewards import get_circulating_supply
 from ..core.tx import AmbiguousSignatureError, CoinbaseTx, Tx, tx_from_hex
 from ..crypto.sha256 import txid_batch
 from ..device import DeviceLike, resolve
+from ..device.runtime import get_runtime
 from ..mempool import IntakeCoordinator, Mempool, MiningInfoCache, TTLSet
 from ..resilience import BreakerRegistry, ResilienceContext, faultinject
 from ..state.storage import ChainState
 from ..verify.block import BlockManager
+from ..verify import txverify
 from ..verify.txverify import TxVerifier, _resolve_backend, run_sig_checks_async
 from .http import (BodyTooLarge, HttpServer, Request, Response, json_response,
                    text_response)
@@ -137,7 +144,9 @@ class Node:
             verify_mesh_devices=dcfg.mesh_devices,
             verify_microbatch=dcfg.verify_microbatch,
             txid_backend=dcfg.txid_backend,
-            txid_min_batch=dcfg.txid_min_batch)
+            txid_min_batch=dcfg.txid_min_batch,
+            verify_pad_block=dcfg.verify_pad_block,
+            verify_device_timeout=dcfg.verify_device_timeout)
         self.ip_filter = IpFilter(self.config.node.ip_config_file)
         self.rate_limiter = RateLimiter(
             enabled=self.config.node.rate_limits_enabled)
@@ -157,6 +166,10 @@ class Node:
             faultinject.install(rcfg.faults, rcfg.faults_seed)
         self.resilience = ResilienceContext.from_config(
             rcfg, breakers=self.breakers)
+        # the degrade knobs land on the process-wide manager that the
+        # verify dispatch consults
+        txverify.DEGRADE.configure(rcfg.device_failure_limit,
+                                   rcfg.device_cooldown)
         self.peers = PeerBook(self.config.node, breakers=self.breakers)
         self.started = False  # the first-request bootstrap ran
         self.self_url = self.config.node.self_url
@@ -440,11 +453,16 @@ class Node:
         """Health probe (reference main.py:266-275) with this node's
         span timings and counters."""
         snap = trace.snapshot()
+        runtime = get_runtime(self.device).stats()
+        runtime["queue_wait_max"] = {
+            src: max(w) for src, w in runtime.pop("queue_waits").items() if w}
         return json_response({
             "ok": True, "version": VERSION,
             "unspent_outputs_hash": await self.state.get_unspent_outputs_hash(),
             "timings": snap["spans"],
-            "counters": snap["counters"],
+            "counters": {**snap["counters"],
+                         "device_health": self.manager.device_health(),
+                         "device_runtime": runtime},
         })
 
     async def h_push_tx(self, request: Request) -> Response:
@@ -1182,7 +1200,7 @@ class Node:
         device (one dispatch in place of one a block); on the host path
         it would double the address-resolution reads."""
         return _resolve_backend(
-            self.config.device.sig_backend, n_inputs) != "host"
+            self.config.device.sig_backend, n_inputs, self.device) != "host"
 
     async def _page_sig_prefill(self, parsed, overlay) -> Optional[dict]:
         """One batched signature verify for a whole sync page.  Checks
@@ -1211,10 +1229,12 @@ class Node:
             return None
         checks = list(dict.fromkeys(checks))  # dedup, keep order
         with trace.span("sync.page_sig_prefill", n=len(checks)):
+            dcfg = self.config.device
             verdicts = await run_sig_checks_async(
-                checks, backend=self.config.device.sig_backend,
-                device=self.device,
-                mesh_devices=self.config.device.mesh_devices)
+                checks, backend=dcfg.sig_backend, device=self.device,
+                pad_block=dcfg.verify_pad_block,
+                device_timeout=dcfg.verify_device_timeout,
+                mesh_devices=dcfg.mesh_devices)
         return dict(zip(checks, verdicts))
 
 
@@ -1246,12 +1266,20 @@ def _json_block(block: Optional[dict]) -> dict:
 
 
 async def serve_forever(config: Config, device: DeviceLike = None) -> None:
-    """Run one node until cancelled."""
+    """Run one node until cancelled.  The node's device runtime arms
+    before it serves (on a card: the kernels' build, load and warm
+    launches); a failed arm raises, so the node does not start."""
     node = Node(config, device=device)
+    try:
+        arm = await asyncio.get_running_loop().run_in_executor(
+            None, get_runtime(node.device).arm)
+    except BaseException:
+        await node.close()
+        raise
     server = await node.serve()
-    log.info("node serving on %s:%d (device %s, verify kernel %s)",
-             server.host, server.port, node.device,
-             config.device.verify_kernel or "jac")
+    log.info("node serving on %s:%d (device %s, verify kernel %s, runtime "
+             "armed in %.3fs)", server.host, server.port, node.device,
+             config.device.verify_kernel or "jac", arm["probe_seconds"])
     try:
         await asyncio.Event().wait()
     finally:

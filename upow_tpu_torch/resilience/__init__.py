@@ -1,7 +1,7 @@
-"""Outbound-RPC resilience: retry and backoff, per-peer circuit
-breakers, and deterministic fault injection (the port's copy of the JAX
-package's ``resilience/``, less ``degrade.py``, which comes with the
-device runtime, ROADMAP.md A7).
+"""Resilience: retry and backoff of outbound RPC, per-peer circuit
+breakers, the device path's degrade state machine (``degrade.py``) and
+deterministic fault injection (the port's copy of the JAX package's
+``resilience/``).
 
 :class:`ResilienceContext` is what the node builds once from
 ``ResilienceConfig`` and hands to every ``NodeInterface``.  Nothing here
@@ -16,6 +16,7 @@ from typing import Optional
 
 from .breaker import (BreakerRegistry, CircuitBreaker, CircuitOpenError,
                       CLOSED, HALF_OPEN, OPEN)
+from .degrade import DEGRADED, OK, POISONED, DegradeManager, DeviceBlocked
 from .faultinject import (FaultInjected, FaultInjector, get_injector,
                           install, uninstall)
 from .policy import DeadlineExceeded, RetryPolicy, call_with_retry
@@ -23,6 +24,7 @@ from .policy import DeadlineExceeded, RetryPolicy, call_with_retry
 __all__ = [
     "BreakerRegistry", "CircuitBreaker", "CircuitOpenError",
     "CLOSED", "HALF_OPEN", "OPEN",
+    "DegradeManager", "DeviceBlocked", "DEGRADED", "OK", "POISONED",
     "FaultInjected", "FaultInjector", "get_injector", "install",
     "uninstall",
     "DeadlineExceeded", "RetryPolicy", "call_with_retry",

@@ -9,6 +9,7 @@ A :class:`FaultInjector` holds rules parsed from a spec string
     rpc:error:p=0.5,key=9001        every other RPC to a :9001 peer errors
     rpc.push_tx:latency:delay=0.2   every push_tx send stalls 200 ms
     rpc:hang:times=1,delay=30       one RPC hangs 30 s (deadline food)
+    device.verify:error:times=3     the first three device verifies error
 
 Sites are prefix-matched (``rpc`` matches ``rpc.get_blocks``) and
 ``key`` substring-filters the call's key (the peer URL).  ``kind`` is
@@ -19,10 +20,17 @@ package's does and which no site of the port acts on yet.  ``p`` draws
 from one seeded ``random.Random``, so a fixed seed replays the exact
 schedule; ``times`` caps how often a rule fires (-1: no cap).
 
-The port fires the ``rpc.<path>`` sites (``node/peers.py``, one per RPC
-attempt).  The JAX package's device and intake sites come with the
-device runtime (ROADMAP.md, A7).  :func:`get_injector` is None unless
-:func:`install` ran with a non-empty spec.
+Sites: ``rpc.<path>`` (``node/peers.py``, one per RPC attempt),
+``device.verify`` (``verify/txverify.py``, inside the boxed device
+dispatch, so a ``hang`` there is what the box absorbs),
+``device.runtime`` (``device/runtime.py``, once per drained dispatch,
+keyed ``sig:<sources>`` for a coalesced signature group or
+``call:<kernel>`` for a call, so ``key=`` can pick one subsystem) and
+``mempool.intake`` (``mempool/intake.py``, once per intake batch, keyed
+by its size).  :meth:`FaultInjector.fire` is the event loop's injection
+point and :meth:`FaultInjector.fire_sync` the thread's.
+:func:`get_injector` is None unless :func:`install` ran with a
+non-empty spec.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import asyncio
 import logging
 import random
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -128,17 +137,35 @@ class FaultInjector:
         fault = self._pick(site, key)
         if fault is None:
             return
-        trace.inc("resilience.faults_injected")
-        trace.event("fault_injected", site=site, fault=fault.kind,
-                    key=key or None, fire=fault.fired)
-        log.info("fault injected: %s at %s key=%s (fire #%d)",
-                 fault.kind, site, key or "-", fault.fired)
+        self._count(fault, site, key)
         if fault.kind == "latency":
             await asyncio.sleep(fault.delay)
             return
         if fault.kind == "hang":
             await asyncio.sleep(fault.delay)
         raise FaultInjected(site, key)
+
+    def fire_sync(self, site: str, key: str = "") -> None:
+        """:meth:`fire` for a site on a thread (``device.verify`` runs in
+        the boxed call's worker thread, where a hang is exactly what the
+        box absorbs)."""
+        fault = self._pick(site, key)
+        if fault is None:
+            return
+        self._count(fault, site, key)
+        if fault.kind == "latency":
+            time.sleep(fault.delay)
+            return
+        if fault.kind == "hang":
+            time.sleep(fault.delay)
+        raise FaultInjected(site, key)
+
+    def _count(self, fault: Fault, site: str, key: str) -> None:
+        trace.inc("resilience.faults_injected")
+        trace.event("fault_injected", site=site, fault=fault.kind,
+                    key=key or None, fire=fault.fired)
+        log.info("fault injected: %s at %s key=%s (fire #%d)",
+                 fault.kind, site, key or "-", fault.fired)
 
     def snapshot(self) -> List[dict]:
         with self._lock:

@@ -33,10 +33,15 @@ Each UTXO-class table gets one :class:`DeviceUtxoIndex`:
   the JAX index's interface; the port's chain state calls none of them
   (its reorg applies its delta through ``add`` and ``remove``).
 
-:func:`fused_probe` probes every part of an accept micro-batch and runs
-the micro-batch's digest batch in one call on one stream, with one
-synchronisation at its end.  The JAX package submits it through its
-device runtime's scheduler slot, which the port has not yet (ROADMAP A7).
+Every device dispatch of the index goes through the device runtime
+(``device/runtime.py``), source ``index`` unless the caller names one:
+an upload is ``kernel="utxo_apply"`` (:meth:`DeviceUtxoIndex.materialize`),
+a probe ``kernel="utxo_probe"``, and :func:`fused_probe`, which probes
+every part of an accept micro-batch and runs the micro-batch's digest
+batch in one call on one stream with one synchronisation at its end, is
+``kernel="accept_fused"``.  So the lanes, the staged queries and the
+output buffers are written and read on the drainer's stream alone (an
+upload that a probe finds due runs there too).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ import torch
 
 from .. import trace
 from ..device import DeviceLike, current_index, raw_stream, resolve
+from ..device.runtime import get_runtime
 
 Outpoint = Tuple[str, int]
 
@@ -679,9 +685,10 @@ class DeviceUtxoIndex:
         return self._args
 
     def materialize(self) -> None:
-        """Upload the current host state now (the ``utxo_apply`` batch),
-        instead of at the next probe."""
-        self._device_state()
+        """Upload the current host state now, through the runtime
+        (kernel ``utxo_apply``), instead of at the next probe."""
+        get_runtime(self.device).submit_call(
+            self._device_state, kernel="utxo_apply", source="index").result()
 
     def resident_bytes(self) -> int:
         """Device residency: six int32 lanes at padded capacity."""
@@ -762,8 +769,12 @@ class DeviceUtxoIndex:
         return self._probe_finish(ops, fps, out, t0)
 
     def _probe(self, outpoints: Sequence[Outpoint]) -> tuple:
+        """One probe dispatch through the runtime."""
         ops = [tuple(o) for o in outpoints]
-        return self._probe_eval(ops, fingerprint_batch(ops), check_batch(ops))
+        fps, chks = fingerprint_batch(ops), check_batch(ops)
+        return get_runtime(self.device).submit_call(
+            lambda: self._probe_eval(ops, fps, chks), kernel="utxo_probe",
+            source="index").result()
 
     def maybe_contains_batch(self, outpoints: Sequence[Outpoint]) -> np.ndarray:
         """(N,) bool prefilter: False is definitive absence; True a
@@ -811,34 +822,43 @@ def _synchronize(device: torch.device) -> None:
 
 
 def fused_probe(parts: Sequence[Tuple[DeviceUtxoIndex, Sequence[Outpoint]]],
-                extra_fn: Optional[Callable] = None) -> tuple:
+                extra_fn: Optional[Callable] = None,
+                source: str = "index") -> tuple:
     """Probe every ``(index, outpoints)`` part and run ``extra_fn`` (the
-    micro-batch's digest batch) in one call: every probe is launched and
-    its results queued for the host first, ``extra_fn`` runs while the
-    card works, then one synchronisation and the host post-processes.
+    micro-batch's digest batch) in one runtime slot (``kernel=
+    "accept_fused"``): every probe is launched and its results queued for
+    the host first, ``extra_fn`` runs while the card works, then one
+    synchronisation and the host post-processes.
 
     Returns ``([(present, amounts, shadow_consults), ...], extra)`` with
     parts in input order."""
-    t0 = time.perf_counter()
-    pending = []
+    staged = []
     for index, outpoints in parts:
         ops = [tuple(o) for o in outpoints]
-        if not ops:
-            pending.append((index, ops, None, None))
-            continue
-        fps = fingerprint_batch(ops)
-        pending.append((index, ops, fps,
-                        index._probe_launch(fps, check_batch(ops))))
-    extra = extra_fn() if extra_fn is not None else None
-    for device in {index.device for index, *_ in pending}:
-        _synchronize(device)
-    results = []
-    for index, ops, fps, launched in pending:
-        if launched is None:
-            results.append((np.zeros(0, dtype=bool),
-                            np.zeros(0, dtype=np.int64), 0))
-            continue
-        present, _maybe, amounts, consults = index._probe_finish(
-            ops, fps, launched, t0)
-        results.append((present, amounts, consults))
-    return results, extra
+        staged.append((index, ops, fingerprint_batch(ops) if ops else None))
+
+    def run():
+        t0 = time.perf_counter()
+        pending = []
+        for index, ops, fps in staged:
+            launched = None if not ops else index._probe_launch(
+                fps, check_batch(ops))
+            pending.append((index, ops, fps, launched))
+        extra = extra_fn() if extra_fn is not None else None
+        for device in {index.device for index, *_ in pending}:
+            _synchronize(device)
+        results = []
+        for index, ops, fps, launched in pending:
+            if launched is None:
+                results.append((np.zeros(0, dtype=bool),
+                                np.zeros(0, dtype=np.int64), 0))
+                continue
+            present, _maybe, amounts, consults = index._probe_finish(
+                ops, fps, launched, t0)
+            results.append((present, amounts, consults))
+        return results, extra
+
+    if not staged:
+        return [], (extra_fn() if extra_fn is not None else None)
+    return get_runtime(staged[0][0].device).submit_call(
+        run, kernel="accept_fused", source=source).result()

@@ -15,11 +15,14 @@ reference, by design (SURVEY.md §7):
 
 ``BlockManager(state, device=...)`` runs on the card unless the caller
 passes ``device="cpu"`` (the plain PyTorch version of the kernel), and
-raises without a card otherwise.  The node's hooks are here: the
-mempool GC (``clear_pending_transactions``), the ``on_pending_removed``
-notification, the cached difficulty, and the chain-sync page verdicts
-(``page_sig_verdicts``, set by the node around a sync page's accept
-loop).  With the state's resident UTXO index armed
+raises without a card otherwise.  Its signature micro-batches go through
+the dispatch front to the device runtime (``source="block"``, weight 4,
+so a saturating miner cannot starve them), and the fused accept scan is
+one runtime slot a micro-batch (``kernel="accept_fused"``).  The node's
+hooks are here: the mempool GC (``clear_pending_transactions``), the
+``on_pending_removed`` notification, the cached difficulty, and the
+chain-sync page verdicts (``page_sig_verdicts``, set by the node around
+a sync page's accept loop).  With the state's resident UTXO index armed
 (``ChainState.resident_indexes()``), ``check_block`` takes the fused
 accept scan: each micro-batch's outpoints are probed on the index
 (kernel B6) in the same call as its digest batch, and the double-spend
@@ -53,8 +56,9 @@ from ..device import DeviceLike, resolve
 from ..state.device_index import fused_probe
 from ..state.storage import ChainState, _INPUT_TABLE
 from ..trace import event, record_stage, span
+from . import txverify
 from .dispatch import get_front
-from .txverify import TxVerifier
+from .txverify import TxVerifier, device_verify_allowed
 
 # txs per verify micro-batch: the digest prep of batch N overlaps the
 # device verify of batch N - 1 (the JAX package's default)
@@ -120,10 +124,13 @@ def _fused_digest_prep(transactions: Sequence[Tx], txid_backend: str,
     ``probe`` (the resident accept path) is a list of
     ``(DeviceUtxoIndex, outpoints)`` parts: the micro-batch's membership
     probes and its digest batch run in one
-    :func:`..state.device_index.fused_probe` call, the digest batch as its
-    ``extra_fn``.  The JAX package gates the device digest batch there on
-    its degrade manager, which comes with the device runtime (A7): here a
-    failed probe or digest launch raises out of the accept.
+    :func:`..state.device_index.fused_probe` call (one runtime slot), the
+    digest batch as its ``extra_fn``.  There the device digest batch also
+    needs the degrade gate (``txverify.device_verify_allowed``), as in
+    the JAX package: on the CPU a degraded device path hashes with
+    hashlib without giving up the probe; on a card the gate raises
+    (``DeviceBlocked``).  A failed probe or digest launch raises out of
+    the accept.
 
     Returns ``{id(tx): (digest, digest_hexform)}`` for
     ``collect_sig_checks``; with ``probe``, ``(that dict,
@@ -144,7 +151,12 @@ def _fused_digest_prep(transactions: Sequence[Tx], txid_backend: str,
         device=device)
     probe_results = None
     if probe is not None:
-        probe_results, digests = fused_probe(probe, extra_fn=digest_batch)
+        if (txid_backend != "host" and len(payloads) >= txid_min_batch
+                and not device_verify_allowed(device)):
+            digest_batch = functools.partial(txid_batch, payloads,
+                                             backend="host")
+        probe_results, digests = fused_probe(probe, extra_fn=digest_batch,
+                                             source="block")
     else:
         digests = digest_batch()
     out: Dict[int, tuple] = {}
@@ -168,7 +180,10 @@ class BlockManager:
                  verify_mesh_devices: int = 1,
                  verify_microbatch: int = VERIFY_MICROBATCH,
                  txid_backend: str = DeviceConfig.txid_backend,
-                 txid_min_batch: int = DeviceConfig.txid_min_batch):
+                 txid_min_batch: int = DeviceConfig.txid_min_batch,
+                 verify_pad_block: int = DeviceConfig.verify_pad_block,
+                 verify_device_timeout: float =
+                 DeviceConfig.verify_device_timeout):
         self.state = state
         # the card unless the caller asks for the CPU; raises without one
         self.device = resolve(device)
@@ -181,6 +196,9 @@ class BlockManager:
         # is hashlib) and its least batch, defaulting to the config's
         self.txid_backend = txid_backend
         self.txid_min_batch = txid_min_batch
+        # the signature dispatch's coalescing key and its boxed deadline
+        self.verify_pad_block = verify_pad_block
+        self.verify_device_timeout = verify_device_timeout
         self.is_syncing = False
         # transient page-level signature verdicts (chain-sync prefill):
         # set by the node's create_blocks around a page's accept loop
@@ -204,6 +222,13 @@ class BlockManager:
 
     def invalidate_difficulty(self):
         self._difficulty_cache = None
+
+    @staticmethod
+    def device_health() -> dict:
+        """The verify device path's degrade state (``txverify.DEGRADE``),
+        for the node's ``/``."""
+        degrade = txverify.DEGRADE
+        return {**degrade.snapshot(), "gauge": degrade.state_gauge()}
 
     async def get_active_inodes_cached(self, max_age: float = 300.0) -> List[dict]:
         """The active inodes, cached ``max_age`` seconds (manager.py:30-32,
@@ -353,6 +378,8 @@ class BlockManager:
             if chunk_checks:
                 dispatches.append(asyncio.ensure_future(front.submit(
                     chunk_checks, device=self.device,
+                    pad_block=self.verify_pad_block,
+                    device_timeout=self.verify_device_timeout,
                     mesh_devices=self.verify_mesh_devices,
                     precomputed=self.page_sig_verdicts, source="block")))
         if failed_tx is not None:

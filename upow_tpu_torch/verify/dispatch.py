@@ -1,25 +1,24 @@
 """Shared batched-dispatch front for P-256 signature verification.
 
-The port of the JAX package's ``verify/dispatch.py``.  Every caller that
-needs signature verdicts — block verify's micro-batches
-(:mod:`.block`), the mempool intake's batches (``mempool/intake.py``) —
-submits its checks HERE instead of calling
-:func:`txverify.run_sig_checks_async` directly.  Submissions queue; a
-per-event-loop drainer flattens every queued submission with compatible
-dispatch parameters into ONE ``run_sig_checks_async`` call and scatters
-the verdicts back.  While one dispatch is in flight on the executor
-thread, new submissions pile up and form the next coalesced batch.
+The port of the JAX package's ``verify/dispatch.py``: a thin client of
+the process-wide device runtime (``device/runtime.py``).  Every caller
+that needs signature verdicts (block verify's micro-batches,
+:mod:`.block`; the mempool intake's batches, ``mempool/intake.py``)
+submits its checks HERE.  Submissions queue; a per-event-loop drainer
+flattens every queued submission with compatible dispatch parameters
+into one group and hands it to the runtime
+(``submit_sig_checks(..., source=...)``), where it may share one device
+dispatch with groups of other event loops and subsystems.  While one
+group is in flight, new submissions pile up and form the next one.
 
-Verdict semantics are exactly :func:`txverify.run_sig_checks`'s — the
-front only changes WHO shares a dispatch, never what is computed.
-
-The JAX package forwards a coalesced group to its weighted-fair device
-runtime; the port dispatches it straight to ``run_sig_checks_async``
-(the runtime is a later slice, ROADMAP.md).  The coalescing key is the
-JAX front's, less the fields the port has no counterpart yet for (pad
-block, device timeout, an injected dispatch callable), plus the device:
-(backend, device, mesh size, identity of the chain-sync page
-verdicts).
+Verdict semantics are exactly :func:`txverify.run_sig_checks`'s: the
+front only changes WHO shares a dispatch, never what is computed.  The
+coalescing key is the JAX front's (backend, pad block, device timeout,
+mesh size, identity of the chain-sync page verdicts) and the device,
+whose runtime the group goes to.  The JAX front's injected
+``dispatch_fn`` is left out: every group takes the one path through the
+runtime, and a test that fakes the verify patches
+``txverify.run_sig_checks``, which the runtime looks up on its module.
 """
 
 from __future__ import annotations
@@ -31,53 +30,57 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from .. import trace
 from ..device import DeviceLike
-from . import txverify
+from ..device.runtime import get_runtime
 
 log = logging.getLogger("upow_tpu_torch.verify.dispatch")
 
 
 class _Submission:
-    __slots__ = ("checks", "key", "precomputed", "fut")
+    __slots__ = ("checks", "key", "precomputed", "fut", "source")
 
-    def __init__(self, checks, key, precomputed, fut):
+    def __init__(self, checks, key, precomputed, fut, source):
         self.checks = checks
         self.key = key
         self.precomputed = precomputed
         self.fut = fut
+        self.source = source
 
 
 class SigDispatchFront:
-    """Per-event-loop coalescing queue in front of run_sig_checks."""
+    """Per-event-loop coalescing queue in front of the device runtime."""
 
     def __init__(self, loop: asyncio.AbstractEventLoop):
         self._loop = loop
         self._queue: List[_Submission] = []
         self._drainer: Optional[asyncio.Task] = None
-        # introspection for tests/benches: dispatches actually issued
-        # and total submissions coalesced into them
+        # introspection for tests: groups dispatched and the submissions
+        # coalesced into them
         self.dispatches = 0
         self.submissions = 0
 
     async def submit(self, checks: Sequence[tuple], *,
                      backend: str = "auto",
                      device: DeviceLike = None,
+                     pad_block: int = 128,
+                     device_timeout: float = 240.0,
                      mesh_devices: int = 1,
                      precomputed: Optional[dict] = None,
                      source: str = "other") -> List[bool]:
         """Queue one batch of sig checks; resolves to its verdict list.
 
-        Submissions sharing (backend, device, ``mesh_devices``,
-        ``precomputed`` identity) coalesce into one dispatch; incompatible
-        ones dispatch separately in arrival order.  ``precomputed`` (a
-        sync page's verdicts) answers the checks it holds
-        (:func:`txverify.run_sig_checks`).
+        Submissions sharing the key coalesce into one dispatch;
+        incompatible ones dispatch separately in arrival order.
+        ``precomputed`` (a sync page's verdicts) answers the checks it
+        holds (:func:`txverify.run_sig_checks`).
         """
         if not checks:
             return []
-        key = (backend, device, mesh_devices,
-               id(precomputed) if precomputed is not None else None)
+        key = (backend, pad_block, device_timeout, mesh_devices,
+               id(precomputed) if precomputed is not None else None,
+               device)
         fut: asyncio.Future = self._loop.create_future()
-        self._queue.append(_Submission(list(checks), key, precomputed, fut))
+        self._queue.append(_Submission(list(checks), key, precomputed, fut,
+                                       source))
         self.submissions += 1
         trace.inc("pipeline.front.submissions")
         trace.inc("pipeline.front.source.%s" % source)
@@ -102,16 +105,20 @@ class SigDispatchFront:
         for s in group:
             slices.append((len(flat), len(flat) + len(s.checks)))
             flat.extend(s.checks)
-        backend, device, mesh_devices, _ = group[0].key
+        (backend, pad_block, device_timeout, mesh_devices, _,
+         device) = group[0].key
         self.dispatches += 1
         trace.inc("pipeline.front.dispatches")
         trace.observe("pipeline.front.coalesced", len(group))
         t0 = time.perf_counter()
         try:
-            verdicts = await txverify.run_sig_checks_async(
-                flat, backend=backend, device=device,
-                precomputed=group[0].precomputed,
-                mesh_devices=mesh_devices)
+            verdicts = await asyncio.wrap_future(
+                get_runtime(device).submit_sig_checks(
+                    flat, backend=backend, pad_block=pad_block,
+                    device_timeout=device_timeout,
+                    mesh_devices=mesh_devices,
+                    precomputed=group[0].precomputed,
+                    source=group[0].source))
         except Exception as e:
             # not swallowed: every submitter in the group re-raises it
             log.debug("coalesced sig dispatch failed (%d submissions): %s",

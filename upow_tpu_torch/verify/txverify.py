@@ -10,15 +10,32 @@ quirk of accepting a signature over EITHER the raw signing bytes OR
 their ASCII-hex string (transaction_input.py:100-109 tries both), and
 the per-tx dedup keyed on the signature alone (transaction.py:148-163).
 
+Device health is the JAX package's: one process-wide
+:class:`..resilience.degrade.DegradeManager` (:data:`DEGRADE`).  Each
+device batch is a boxed call through the device runtime
+(``device/runtime.py``, source ``verify``, kernel ``p256_verify``),
+under ``device_timeout``, with the ``device.verify`` fault site fired
+inside the box.  A raised error is recorded (``failure_limit`` in a row
+degrade the path); a hang poisons the path for the process.
+
 Where the JAX package differs from this module, by design:
 
-* no device-to-host fallback: on the card a failed build, load or
-  launch raises to the caller, and there is no degrade state machine
-  (those, and the native C++ host batch, are a later slice; ROADMAP.md);
+* the host path is the port's native C++ batch
+  (:func:`..native.p256_verify_batch`); the pure-Python oracle runs only
+  where the native library cannot be built;
+* the host serves a failed, degraded or poisoned device batch only where
+  the device is the CPU (:func:`host_may_serve`; there the device path
+  is the plain PyTorch version).  On a card the failure is recorded on
+  :data:`DEGRADE` and raised, and a dispatch the degrade blocks raises
+  :class:`..resilience.degrade.DeviceBlocked`: the caller sees the error
+  (the node's 500 envelope), never a verdict from the host;
+* a runtime that failed to arm its card raises
+  (:class:`..device.runtime.ArmError`);
 * the ``auto`` policy sends batches of 8 checks or more to the port's
   device, which is the kernel on a CUDA device and the plain PyTorch
-  version on ``device="cpu"``; smaller batches take the pure-Python
-  host oracle.
+  version on ``device="cpu"``, while the degrade allows it; smaller
+  batches take the host path.  ``pad_block`` only splits the coalescing
+  keys: the port's kernels take any lane count.
 
 ``mesh_devices`` shards a device batch's lanes over a mesh of cards as
 the JAX package does (:func:`_verify_mesh`; ``parallel/mesh.py``).
@@ -31,6 +48,7 @@ import functools
 import hashlib
 import logging
 import threading
+import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -40,6 +58,9 @@ from ..core.codecs import OutputType, TransactionType, string_to_point
 from ..core.constants import CURVE_N, MAX_INODES, SMALLEST
 from ..core.tx import Tx
 from ..device import DeviceLike
+from ..device.runtime import ArmError, get_runtime, runtime_key
+from ..resilience.degrade import POISONED, DegradeManager, DeviceBlocked
+from ..resilience.faultinject import get_injector
 from ..state.storage import ChainState, _INPUT_TABLE
 
 log = logging.getLogger("upow_tpu_torch.verify")
@@ -50,9 +71,51 @@ _UNSTAKE_EXCEPTION_HASHES = {
     "8befeb253bc6eddd8501f5b27a02b195f5c06a51ccf788213cbedafe7cc49c53",
 }
 
-# Checks below this many stay on the host oracle under the auto policy:
-# a device call costs more than a few pure-Python verifies.
+# Checks below this many stay on the host under the auto policy: a
+# device call costs more than a few host verifies.
 HOST_BELOW = 8
+
+# The device path's health: ok / degraded with a cooldown re-probe /
+# poisoned.  The node pushes its failure_limit and cooldown in through
+# DEGRADE.configure() at startup.
+DEGRADE = DegradeManager()
+
+
+def _device_usable(device: DeviceLike = None) -> bool:
+    """The device path is not poisoned and ``device``'s runtime armed
+    (its platform is known; a failed arm raises ArmError here)."""
+    if DEGRADE.state == POISONED:
+        return False
+    return get_runtime(device).platform() is not None
+
+
+def host_may_serve(device: DeviceLike = None) -> bool:
+    """May the host serve what ``device``'s verify path failed or was
+    blocked from doing?  Only where the device is the CPU: on a card a
+    failure is raised, never answered from the host."""
+    return runtime_key(device) == "cpu"
+
+
+def device_verify_allowed(device: DeviceLike = None) -> bool:
+    """The gate of the verify path's device dispatches (signature batches
+    through :func:`_resolve_backend`, and the fused accept scan's digest
+    batch): True when the device is usable AND the degrade state lets a
+    dispatch through.  When it does not, False on the CPU (the host
+    serves) and :class:`DeviceBlocked` on a card."""
+    if _device_usable(device) and DEGRADE.allow():
+        return True
+    _blocked(device)
+    return False
+
+
+def _blocked(device: DeviceLike) -> None:
+    """A device dispatch the degrade refused: the host serves it on the
+    CPU; on a card it raises :class:`DeviceBlocked`."""
+    if host_may_serve(device):
+        return
+    snap = DEGRADE.snapshot()
+    raise DeviceBlocked(f"device verify path on {runtime_key(device)} is "
+                        f"{snap['state']} after {snap['last_error']}")
 
 
 def _dedup_sig_checks(tx: Tx, voter: bool, address_of,
@@ -99,13 +162,17 @@ def _dedup_sig_checks(tx: Tx, voter: bool, address_of,
 async def run_sig_checks_async(checks: Sequence[tuple],
                                backend: str = "auto",
                                device: DeviceLike = None,
+                               pad_block: int = 128,
+                               device_timeout: float = 240.0,
                                precomputed: Optional[dict] = None,
                                mesh_devices: int = 1) -> List[bool]:
     """Executor-wrapped :func:`run_sig_checks`: the verify (and its wait
     on the card) must not block the event loop."""
     return await asyncio.get_running_loop().run_in_executor(
         None, functools.partial(run_sig_checks, checks, backend=backend,
-                                device=device, precomputed=precomputed,
+                                device=device, pad_block=pad_block,
+                                device_timeout=device_timeout,
+                                precomputed=precomputed,
                                 mesh_devices=mesh_devices))
 
 
@@ -190,16 +257,27 @@ def _canary_checks() -> Tuple[tuple, tuple]:
         return _CANARY
 
 
-def _resolve_backend(backend: str, n_checks: int) -> str:
-    """The ``auto`` policy: fewer than :data:`HOST_BELOW` checks verify
-    on the host oracle, the rest on the device (``"tpu"``, the JAX
-    package's name in a shared config file, means the device)."""
+def _resolve_backend(backend: str, n_checks: int,
+                     device: DeviceLike = None) -> str:
+    """The ``auto`` policy and the device-health override (one rule for
+    the cached and uncached layers): ``auto`` verifies fewer than
+    :data:`HOST_BELOW` checks on the host, the rest on the device while
+    :func:`device_verify_allowed`; an explicit device backend also
+    honours the degrade state (``"tpu"``, the JAX package's name in a
+    shared config file, means the device).  On a card a blocked device
+    batch raises :class:`DeviceBlocked`."""
     if backend == "auto":
-        return "host" if n_checks < HOST_BELOW else "device"
+        if n_checks < HOST_BELOW:
+            return "host"
+        return "device" if device_verify_allowed(device) else "host"
     if backend == "tpu":  # the JAX package's name for its device
-        return "device"
+        backend = "device"
     if backend not in ("host", "device"):
         raise ValueError(f"unknown signature backend {backend!r}")
+    if backend == "device" and not DEGRADE.allow():
+        # a degraded device is retried only after its cooldown
+        _blocked(device)
+        return "host"
     return backend
 
 
@@ -207,13 +285,19 @@ def run_sig_checks(checks: Sequence[tuple], backend: str = "auto",
                    device: DeviceLike = None,
                    use_cache: bool = True,
                    precomputed: Optional[dict] = None,
-                   mesh_devices: int = 1) -> List[bool]:
-    """Verify deferred checks in one (or two) batched device calls.
+                   mesh_devices: int = 1,
+                   pad_block: int = 128,
+                   device_timeout: float = 240.0) -> List[bool]:
+    """Verify deferred checks in one (or two) batched calls.
 
     Pass 1 verifies against the raw-bytes digest; only failures re-try the
     hex-string digest (the reference's or-fallback).  ``backend='host'``
-    uses the pure-Python oracle; ``'device'`` the batched verify on
-    ``device`` (the card unless ``device="cpu"``).
+    uses the native C++ batch; ``'device'`` the batched verify on
+    ``device`` (the card unless ``device="cpu"``), a boxed call of at
+    most ``device_timeout`` seconds through the device runtime.  A
+    device batch that raises is recorded on :data:`DEGRADE`; one that
+    hangs poisons the device path.  Either is raised on a card and
+    served on the host on the CPU (:func:`host_may_serve`).
 
     Verdicts are memoized process-wide (bounded LRU) keyed on the full
     (digest, hexdigest, signature, pubkey) tuple: ECDSA verification is
@@ -238,7 +322,9 @@ def run_sig_checks(checks: Sequence[tuple], backend: str = "auto",
             rest = run_sig_checks([checks[i] for i in rest_idx],
                                   backend=backend, device=device,
                                   use_cache=use_cache,
-                                  mesh_devices=mesh_devices)
+                                  mesh_devices=mesh_devices,
+                                  pad_block=pad_block,
+                                  device_timeout=device_timeout)
             for i, v in zip(rest_idx, rest):
                 out_pre[i] = v
         return out_pre  # type: ignore[return-value]
@@ -255,7 +341,7 @@ def run_sig_checks(checks: Sequence[tuple], backend: str = "auto",
                     out[i] = v
         if misses:
             miss_checks = [checks[i] for i in misses]
-            resolved = _resolve_backend(backend, len(miss_checks))
+            resolved = _resolve_backend(backend, len(miss_checks), device)
             dispatch_checks = miss_checks
             canaries = 0
             if resolved != "host":
@@ -266,7 +352,9 @@ def run_sig_checks(checks: Sequence[tuple], backend: str = "auto",
                 canaries = len(canary)
             fresh = run_sig_checks(dispatch_checks, backend=resolved,
                                    device=device, use_cache=False,
-                                   mesh_devices=mesh_devices)
+                                   mesh_devices=mesh_devices,
+                                   pad_block=pad_block,
+                                   device_timeout=device_timeout)
             cacheable = resolved == "host"
             if canaries:
                 canary_ok = tuple(fresh[-canaries:]) == _CANARY_EXPECTED
@@ -288,11 +376,51 @@ def run_sig_checks(checks: Sequence[tuple], backend: str = "auto",
                         _SIG_VERDICTS.popitem(last=False)
         return out  # type: ignore[return-value]
 
-    if _resolve_backend(backend, len(checks)) == "host":
-        verify = _host_batch
-    else:
-        verify = functools.partial(_device_batch, device=device,
-                                   mesh=_verify_mesh(mesh_devices, device))
+    if _resolve_backend(backend, len(checks), device) == "host":
+        return _two_pass(checks, _host_batch)
+    verify = functools.partial(
+        _device_batch, device=device, mesh=_verify_mesh(mesh_devices, device),
+        device_timeout=device_timeout)
+    try:
+        first = verify([c[0] for c in checks], [c[2] for c in checks],
+                       [c[3] for c in checks])
+    except Exception as e:
+        if not _host_serves_failure(e, device, "pass 1", len(checks)):
+            raise
+        return _two_pass(checks, _host_batch)
+    out = list(first)
+    retry = [i for i, ok in enumerate(out) if not ok]
+    if retry:
+        args = ([checks[i][1] for i in retry], [checks[i][2] for i in retry],
+                [checks[i][3] for i in retry])
+        try:
+            second = verify(*args)
+        except Exception as e:
+            # pass 1's verdicts are in hand; only the retries need the host
+            if not _host_serves_failure(e, device, "pass 2", len(retry)):
+                raise
+            second = _host_batch(*args)
+        for i, ok in zip(retry, second):
+            out[i] = ok
+    return out
+
+
+def _host_serves_failure(e: Exception, device: DeviceLike, what: str,
+                         n: int) -> bool:
+    """True when the host serves a failed device pass (the CPU only; the
+    failure is already on :data:`DEGRADE`).  On a card, and for a failed
+    arm anywhere, the caller raises it."""
+    if isinstance(e, ArmError) or not host_may_serve(device):
+        return False
+    trace.inc("resilience.device_fallback")
+    log.warning("device verify %s failed (%s); the host serves %d checks",
+                what, e, n)
+    return True
+
+
+def _two_pass(checks: Sequence[tuple], verify) -> List[bool]:
+    """Pass 1 on the raw-bytes digests, pass 2 on the hex-form digests of
+    the checks that failed it."""
     out = verify([c[0] for c in checks], [c[2] for c in checks],
                  [c[3] for c in checks])
     retry = [i for i, ok in enumerate(out) if not ok]
@@ -306,23 +434,50 @@ def run_sig_checks(checks: Sequence[tuple], backend: str = "auto",
 
 
 def _host_batch(digests, sigs, pubs) -> List[bool]:
-    return [_host_verify_digest(d, s, p) for d, s, p in zip(digests, sigs, pubs)]
+    """The native C++ batch, or the pure-Python oracle where the native
+    library cannot be built."""
+    from .. import native
+
+    batch = native.p256_verify_batch(digests, sigs, pubs)
+    if batch is None:
+        batch = [_host_verify_digest(d, s, p)
+                 for d, s, p in zip(digests, sigs, pubs)]
+    return list(batch)
 
 
 def _device_batch(digests, sigs, pubs, device: DeviceLike = None,
-                  mesh=None) -> List[bool]:
-    import time
-
+                  mesh=None, device_timeout: float = 240.0) -> List[bool]:
+    """One device batch, boxed through the device runtime under
+    ``device_timeout``; its outcome goes to :data:`DEGRADE`.  Raises on
+    an error (recorded) and on a hang (the path poisoned)."""
     from ..crypto import p256
 
+    def dispatch():
+        injector = get_injector()
+        if injector is not None:  # lands inside the box, as a hang would
+            injector.fire_sync("device.verify")
+        if mesh is None:
+            ok = p256.verify_batch_prehashed(digests, sigs, pubs,
+                                             device=device)
+        else:  # the mesh's devices run it
+            ok = p256.verify_batch_prehashed(digests, sigs, pubs, mesh=mesh)
+        return [bool(v) for v in ok]
+
     t0 = time.perf_counter()
-    if mesh is None:
-        ok = p256.verify_batch_prehashed(digests, sigs, pubs, device=device)
-    else:  # the mesh's devices run it
-        ok = p256.verify_batch_prehashed(digests, sigs, pubs, mesh=mesh)
+    status, value = get_runtime(device).run_boxed(
+        dispatch, device_timeout, kernel="p256_verify", source="verify")
     trace.observe("kernel.p256_verify.dispatch_seconds",
                   time.perf_counter() - t0)
-    return [bool(v) for v in ok]
+    if status == "ok":
+        DEGRADE.record_success()
+        return value
+    if status == "err":
+        DEGRADE.record_failure(value)
+        log.warning("device verify dispatch failed (state %s): %r",
+                    DEGRADE.state, value)
+        raise value
+    DEGRADE.poison("device verify hung")
+    raise TimeoutError(f"device verify hung past {device_timeout}s")
 
 
 def _host_verify_digest(digest: bytes, sig, pub) -> bool:
