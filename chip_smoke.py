@@ -117,15 +117,19 @@ Phases, one line each; any failure exits non-zero:
 15. ``push_block`` of the 8,160-tx block over HTTP to a node started
    with ``UPOW_DEVICE_UTXO_INDEX=1`` on a fresh copy: accepted through
    the probe, the two tampered blocks rejected with their strings;
-16. kernel vs plain, P-256 at w = 5 (kernel B7, ``jac_w5_kernel_vs_plain``,
-   right after phase 3): the Jacobian ladder's w = 5 instantiation
-   against its plain version on the same 8,192 lanes and the 1,026-, 33-
-   and 1-lane shapes, bit for bit with the collision lanes flagged;
-   times with 10 launches queued beside w = 4's in the same call, the
-   bound, shared bytes, registers and local bytes;
-17. the accept at w = 5 (``main_path_w5``): ``device.verify_window = 5``
-   applied through ``DeviceConfig.apply_kernel_overrides``, the 8,160-tx
-   accept on B7 alone (no w = 4 launch) to the w = 4 accept's UTXO hash;
+16. kernel vs plain, the Jacobian ladder at every other window the config
+   admits (``jac_windows_kernel_vs_plain``, right after phase 3): kernel
+   B7 (w = 5) and ROADMAP B7b's w = 2 and 3 (``csrc/p256_verify.cu``)
+   and 6-13 (``csrc/p256_verify_wide.cu``, the Q tables in device
+   memory), each against its plain version on phase 3's 8,192 lanes and
+   their first 1,026, 33 and 1, bit for bit with the collision lanes
+   flagged and every kind's verdict; times with 10 launches queued beside
+   w = 4's in turns; the bound (multiplies, and the Q tables' bytes at
+   6-13) and share; resources, and the scratch a launch allocates;
+17. the accept at each of those windows (``main_path_windows``, with
+   ``device_profile_w<w>``): ``device.verify_window = w`` applied through
+   ``DeviceConfig.apply_kernel_overrides``, the 8,160-tx accept with
+   launches at window w only, to the w = 4 accept's UTXO hash;
 18. the sharded verify (``mesh_verify``): ``verify_packed_sharded`` with
    4 shards on the card equal to the unsharded launch lane for lane,
    times; the accept with ``verify_mesh_devices = 0`` (one card: no
@@ -196,6 +200,12 @@ Phases, one line each; any failure exits non-zero:
    during each wall, and each node's kernel-1 and txid batches are
    printed; the four nodes must end on one tip and UTXO hash.
 
+25. a node at w = 13 (``node_push_block_w13``): ``python -m
+   upow_tpu_torch.node.run --device cuda`` with
+   ``UPOW_DEVICE_VERIFY_WINDOW=13`` arms its runtime (every library, a
+   warm launch at w = 13) and accepts the 8,160-tx push_block with
+   launches at w = 13 only (its ``/`` counters), to the same UTXO hash.
+
 Every path runs through the device runtime (``device/runtime.py``): the
 script arms a fresh runtime before each path, its warm launches before
 any count is reset (``runtime_arm`` prints the first), and fails when
@@ -209,13 +219,14 @@ last run before the runtime.
 
 The line before the last is the kernels' JSON record; each kernel's
 ``launches`` is one path's own count (the accept's for the Jacobian
-kernel, the w = 5 accept's for B7, the HTTP push_block's under complete
+kernel, each other window's accept for its record (B7's at w = 5), the
+HTTP push_block's under complete
 for the complete kernel, ``miner.run``'s for the sha256 search kernel,
 the sync's for the txid kernel, the resident accept's for the probe
 kernel, the 4-shard accept's for the sharded verify and the mesh
 miner's for the mesh search), and the complete kernel's
 ``launches_by_path`` gives each path it ran on.  Every phase that can
-reach the txid batch (6, 7, 8, 10, 11, 14, 15, 17, 18 and 22) counts
+reach the txid batch (6, 7, 8, 10, 11, 14, 15, 17, 18, 22 and 25) counts
 its txid kernel launches and fails if hashlib stood in for a device
 digest there (``txid.sample_mismatch`` or ``sync.host_txid_retry`` above
 0; in phase 22 read from each node's ``/``).
@@ -226,7 +237,13 @@ the script exits non-zero and prints no result.
 
 runs the card line, the build and the named kernel phases alone (a
 comma-separated list of ``KERNEL_PHASES``: ``utxo_probe``,
-``txid_ragged``, ``runtime_path``) and prints no result.
+``jac_windows``, ``txid_ragged``, ``runtime_path``) and prints no result.
+
+    python3 chip_smoke.py --sass LIB.so [LIB.so ...]
+
+prints each kernel function of built libraries with its SASS instruction
+count and a digest of their text (two builds of the same kernel code give
+the same line), and needs no card.
 """
 
 from __future__ import annotations
@@ -275,8 +292,8 @@ from upow_tpu_torch.resilience import DeviceBlocked, faultinject
 from upow_tpu_torch.state import ChainState, device_index as tdi
 from upow_tpu_torch.verify import BlockManager, txverify
 
-KERNELS = ["p256_verify", "p256_complete", "sha256_search",
-           "sha256_blocks", "utxo_probe"]
+KERNELS = ["p256_verify", "p256_verify_wide", "p256_complete",
+           "sha256_search", "sha256_blocks", "utxo_probe"]
 LANES = 8192
 FAN, PER = 255, 32          # 8,160 leaf spends: one full block
 GENESIS_PREV = (18_884_643).to_bytes(32, "little").hex()
@@ -298,6 +315,9 @@ ABSENT = [("ff" * 32, i) for i in range(16)]
 I32_MAX = 2 ** 31 - 1
 KEY_SEED = 0xACC7           # the chain's and the miner's key
 SENTINEL = int(tsha.SENTINEL)
+# the verdict every lane of a kind in signature_mix must get
+VERDICTS = {"valid": 1, "big_digest": 1, "big_coord": 1, "bad_s": 0,
+            "off_curve": 0, "zero_pub": 0}
 # charset size -> the fractional part of the difficulty that gives it
 FRAC_OF_CHARSET = {charset_count(f"1.{d}"): f".{d}" for d in range(1, 10)}
 # H100: 64 32-bit integer multiply(-add)s per SM per clock, and 64 32-bit
@@ -316,6 +336,8 @@ HBM_BYTES_S = 3.35e12       # H100 SXM data sheet
 # (modifiers dropped), operands
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?"
                        r"([A-Z][A-Z0-9_]*)[A-Z0-9_.]*([^;]*);")
+# the whole text of one SASS instruction, predicate and modifiers included
+SASS_TEXT = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);")
 
 
 def phase(title: str, **fields) -> None:
@@ -446,8 +468,7 @@ def kernel_phase(dev: torch.device, mix: tuple) -> dict:
         if bool(bits[i] & 1) != want:
             fail(f"lane {i} ({kinds[i]}): kernel {bits[i] & 1}, host {want}")
     for i, kind in enumerate(kinds):
-        want = {"valid": 1, "big_digest": 1, "big_coord": 1,
-                "bad_s": 0, "off_curve": 0, "zero_pub": 0}.get(kind)
+        want = VERDICTS.get(kind)
         if want is not None and (bits[i] & 1) != want:
             fail(f"lane {i} ({kind}): verdict {bits[i] & 1}")
 
@@ -1470,6 +1491,55 @@ class NodeProcess:
         self.log.close()
 
 
+def window_launches(url: str) -> dict:
+    """A node process's Jacobian kernel launches by window, from its
+    ``/`` counters."""
+    counters = http(url, "")["counters"]
+    return {w: int(counters.get(f"kernel.p256_verify.w{w}.launches", 0))
+            for w in p256.WINDOWS}
+
+
+def node_window_path(workdir: Path, leaves, content: str, want_utxo: str,
+                     w: int = 13) -> dict:
+    """``python -m upow_tpu_torch.node.run --device cuda`` with
+    ``UPOW_DEVICE_VERIFY_WINDOW=w`` on a fresh copy of the chain: its
+    runtime arms (every library built, a warm launch at window w), then
+    the 8,160-tx push_block over HTTP must be accepted with Jacobian
+    launches at window w only, to the w = 4 accept's UTXO hash."""
+    db = str(workdir / f"push_w{w}.db")
+    shutil.copyfile(workdir / "base.db", db)
+    t0 = time.perf_counter()
+    node = NodeProcess(db, UPOW_DEVICE_VERIFY_WINDOW=str(w))
+    try:
+        node.wait_ready()
+        ready_s = time.perf_counter() - t0
+        arm = http(node.url, "")["counters"]["device_runtime"]["arm"]
+        if arm["platform"] != "cuda":
+            fail(f"the w = {w} node armed {arm}")
+        since = kernel_counts(node.url)
+        before = window_launches(node.url)
+        body = {"block_content": content, "txs": [t.hex() for t in leaves]}
+        t1 = time.perf_counter()
+        reply = http(node.url, "push_block", body)
+        wall_s = time.perf_counter() - t1
+        if reply != {"ok": True}:
+            fail(f"push_block to the w = {w} node: {reply}")
+        counts = kernel_counts(node.url, since)
+        after = window_launches(node.url)
+        launches = {k: after[k] - before[k] for k in after}
+        if launches[w] == 0 or any(v for k, v in launches.items() if k != w):
+            fail(f"the w = {w} node's launches by window: {launches}")
+        if http(node.url, "")["unspent_outputs_hash"] != want_utxo:
+            fail(f"the w = {w} node reached another UTXO hash")
+        if counts["txid.sample_mismatch"] or counts["sync.host_txid_retry"]:
+            fail(f"the w = {w} node: hashlib stood in for device digests")
+    finally:
+        node.close()
+    return {"ready_s": ready_s, "wall_s": wall_s, "launches": launches[w],
+            "warm": before[w], "batches": counts["p256_verify"],
+            "accept_s": counts["block_accept"], "arm": arm}
+
+
 def tip(url: str) -> str:
     return http(url, "get_mining_info")["result"]["last_block"]["hash"]
 
@@ -2265,92 +2335,130 @@ def push_block_resident_path(dev: torch.device, kit: Kit, workdir: Path,
 
 # --- phases 16-20: the w = 5 ladder, the mesh variants, two processes ----
 
-def w5_phase(dev: torch.device, mix: tuple) -> dict:
-    """Kernel B7 (the Jacobian ladder at w = 5) against its plain version
-    at 8,192, 1,026, 33 and 1 lanes, bit for bit, the collision lanes
-    flagged; CUDA-event times with 10 launches queued beside w = 4's in
-    the same call (w = 4, w = 5, w = 5, w = 4); the bound; resources."""
+# every window of the Jacobian ladder but the default 4: B7 (w = 5) and
+# ROADMAP B7b's, w = 2 and 3 in csrc/p256_verify.cu and 6-13 in
+# csrc/p256_verify_wide.cu
+OTHER_WINDOWS = [w for w in p256.WINDOWS if w != 4]
+
+
+def windows_phase(dev: torch.device, mix: tuple) -> list:
+    """Each other window's kernel against its plain version, bit for bit,
+    at 8,192, 1,026, 33 and 1 lanes (the plain version runs once, at
+    8,192 lanes: each narrower launch's input is its first lanes), the
+    collision lanes flagged and every kind's verdict; CUDA-event times
+    with 10 launches queued beside w = 4's in turns (w = 4, w, w, w = 4)
+    at 8,192, 1,026 and 1 lanes; the bound (the multiplies and, at the
+    wide windows, the Q tables' bytes) and its share; resources and the
+    scratch a launch allocates.  One kernel record a window."""
     digests, sigs, pubs, kinds = mix
     fused, zs, rs, ss, qxs, qys = p256._pack_device_inputs(
         digests, sigs, pubs, LANES)
     packed = p256.packed_tensor(fused, dev)
-    got = p256.verify_packed(packed, window=5)
-    torch.cuda.synchronize()
-    plain = p256.verify_plain(packed, 5)
-    torch.cuda.synchronize()
-    max_abs_err = int((got.long() - plain.long()).abs().max())
-    if not torch.equal(got, plain):
-        bad = torch.nonzero(got != plain).flatten()[:8].tolist()
-        fail(f"w = 5 kernel != plain on {int((got != plain).sum())} lanes, "
-             f"first {bad}")
-    bits = got.cpu().numpy()
-    exc = [i for i in range(LANES) if bits[i] & 2]
-    if not {i for i, k in enumerate(kinds) if k == "collision"} <= set(exc):
-        fail("w = 5: crafted collision lanes were not flagged")
-    for i, kind in enumerate(kinds):
-        want = {"valid": 1, "big_digest": 1, "big_coord": 1,
-                "bad_s": 0, "off_curve": 0, "zero_pub": 0}.get(kind)
-        if want is not None and (bits[i] & 1) != want:
-            fail(f"w = 5 lane {i} ({kind}): verdict {bits[i] & 1}")
-    parts = {LANES: packed}
-    for width in (1026, 33, 1):
-        parts[width] = packed[:, :width].contiguous()
-        if not torch.equal(p256.verify_packed(parts[width], window=5),
-                           plain[:width]):
-            fail(f"w = 5 kernel != plain at the {width}-lane launch shape")
-    times = {}
-    for width in (LANES, 1026, 1):
-        for w in (4, 5, 5, 4):
-            times.setdefault((w, width), []).append(cuda_ms(
-                lambda: p256.verify_packed(parts[width], window=w),
-                reps=5, per=10))
-    ms = {k: statistics.mean(v) for k, v in times.items()}
-    plain_ms = cuda_ms(lambda: p256.verify_plain(packed, 5), reps=1, warm=0)
+    parts = {width: packed[:, :width].contiguous()
+             for width in (LANES, 1026, 33, 1)}
     props = torch.cuda.get_device_properties(dev)
     clock_mhz = tdevice.max_sm_clock_mhz() or props.clock_rate / 1000
-    ops = p256.mul_ops_needed(zs, rs, ss, qxs, qys, w=5)
-    ops_ms = ops / (props.multi_processor_count * IMUL_PER_SM_CLK
-                    * clock_mhz * 1e6) * 1e3
-    bytes_ms = LANES * (p256.PACKED_ROWS * 4 + 4) / HBM_BYTES_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    phase("jac_w5_kernel_vs_plain", lanes=LANES, equal=True,
-          equal_shapes=json.dumps([1026, 33, 1]), exception_lanes=len(exc),
-          ms=round(ms[(5, LANES)], 4), ms_w4=round(ms[(4, LANES)], 4),
-          turns_8192=json.dumps([round(t, 4) for t in
-                                 times[(4, LANES)][:1] + times[(5, LANES)]
-                                 + times[(4, LANES)][1:]]),
-          ms_1026_lanes=round(ms[(5, 1026)], 4),
-          ms_1026_lanes_w4=round(ms[(4, 1026)], 4),
-          ms_1_lane=round(ms[(5, 1)], 4), ms_1_lane_w4=round(ms[(4, 1)], 4),
-          plain_ms=round(plain_ms, 1), bound_ms=round(bound_ms, 4),
-          bound_share=round(bound_ms / ms[(5, LANES)], 4),
-          int_mul_ops=ops,
-          products_per_lane=sum(p256.mults_per_lane("jac", 5).values()),
-          products_per_lane_w4=sum(p256.mults_per_lane("jac", 4).values()),
-          **p256.kernel_attributes("p256_verify", dev, window=5))
-    return {"name": "p256_verify_w5", "route": "cuda",
-            "source": "upow_tpu_torch/csrc/p256_verify.cu",
-            "replaces": "upow_tpu/crypto/p256.py:1016",
+    expect_exc = {i for i, k in enumerate(kinds) if k == "collision"}
+    records = []
+    for w in OTHER_WINDOWS:
+        t0 = time.perf_counter()
+        held = {}
+        plain_ms = cuda_ms(lambda: held.__setitem__(
+            "plain", p256.verify_plain(packed, w)), reps=1, warm=0)
+        plain = held.pop("plain")
+        max_abs_err = 0
+        for width, part in parts.items():
+            got = p256.verify_packed(part, window=w)
+            torch.cuda.synchronize()
+            max_abs_err = max(max_abs_err, int(
+                (got.long() - plain[:width].long()).abs().max()))
+            if not torch.equal(got, plain[:width]):
+                bad = torch.nonzero(got != plain[:width]).flatten()[:8]
+                fail(f"w = {w} kernel != plain at {width} lanes on "
+                     f"{int((got != plain[:width]).sum())} lanes, first "
+                     f"{bad.tolist()}")
+            if width == LANES:
+                bits = got.cpu().numpy()
+        exc = {i for i in range(LANES) if bits[i] & 2}
+        if not expect_exc <= exc:
+            fail(f"w = {w}: crafted collision lanes were not flagged")
+        for i, kind in enumerate(kinds):
+            want = VERDICTS.get(kind)
+            if want is not None and (bits[i] & 1) != want:
+                fail(f"w = {w} lane {i} ({kind}): verdict {bits[i] & 1}")
+        del plain
+        torch.cuda.empty_cache()
+        times = {}
+        for width in (LANES, 1026, 1):
+            for ww in (4, w, w, 4):
+                times.setdefault((ww, width), []).append(cuda_ms(
+                    lambda: p256.verify_packed(parts[width], window=ww),
+                    reps=3, per=10))
+        ms = {k: statistics.mean(v) for k, v in times.items()}
+        ops = p256.mul_ops_needed(zs, rs, ss, qxs, qys, w=w)
+        ops_ms = ops / (props.multi_processor_count * IMUL_PER_SM_CLK
+                        * clock_mhz * 1e6) * 1e3
+        nbytes = p256.bytes_needed(zs, rs, ss, qxs, qys, w)
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        source = "p256_verify" if w in p256.SHARED_WINDOWS \
+            else "p256_verify_wide"
+        phase("jac_windows_kernel_vs_plain", window=w, lanes=LANES,
+              equal=True, equal_shapes=json.dumps(sorted(parts)),
+              exception_lanes=len(exc), ms=round(ms[(w, LANES)], 4),
+              ms_w4=round(ms[(4, LANES)], 4),
+              turns_8192=json.dumps([round(t, 4) for t in
+                                     times[(4, LANES)][:1] + times[(w, LANES)]
+                                     + times[(4, LANES)][1:]]),
+              ms_1026_lanes=round(ms[(w, 1026)], 4),
+              ms_1026_lanes_w4=round(ms[(4, 1026)], 4),
+              ms_1_lane=round(ms[(w, 1)], 4),
+              ms_1_lane_w4=round(ms[(4, 1)], 4),
+              plain_ms=round(plain_ms, 1), bound_ms=round(bound_ms, 4),
+              bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+              ops_ms=round(ops_ms, 4), bytes_ms=round(bytes_ms, 4),
+              bound_share=round(bound_ms / ms[(w, LANES)], 4),
+              int_mul_ops=ops, bytes=nbytes,
+              products_per_lane=sum(p256.mults_per_lane("jac", w).values()),
+              seconds=round(time.perf_counter() - t0, 1),
+              **p256.kernel_attributes("p256_verify", dev, window=w,
+                                       lanes=LANES))
+        records.append({
+            "name": f"p256_verify_w{w}", "route": "cuda",
+            "source": f"upow_tpu_torch/csrc/{source}.cu",
+            "replaces": "upow_tpu/crypto/p256.py:1016", "window": w,
             "launches": 0, "max_abs_err": max_abs_err,
-            "ms": ms[(5, LANES)], "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "ms": ms[(w, LANES)], "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None}
+            "library_ms": None})
+    return records
 
 
-def accept_w5(dev: torch.device, kit: Kit, path: str, leaves, content: str,
-              want_hash: str) -> dict:
-    """The accept with ``device.verify_window = 5`` applied through the
-    config: kernel B7 only, and the w = 4 accept's UTXO hash."""
-    DeviceConfig(verify_window=5).apply_kernel_overrides()
+def jac_kernel_name(w: int) -> str:
+    """The Jacobian kernel's CUDA function at window ``w`` (its name in
+    the profiler)."""
+    if w not in p256.SHARED_WINDOWS:
+        return "p256_verify_wide_kernel"
+    return "p256_verify_kernel" if w == 4 else f"p256_verify_w{w}_kernel"
+
+
+def accept_window(dev: torch.device, kit: Kit, path: str, leaves,
+                  content: str, want_hash: str, w: int) -> dict:
+    """The accept with ``device.verify_window = w`` applied through the
+    config: the Jacobian kernel at window w only, and the w = 4 accept's
+    UTXO hash."""
+    DeviceConfig(verify_window=w).apply_kernel_overrides()
     try:
         out = asyncio.run(accept_path(dev, kit, path, leaves, content,
-                                      kernel_name="p256_verify_w5_kernel"))
+                                      kernel_name=jac_kernel_name(w)))
     finally:
         DeviceConfig(verify_window=4).apply_kernel_overrides()
-    if out["by_window"][5] == 0 or out["by_window"][4] != 0:
-        fail(f"the w = 5 accept's launches by window: {out['by_window']}")
+    others = {k: v for k, v in out["by_window"].items() if k != w and v}
+    if out["by_window"][w] == 0 or others:
+        fail(f"the w = {w} accept's launches by window: {out['by_window']}")
     if out["utxo_hash"] != want_hash:
-        fail("the w = 5 accept reached another UTXO hash")
+        fail(f"the w = {w} accept reached another UTXO hash")
     return out
 
 
@@ -2807,6 +2915,27 @@ def sass_counts(name: str, inside: str = "") -> tuple:
     return len(code), loop
 
 
+def sass_functions(lib: str) -> dict:
+    """{kernel function: (SASS instructions, the first 16 hex digits of the
+    sha256 of their text)} of a built library, from cuobjdump, NOPs left
+    out: two builds of the same kernel code give the same pair.  {} where
+    the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build.nvcc()).with_name("cuobjdump"))
+    if not Path(tool).exists():
+        return {}
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = block.split("\n", 1)[0].strip()
+        code = [" ".join(i.split()) for i in SASS_TEXT.findall(block)
+                if not i.strip().startswith("NOP")]
+        out[name] = (len(code), hashlib.sha256(
+            "\n".join(code).encode()).hexdigest()[:16])
+    return out
+
+
 # --- phase 23: the device runtime ------------------------------------------
 
 # the walls of the last run before the device runtime (PERF.md run AK,
@@ -3123,11 +3252,19 @@ def runtime_only(dev: torch.device) -> None:
 
 # the kernel phases that need no chain, by the name ``--only`` takes
 KERNEL_PHASES = {"utxo_probe": probe_phase,
+                 "jac_windows": lambda dev: windows_phase(
+                     dev, signature_mix(LANES)),
                  "txid_ragged": txid_ragged_phase,
                  "runtime_path": runtime_only}
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--sass"]:
+        # each kernel function of the built libraries named, by its SASS
+        for lib in sys.argv[2:]:
+            for fn, (count, digest) in sass_functions(lib).items():
+                print(f"{lib} {fn}: instructions={count} sha256={digest}")
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -3151,12 +3288,18 @@ def main() -> int:
     for k, inside in (("sha256_search", ""), ("sha256_blocks", ""),
                       ("utxo_probe", ""),
                       ("p256_verify", "WARPSYNC"),
+                      ("p256_verify_wide", "WARPSYNC"),
                       ("p256_complete", "WARPSYNC")):
         total, loop = sass_counts(k, inside)
         print(f"  sass {k}: instructions={total or 'not_measured'} "
               f"loop={sum(loop.values())} "
               + " ".join(f"{op}={n}" for op, n in loop.most_common(12)),
               flush=True)
+    for k in ("p256_verify", "p256_verify_wide"):
+        for fn, (count, digest) in sass_functions(
+                str(_build.library_path(k))).items():
+            print(f"  sass_function {k} {fn}: instructions={count} "
+                  f"sha256={digest}", flush=True)
 
     if sys.argv[1:2] == ["--only"]:
         # a partial run: the card, the build and the named kernel phases
@@ -3170,7 +3313,7 @@ def main() -> int:
     runtime_arm_line(fresh_runtime(dev, "the build"), card)
     mix = signature_mix(LANES)
     record = kernel_phase(dev, mix)
-    w5_record = w5_phase(dev, mix)
+    window_records = windows_phase(dev, mix)
     complete_record = complete_phase(dev, mix)
     key = curve.keygen(rng=KEY_SEED)
     sha_record = sha_phase(dev, point_to_string(key[1]))
@@ -3190,10 +3333,17 @@ def main() -> int:
         fresh_runtime(dev, "accept_path")
         resident = asyncio.run(accept_resident_path(
             dev, kit, str(workdir / "base.db"), leaves, content))
-        fresh_runtime(dev, "accept_resident")
-        res_w5 = accept_w5(dev, kit, str(workdir / "base.db"), leaves,
-                           content, res["utxo_hash"])
-        fresh_runtime(dev, "main_path_w5")
+        res_windows, last = {}, "accept_resident"
+        for w in OTHER_WINDOWS:
+            fresh_runtime(dev, last)
+            res_windows[w] = accept_window(
+                dev, kit, str(workdir / "base.db"), leaves, content,
+                res["utxo_hash"], w)
+            last = f"main_path_w{w}"
+        fresh_runtime(dev, last)
+        node_w13 = node_window_path(workdir, leaves, content,
+                                    res["utxo_hash"])
+        fresh_runtime(dev, "node_push_block_w13")
         mverify = mesh_verify_phase(dev, kit, str(workdir / "base.db"),
                                     leaves, content, res["utxo_hash"], mix)
         fresh_runtime(dev, "mesh_verify")
@@ -3232,7 +3382,9 @@ def main() -> int:
         fresh_runtime(dev, "runtime_path")
     clock.reset()
     txid_record["launches"] = synced["b5"]
-    w5_record["launches"] = res_w5["by_window"][5]
+    for rec in window_records:
+        rec["launches"] = res_windows[rec["window"]]["by_window"][
+            rec["window"]]
     probe_record["launches"] = resident["b6"]
     record["launches"] = res["launches"]
     sha_record["launches"] = nres["miner"]["launches"]
@@ -3256,14 +3408,27 @@ def main() -> int:
           rejected=json.dumps(res["rejected"]), card=json.dumps(card))
     phase("accept_breakdown", **res["breakdown"])
     device_phase("device_profile", res["device"], res["accept_s"])
-    phase("main_path_w5", txs=res_w5["txs"], verify_window=5,
-          accept_s=round(res_w5["accept_s"], 3),
-          tx_per_s=round(res_w5["txs"] / res_w5["accept_s"], 1),
-          w5_launches=res_w5["by_window"][5],
-          w4_launches=res_w5["by_window"][4],
-          exception_lanes=res_w5["exception_lanes"],
+    for w, out in res_windows.items():
+        phase("main_path_windows", txs=out["txs"], verify_window=w,
+              accept_s=round(out["accept_s"], 3),
+              tx_per_s=round(out["txs"] / out["accept_s"], 1),
+              launches=out["by_window"][w],
+              other_windows=sum(v for k, v in out["by_window"].items()
+                                if k != w),
+              exception_lanes=out["exception_lanes"],
+              same_utxo_hash_as_w4=True, card=json.dumps(card))
+        device_phase(f"device_profile_w{w}", out["device"], out["accept_s"])
+    phase("node_push_block_w13", txs=len(leaves), verify_window=13,
+          ready_s=round(node_w13["ready_s"], 3),
+          wall_s=round(node_w13["wall_s"], 3),
+          tx_per_s=round(len(leaves) / node_w13["wall_s"], 1),
+          block_accept_s=round(node_w13["accept_s"], 3),
+          w13_launches=node_w13["launches"],
+          warm_launches_w13=node_w13["warm"],
+          jac_batches=node_w13["batches"],
+          arm_s=node_w13["arm"].get("probe_seconds"),
+          warmed=json.dumps(node_w13["arm"].get("warmed")),
           same_utxo_hash_as_w4=True, card=json.dumps(card))
-    device_phase("device_profile_w5", res_w5["device"], res_w5["accept_s"])
     phase("node_burst", verify_kernel="complete", push_tx=nres["burst"],
           accepted=nres["burst"], seconds=round(nres["burst_s"], 3),
           tx_per_s=round(nres["burst"] / nres["burst_s"], 1),
@@ -3426,7 +3591,8 @@ def main() -> int:
         replaces="upow_tpu/parallel/mesh.py:74",
         same_kernel_as="upow_tpu/parallel/mesh.py:101")
     print(json.dumps({"kernels": [
-        record, w5_record, complete_record, stacked_record, sha_record,
+        record, *window_records, complete_record,
+        stacked_record, sha_record,
         txid_record, probe_record, verify_sharded_record, search_mesh_record,
         search_sharded_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -279,10 +279,12 @@ int main(int argc, char** argv) {
 """
 
 
-def build_group_kernel(tmp: Path, name: str, kernel: str = "") -> Path:
+def build_group_kernel(tmp: Path, name: str, kernel: str = "",
+                       main: str = "") -> Path:
     """csrc/<name>.cu built by the host's g++ under _GROUP_SHIM, running
-    its ``kernel`` (by default ``<name>_kernel``); returns the binary,
-    which reads (constants, n, packed) and writes n int32."""
+    its ``kernel`` (by default ``<name>_kernel``) under _GROUP_MAIN, or
+    under ``main`` (a whole main.cpp that includes "kernel.cpp"); returns
+    the binary, which reads (constants, n, packed) and writes n int32."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
@@ -291,9 +293,10 @@ def build_group_kernel(tmp: Path, name: str, kernel: str = "") -> Path:
     # the launch wrapper is CUDA-only syntax; the kernel is called directly
     src = src[:src.index(f'extern "C" int {name}_launch')]
     (tmp / "cuda_runtime.h").write_text(_GROUP_SHIM)
-    shutil.copy(csrc / "p256_common.cuh", tmp)
+    for header in csrc.glob("*.cuh"):
+        shutil.copy(header, tmp)
     (tmp / "kernel.cpp").write_text(src)
-    (tmp / "main.cpp").write_text('#include "kernel.cpp"\n' + _GROUP_MAIN
+    (tmp / "main.cpp").write_text(main or '#include "kernel.cpp"\n' + _GROUP_MAIN
                                   .replace("KERNEL", kernel or f"{name}_kernel"))
     subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-I", str(tmp),
                     str(tmp / "main.cpp"), "-o", str(tmp / "kernel")],

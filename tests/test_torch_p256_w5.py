@@ -13,7 +13,7 @@ against the JAX package's ``_ladder_kernel_jac`` at ``w=5``.
 * the CUDA source's w = 5 instantiation, compiled by the host's g++
   under ``test_torch_p256.py``'s group shim, against the plain version;
 * ``device.verify_window`` and ``UPOW_JAC_WINDOW`` parsed as the JAX
-  package parses them, with the windows that have no kernel refused;
+  package parses them (every window in [2, 13]: test_torch_p256_windows.py);
 * on a card, the kernel against its plain version.
 
 No tolerance: every compared value is a bit or an integer.
@@ -203,18 +203,6 @@ def test_config_window_rejected_like_jax(windows, window):
         with pytest.raises(ValueError, match=r"\[2, 13\]"):
             cfg(verify_window=window).apply_kernel_overrides()
     assert p256.VERIFY_WINDOW == jp256.PALLAS_JAC_WINDOW == 4
-
-
-@pytest.mark.parametrize("window", [2, 3, 6, 13])
-def test_config_window_without_a_kernel_raises(windows, window):
-    """The JAX kernel takes any window in [2, 13]; the port has kernels
-    for 4 and 5 only and refuses the rest before setting anything."""
-    jconfig.DeviceConfig(verify_window=window).apply_kernel_overrides()
-    assert jp256.PALLAS_JAC_WINDOW == window
-    with pytest.raises(NotImplementedError, match="B7b"):
-        tconfig.DeviceConfig(verify_kernel="complete",
-                             verify_window=window).apply_kernel_overrides()
-    assert (p256.VERIFY_WINDOW, p256.VERIFY_KERNEL) == (4, "jac")
 
 
 def test_config_reads_the_window_from_the_jax_environment(monkeypatch):

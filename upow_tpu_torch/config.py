@@ -127,9 +127,8 @@ class DeviceConfig:
         """Push ``verify_kernel`` and ``verify_window`` into
         ``crypto.p256.VERIFY_KERNEL`` and ``VERIFY_WINDOW`` (module-level,
         so node, tests and chip_smoke.py see one value).  No-op at the
-        defaults.  Validation is the JAX package's; a window in [2, 13]
-        that has no kernel here raises NotImplementedError before
-        anything is set."""
+        defaults.  Validation is the JAX package's: every window in
+        [2, 13] has its kernel."""
         if not (self.verify_kernel or self.verify_window):
             return
         if self.verify_kernel and self.verify_kernel not in ("jac",
@@ -145,8 +144,6 @@ class DeviceConfig:
                 f"not {window!r}")
         from .crypto import p256
 
-        if window:
-            p256.check_window(window)
         if self.verify_kernel:
             p256.VERIFY_KERNEL = self.verify_kernel
         if window:

@@ -9,16 +9,18 @@ kernels that share their field arithmetic and scalar prep
 n - 2), u1 = z * s^-1 and u2 = r * s^-1, the on-curve check and the
 window digits; then a Strauss ladder for u1*G + u2*Q:
 
-* ``csrc/p256_verify.cu`` (``VERIFY_KERNEL = "jac"``, the default) ports
-  ``_ladder_kernel_jac`` at either window the JAX package runs it with
-  (:data:`VERIFY_WINDOW`: 4, the default, or 5, kernel B7): Jacobian
-  coordinates, each of ceil(256 / w) rounds w doublings (dbl-2001-b), a
-  mixed add (madd-2007-bl) from the constant affine G table and a general
-  add (add-2007-bl) from a 2^w - 1 entry Q table built per lane.  A zero
-  digit keeps the accumulator, a not-yet-started accumulator takes the
-  picked point, and H == 0 with both operands real sets the lane's
-  exception flag; accept <=> X == r*Z^2 or (r + n < p and
-  X == (r+n)*Z^2), R finite.  Output bit 0 is the verdict, bit 1 the
+* ``csrc/p256_verify.cu`` and ``csrc/p256_verify_wide.cu``
+  (``VERIFY_KERNEL = "jac"``, the default) port ``_ladder_kernel_jac`` at
+  every window the JAX package's config admits (:data:`VERIFY_WINDOW`, 2
+  to 13; 4 is the default and 5 kernel B7): the first with its tables in
+  shared memory at w = 2-5, the second with its Q tables in device memory
+  at w = 6-13.  Jacobian coordinates, each of ceil(256 / w) rounds w
+  doublings (dbl-2001-b), a mixed add (madd-2007-bl) from the affine G
+  table and a general add (add-2007-bl) from a 2^w - 1 entry Q table
+  built per lane.  A zero digit keeps the accumulator, a not-yet-started
+  accumulator takes the picked point, and H == 0 with both operands
+  real sets the lane's exception flag; accept <=> X == r*Z^2 or
+  (r + n < p and X == (r+n)*Z^2), R finite.  Output bit 0 is the verdict, bit 1 the
   exception flag; flagged lanes (cryptographically unreachable for
   honest signatures) are re-verified on the host oracle, exactly as the
   JAX package does, and both bits match the JAX kernel lane for lane.
@@ -56,13 +58,22 @@ from ..device import DeviceLike, resolve
 from . import fp
 
 PACKED_ROWS = 42           # z, r, s, qx, qy (8 words each), range_ok, rn_ok
-WINDOWS = (4, 5)           # the Jacobian ladder's windows with a kernel
+WINDOWS = tuple(range(2, 14))  # the Jacobian ladder's windows: every one
+                           # device.verify_window admits, as in the JAX
+                           # package
+SHARED_WINDOWS = (2, 3, 4, 5)  # tables in shared memory (p256_verify.cu);
+                           # the rest are p256_verify_wide.cu's
+ENV_WINDOWS = (4, 5)       # what UPOW_JAC_WINDOW takes, as in the JAX
+                           # package
 DEFAULT_WINDOW = 4         # the JAX package's default, and the complete
                            # ladder's only window
 INV_WINDOW = 4             # the prep's fixed window over n - 2 (s^-1),
                            # whatever the ladder's: as the JAX package's
                            # _mod_n_inv_mont
-G_ENTRIES = (1 << max(WINDOWS)) - 1  # [k]G in the kernels' constant table
+G_ENTRIES = 31             # [k]G in the kernels' constant table: the
+                           # shared-memory windows' (w <= 5)
+Q_ENTRY_BYTES = 160        # a Q-table entry: X, Y, Z, Z^2, Z^3
+G_ENTRY_BYTES = 64         # a G-table entry: affine x, y
 
 
 def rounds(w: int) -> int:
@@ -90,7 +101,8 @@ VERIFY_KERNELS = ("jac", "complete")
 def _env_window() -> int:
     """The JAX package's parse of ``UPOW_JAC_WINDOW`` (``p256.py``
     ``_env_choice``): 4 or 5; anything else logs and keeps 4, so a node
-    never starts on an unvetted window."""
+    never starts on an unvetted window (``device.verify_window`` takes
+    the others)."""
     name = "UPOW_JAC_WINDOW"
     raw = os.environ.get(name)
     if raw is None:
@@ -99,10 +111,10 @@ def _env_window() -> int:
         val = int(raw.strip())
     except ValueError:
         val = None
-    if val not in WINDOWS:
+    if val not in ENV_WINDOWS:
         logging.getLogger("upow_tpu_torch.crypto").warning(
             "%s=%r invalid (allowed %s); using %d", name, raw,
-            sorted(WINDOWS), DEFAULT_WINDOW)
+            sorted(ENV_WINDOWS), DEFAULT_WINDOW)
         return DEFAULT_WINDOW
     return val
 
@@ -111,16 +123,6 @@ def _env_window() -> int:
 # from UPOW_JAC_WINDOW at import; config.DeviceConfig.apply_kernel_overrides
 # sets it from device.verify_window.
 VERIFY_WINDOW = _env_window()
-
-
-def check_window(w: int) -> int:
-    """``w`` if a kernel runs that window; NotImplementedError else."""
-    if w not in WINDOWS:
-        raise NotImplementedError(
-            f"the Jacobian ladder has no kernel for window {w!r}: windows "
-            f"other than {WINDOWS} are ROADMAP B7b (from w = 6 their "
-            "tables do not fit the kernel's shared memory)")
-    return w
 
 # Plain integers, read by chip_smoke.py: launches of each kernel, and lanes
 # the Jacobian kernel or its plain version flagged for the host oracle.
@@ -233,10 +235,13 @@ def _nm2_digits() -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def _g_multiples() -> Tuple[Tuple[int, int], ...]:
-    """Affine [k]G for k = 1..G_ENTRIES."""
-    return tuple(host_curve.point_mul(k, host_curve.G)
-                 for k in range(1, G_ENTRIES + 1))
+def _g_multiples(count: int = G_ENTRIES) -> Tuple[Tuple[int, int], ...]:
+    """Affine [k]G for k = 1..count, each by one addition to the last
+    (8,191 of them at w = 13)."""
+    pts = [host_curve.G]
+    while len(pts) < count:
+        pts.append(host_curve.point_add(pts[-1], host_curve.G))
+    return tuple(pts)
 
 
 _G_PLAIN = {}  # (device, w) -> (2^w - 1, 2, 12) int64 Montgomery limbs
@@ -246,7 +251,7 @@ def _g_table_plain(device, w: int = DEFAULT_WINDOW) -> torch.Tensor:
     key = (str(device), w)
     if key not in _G_PLAIN:
         rows = [[fp.int_to_limbs(FP.to_mont(c)) for c in pt]
-                for pt in _g_multiples()[:table(w)]]
+                for pt in _g_multiples(table(w))]
         _G_PLAIN[key] = torch.tensor(rows, dtype=torch.int64, device=device)
     return _G_PLAIN[key]
 
@@ -271,58 +276,56 @@ def _digits(limbs: torch.Tensor, w: int = DEFAULT_WINDOW) -> torch.Tensor:
     return (v & table(w)).flip(0)
 
 
+def _muls(*pairs) -> tuple:
+    """Independent mod-p products of one dependency level, in one call."""
+    return fp.mul_many(pairs, FP)
+
+
 def _jac_dbl(P):
-    """dbl-2001-b (a = -3): 3M + 5S."""
+    """dbl-2001-b (a = -3): 3M + 5S, in four levels of products."""
     X, Y, Z = P
-    mul, sqr = (lambda a, b: fp.mul(a, b, FP)), (lambda a: fp.sqr(a, FP))
-    delta = sqr(Z)
-    gamma = sqr(Y)
-    beta = mul(X, gamma)
-    alpha = 3 * mul(X - delta, X + delta)
-    X3 = sqr(alpha) - 8 * beta
-    Y3 = mul(alpha, 4 * beta - X3) - 8 * sqr(gamma)
-    Z3 = sqr(Y + Z) - gamma - delta
+    delta, gamma, yz2 = _muls((Z, Z), (Y, Y), (Y + Z, Y + Z))
+    beta, xx, g2 = _muls((X, gamma), (X - delta, X + delta), (gamma, gamma))
+    alpha = 3 * xx
+    X3 = fp.sqr(alpha, FP) - 8 * beta
+    Y3 = fp.mul(alpha, 4 * beta - X3, FP) - 8 * g2
+    Z3 = yz2 - gamma - delta
     return X3, Y3, Z3
 
 
 def _jac_madd(P1, x2, y2):
-    """madd-2007-bl (P2 affine): 7M + 4S.  Returns (P3, H)."""
+    """madd-2007-bl (P2 affine): 7M + 4S, in five levels.  Returns
+    (P3, H)."""
     X1, Y1, Z1 = P1
-    mul, sqr = (lambda a, b: fp.mul(a, b, FP)), (lambda a: fp.sqr(a, FP))
-    z1z1 = sqr(Z1)
-    u2 = mul(x2, z1z1)
-    s2 = mul(y2, mul(Z1, z1z1))
+    z1z1 = fp.sqr(Z1, FP)
+    u2, z1c = _muls((x2, z1z1), (Z1, z1z1))
     H = u2 - X1
-    hh = sqr(H)
+    s2, hh, zh2 = _muls((y2, z1c), (H, H), (Z1 + H, Z1 + H))
     i4 = 4 * hh
-    j = mul(H, i4)
     rr = 2 * (s2 - Y1)
-    v = mul(X1, i4)
-    X3 = sqr(rr) - j - 2 * v
-    Y3 = mul(rr, v - X3) - 2 * mul(Y1, j)
-    Z3 = sqr(Z1 + H) - z1z1 - hh
+    j, v, rr2 = _muls((H, i4), (X1, i4), (rr, rr))
+    X3 = rr2 - j - 2 * v
+    y1j, t = _muls((Y1, j), (rr, v - X3))
+    Y3 = t - 2 * y1j
+    Z3 = zh2 - z1z1 - hh
     return (X3, Y3, Z3), H
 
 
 def _jac_add(P1, P2):
-    """add-2007-bl (both Jacobian): 11M + 5S.  Returns (P3, H)."""
+    """add-2007-bl (both Jacobian): 11M + 5S, in five levels.  Returns
+    (P3, H)."""
     X1, Y1, Z1 = P1
     X2, Y2, Z2 = P2
-    mul, sqr = (lambda a, b: fp.mul(a, b, FP)), (lambda a: fp.sqr(a, FP))
-    z1z1 = sqr(Z1)
-    z2z2 = sqr(Z2)
-    u1 = mul(X1, z2z2)
-    u2 = mul(X2, z1z1)
-    s1 = mul(Y1, mul(Z2, z2z2))
-    s2 = mul(Y2, mul(Z1, z1z1))
+    z1z1, z2z2 = _muls((Z1, Z1), (Z2, Z2))
+    u1, u2, z2c, z1c, zz = _muls((X1, z2z2), (X2, z1z1), (Z2, z2z2),
+                                 (Z1, z1z1), (Z1 + Z2, Z1 + Z2))
     H = u2 - u1
-    i = sqr(2 * H)
-    j = mul(H, i)
+    s1, s2, i = _muls((Y1, z2c), (Y2, z1c), (2 * H, 2 * H))
     rr = 2 * (s2 - s1)
-    v = mul(u1, i)
-    X3 = sqr(rr) - j - 2 * v
-    Y3 = mul(rr, v - X3) - 2 * mul(s1, j)
-    Z3 = mul(sqr(Z1 + Z2) - z1z1 - z2z2, H)
+    j, v, rr2, Z3 = _muls((H, i), (u1, i), (rr, rr), (zz - z1z1 - z2z2, H))
+    X3 = rr2 - j - 2 * v
+    t, s1j = _muls((rr, v - X3), (s1, j))
+    Y3 = t - 2 * s1j
     return (X3, Y3, Z3), H
 
 
@@ -378,29 +381,48 @@ def _prep_plain(packed: torch.Tensor, w: int = DEFAULT_WINDOW):
             rn_ok)
 
 
+def _qtable_plain(qx_m: torch.Tensor, qy_m: torch.Tensor, w: int
+                  ) -> torch.Tensor:
+    """The Q table, (2^w - 1, 3, 12, N): [1]Q = (qx, qy, 1), [2]Q = dbl,
+    then [k]Q = [k-1]Q + Q by madd, written into one tensor as it goes
+    (19.3 GB at w = 13 and 8,192 lanes)."""
+    n = qx_m.shape[1]
+    out = qx_m.new_empty((table(w), 3, fp.NUM_LIMBS, n))
+    e = (qx_m, qy_m, FP.const(FP.r_mod_m, qx_m.device).expand(-1, n))
+    for k in range(table(w)):
+        if k:
+            e = _jac_dbl(e) if k == 1 else _jac_madd(e, qx_m, qy_m)[0]
+        for c in range(3):
+            out[k, c] = e[c]
+    return out
+
+
 def verify_plain(packed: torch.Tensor, w: int = DEFAULT_WINDOW
                  ) -> torch.Tensor:
     """The kernel's function in plain PyTorch at window ``w``: (42, N)
     int32 packed inputs -> (N,) int32, bit 0 verdict and bit 1 exception
     flag."""
-    dev = packed.device
-    n = packed.shape[1]
-    d1, d2, qx_m, qy_m, r_m, rn_m, valid, rn_ok = _prep_plain(packed, w)
+    prep = _prep_plain(packed, w)
+    return _ladder_plain(prep, _qtable_plain(prep[2], prep[3], w), w)
 
-    # Q table: [1]Q = (qx, qy, 1), [2]Q = dbl, then [k]Q = [k-1]Q + Q
-    one = FP.const(FP.r_mod_m, dev).expand(-1, n)
-    qtab = [(qx_m, qy_m, one)]
-    qtab.append(_jac_dbl(qtab[0]))
-    while len(qtab) < table(w):
-        qtab.append(_jac_madd(qtab[-1], qx_m, qy_m)[0])
-    qtab = torch.stack([torch.stack(e) for e in qtab])   # (2^w-1, 3, 12, N)
+
+def _ladder_plain(prep: tuple, qtab: torch.Tensor, w: int,
+                  n_rounds: Optional[int] = None) -> torch.Tensor:
+    """:func:`verify_plain` after its prep and Q table: the ladder and the
+    final test.  ``n_rounds`` stops the ladder after that many rounds
+    (the JAX package's ``_jac_verify_eager`` has the same knob, for
+    short ladders); the default runs all ``rounds(w)``."""
+    d1, d2, qx_m, qy_m, r_m, rn_m, valid, rn_ok = prep
+    dev = qx_m.device
+    n = qx_m.shape[1]
     gtab = _g_table_plain(dev, w)                         # (2^w-1, 2, 12)
     lanes = torch.arange(n, device=dev)
 
+    one = FP.const(FP.r_mod_m, dev).expand(-1, n)
     acc = (one, one, torch.zeros_like(one))
     started = torch.zeros(n, dtype=torch.bool, device=dev)
     exc = torch.zeros(n, dtype=torch.bool, device=dev)
-    for k in range(rounds(w)):
+    for k in range(rounds(w) if n_rounds is None else n_rounds):
         for _ in range(w):
             acc = _jac_dbl(acc)
         g = gtab[(d1[k] - 1).clamp(min=0)].permute(1, 2, 0)  # (2, 12, N)
@@ -490,7 +512,7 @@ def _g_table_complete(device) -> torch.Tensor:
         one = fp.int_to_limbs(FP.r_mod_m)
         rows = [[fp.int_to_limbs(0), one, fp.int_to_limbs(0)]]
         rows += [[fp.int_to_limbs(FP.to_mont(c)) for c in pt] + [one]
-                 for pt in _g_multiples()[:table(DEFAULT_WINDOW)]]
+                 for pt in _g_multiples(table(DEFAULT_WINDOW))]
         _G_COMPLETE[key] = torch.tensor(rows, dtype=torch.int64,
                                         device=device)
     return _G_COMPLETE[key]
@@ -546,19 +568,29 @@ def _words_le(x: int) -> list:
     return [(x >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
 
 
+def _g_words(count: int) -> list:
+    """Affine [k]G, k = 1..count, as the kernels read it: x R and y R mod
+    p (R = 2^256), 8 little-endian 32-bit words each."""
+    R = 1 << 256
+    words = []
+    for gx, gy in _g_multiples(count):
+        words += _words_le(gx * R % CURVE_P) + _words_le(gy * R % CURVE_P)
+    return words
+
+
 def kernel_constants() -> np.ndarray:
     """The kernels' constant table (R = 2^256 Montgomery, 8 x 32-bit
     limbs): p, n, R^2 mod p, R^2 mod n, R mod p, R mod n, b*R mod p,
-    n*R mod p, n - 2, the affine [k]G table (k = 1..31: the w = 4 ladders
-    read its first 15 entries), -p^-1 and -n^-1 mod 2^32."""
+    n*R mod p, n - 2, the affine [k]G table (k = 1..31: the ladders at
+    w = 2, 3 and 4 read its first 3, 7 and 15 entries), -p^-1 and -n^-1
+    mod 2^32."""
     R = 1 << 256
     words = []
     for x in (CURVE_P, CURVE_N, R * R % CURVE_P, R * R % CURVE_N,
               R % CURVE_P, R % CURVE_N, CURVE_B * R % CURVE_P,
               CURVE_N * R % CURVE_P, CURVE_N - 2):
         words += _words_le(x)
-    for gx, gy in _g_multiples():
-        words += _words_le(gx * R % CURVE_P) + _words_le(gy * R % CURVE_P)
+    words += _g_words(G_ENTRIES)
     words += [(-pow(CURVE_P, -1, 1 << 32)) % (1 << 32),
               (-pow(CURVE_N, -1, 1 << 32)) % (1 << 32)]
     assert len(words) == _C_WORDS
@@ -567,14 +599,17 @@ def kernel_constants() -> np.ndarray:
 
 _LIBS = {}  # (kernel name, cuda device index) -> armed ctypes library
 # each source's kernels, by the prefix of their launch and attribute
-# entry points
-_ENTRIES = {"p256_verify": ("p256_verify", "p256_verify_w5"),
+# entry points; p256_verify_wide's launch takes more arguments
+_ENTRIES = {"p256_verify": ("p256_verify", "p256_verify_w2",
+                            "p256_verify_w3", "p256_verify_w5"),
+            "p256_verify_wide": (),
             "p256_complete": ("p256_complete",)}
 
 
 def _kernel_lib(name: str, device: torch.device):
     """Build (at first use), load and arm ``csrc/<name>.cu`` for one
-    card: both verify kernels share the constant table."""
+    card: every verify library holds its own copy of the constant
+    table."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     lib = _LIBS.get((name, index))
@@ -589,6 +624,12 @@ def _kernel_lib(name: str, device: torch.device):
             launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_int, ctypes.c_void_p]
             launch.restype = ctypes.c_int
+        if name == "p256_verify_wide":
+            lib.p256_verify_wide_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p]
+            lib.p256_verify_wide_launch.restype = ctypes.c_int
         consts = kernel_constants()
         with torch.cuda.device(index):
             rc = lib.p256_set_constants(consts.ctypes.data, consts.size)
@@ -598,11 +639,10 @@ def _kernel_lib(name: str, device: torch.device):
     return lib
 
 
-def _run(name: str, entry: str, packed: torch.Tensor, plain
-         ) -> torch.Tensor:
+def _run(name: str, packed: torch.Tensor, plain, launch) -> torch.Tensor:
     """Check the packed input; run ``plain`` for a CPU tensor, else
-    launch the kernel ``entry`` of ``csrc/<name>.cu`` on the current
-    stream (no fallback)."""
+    ``launch(lib, packed, out, n, stream)`` with ``csrc/<name>.cu``'s
+    library on the current stream (no fallback)."""
     if packed.dtype != torch.int32 or packed.dim() != 2 \
             or packed.shape[0] != PACKED_ROWS:
         raise ValueError(f"expected (42, N) int32, got {tuple(packed.shape)}"
@@ -619,53 +659,159 @@ def _run(name: str, entry: str, packed: torch.Tensor, plain
     lib = _kernel_lib(name, packed.device)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, f"{entry}_launch")(packed.data_ptr(),
-                                             out.data_ptr(), n, stream)
+        rc = launch(lib, packed, out, n, stream)
     if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return out
 
 
-def _verify_entry(w: int) -> str:
-    """The Jacobian kernel's entry point at window ``w``."""
-    return "p256_verify" if check_window(w) == 4 else f"p256_verify_w{w}"
+def _launch_entry(entry: str):
+    """The launch of a kernel that takes (packed, out, n, stream)."""
+    def launch(lib, packed, out, n, stream):
+        return getattr(lib, f"{entry}_launch")(packed.data_ptr(),
+                                               out.data_ptr(), n, stream)
+    return launch
 
 
-def kernel_attributes(name: str, device: torch.device,
-                      window: int = DEFAULT_WINDOW) -> dict:
-    """Kernel ``name``'s (``p256_verify``, at ``window``, or
-    ``p256_complete``) launch shape and resources on a card
-    (``cudaFuncGetAttributes``): threads a signature and a block, shared
-    memory bytes a block, registers and local-memory bytes a thread."""
-    lib = _kernel_lib(name, device)
-    entry = _verify_entry(window) if name == "p256_verify" else name
-    vals = (ctypes.c_int * 5)()
-    fn = getattr(lib, f"{entry}_attributes")
+def _verify_entry(w: int) -> Tuple[str, str]:
+    """The Jacobian kernel at window ``w``: its library and entry point."""
+    if w not in WINDOWS:
+        raise ValueError(f"the Jacobian ladder's window must be one of "
+                         f"{WINDOWS}, not {w!r}")
+    if w not in SHARED_WINDOWS:
+        return "p256_verify_wide", "p256_verify_wide"
+    return "p256_verify", "p256_verify" if w == 4 else f"p256_verify_w{w}"
+
+
+# --- the wide windows (p256_verify_wide.cu) ---------------------------------
+
+_G_DEVICE = {}    # (cuda device index, w) -> the window's [k]G, int32 words
+_RESIDENT = {}    # cuda device index -> the wide kernel's resident blocks
+
+
+def _g_table_device(device: torch.device, w: int) -> torch.Tensor:
+    """The affine [k]G table of window ``w`` on one card, k = 1 ..
+    2^w - 1, each entry x R and y R mod p (R = 2^256) as 8 little-endian
+    32-bit words: built once a card and window."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    t = _G_DEVICE.get((index, w))
+    if t is None:
+        words = np.array(_g_words(table(w)), dtype=np.uint32)
+        t = torch.from_numpy(words.view(np.int32)).to(
+            torch.device("cuda", index))
+        _G_DEVICE[(index, w)] = t
+    return t
+
+
+def _wide_attributes(device: torch.device) -> dict:
+    lib = _kernel_lib("p256_verify_wide", device)
+    vals = (ctypes.c_int * 6)()
+    fn = lib.p256_verify_wide_attributes
     fn.argtypes = [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         rc = fn(ctypes.addressof(vals))
     if rc != 0:
-        raise RuntimeError(f"{entry}_attributes: CUDA error {rc}")
+        raise RuntimeError(f"p256_verify_wide_attributes: CUDA error {rc}")
     return dict(zip(("group", "threads", "smem_bytes", "registers",
-                     "local_bytes"), vals))
+                     "local_bytes", "blocks_per_sm"), vals))
+
+
+def _wide_grid(device: torch.device, n: int) -> Tuple[int, int]:
+    """(blocks, signatures a block) of a wide-window launch of ``n``
+    lanes: one block a block of signatures, at most the blocks resident
+    on the card at once (the kernel walks the rest grid-stride)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    got = _RESIDENT.get(index)
+    if got is None:
+        a = _wide_attributes(torch.device("cuda", index))
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        got = _RESIDENT[index] = (a["blocks_per_sm"] * sms,
+                                  a["threads"] // a["group"])
+    resident, sigs = got
+    return min(-(-n // sigs), resident), sigs
+
+
+def scratch_bytes(device: torch.device, n: int, w: int) -> int:
+    """Device memory a launch of ``n`` lanes at window ``w`` allocates
+    for its Q tables: one table a resident group (0 where the tables live
+    in shared memory)."""
+    if w in SHARED_WINDOWS:
+        return 0
+    blocks, sigs = _wide_grid(device, n)
+    return blocks * sigs * table(w) * Q_ENTRY_BYTES
+
+
+def _launch_wide(w: int):
+    """The wide kernel's launch at window ``w``: the grid, the Q-table
+    scratch (from the caching allocator, on the launch's stream) and the
+    window's G table."""
+    def launch(lib, packed, out, n, stream):
+        blocks, _sigs = _wide_grid(packed.device, n)
+        scratch = torch.empty(
+            scratch_bytes(packed.device, n, w) // 4, dtype=torch.int32,
+            device=packed.device)
+        gtab = _g_table_device(packed.device, w)
+        return lib.p256_verify_wide_launch(
+            packed.data_ptr(), out.data_ptr(), n, w, gtab.data_ptr(),
+            scratch.data_ptr(), blocks, stream)
+    return launch
+
+
+def kernel_attributes(name: str, device: torch.device,
+                      window: int = DEFAULT_WINDOW, lanes: int = 8192
+                      ) -> dict:
+    """Kernel ``name``'s (``p256_verify``, at ``window``, or
+    ``p256_complete``) launch shape and resources on a card
+    (``cudaFuncGetAttributes``): threads a signature and a block, shared
+    memory bytes a block, registers and local-memory bytes a thread; for
+    the Jacobian kernel also the device memory a launch of ``lanes``
+    allocates for its Q tables (``scratch_bytes``) and, at the wide
+    windows, the blocks an SM holds and the G table's bytes."""
+    lib_name, entry = _verify_entry(window) if name == "p256_verify" \
+        else (name, name)
+    if lib_name == "p256_verify_wide":
+        out = _wide_attributes(device)
+        out["g_table_bytes"] = table(window) * G_ENTRY_BYTES
+    else:
+        lib = _kernel_lib(lib_name, device)
+        vals = (ctypes.c_int * 5)()
+        fn = getattr(lib, f"{entry}_attributes")
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(device):
+            rc = fn(ctypes.addressof(vals))
+        if rc != 0:
+            raise RuntimeError(f"{entry}_attributes: CUDA error {rc}")
+        out = dict(zip(("group", "threads", "smem_bytes", "registers",
+                        "local_bytes"), vals))
+    if name == "p256_verify":
+        out["scratch_bytes"] = scratch_bytes(device, lanes, window)
+    return out
 
 
 def verify_packed(packed: torch.Tensor, window: Optional[int] = None
                   ) -> torch.Tensor:
     """(42, N) int32 packed inputs -> (N,) int32 (bit 0 verdict, bit 1
-    exception).  A CUDA tensor launches the Jacobian kernel
-    (csrc/p256_verify.cu) at ``window`` (:data:`VERIFY_WINDOW` when
-    None: ``p256_verify_kernel`` at 4, kernel B7 ``p256_verify_w5_kernel``
-    at 5); a CPU tensor runs :func:`verify_plain` at that window."""
+    exception).  A CUDA tensor launches the Jacobian kernel at ``window``
+    (:data:`VERIFY_WINDOW` when None): csrc/p256_verify.cu's
+    ``p256_verify_kernel`` at 4, its B7 ``p256_verify_w5_kernel`` at 5 and
+    ``p256_verify_w2_kernel`` / ``_w3_kernel`` at 2 and 3;
+    csrc/p256_verify_wide.cu at 6-13.  A CPU tensor runs
+    :func:`verify_plain` at that window."""
     global LAUNCHES
     w = VERIFY_WINDOW if window is None else window
-    out = _run("p256_verify", _verify_entry(w), packed,
-               functools.partial(verify_plain, w=w))
+    lib, entry = _verify_entry(w)
+    launch = _launch_wide(w) if lib == "p256_verify_wide" \
+        else _launch_entry(entry)
+    out = _run(lib, packed, functools.partial(verify_plain, w=w), launch)
     if packed.device.type == "cuda" and out.numel():
         with _COUNT_LOCK:
             LAUNCHES += 1
             LAUNCHES_BY_WINDOW[w] += 1
+        trace.inc(f"kernel.p256_verify.w{w}.launches")  # a node's "/"
     return out
 
 
@@ -675,8 +821,8 @@ def verify_complete_packed(packed: torch.Tensor) -> torch.Tensor:
     (csrc/p256_complete.cu); a CPU tensor runs
     :func:`verify_complete_plain`."""
     global COMPLETE_LAUNCHES
-    out = _run("p256_complete", "p256_complete", packed,
-               verify_complete_plain)
+    out = _run("p256_complete", packed, verify_complete_plain,
+               _launch_entry("p256_complete"))
     if packed.device.type == "cuda" and out.numel():
         with _COUNT_LOCK:
             COMPLETE_LAUNCHES += 1
@@ -782,6 +928,31 @@ def mul_ops_needed(zs, rs, ss, qxs, qys, kernel: str = "jac",
         _add(total, {"p_mul": 1 + (r + CURVE_N < CURVE_P)})
         _add(total, final)
     return sum(MUL_OPS[k] * v for k, v in total.items())
+
+
+def bytes_needed(zs, rs, ss, qxs, qys, w: int = DEFAULT_WINDOW) -> int:
+    """The bytes a launch of these lanes moves through device memory at
+    window ``w``: the packed input read once and the verdicts written
+    once; at the wide windows (their Q tables in device memory) also
+    each lane's table, written once (2^w - 1 entries of 160 B) and read
+    an entry a nonzero Q digit, and the window's G table
+    read once.  As :func:`mul_ops_needed`, counted from the data: a lane
+    that fails the range or on-curve checks builds no table."""
+    total = len(zs) * (PACKED_ROWS * 4 + 4)
+    if w in SHARED_WINDOWS:
+        return total
+    tables = 0
+    for r, s, qx, qy in zip(rs, ss, qxs, qys):
+        if not (0 < r < CURVE_N and 0 < s < CURVE_N) or (qx == 0 and qy == 0) \
+                or not is_on_curve((qx % CURVE_P, qy % CURVE_P)):
+            continue
+        u2 = r * pow(s, -1, CURVE_N) % CURVE_N
+        reads = sum(1 for k in range(rounds(w)) if (u2 >> (w * k)) & table(w))
+        tables += 1
+        total += (table(w) + reads) * Q_ENTRY_BYTES
+    if tables:
+        total += table(w) * G_ENTRY_BYTES
+    return total
 
 
 # --- entry point ---------------------------------------------------------

@@ -86,8 +86,8 @@ from . import DeviceLike
 log = logging.getLogger("upow_tpu_torch.device.runtime")
 
 #: every kernel library the card's paths launch
-KERNELS = ("p256_verify", "p256_complete", "sha256_search",
-           "sha256_blocks", "utxo_probe")
+KERNELS = ("p256_verify", "p256_verify_wide", "p256_complete",
+           "sha256_search", "sha256_blocks", "utxo_probe")
 
 _WAITS_CAP = 8192  # per-source queue-wait samples kept for stats()
 
