@@ -121,11 +121,19 @@ Phases, one line each; any failure exits non-zero:
    admits (``jac_windows_kernel_vs_plain``, right after phase 3): kernel
    B7 (w = 5) and ROADMAP B7b's w = 2 and 3 (``csrc/p256_verify.cu``)
    and 6-13 (``csrc/p256_verify_wide.cu``, the Q tables in device
-   memory), each against its plain version on phase 3's 8,192 lanes and
-   their first 1,026, 33 and 1, bit for bit with the collision lanes
-   flagged and every kind's verdict; times with 10 launches queued beside
-   w = 4's in turns; the bound (multiplies, and the Q tables' bytes at
-   6-13) and share; resources, and the scratch a launch allocates;
+   memory, a signature's table built by up to 32 groups of four), each
+   against its plain version on phase 3's 8,192 lanes and their first
+   1,026, 33 and 1, bit for bit with the collision lanes flagged and
+   every kind's verdict (the off-curve lanes include qy = 0 keys and
+   order-3 keys of another curve); at 6-13 also with every G (1-32
+   groups a signature) forced on the 1,026- and 33-lane inputs, every G
+   timed on 1 to 2,052 lanes with valid keys (the accept's kind), and the
+   groups the wrapper picks at each shape; times with 10 launches queued
+   beside w = 4's in turns at 8,192, 1,026 and 1 lanes and on 1,026
+   valid-key lanes (and at 6-13 the latter's and 1 lane's times with one
+   group a signature, and their bounds); the bound (multiplies, and the
+   Q tables' bytes at 6-13) and share; resources (the blocks an SM
+   holds), and the scratch a launch allocates;
 17. the accept at each of those windows (``main_path_windows``, with
    ``device_profile_w<w>``): ``device.verify_window = w`` applied through
    ``DeviceConfig.apply_kernel_overrides``, the 8,160-tx accept with
@@ -276,7 +284,8 @@ import torch
 from upow_tpu_torch import _build, device as tdevice, native, trace
 from upow_tpu_torch.config import Config, DeviceConfig
 from upow_tpu_torch.core import clock, curve, point_to_string
-from upow_tpu_torch.core.constants import CURVE_GX, CURVE_GY, CURVE_N, CURVE_P
+from upow_tpu_torch.core.constants import (
+    CURVE_B, CURVE_GX, CURVE_GY, CURVE_N, CURVE_P)
 from upow_tpu_torch.core.difficulty import (
     START_DIFFICULTY, charset_count, check_pow_hash)
 from upow_tpu_torch.core.merkle import merkle_root
@@ -363,9 +372,33 @@ def host_digest_fallbacks(where: str) -> dict:
     return counters
 
 
+def order3_key(rng: random.Random) -> tuple:
+    """A point of order 3 on y^2 = x^3 - 3x + b' for some b' != b (x a
+    root of the 3-division polynomial 3x^4 - 18x^2 + 12 b' x - 9): off
+    P-256, and a key on which the wide kernel's segmented Q-table build
+    would flip an exception bit (tests/test_torch_p256_wide_coop.py)."""
+    while True:
+        x = rng.randrange(2, CURVE_P)
+        b2 = (9 + 18 * x * x - 3 * x ** 4) * pow(12 * x, -1, CURVE_P) % CURVE_P
+        rhs = (x ** 3 - 3 * x + b2) % CURVE_P
+        y = pow(rhs, (CURVE_P + 1) // 4, CURVE_P)
+        if y and y * y % CURVE_P == rhs and b2 != CURVE_B:
+            return x, y
+
+
+# the order-3 lanes' Q digit at w = 6, 7 and 8: a power of two that starts
+# a segment of the wide kernel's 31-segment split (G = 32)
+ORDER3_DIGITS = {6: 4, 7: 32, 8: 128}
+
+
 def signature_mix(n: int, seed: int = 0x5A17):
-    """(digests, sigs, pubs, kinds): a block's worth of signature lanes."""
+    """(digests, sigs, pubs, kinds): a block's worth of signature lanes.
+    Of the off-curve lanes (one in 32) every fourth, from the first, has a
+    qy = 0 key, and every fourth from the third a key of order 3 on
+    another curve with s = 1 and its Q digit at w = 6, 7 or 8 (in turns)
+    set twice."""
     rng = random.Random(seed)
+    order3 = order3_key(rng)
     keys = [curve.keygen(rng=rng.randrange(1, CURVE_N)) for _ in range(64)]
     G = curve.G
     neg = lambda P: (P[0], CURVE_P - P[1])  # noqa: E731
@@ -392,6 +425,15 @@ def signature_mix(n: int, seed: int = 0x5A17):
         elif sel == 25:  # r + n < p: small r, s = 1 (digits chosen)
             add("r_plus_n", rng.randrange(1 << 200).to_bytes(32, "big"),
                 (rng.randrange(1, 1 << 200), 1), pub)
+        elif sel == 26 and i // 32 % 4 == 0:
+            add("off_curve", digest, curve.sign(msg, d), (CURVE_GX + i, 0))
+        elif sel == 26 and i // 32 % 4 == 2:
+            w = 6 + i // 128 % 3
+            top = w * (p256.rounds(w) - 1)
+            r = ORDER3_DIGITS[w] << (top - 2 * w) \
+                | ORDER3_DIGITS[w] << (top - 5 * w)
+            add("off_curve", ((1 << 250) | i).to_bytes(32, "big"), (r, 1),
+                order3)
         elif sel == 26:
             add("off_curve", digest, curve.sign(msg, d),
                 (CURVE_GX, CURVE_GY + 1 + i))
@@ -2339,6 +2381,14 @@ def push_block_resident_path(dev: torch.device, kit: Kit, workdir: Path,
 # ROADMAP B7b's, w = 2 and 3 in csrc/p256_verify.cu and 6-13 in
 # csrc/p256_verify_wide.cu
 OTHER_WINDOWS = [w for w in p256.WINDOWS if w != 4]
+# the wide kernel's groups a signature, each forced on the 1,026- and
+# 33-lane inputs against the plain version, and timed at SWEEP_LANES of
+# lanes whose keys pass their checks (as every lane of an accept's
+# launch: a lane that fails them builds its table as one chain, and one
+# such lane sets a launch's time)
+FORCED_GROUPS = list(p256.WIDE_GROUPS)
+SWEEP_LANES = [1, 33, 132, 264, 528, 1026, 2052]
+KEYLESS = ("off_curve", "zero_pub")   # the mix's kinds with no valid key
 
 
 def windows_phase(dev: torch.device, mix: tuple) -> list:
@@ -2349,13 +2399,23 @@ def windows_phase(dev: torch.device, mix: tuple) -> list:
     with 10 launches queued beside w = 4's in turns (w = 4, w, w, w = 4)
     at 8,192, 1,026 and 1 lanes; the bound (the multiplies and, at the
     wide windows, the Q tables' bytes) and its share; resources and the
-    scratch a launch allocates.  One kernel record a window."""
+    scratch a launch allocates.  At the wide windows also each of
+    ``FORCED_GROUPS`` forced on the 1,026- and 33-lane inputs, bit for
+    bit, the groups a signature the wrapper picks and the scratch at each
+    shape; on the lanes with valid keys (the accept's kind), every
+    ``FORCED_GROUPS`` timed at each of ``SWEEP_LANES``, the 1,026-lane
+    launch beside w = 4's in turns with its bound, and the 1,026- and
+    1-lane times at G = 1 (one group a signature, the earlier layout).
+    One kernel record a window."""
     digests, sigs, pubs, kinds = mix
     fused, zs, rs, ss, qxs, qys = p256._pack_device_inputs(
         digests, sigs, pubs, LANES)
     packed = p256.packed_tensor(fused, dev)
     parts = {width: packed[:, :width].contiguous()
              for width in (LANES, 1026, 33, 1)}
+    keyed = [i for i, k in enumerate(kinds) if k not in KEYLESS]
+    valid = {width: packed[:, keyed[:width]].contiguous()
+             for width in SWEEP_LANES}
     props = torch.cuda.get_device_properties(dev)
     clock_mhz = tdevice.max_sm_clock_mhz() or props.clock_rate / 1000
     expect_exc = {i for i, k in enumerate(kinds) if k == "collision"}
@@ -2386,15 +2446,54 @@ def windows_phase(dev: torch.device, mix: tuple) -> list:
             want = VERDICTS.get(kind)
             if want is not None and (bits[i] & 1) != want:
                 fail(f"w = {w} lane {i} ({kind}): verdict {bits[i] & 1}")
+        wide = {}
+        if w not in p256.SHARED_WINDOWS:
+            for groups in FORCED_GROUPS:
+                for width in (1026, 33):
+                    got = p256._verify(parts[width], w, groups=groups)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, plain[:width]):
+                        fail(f"w = {w} kernel != plain at {width} lanes "
+                             f"with {groups} groups a signature on "
+                             f"{int((got != plain[:width]).sum())} lanes")
+            sweep = {}
+            for width, part in valid.items():
+                got = p256.verify_packed(part, window=w)
+                if not torch.equal(got, plain[keyed[:width]]):
+                    fail(f"w = {w} kernel != plain on {width} valid lanes")
+                sweep[width] = {groups: round(cuda_ms(
+                    lambda: p256._verify(part, w, groups=groups), reps=2,
+                    per=5), 4) for groups in FORCED_GROUPS}
+            wide = {"forced_groups_equal": json.dumps(FORCED_GROUPS),
+                    "valid_ms_by_groups": json.dumps(sweep),
+                    "groups_by_lanes": json.dumps(
+                        {n: p256._wide_plan(dev, n, w)[0]
+                         for n in sorted(set(parts) | set(valid))}),
+                    "scratch_by_lanes": json.dumps(
+                        {n: p256.scratch_bytes(dev, n, w) for n in parts})}
         del plain
         torch.cuda.empty_cache()
         times = {}
-        for width in (LANES, 1026, 1):
+        for width, part in [(LANES, parts[LANES]), (1026, parts[1026]),
+                            (1, parts[1]), ("v1026", valid[1026])]:
             for ww in (4, w, w, 4):
                 times.setdefault((ww, width), []).append(cuda_ms(
-                    lambda: p256.verify_packed(parts[width], window=ww),
+                    lambda: p256.verify_packed(part, window=ww),
                     reps=3, per=10))
         ms = {k: statistics.mean(v) for k, v in times.items()}
+        if wide:
+            for width, part in (("valid_1026", valid[1026]), (1, parts[1])):
+                wide[f"ms_{width}_g1"] = round(cuda_ms(
+                    lambda: p256._verify(part, w, groups=1),
+                    reps=3, per=10), 4)
+            # the bound of the accept's two shapes, as at 8,192 lanes
+            for width, idx in (("valid_1026", keyed[:1026]), (1, [0])):
+                sub = [[x[i] for i in idx] for x in (zs, rs, ss, qxs, qys)]
+                wide[f"bound_ms_{width}"] = round(max(
+                    p256.mul_ops_needed(*sub, w=w) / (
+                        props.multi_processor_count * IMUL_PER_SM_CLK
+                        * clock_mhz * 1e6) * 1e3,
+                    p256.bytes_needed(*sub, w) / HBM_BYTES_S * 1e3), 4)
         ops = p256.mul_ops_needed(zs, rs, ss, qxs, qys, w=w)
         ops_ms = ops / (props.multi_processor_count * IMUL_PER_SM_CLK
                         * clock_mhz * 1e6) * 1e3
@@ -2414,13 +2513,15 @@ def windows_phase(dev: torch.device, mix: tuple) -> list:
               ms_1026_lanes_w4=round(ms[(4, 1026)], 4),
               ms_1_lane=round(ms[(w, 1)], 4),
               ms_1_lane_w4=round(ms[(4, 1)], 4),
+              ms_valid_1026=round(ms[(w, "v1026")], 4),
+              ms_valid_1026_w4=round(ms[(4, "v1026")], 4),
               plain_ms=round(plain_ms, 1), bound_ms=round(bound_ms, 4),
               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
               ops_ms=round(ops_ms, 4), bytes_ms=round(bytes_ms, 4),
               bound_share=round(bound_ms / ms[(w, LANES)], 4),
               int_mul_ops=ops, bytes=nbytes,
               products_per_lane=sum(p256.mults_per_lane("jac", w).values()),
-              seconds=round(time.perf_counter() - t0, 1),
+              seconds=round(time.perf_counter() - t0, 1), **wide,
               **p256.kernel_attributes("p256_verify", dev, window=w,
                                        lanes=LANES))
         records.append({

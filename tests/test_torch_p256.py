@@ -154,17 +154,19 @@ def test_mults_per_lane_counts_the_formulas():
     assert 0.35 < need(21) / (sum(counts.values()) * 264) < 0.45
 
 
-# The CUDA names the group kernels use (p256_verify.cu and
-# p256_complete.cu, four threads a signature), for the host's g++ (C++20):
-# a block's threads run as std::threads, threadIdx and blockIdx
-# thread-local, dynamic shared memory one buffer for the block,
-# __syncthreads a barrier of the block.  __syncwarp(mask), whose mask must
-# name the caller's group of four exactly, hands the group on in turns:
-# after a sync the group's ranks run one at a time, each up to its next
-# sync, in the order 3, 2, 1, 0 in even groups and 0, 1, 2, 3 in odd ones.
-# So a rank that reads another's shared memory before a sync that orders
-# the two reads it stale, every run alike, and a dropped sync shows.
-# Before a group's first sync its ranks run freely.
+# The CUDA names the group kernels use (p256_verify.cu, p256_complete.cu
+# and p256_verify_wide.cu, groups of four threads), for the host's g++
+# (C++20): a block's threads run as std::threads, threadIdx and blockIdx
+# thread-local, dynamic shared memory one buffer for the block.
+# __syncwarp(mask) with a mask that names the caller's group of four
+# exactly hands the group on in turns: after a sync the group's ranks run
+# one at a time, each up to its next sync, in the order 3, 2, 1, 0 in even
+# groups and 0, 1, 2, 3 in odd ones.  So a rank that reads another's
+# shared memory before a sync that orders the two reads it stale, every
+# run alike, and a dropped sync shows.  Before a group's first sync its
+# ranks run freely.  __syncthreads counts as a group sync for the caller's
+# group, then waits for the whole block, then the group goes on in turns;
+# any other __syncwarp mask aborts.
 _GROUP_SHIM = r"""
 #pragma once
 #include <barrier>
@@ -197,7 +199,6 @@ struct BlockSync {
   std::vector<Turns> groups;
 };
 inline BlockSync* g_sync;
-inline void __syncthreads() { g_sync->block.arrive_and_wait(); }
 // under the group's lock: the calling rank is done with the current
 // phase; pass the turn on, and the group's last arrival opens the next
 // phase at its first rank.  Returns the phase the caller finished.
@@ -215,6 +216,20 @@ inline int group_arrive(Turns& t) {
   return phase;
 }
 inline Turns& turns() { return g_sync->groups[threadIdx.x / 4]; }
+// the group's arrival and hand-over, the block's barrier, then the
+// group's next phase in turns
+inline void __syncthreads() {
+  Turns& t = turns();
+  int phase;
+  {
+    std::lock_guard<std::mutex> lk(t.m);
+    phase = group_arrive(t);
+  }
+  g_sync->block.arrive_and_wait();
+  std::unique_lock<std::mutex> lk(t.m);
+  const int rank = threadIdx.x & 3;
+  t.cv.wait(lk, [&] { return t.phase > phase && t.turn == rank; });
+}
 inline void __syncwarp(unsigned mask) {
   if (mask != 0xFu << (threadIdx.x & 31 & ~3u)) std::abort();
   Turns& t = turns();

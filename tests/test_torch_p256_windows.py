@@ -266,9 +266,10 @@ def test_small_window_kernel_source_matches_plain_under_host_compiler(
 
 
 # main() for p256_verify_wide.cu under the group shim: reads (constants,
-# n, packed, w, grid, G-table words), runs ``grid`` blocks one after
-# another (each its 128 threads as std::threads) over a scratch of
-# grid * 32 Q tables that starts as garbage, and writes n int32.
+# n, packed, w, grid, groups a signature, G-table words), runs ``grid``
+# blocks one after another (each its 128 threads as std::threads) over a
+# scratch of grid * 32 / groups Q tables that starts as garbage, and
+# writes n int32.
 WIDE_MAIN = r"""
 #include <cstdio>
 #include <thread>
@@ -287,12 +288,13 @@ int main(int argc, char** argv) {
   std::vector<uint32_t> c = rd(f, rd(f, 1)[0]);
   const int n = rd(f, 1)[0];
   std::vector<uint32_t> pk = rd(f, 42 * (size_t)n);
-  const int w = rd(f, 1)[0], grid = rd(f, 1)[0];
+  const int w = rd(f, 1)[0], grid = rd(f, 1)[0], groups = rd(f, 1)[0];
   std::vector<uint32_t> g = rd(f, rd(f, 1)[0]);
   fclose(f);
   if (p256_set_constants(c.data(), (int)c.size()) != 0) return 3;
   std::vector<uint32_t> scratch(
-      (size_t)grid * SIGS * ((1u << w) - 1) * Q_ENTRY, 0xA5A5A5A5u);
+      (size_t)grid * (SIGS / groups) * ((1u << w) - 1) * Q_ENTRY,
+      0xA5A5A5A5u);
   std::vector<int32_t> out(n, -1);
   gridDim.x = grid;
   for (int b = 0; b < grid; ++b) {
@@ -304,8 +306,8 @@ int main(int argc, char** argv) {
       ts.emplace_back([&, b, t] {
         blockIdx.x = b;
         threadIdx.x = t;
-        p256_verify_wide_kernel(pk.data(), out.data(), n, w, g.data(),
-                                scratch.data());
+        p256_verify_wide_kernel(pk.data(), out.data(), n, w, groups,
+                                g.data(), scratch.data());
         group_exit();
       });
     for (auto& t : ts) t.join();
@@ -322,9 +324,10 @@ def build_wide_kernel(tmp) -> object:
     return build_group_kernel(tmp, "p256_verify_wide", main=WIDE_MAIN)
 
 
-def run_wide_kernel(binary, fused: np.ndarray, w: int, grid: int
-                    ) -> np.ndarray:
-    """The g++-built wide kernel on one packed (42, n) uint32 array."""
+def run_wide_kernel(binary, fused: np.ndarray, w: int, grid: int,
+                    groups: int = 1) -> np.ndarray:
+    """The g++-built wide kernel on one packed (42, n) uint32 array, each
+    signature on ``groups`` groups of four."""
     import subprocess
 
     n = fused.shape[1]
@@ -333,10 +336,11 @@ def run_wide_kernel(binary, fused: np.ndarray, w: int, grid: int
     blob = b"".join([np.array([consts.size], np.uint32).tobytes(),
                      consts.tobytes(), np.array([n], np.uint32).tobytes(),
                      fused.astype(np.uint32).tobytes(),
-                     np.array([w, grid, g.size], np.uint32).tobytes(),
+                     np.array([w, grid, groups, g.size],
+                              np.uint32).tobytes(),
                      g.tobytes()])
-    inp = binary.with_name(f"in{n}_{w}.bin")
-    outp = binary.with_name(f"out{n}_{w}.bin")
+    inp = binary.with_name(f"in{n}_{w}_{groups}.bin")
+    outp = binary.with_name(f"out{n}_{w}_{groups}.bin")
     inp.write_bytes(blob)
     subprocess.run([str(binary), str(inp), str(outp)], check=True,
                    timeout=600)

@@ -98,11 +98,11 @@ class DeviceConfig:
                                     # poisons the device path
     search_batch: int = 1 << 24     # nonces per device dispatch
     verify_kernel: str = ""         # "" = default (jac) | jac | complete
-    verify_window: int = 0          # 0 = default (4) | 4 | 5: the jac
-                                    # ladder's window (5 is kernel B7);
-                                    # the JAX package's [2, 13] range is
-                                    # checked, and a window with no
-                                    # kernel raises NotImplementedError
+    verify_window: int = 0          # 0 = default (4) | 2 .. 13: the jac
+                                    # ladder's window, the JAX package's
+                                    # [2, 13] range; every window has its
+                                    # kernel (2-5 csrc/p256_verify.cu, 5
+                                    # being B7; 6-13 p256_verify_wide.cu)
     mesh_devices: int = 0           # cards the mesh verify and the mesh
                                     # miner span: 0 = all visible, N =
                                     # the first N (parallel/mesh.py)

@@ -14,7 +14,8 @@ window digits; then a Strauss ladder for u1*G + u2*Q:
   every window the JAX package's config admits (:data:`VERIFY_WINDOW`, 2
   to 13; 4 is the default and 5 kernel B7): the first with its tables in
   shared memory at w = 2-5, the second with its Q tables in device memory
-  at w = 6-13.  Jacobian coordinates, each of ceil(256 / w) rounds w
+  at w = 6-13, each built by up to 32 groups of four (:func:`wide_plan`).
+  Jacobian coordinates, each of ceil(256 / w) rounds w
   doublings (dbl-2001-b), a mixed add (madd-2007-bl) from the affine G
   table and a general add (add-2007-bl) from a 2^w - 1 entry Q table
   built per lane.  A zero digit keeps the accumulator, a not-yet-started
@@ -74,6 +75,8 @@ G_ENTRIES = 31             # [k]G in the kernels' constant table: the
                            # shared-memory windows' (w <= 5)
 Q_ENTRY_BYTES = 160        # a Q-table entry: X, Y, Z, Z^2, Z^3
 G_ENTRY_BYTES = 64         # a G-table entry: affine x, y
+WIDE_GROUPS = (1, 2, 4, 8, 16, 32)  # groups of four the wide kernel may
+                           # give one signature (32: the whole block)
 
 
 def rounds(w: int) -> int:
@@ -627,7 +630,7 @@ def _kernel_lib(name: str, device: torch.device):
         if name == "p256_verify_wide":
             lib.p256_verify_wide_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_void_p]
             lib.p256_verify_wide_launch.restype = ctypes.c_int
         consts = kernel_constants()
@@ -686,7 +689,8 @@ def _verify_entry(w: int) -> Tuple[str, str]:
 # --- the wide windows (p256_verify_wide.cu) ---------------------------------
 
 _G_DEVICE = {}    # (cuda device index, w) -> the window's [k]G, int32 words
-_RESIDENT = {}    # cuda device index -> the wide kernel's resident blocks
+_RESIDENT = {}    # cuda device index -> (SMs, the wide kernel's resident
+                  # blocks, groups of four a block)
 
 
 def _g_table_device(device: torch.device, w: int) -> torch.Tensor:
@@ -718,44 +722,106 @@ def _wide_attributes(device: torch.device) -> dict:
                      "local_bytes", "blocks_per_sm"), vals))
 
 
-def _wide_grid(device: torch.device, n: int) -> Tuple[int, int]:
-    """(blocks, signatures a block) of a wide-window launch of ``n``
-    lanes: one block a block of signatures, at most the blocks resident
-    on the card at once (the kernel walks the rest grid-stride)."""
+# The wide kernel's cost model, in group steps (PERF.md: fitted to run
+# AV's times of every G at 1 to 2,052 lanes and w = 6-13; its pick was
+# within 8 % of the fastest G at every shape there and within 10 % in run
+# AW): the scalar prep's chain; the prep's slowdown while table groups
+# share its warp (G >= 8); and the cost of each further warp a scheduler
+# runs at once (a warp's chain is bound by its scheduler's instruction
+# rate).
+PREP_STEPS = 343
+PREP_SHARED = 0.5
+WARP_SHARE = 0.5
+
+
+def wide_cost(n: int, w: int, groups: int, sms: int, resident_blocks: int,
+              block_groups: int) -> float:
+    """The estimated time, in group steps of one warp alone on its
+    scheduler, of a launch of ``n`` lanes at window ``w`` with ``groups``
+    groups a signature: the build (the prep beside the table's longest
+    segment; at G = 1 one chain) and the ladder, each stretched by the
+    warps a scheduler holds in it, times the grid's trips."""
+    warps = block_groups // 8      # a block's: its groups lie one a warp
+                                   # up to G = warps, consecutive above
+    if groups == 1:
+        build = PREP_STEPS + 4 * (table(w) - 1)
+    else:
+        segment = 5 * w + 4 * -(-(table(w) - 1) // (groups - 1))
+        prep = PREP_STEPS
+        if groups > warps:         # table groups share the prep's warp
+            prep += PREP_SHARED * min(PREP_STEPS, segment)
+        build = max(prep, segment)
+    ladder = rounds(w) * (3 * w + 8) + 1
+    sigs = block_groups // groups
+    blocks = -(-n // sigs)
+    live = min(blocks, resident_blocks)
+    # every warp builds; the ladders run on group 0's warps, eight to a
+    # warp when a signature's groups lie one a warp
+    ladder_warps = sigs // 8 if groups <= warps else sigs
+    share = lambda u: 1 + WARP_SHARE * (u - 1)  # noqa: E731
+    return -(-blocks // resident_blocks) * (
+        build * share(-(-live // sms))
+        + ladder * share(-(-live * ladder_warps // (warps * sms))))
+
+
+def wide_plan(n: int, w: int, sms: int, resident_blocks: int,
+              block_groups: int, groups: Optional[int] = None
+              ) -> Tuple[int, int, int]:
+    """(G, blocks, tables) of a wide-window launch of ``n`` lanes at
+    window ``w`` on a card of ``sms`` SMs that holds ``resident_blocks``
+    blocks of ``block_groups`` groups of four at once.  G, the groups a
+    signature, is the one of :data:`WIDE_GROUPS` of least
+    :func:`wide_cost` (the smallest on a tie) unless ``groups`` forces
+    it; block_groups / G signatures a block, at most the resident blocks
+    (the kernel walks the rest grid-stride); one Q table a signature of
+    the grid."""
+    if groups is None:
+        groups = min(WIDE_GROUPS, key=lambda g: wide_cost(
+            n, w, g, sms, resident_blocks, block_groups))
+    elif groups not in WIDE_GROUPS:
+        raise ValueError(f"groups a signature must be one of {WIDE_GROUPS},"
+                         f" not {groups!r}")
+    sigs = block_groups // groups
+    blocks = min(-(-n // sigs), resident_blocks)
+    return groups, blocks, blocks * sigs
+
+
+def _wide_plan(device: torch.device, n: int, w: int,
+               groups: Optional[int] = None) -> Tuple[int, int, int]:
+    """:func:`wide_plan` on one card, its SMs and resident blocks read
+    once from the kernel's attributes."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     got = _RESIDENT.get(index)
     if got is None:
         a = _wide_attributes(torch.device("cuda", index))
         sms = torch.cuda.get_device_properties(index).multi_processor_count
-        got = _RESIDENT[index] = (a["blocks_per_sm"] * sms,
+        got = _RESIDENT[index] = (sms, a["blocks_per_sm"] * sms,
                                   a["threads"] // a["group"])
-    resident, sigs = got
-    return min(-(-n // sigs), resident), sigs
+    return wide_plan(n, w, *got, groups=groups)
 
 
 def scratch_bytes(device: torch.device, n: int, w: int) -> int:
     """Device memory a launch of ``n`` lanes at window ``w`` allocates
-    for its Q tables: one table a resident group (0 where the tables live
-    in shared memory)."""
+    for its Q tables: one table a resident signature (0 where the tables
+    live in shared memory)."""
     if w in SHARED_WINDOWS:
         return 0
-    blocks, sigs = _wide_grid(device, n)
-    return blocks * sigs * table(w) * Q_ENTRY_BYTES
+    return _wide_plan(device, n, w)[2] * table(w) * Q_ENTRY_BYTES
 
 
-def _launch_wide(w: int):
-    """The wide kernel's launch at window ``w``: the grid, the Q-table
-    scratch (from the caching allocator, on the launch's stream) and the
-    window's G table."""
+def _launch_wide(w: int, groups: Optional[int] = None):
+    """The wide kernel's launch at window ``w`` with G groups a
+    signature (the plan's choice unless ``groups`` forces it): the grid,
+    the Q-table scratch (from the caching allocator, on the launch's
+    stream) and the window's G table."""
     def launch(lib, packed, out, n, stream):
-        blocks, _sigs = _wide_grid(packed.device, n)
-        scratch = torch.empty(
-            scratch_bytes(packed.device, n, w) // 4, dtype=torch.int32,
-            device=packed.device)
+        g, blocks, tables = _wide_plan(packed.device, n, w, groups)
+        scratch = torch.empty(tables * table(w) * Q_ENTRY_BYTES // 4,
+                              dtype=torch.int32, device=packed.device)
         gtab = _g_table_device(packed.device, w)
         return lib.p256_verify_wide_launch(
-            packed.data_ptr(), out.data_ptr(), n, w, gtab.data_ptr(),
+            packed.data_ptr(), out.data_ptr(), n, w, g, gtab.data_ptr(),
             scratch.data_ptr(), blocks, stream)
     return launch
 
@@ -801,10 +867,19 @@ def verify_packed(packed: torch.Tensor, window: Optional[int] = None
     ``p256_verify_w2_kernel`` / ``_w3_kernel`` at 2 and 3;
     csrc/p256_verify_wide.cu at 6-13.  A CPU tensor runs
     :func:`verify_plain` at that window."""
+    return _verify(packed, VERIFY_WINDOW if window is None else window)
+
+
+def _verify(packed: torch.Tensor, w: int, groups: Optional[int] = None
+            ) -> torch.Tensor:
+    """:func:`verify_packed` at window ``w``; ``groups`` forces the wide
+    kernel's groups a signature (:func:`wide_plan`), for the tests and
+    ``chip_smoke.py``.  The verdicts do not depend on it."""
     global LAUNCHES
-    w = VERIFY_WINDOW if window is None else window
     lib, entry = _verify_entry(w)
-    launch = _launch_wide(w) if lib == "p256_verify_wide" \
+    if groups is not None and lib != "p256_verify_wide":
+        raise ValueError(f"w = {w} has no groups a signature to force")
+    launch = _launch_wide(w, groups) if lib == "p256_verify_wide" \
         else _launch_entry(entry)
     out = _run(lib, packed, functools.partial(verify_plain, w=w), launch)
     if packed.device.type == "cuda" and out.numel():
