@@ -164,7 +164,7 @@ Phases, one line each; any failure exits non-zero:
    the chain, with no seed, their peer books in the work directory,
    ``node.self_url`` their own address and rate limits off.  B is added
    to A's book by ``/add_node`` beside a dead URL; the 8,160-tx block
-   pushed to A reaches B through A's gossip, and B's ``/`` counters must
+   pushed to A reaches B through A's gossip, and B's ``/metrics`` must
    show kernel-1 batches on its card; 256 ``push_tx`` to A must reach
    B's pool, the same hashes; the dead peer's breaker must be open in
    A's ``/debug/breakers`` with no send to B cut at
@@ -173,6 +173,7 @@ Phases, one line each; any failure exits non-zero:
    itself to A and sync with no ``node_url`` (kernel 1 and B5 on its
    card, ``device.txid_backend = device``).  A, B and C must end on one
    tip and UTXO hash; the hop's, the burst's and C's walls are printed.
+   The block's push and hop are ``telemetry_path`` (phase 26).
 
 23. the device runtime (``runtime_path``, after phase 22; ``--only
    runtime_path`` runs it alone on a block of 8,160 txs signed over
@@ -212,14 +213,41 @@ Phases, one line each; any failure exits non-zero:
    upow_tpu_torch.node.run --device cuda`` with
    ``UPOW_DEVICE_VERIFY_WINDOW=13`` arms its runtime (every library, a
    warm launch at w = 13) and accepts the 8,160-tx push_block with
-   launches at w = 13 only (its ``/`` counters), to the same UTXO hash.
+   launches at w = 13 only (its ``/metrics``), to the same UTXO hash; its
+   arm is read from its ``/debug/events``.
+
+26. telemetry (``telemetry_path``, inside phase 22): the 8,160-tx
+   ``push_block`` to A under a request trace, gossiped to B, which
+   captures it with ``torch.profiler`` through ``/debug/profile``
+   (``profile.enabled``).  A's response must carry ``X-Upow-Trace`` and
+   B's ``/debug/traces`` a ``http.push_block`` tree under that id; A's
+   tree must hold ``block_accept``, ``block.sig_verify``,
+   ``block.utxo_apply`` and the runtime's dispatches, its root within
+   A's client wall and its children within the root.  Both nodes'
+   ``/metrics`` must carry the 0.0.4 content type and pass the
+   validator, ``kernel_p256_verify_lanes_real`` must equal the lanes
+   A's kernel-1 launches carried (spied in this process), and on B lie
+   within the lanes its captured launches' grids can carry,
+   A's ``runtime_dispatches`` its runtime's count and, on A and B, the
+   ``runtime.dispatch`` spans of the tree, ``device_verify_health``
+   0, and the card's memory gauges (``device_gpu_0_*``) must be there,
+   and absent from a ``--device cpu`` node process's scrape.  B's capture
+   must report no error and list as many ``p256_verify_kernel`` launches
+   as B's launch counter moved.  ``trace_split`` prints the trees of A's
+   and B's push_block and of phase 24's push_block and sync (its sync
+   node's ``/sync_blockchain`` tree) by span name.  Then
+   ``tracing_cost`` (after phase 24): a node of this process with
+   ``telemetry.trace_requests`` on and off in turns (on, off, off, on),
+   each on a fresh copy, takes the 1,024-tx burst and the
+   8,160-tx push_block; every wall is printed.
 
 Every path runs through the device runtime (``device/runtime.py``): the
 script arms a fresh runtime before each path, its warm launches before
 any count is reset (``runtime_arm`` prints the first), and fails when
 the verify path's degrade (``txverify.DEGRADE``) recorded any failure
 after a path other than ``runtime_path``'s fault phase, with the
-recorded error; the node processes of phase 22 report theirs on ``/``.
+recorded error; the node processes of phase 22 report theirs on
+``/metrics`` (``device_verify_health``, ``resilience_device_error``).
 The sweep (phase 12) is timed through the runtime and in direct-launch
 turns in the same call (``hashrate_turns``), and
 ``walls_vs_before_runtime`` prints this run's walls beside those of the
@@ -237,7 +265,7 @@ miner's for the mesh search), and the complete kernel's
 reach the txid batch (6, 7, 8, 10, 11, 14, 15, 17, 18, 22 and 25) counts
 its txid kernel launches and fails if hashlib stood in for a device
 digest there (``txid.sample_mismatch`` or ``sync.host_txid_retry`` above
-0; in phase 22 read from each node's ``/``).
+0; in phase 22 read from each node's ``/metrics``).
 The last is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero and prints no result.
 
@@ -282,7 +310,7 @@ import numpy as np
 import torch
 
 from upow_tpu_torch import _build, device as tdevice, native, trace
-from upow_tpu_torch.config import Config, DeviceConfig
+from upow_tpu_torch.config import Config, DeviceConfig, LogConfig
 from upow_tpu_torch.core import clock, curve, point_to_string
 from upow_tpu_torch.core.constants import (
     CURVE_B, CURVE_GX, CURVE_GY, CURVE_N, CURVE_P)
@@ -298,7 +326,9 @@ from upow_tpu_torch.node.app import Node
 from upow_tpu_torch.node.http import fetch
 from upow_tpu_torch.parallel import mesh as pmesh
 from upow_tpu_torch.resilience import DeviceBlocked, faultinject
+from upow_tpu_torch.logger import setup_logging
 from upow_tpu_torch.state import ChainState, device_index as tdi
+from upow_tpu_torch.telemetry import exposition
 from upow_tpu_torch.verify import BlockManager, txverify
 
 KERNELS = ["p256_verify", "p256_verify_wide", "p256_complete",
@@ -365,7 +395,7 @@ def host_digest_fallbacks(where: str) -> dict:
     """The two counters that say hashlib stood in for a wrong device
     digest (the txid batch's integrity sample, the sync's merkle retry),
     counted since the phase's ``trace.reset()``; fails on either."""
-    counters = {k: trace.snapshot()["counters"].get(k, 0) for k in (
+    counters = {k: trace.counters().get(k, 0) for k in (
         "txid.sample_mismatch", "sync.host_txid_retry")}
     if any(counters.values()):
         fail(f"{where}: hashlib stood in for device digests: {counters}")
@@ -908,7 +938,7 @@ async def accept_path(dev: torch.device, kit: Kit, path: str, leaves,
     sharded = pmesh.VERIFY_LAUNCHES
     txid_launches = tsha.BLOCKS_LAUNCHES
     device = device_busy(prof, kernel_name)
-    breakdown = accept_breakdown(trace.snapshot())
+    breakdown = accept_breakdown()
     if not ok:
         fail(f"{len(leaves)}-tx block rejected: {errors}")
     if launches == 0:
@@ -1033,8 +1063,7 @@ def node_path(dev: torch.device, kit: Kit, workdir: Path, leaves) -> dict:
         replies = asyncio.run(_burst(node.url, [t.hex() for t in burst]))
         burst_s = time.perf_counter() - t0
         complete, jac = p256.COMPLETE_LAUNCHES, p256.LAUNCHES
-        sizes = trace.snapshot()["observations"].get(
-            "mempool.intake_batch_size", [])
+        sizes = node.node.intake.batch_sizes  # batch size -> batches
         if not all(r.get("ok") for r in replies):
             fail(f"burst: {[r for r in replies if not r.get('ok')][:3]}")
         if complete == 0 or jac != 0:
@@ -1412,13 +1441,13 @@ def sync_path(dev: torch.device, workdir: Path, server: NodeThread) -> dict:
         wall_s = time.perf_counter() - t0
         b5, jac = tsha.BLOCKS_LAUNCHES, p256.LAUNCHES
         dev_use = device_busy(prof, "sha256_blocks_kernel")
-        snap = trace.snapshot()
+        spans = trace.stats()
         if reply != {"ok": True, "peer": server.url.rstrip("/")}:
             fail(f"sync: {reply}")
         tip, utxo = same_chain(node, server)
         txs = node.call(node.node.state.get_next_block_id()) - 1
         counters = host_digest_fallbacks("sync")
-        pages = {k: snap["spans"].get(k, {}).get("count", 0) for k in (
+        pages = {k: spans.get(k, {}).get("count", 0) for k in (
             "sync.page_txids", "sync.page_sig_prefill")}
         if b5 == 0 or jac == 0 or pages != {"sync.page_txids": 1,
                                              "sync.page_sig_prefill": 1}:
@@ -1490,19 +1519,21 @@ def until(what: str, pred, timeout: float = 240.0, every: float = 0.02):
 class NodeProcess:
     """``python -m upow_tpu_torch.node.run --device cuda`` in a process of
     its own on the card: its own verdict cache and launch counters, read
-    back through its ``/`` counters.  It loads the kernels this process
-    built; its log goes to ``<db>.log``."""
+    back through its ``/metrics``.  It loads the kernels this process
+    built; its log goes to ``<db>.log``.  ``device="cpu"`` runs the plain
+    versions (a node with no card)."""
 
-    def __init__(self, db: str, **env):
+    def __init__(self, db: str, device: str = "cuda", **env):
         self.port = free_port()
         self.url = f"http://127.0.0.1:{self.port}"
         self.log = open(db + ".log", "w")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "upow_tpu_torch.node.run", "--device",
-             "cuda", "--db", db, "--port", str(self.port)],
+             device, "--db", db, "--port", str(self.port)],
             cwd=str(Path(__file__).resolve().parent), stdout=self.log,
             stderr=subprocess.STDOUT,
             env={**os.environ, "UPOW_NODE_HOST": "127.0.0.1",
+                 "UPOW_LOG_PATH": "",
                  "UPOW_NODE_SEED_URL": "",
                  "UPOW_NODE_PEERS_FILE": db + ".nodes.json",
                  "UPOW_NODE_SELF_URL": self.url,
@@ -1519,7 +1550,8 @@ class NodeProcess:
                      and http(self.url, "get_nodes")["ok"])[1]
 
     def tail(self) -> str:
-        self.log.flush()
+        if not self.log.closed:
+            self.log.flush()
         return Path(self.log.name).read_text()[-2000:]
 
     def close(self) -> None:
@@ -1535,10 +1567,39 @@ class NodeProcess:
 
 def window_launches(url: str) -> dict:
     """A node process's Jacobian kernel launches by window, from its
-    ``/`` counters."""
-    counters = http(url, "")["counters"]
-    return {w: int(counters.get(f"kernel.p256_verify.w{w}.launches", 0))
-            for w in p256.WINDOWS}
+    ``/metrics``."""
+    scrape = node_metrics(url)
+    return {w: int(scrape.get(
+        f"upow_kernel_p256_verify_w{w}_launches_total", 0))
+        for w in p256.WINDOWS}
+
+
+def node_metrics(url: str) -> dict:
+    """A node's ``/metrics``: it must carry the 0.0.4 content type and
+    pass the exposition validator; its samples as {name: value}."""
+    headers: dict = {}
+    status, raw = asyncio.run(fetch(url.rstrip("/") + "/metrics",
+                                    response_headers=headers))
+    text = raw.decode()
+    if status != 200 or headers.get("content-type") \
+            != exposition.CONTENT_TYPE:
+        fail(f"node {url}: /metrics {status} {headers.get('content-type')}")
+    errors = exposition.validate(text)
+    if errors:
+        fail(f"node {url}: /metrics format violations {errors[:5]}")
+    return exposition.samples(text)
+
+
+def runtime_arm(url: str) -> dict:
+    """A node process's device runtime arm, from its ``/debug/events``
+    (``device_runtime_armed``: platform, reason, probe seconds and the
+    warm launches)."""
+    armed = http(url, "debug/events?kind=device_runtime_armed")["result"]
+    if not armed:
+        fail(f"node {url}: no device_runtime_armed event")
+    arm = dict(armed[-1])
+    arm["warmed"] = json.loads(arm["warmed"])
+    return arm
 
 
 def node_window_path(workdir: Path, leaves, content: str, want_utxo: str,
@@ -1555,7 +1616,7 @@ def node_window_path(workdir: Path, leaves, content: str, want_utxo: str,
     try:
         node.wait_ready()
         ready_s = time.perf_counter() - t0
-        arm = http(node.url, "")["counters"]["device_runtime"]["arm"]
+        arm = runtime_arm(node.url)
         if arm["platform"] != "cuda":
             fail(f"the w = {w} node armed {arm}")
         since = kernel_counts(node.url)
@@ -1596,23 +1657,27 @@ def pending_hashes(url: str) -> list:
 
 
 def kernel_counts(url: str, since: dict = None) -> dict:
-    """A node process's launches and fallbacks, from its ``/``, less
-    ``since`` (the counts after its start: its runtime's warm launches).
-    Fails on any failure the node's degrade recorded."""
-    root = http(url, "")
-    counters = root["counters"]
-    health = counters["device_health"]
-    if health["errors"] or health["state"] != "ok":
-        fail(f"node {url}: the degrade recorded {health['errors']} "
-             f"failure(s), state {health['state']}: {health['last_error']}")
+    """A node process's launches and fallbacks, from its ``/metrics``
+    (and span totals from its ``/``), less ``since`` (the counts after
+    its start: its runtime's warm launches).  Fails on any failure the
+    node's degrade recorded (``device_verify_health`` above 0, or a
+    ``resilience_device_error``), with its degrade events."""
+    scrape = node_metrics(url)
+    errors = int(scrape.get("upow_resilience_device_error_total", 0))
+    if scrape["upow_device_verify_health"] or errors:
+        fail(f"node {url}: the degrade recorded {errors} failure(s), "
+             f"health {scrape['upow_device_verify_health']}: "
+             f"{http(url, 'debug/events?kind=degrade')['result']}")
     since = since or {}
-    out = {k: int(counters.get(f"kernel.{k}.batches", 0)) - since.get(k, 0)
-           for k in ("p256_verify", "sha256_txid")}
-    out.update({k: int(counters.get(k, 0)) for k in (
+    out = {k: int(scrape.get(f"upow_kernel_{k}_batches_total", 0))
+           - since.get(k, 0) for k in ("p256_verify", "sha256_txid")}
+    out.update({k: int(scrape.get(
+        "upow_" + k.replace(".", "_") + "_total", 0)) for k in (
         "txid.sample_mismatch", "sync.host_txid_retry")})
+    timings = http(url, "")["timings"]
     for span in ("block_accept", "sync.page_txids", "sync.page_sig_prefill"):
-        out[span] = root["timings"].get(span, {}).get("seconds", 0.0)
-    out["runtime_dispatches"] = counters["device_runtime"]["dispatches"]
+        out[span] = timings.get(span, {}).get("total_s", 0.0)
+    out["runtime_dispatches"] = int(scrape["upow_runtime_dispatches_total"])
     return out
 
 
@@ -1704,6 +1769,12 @@ def shared_card_path(dev: torch.device, workdir: Path, leaves, content: str,
                                                      since["sync_" + tag])}
 
         turn("alone")
+        # the two walls split by the nodes' own trace trees
+        out["trees"] = {
+            "push": tree_split(latest_tree(nodes["push_alone"].url,
+                                           "http.push_block")),
+            "sync": tree_split(latest_tree(nodes["sync_alone"].url,
+                                           "http.sync_blockchain"))}
         miner_proc = subprocess.Popen(
             [sys.executable, "-m", "upow_tpu_torch.mine.miner",
              point_to_string(curve.keygen(rng=KEY_SEED)[1]), "--node",
@@ -1769,21 +1840,27 @@ def gossip_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
     it on its card; a burst of push_tx to A reaches B's pool; the dead
     peer's breaker opens; C, seeded with A, bootstraps on its first
     request from outside, learns B, announces itself and syncs (B5 and
-    kernel 1 on its card).  A, B and C end on one tip and UTXO hash."""
-    for name in ("a", "b", "c"):
+    kernel 1 on its card).  A, B and C end on one tip and UTXO hash.
+    The block's push and hop are ``telemetry_path``'s
+    (:func:`telemetry_checks`): B captures them with ``torch.profiler``,
+    and a ``--device cpu`` node process's scrape is held beside."""
+    for name in ("a", "b", "c", "cpu"):
         shutil.copyfile(workdir / "base.db", workdir / f"gossip_{name}.db")
     a = NodeThread(dev, str(workdir / "gossip_a.db"), "jac",
                    node__rate_limits_enabled=False)
     a.node.self_url = a.url.rstrip("/")
-    b = NodeProcess(str(workdir / "gossip_b.db"))
+    b = NodeProcess(str(workdir / "gossip_b.db"), UPOW_PROFILE_ENABLED="1",
+                    UPOW_PROFILE_TRACE_DIR=str(workdir / "b_profile"))
     c = NodeProcess(str(workdir / "gossip_c.db"),
                     UPOW_NODE_SEED_URL=a.url.rstrip("/"),
                     UPOW_DEVICE_TXID_BACKEND="device")
+    cpu = NodeProcess(str(workdir / "gossip_cpu.db"), device="cpu")
     dead = f"http://127.0.0.1:{free_port()}"
     out = {"rate_limits": "off", "dead": dead}
     try:
         out["b_start_s"] = b.wait_ready()
         out["c_start_s"] = c.wait_ready()
+        cpu.wait_ready()
         # each node armed its runtime before serving (one warm launch of
         # each kernel): counts are read from here on
         b0, c0 = kernel_counts(b.url), kernel_counts(c.url)
@@ -1795,16 +1872,20 @@ def gossip_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
         if b.url not in nodes or dead not in nodes:
             fail(f"gossip: A's get_nodes {nodes}")
 
-        # the block: pushed to A, gossiped to B
+        # the block: pushed to A under a trace, gossiped to B
         txverify.clear_sig_verdicts()
         trace.reset()
         p256.reset_counts()
-        reply = a.request("push_block", {"block_content": content,
-                                         "txs": [t.hex() for t in leaves]})
-        if reply != {"ok": True}:
-            fail(f"gossip: push_block to A: {reply}")
+
+        def hop() -> float:
+            a_tip = a.call(a.node.state.get_last_block())["hash"]
+            return until("block 4 on B", lambda: tip(b.url) == a_tip)[1]
+
+        out["telemetry"] = telemetry_checks(a, b, cpu, {
+            "block_content": content, "txs": [t.hex() for t in leaves]}, hop)
+        out["hop_s"] = out["telemetry"]["hop_s"]
+        cpu.close()
         a_tip = a.call(a.node.state.get_last_block())["hash"]
-        _, out["hop_s"] = until("block 4 on B", lambda: tip(b.url) == a_tip)
         out["a_jac"] = p256.LAUNCHES
         out["b_block"] = kernel_counts(b.url, b0)
         if out["b_block"]["p256_verify"] == 0:
@@ -1833,7 +1914,7 @@ def gossip_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
         if breakers["peers"].get(dead, {}).get("state") != "open" or \
                 breakers["peers"].get(b.url, {}).get("state") != "closed":
             fail(f"gossip: A's breakers {breakers}")
-        counters = trace.snapshot()["counters"]
+        counters = trace.counters()
         out["propagate_timeouts"] = int(counters.get(
             "resilience.propagate_timeouts", 0))
         if out["propagate_timeouts"]:
@@ -1863,18 +1944,229 @@ def gossip_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
             fail(f"gossip: A, B and C end apart: {ends}")
         out["tip"] = a_tip
     except SystemExit:
-        for node in (b, c):
+        for node in (b, c, cpu):
             print(f"  node log {node.url}: {node.tail()}", file=sys.stderr)
         raise
     finally:
         a.close()
-        for node in (b, c):
+        for node in (b, c, cpu):
             node.close()
     return out
 
 
 async def _add_peer(node: Node, url: str) -> None:
     node.peers.add(url)
+
+
+def latest_tree(url: str, name: str) -> dict:
+    """A node process's most recent recorded tree ``name``."""
+    recent = [t for t in http(url, "debug/traces")["result"]["recent"]
+              if t["name"] == name]
+    if not recent:
+        fail(f"node {url}: no {name} trace recorded")
+    return recent[-1]
+
+
+def find_trace(traces: dict, trace_id: str, name: str):
+    """The recorded tree ``name`` with ``trace_id`` in a ``/debug/traces``
+    result (recent ring or slowest top-N), or None."""
+    for t in traces["recent"] + traces["slowest"]:
+        if t.get("trace_id") == trace_id and t["name"] == name:
+            return t
+    return None
+
+
+def tree_split(root: dict) -> dict:
+    """A trace tree's wall split by span name: {name: [count, total ms]}
+    over every span under the root (nested spans inside their parents'
+    totals too), and the root's own ms."""
+    out: dict = {}
+
+    def walk(t: dict) -> None:
+        for c in t.get("spans", ()):
+            row = out.setdefault(c["name"], [0, 0.0])
+            row[0] += 1
+            row[1] = round(row[1] + c["duration_ms"], 3)
+            walk(c)
+    walk(root)
+    return {"root_ms": root["duration_ms"], "spans": out}
+
+
+def check_tree(tree: dict, wall_s: float, must: tuple, where: str) -> None:
+    """The tree holds every span of ``must``; its root fits in the
+    client's wall and its direct children in the root (1 us of rounding
+    each)."""
+    names = {c["name"] for c in _walk(tree)}
+    missing = [m for m in must if m not in names]
+    if missing:
+        fail(f"{where}: the trace lacks {missing}: {sorted(names)}")
+    kids = sum(c["duration_ms"] for c in tree.get("spans", ()))
+    slack = 1e-3 * (1 + len(tree.get("spans", ())))
+    if tree["duration_ms"] > wall_s * 1e3 + slack or \
+            kids > tree["duration_ms"] + slack:
+        fail(f"{where}: spans {kids} ms, root {tree['duration_ms']} ms, "
+             f"client wall {wall_s * 1e3} ms")
+
+
+def _walk(t: dict):
+    for c in t.get("spans", ()):
+        yield c
+        yield from _walk(c)
+
+
+def profile_kernels(path: str, name: str, per_block: int = 32) -> tuple:
+    """(launches, least lanes, most lanes) of the CUDA kernel ``name`` in
+    a torch.profiler Chrome trace: a launch of ``per_block`` signatures a
+    block (kernel 1: 128 threads, four a signature) on a grid of g blocks
+    carried 32 (g - 1) + 1 to 32 g lanes."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    grids = [e.get("args", {}).get("grid", [0])[0] for e in events
+             if e.get("cat") == "kernel" and name in e.get("name", "")]
+    return (len(grids), sum(per_block * (g - 1) + 1 for g in grids),
+            sum(per_block * g for g in grids))
+
+
+def telemetry_checks(a: "NodeThread", b: "NodeProcess", cpu: "NodeProcess",
+                     body: dict, a_tip_wait) -> dict:
+    """``telemetry_path``: the 8,160-tx push_block to node A (this
+    process) under a trace, gossiped to node B (a process profiling with
+    ``torch.profiler`` through ``/debug/profile``); returns the hop's
+    wall and the figures.  Checks that A's response carries a trace id
+    and B's ``/debug/traces`` a tree under it; that A's tree holds the
+    accept's spans within A's client wall; that both scrapes are valid
+    with ``lanes_real`` equal to the lanes A's launches carried, A's
+    runtime dispatches equal to its runtime's count and, on A and B, to
+    the ``runtime.dispatch`` spans in the request's tree, the verify health
+    0 and the card's memory gauges present (and absent on ``cpu``, a
+    ``--device cpu`` node process); and that B's capture lists as many
+    kernel-1 launches as B's launch counter moved, whose grids hold B's
+    ``lanes_real``."""
+    launched = []
+    real_verify = p256.verify_packed
+
+    def spy(packed, *args, **kw):
+        if packed.device.type == "cuda":
+            launched.append(int(packed.shape[1]))
+        return real_verify(packed, *args, **kw)
+
+    rt = truntime.get_runtime(a.node.device)
+    d0 = rt.dispatches
+    b0 = node_metrics(b.url)
+    started = http(b.url, "debug/profile?action=start")
+    if not started.get("ok"):
+        fail(f"telemetry: B's profile start: {started}")
+    headers: dict = {}
+    p256.verify_packed = spy
+    try:
+        t0 = time.perf_counter()
+        status, raw = asyncio.run(fetch(
+            a.url + "push_block", "POST", json.dumps(body).encode(),
+            response_headers=headers))
+        client_s = time.perf_counter() - t0
+    finally:
+        p256.verify_packed = real_verify
+    if (status, json.loads(raw)) != (200, {"ok": True}):
+        fail(f"gossip: push_block to A: {status} {raw[:200]}")
+    tid = headers.get("x-upow-trace", "")
+    if not trace.valid_trace_id(tid):
+        fail(f"telemetry: A's push_block carries no trace id: {headers}")
+    hop_s = a_tip_wait()
+    b_tree = until("B's trace of the gossiped block", lambda: find_trace(
+        http(b.url, "debug/traces")["result"], tid, "http.push_block"))[0]
+    stopped = http(b.url, "debug/profile?action=stop")
+    result = stopped.get("result", {})
+    if not stopped.get("ok") or "error" in result \
+            or not os.path.exists(result.get("trace_file", "")):
+        fail(f"telemetry: B's profile capture: {stopped}")
+    a1, b1 = node_metrics(a.url), node_metrics(b.url)
+    cpu_scrape = node_metrics(cpu.url)
+    a_tree = find_trace(trace.traces(), tid, "http.push_block")
+    if a_tree is None:
+        fail(f"telemetry: A recorded no tree under {tid}")
+    check_tree(a_tree, client_s, ("block_accept", "block.sig_verify",
+                                  "block.utxo_apply", "runtime.dispatch"),
+               "telemetry: A's push_block")
+    lanes = sum(launched)
+
+    def delta(m1: dict, m0: dict, key: str) -> int:
+        return int(m1.get(key, 0) - m0.get(key, 0))
+    lanes_key = "upow_kernel_p256_verify_lanes_real_total"
+    w4_key = "upow_kernel_p256_verify_w4_launches_total"
+    out = {"trace_id": tid, "client_s": client_s, "hop_s": hop_s,
+           "launches": len(launched), "lanes": lanes,
+           "a_lanes_real": int(a1[lanes_key]),
+           "b_lanes_real": delta(b1, b0, lanes_key),
+           "a_runtime_dispatches": int(a1["upow_runtime_dispatches_total"]),
+           "a_runtime_count": rt.dispatches - d0,
+           "b_runtime_dispatches": delta(
+               b1, b0, "upow_runtime_dispatches_total"),
+           "b_launches": delta(b1, b0, w4_key),
+           "b_profile_kernels": profile_kernels(
+               result["trace_file"], KERNEL_NAMES["jac"]),
+           "b_profile_s": result["seconds"],
+           "b_profile_bytes": os.path.getsize(result["trace_file"]),
+           "a_tree": tree_split(a_tree), "b_tree": tree_split(b_tree),
+           "memory": {k: v for k, v in b1.items()
+                      if k.startswith("upow_device_gpu_0_")}}
+    n_prof, lo, hi = out["b_profile_kernels"]
+    if not launched or out["a_lanes_real"] != lanes \
+            or not lo <= out["b_lanes_real"] <= hi:
+        fail(f"telemetry: lanes_real A {out['a_lanes_real']} against the "
+             f"{lanes} A's launches carried; B {out['b_lanes_real']} "
+             f"against {lo}-{hi} by its captured grids")
+    # every dispatch of the accept is in the request's tree, one
+    # runtime.dispatch span each (a dispatch holds a micro-batch's
+    # launches: pass 1 and the bad canary's pass 2)
+    spans = {w: out[f"{w}_tree"]["spans"].get("runtime.dispatch", [0])[0]
+             for w in ("a", "b")}
+    if out["a_runtime_dispatches"] != out["a_runtime_count"] \
+            or out["a_runtime_dispatches"] != spans["a"] \
+            or out["b_runtime_dispatches"] != spans["b"]:
+        fail(f"telemetry: runtime dispatches {out}")
+    for where, m in (("A", a1), ("B", b1)):
+        if m["upow_device_verify_health"] != 0 \
+                or m.get("upow_device_gpu_0_peak_bytes_in_use", 0) <= 0 \
+                or m.get("upow_device_gpu_0_bytes_limit", 0) <= 0 \
+                or "upow_device_gpu_0_bytes_in_use" not in m:
+            fail(f"telemetry: {where}'s health and card memory gauges: "
+                 f"{ {k: v for k, v in m.items() if 'device' in k} }")
+    if any(k.startswith("upow_device_gpu") for k in cpu_scrape):
+        fail("telemetry: a --device cpu node exports card memory gauges")
+    if out["b_launches"] == 0 or n_prof != out["b_launches"]:
+        fail(f"telemetry: B's capture lists {n_prof} kernel-1 launches, "
+             f"its counter moved {out['b_launches']}")
+    return out
+
+
+def tracing_cost_path(dev: torch.device, workdir: Path, leaves,
+                      content: str,
+                      turns=(True, False, False, True)) -> dict:
+    """The cost of request tracing: on fresh copies of the chain, a
+    node (this process, jac) with ``telemetry.trace_requests`` on and
+    off in turns takes the 1,024-tx ``push_tx`` burst and then the
+    8,160-tx ``push_block``; each turn's two walls."""
+    body = {"block_content": content, "txs": [t.hex() for t in leaves]}
+    walls = {True: [], False: []}
+    for i, traced in enumerate(turns):
+        db = str(workdir / f"tracing_{i}.db")
+        shutil.copyfile(workdir / "base.db", db)
+        node = NodeThread(dev, db, "jac", telemetry__trace_requests=traced)
+        try:
+            txverify.clear_sig_verdicts()
+            t0 = time.perf_counter()
+            replies = asyncio.run(_burst(node.url,
+                                         [t.hex() for t in leaves[:BURST]]))
+            t1 = time.perf_counter()
+            reply = node.request("push_block", body)
+            t2 = time.perf_counter()
+            if not all(r.get("ok") for r in replies) or reply != {"ok": True}:
+                fail(f"tracing cost turn {i}: {reply} "
+                     f"{[r for r in replies if not r.get('ok')][:2]}")
+            walls[traced].append((t1 - t0, t2 - t1))
+        finally:
+            node.close()
+    return walls
 
 
 # --- phases 13-15: the UTXO probe and the resident accept ------------------
@@ -2270,10 +2562,9 @@ async def accept_resident_path(dev: torch.device, kit: Kit, path: str,
     accept_s = time.perf_counter() - t0
     b6, jac, b5 = tdi.PROBE_LAUNCHES, p256.LAUNCHES, tsha.BLOCKS_LAUNCHES
     device = device_busy(prof, "utxo_probe_kernel")
-    snap = trace.snapshot()
-    counters = snap["counters"]
-    probe_stage = sum(snap["observations"].get(
-        "pipeline.accept_probe.seconds", []))
+    counters = trace.counters()
+    probe_stage = trace.histograms().get(
+        "pipeline.accept_probe.seconds", {}).get("sum", 0.0)
     if not ok:
         fail(f"resident accept rejected the block: {errors}")
     if b6 == 0 or jac == 0:
@@ -2286,9 +2577,10 @@ async def accept_resident_path(dev: torch.device, kit: Kit, path: str,
     trace.reset()
     probe_checks.append(resident_probe_check(state, sample,
                                              "after the accept"))
+    # the one upload the check's first probe made (the index was dirty)
+    uploads = trace.histograms().get("kernel.utxo_apply.dispatch_seconds",
+                                     {"count": 0})
     resident_parity(state, sample, "after the accept")
-    uploads = trace.snapshot()["observations"].get(
-        "kernel.utxo_apply.dispatch_seconds", [])
     await state.remove_blocks(4)
     if await state.get_unspent_outputs_hash() != pre_hash:
         fail("remove_blocks(4) did not restore the UTXO hash")
@@ -2315,7 +2607,8 @@ async def accept_resident_path(dev: torch.device, kit: Kit, path: str,
     sql_state.close()
     return {"txs": len(leaves), "setup_s": setup_s, "arm_s": arm_s,
             "upload_s": upload_s, "upload_after_block_s":
-            uploads[0] if uploads else None, "stats": stats,
+            uploads["sum"] if uploads["count"] == 1 else None,
+            "stats": stats,
             "accept_s": accept_s, "sql_accept_s": sql_accept_s,
             "b6": b6, "jac": jac, "b5": b5, "device": device,
             "probes": counters.get("index.probes", 0),
@@ -2351,7 +2644,7 @@ def push_block_resident_path(dev: torch.device, kit: Kit, workdir: Path,
         wall_s = time.perf_counter() - t0
         out = {"wall_s": wall_s, "b6": tdi.PROBE_LAUNCHES,
                "jac": p256.LAUNCHES, "b5": tsha.BLOCKS_LAUNCHES,
-               "consults": trace.snapshot()["counters"].get(
+               "consults": trace.counters().get(
                    "index.shadow_consults", 0)}
         if reply != {"ok": True}:
             fail(f"push_block to the resident node: {reply}")
@@ -2959,17 +3252,20 @@ def device_busy(prof, kernel_name: str) -> dict:
             "kernel_s": sum(e.time_range.elapsed_us() for e in kernel) / 1e6}
 
 
-def accept_breakdown(snap: dict) -> dict:
-    """Seconds by stage of one block accept, from the port's trace."""
-    spans, obs = snap["spans"], snap["observations"]
-    out = {name: round(spans[name]["seconds"], 4) for name in (
+def accept_breakdown() -> dict:
+    """Seconds by stage of one block accept, from the port's span stats
+    and histograms (counted since the last ``trace.reset()``)."""
+    spans, hists = trace.stats(), trace.histograms()
+    out = {name: round(spans[name]["total_s"], 4) for name in (
         "block_accept", "block.header_check", "block.sig_verify",
         "block.utxo_apply") if name in spans}
     for stage in ("block_decode", "block_sig_wait"):
-        out[stage] = round(sum(obs.get(f"pipeline.{stage}.seconds", [])), 4)
-    calls = obs.get("kernel.p256_verify.dispatch_seconds", [])
-    out["verify_calls"] = len(calls)
-    out["verify_call_s"] = round(sum(calls), 4)
+        out[stage] = round(hists.get(f"pipeline.{stage}.seconds",
+                                     {}).get("sum", 0.0), 4)
+    calls = hists.get("kernel.p256_verify.dispatch_seconds",
+                      {"count": 0, "sum": 0.0})
+    out["verify_calls"] = calls["count"]
+    out["verify_call_s"] = round(calls["sum"], 4)
     return out
 
 
@@ -3264,7 +3560,7 @@ def runtime_path(dev: torch.device, block: list, mix: tuple,
             states.append((degrade.state, p256.LAUNCHES, raised))
     finally:
         faultinject.uninstall()
-    counters = trace.snapshot()["counters"]
+    counters = trace.counters()
     if [(s, r) for s, _, r in states] != [
             ("ok", "FaultInjected"), ("ok", "FaultInjected"),
             ("degraded", "FaultInjected"), ("degraded", "DeviceBlocked"),
@@ -3370,6 +3666,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    # the nodes of this process log warnings only, as before they had a
+    # logger; the node processes log to their <db>.log
+    setup_logging(LogConfig(path="", console=False))
     card = tdevice.card_line()
     if not card:
         fail("nvidia-smi did not report the card")
@@ -3478,7 +3777,9 @@ def main() -> int:
         gossiped = gossip_path(dev, kit, workdir, leaves, content)
         degrade_clean("gossip_path")
         shared = shared_card_path(dev, workdir, leaves, content, card)
-        degrade_clean("shared_card")
+        fresh_runtime(dev, "shared_card")
+        traced = tracing_cost_path(dev, workdir, leaves, content)
+        degrade_clean("tracing_cost")
         runtime = runtime_path(dev, leaf_checks(leaves, kit.pub), mix, card)
         fresh_runtime(dev, "runtime_path")
     clock.reset()
@@ -3534,9 +3835,8 @@ def main() -> int:
           accepted=nres["burst"], seconds=round(nres["burst_s"], 3),
           tx_per_s=round(nres["burst"] / nres["burst_s"], 1),
           complete_launches=nres["complete"], jac_launches=nres["jac"],
-          intake_batches=len(nres["batches"]),
-          batch_sizes=json.dumps(sorted(collections.Counter(
-              int(n) for n in nres["batches"]).items())),
+          intake_batches=sum(nres["batches"].values()),
+          batch_sizes=json.dumps(sorted(nres["batches"].items())),
           rejected=json.dumps(nres["rejected"]))
     mined = nres["miner"]
     phase("miner_run", node="port", accepted=True, tip=mined["tip"],
@@ -3597,6 +3897,47 @@ def main() -> int:
           c_page_txids_s=round(g["c"]["sync.page_txids"], 4),
           c_page_sig_prefill_s=round(g["c"]["sync.page_sig_prefill"], 4),
           sample_mismatch=0, host_txid_retry=0, tip=g["tip"][:16],
+          card=json.dumps(card))
+    tel = g["telemetry"]
+    phase("telemetry_path", trace_id=tel["trace_id"],
+          a_client_s=round(tel["client_s"], 3),
+          a_root_s=round(tel["a_tree"]["root_ms"] / 1e3, 3),
+          b_root_s=round(tel["b_tree"]["root_ms"] / 1e3, 3),
+          hop_s=round(tel["hop_s"], 3), launches=tel["launches"],
+          lanes=tel["lanes"], a_lanes_real=tel["a_lanes_real"],
+          b_lanes_real=tel["b_lanes_real"],
+          a_runtime_dispatches=tel["a_runtime_dispatches"],
+          a_runtime_count=tel["a_runtime_count"],
+          b_runtime_dispatches=tel["b_runtime_dispatches"],
+          b_kernel1_launches=tel["b_launches"],
+          b_profile_kernel1=tel["b_profile_kernels"][0],
+          b_profile_lanes=f"{tel['b_profile_kernels'][1]}-"
+          f"{tel['b_profile_kernels'][2]}",
+          b_profile_s=tel["b_profile_s"],
+          b_profile_bytes=tel["b_profile_bytes"],
+          b_card_memory=json.dumps({k[len("upow_device_gpu_0_"):]: int(v)
+                                    for k, v in tel["memory"].items()}),
+          cpu_node_memory_gauges=0, scrapes_valid=True,
+          card=json.dumps(card))
+    for where, tree in (("a_push_block", tel["a_tree"]),
+                        ("b_gossiped_push_block", tel["b_tree"]),
+                        ("shared_push_block", shared["trees"]["push"]),
+                        ("shared_sync", shared["trees"]["sync"])):
+        phase("trace_split", node=where, root_ms=tree["root_ms"],
+              spans=json.dumps(tree["spans"], sort_keys=True),
+              card=json.dumps(card))
+    burst_on, burst_off = ([w[0] for w in traced[k]] for k in (True, False))
+    push_on, push_off = ([w[1] for w in traced[k]] for k in (True, False))
+    phase("tracing_cost", turns=len(burst_on) + len(burst_off),
+          order="on,off,off,on", burst=BURST,
+          burst_on_s=json.dumps([round(x, 3) for x in burst_on]),
+          burst_off_s=json.dumps([round(x, 3) for x in burst_off]),
+          push_block_on_s=json.dumps([round(x, 3) for x in push_on]),
+          push_block_off_s=json.dumps([round(x, 3) for x in push_off]),
+          burst_median_on_off=f"{round(statistics.median(burst_on), 3)}/"
+          f"{round(statistics.median(burst_off), 3)}",
+          push_block_median_on_off=f"{round(statistics.median(push_on), 3)}/"
+          f"{round(statistics.median(push_off), 3)}",
           card=json.dumps(card))
 
     stats = resident["stats"]

@@ -6,10 +6,11 @@ the port reads, or raise the same error with the same text.  A key of
 the JAX schema that the port does not read yet is skipped; any other key
 raises the JAX package's ``KeyError`` (``unknown config section <s>``,
 ``unknown config field <s>.<f>``), in a file and in an override alike.
-The peer, gossip, resilience, degrade and device-runtime fields of the
-port's ``NodeConfig``, ``ResilienceConfig``, ``DeviceConfig`` and
-``DeviceRuntimeConfig`` are held one by one, from a file and from
-``UPOW_<SECTION>_<FIELD>``.
+The peer, gossip, resilience, degrade, device-runtime, log, telemetry
+and profiling fields of the port's ``NodeConfig``, ``ResilienceConfig``,
+``DeviceConfig``, ``DeviceRuntimeConfig``, ``LogConfig``,
+``TelemetryConfig`` and ``ProfilingConfig`` are held one by one, from a
+file and from ``UPOW_<SECTION>_<FIELD>``.
 """
 
 import dataclasses
@@ -52,6 +53,24 @@ NEW_FIELDS = [
     ("device_runtime", "weights", "block=8,mine=1", "block=8,mine=1"),
     ("device_runtime", "queue_max", 16, "16"),
     ("device_runtime", "max_coalesce", 4, "4"),
+    ("log", "path", "", ""),
+    ("log", "level", "DEBUG", "DEBUG"),
+    ("log", "max_bytes", 1024, "1024"),
+    ("log", "backups", 2, "2"),
+    ("log", "console", False, "0"),
+    ("log", "json_format", True, "true"),
+    ("telemetry", "trace_requests", False, "0"),
+    ("telemetry", "trace_recent", 4, "4"),
+    ("telemetry", "trace_slowest", 3, "3"),
+    ("telemetry", "max_trace_spans", 64, "64"),
+    ("telemetry", "events_buffer", 8, "8"),
+    ("telemetry", "max_metric_names", 99, "99"),
+    ("telemetry", "debug_endpoints", False, "false"),
+    ("telemetry", "instance_scope", True, "1"),
+    ("profile", "enabled", True, "1"),
+    ("profile", "trace_dir", "prof/out", "prof/out"),
+    ("profile", "max_capture_seconds", 5.0, "5"),
+    ("profile", "cost_analysis", True, "yes"),
 ]
 
 
@@ -111,7 +130,7 @@ def test_unknown_override_raises_the_jax_error(tmp_path, overrides, want):
     ("mempool", "enabled", False),
     ("device_runtime", "compile_cache_dir", "cache"),
     ("device", "search_backend", "jnp"),
-    ("telemetry", "debug_endpoints", False),
+    ("watchtower", "enabled", True),
 ])
 def test_known_key_the_port_does_not_read_is_skipped(tmp_path, how, section,
                                                      field, value):

@@ -16,7 +16,8 @@ against the JAX package's, on the CPU.
   ``push_tx`` and ``push_block`` sequence (two failures served on the
   host, the degraded state serving a third, the cooldown's re-probe
   recovering, a bad signature still rejected) and end on the same UTXO
-  hash; the port's ``/`` shows the degrade.  The JAX node's device
+  hash; the port's ``/metrics`` shows the degrade
+  (``device_verify_health``, ``resilience_device_error_total``).  The JAX node's device
   kernel is its host math (as in the JAX chaos test: its XLA compile
   would take minutes here); the port's re-probe runs the plain PyTorch
   verify.
@@ -55,6 +56,7 @@ from upow_tpu_torch.core import curve
 from upow_tpu_torch.device import runtime as truntime
 from upow_tpu_torch.resilience import faultinject
 from upow_tpu_torch.resilience.degrade import DegradeManager, DeviceBlocked
+from upow_tpu_torch.telemetry import exposition
 from upow_tpu_torch.verify import txverify
 
 COMMON = ("state", "consecutive_failures", "cooldown", "failure_limit")
@@ -114,7 +116,7 @@ def test_degrade_cycle_error_cooldown_recovery():
     assert m("allow")                             # in-flight probe flows
     m("record_success")
     assert m.port.state == "ok" and m("state_gauge") == 0
-    counters = trace.snapshot()["counters"]
+    counters = trace.counters()
     for name, value in (("resilience.device_degraded", 1),
                         ("resilience.device_reprobe", 1),
                         ("resilience.device_recovered", 1),
@@ -184,7 +186,7 @@ def test_device_hang_poisons_and_the_host_serves(monkeypatch):
                                     use_cache=False, device_timeout=0.2)
     assert got == want == [True, True, False, True, True, True]
     assert txverify.DEGRADE.state == jtxverify.DEGRADE.state == "poisoned"
-    assert trace.snapshot()["counters"]["resilience.device_poisoned"] == 1
+    assert trace.counters()["resilience.device_poisoned"] == 1
 
     def no_device(*_a, **_k):
         raise AssertionError("a poisoned path reached the device")
@@ -243,8 +245,12 @@ def test_device_failure_host_fallback_then_recovery_like_jax(
                                jtxverify.DEGRADE.state))
                 replies.append(await pair.both(
                     "POST", "/push_tx", {"tx_hex": _corrupt(txs[4]).hex()}))
-                async with session.get(pair.turl + "/") as r:
-                    health = (await r.json())["counters"]["device_health"]
+                async with session.get(pair.turl + "/metrics") as r:
+                    scrape = exposition.samples(await r.text())
+                health = {**txverify.DEGRADE.snapshot(),
+                          "gauge": scrape["upow_device_verify_health"],
+                          "errors_total": scrape[
+                              "upow_resilience_device_error_total"]}
                 PORT.clock.advance(60)
                 JAX.clock.advance(60)
                 info = (await pair.both("GET", "/get_mining_info"))["result"]
@@ -269,7 +275,7 @@ def test_device_failure_host_fallback_then_recovery_like_jax(
     assert states == [("ok", "ok"), ("degraded", "degraded"),
                       ("degraded", "degraded"), ("ok", "ok")]
     assert utxo[0] == utxo[1]
-    counters, jcounters = trace.snapshot()["counters"], jtrace.counters()
+    counters, jcounters = trace.counters(), jtrace.counters()
     for name in ("resilience.device_error", "resilience.device_degraded",
                  "resilience.device_reprobe", "resilience.device_recovered",
                  "resilience.faults_injected"):
@@ -277,6 +283,7 @@ def test_device_failure_host_fallback_then_recovery_like_jax(
     assert counters["resilience.device_error"] == 2
     assert counters["resilience.device_fallback"] >= 1
     assert health["state"] == "ok" and health["errors"] == 2
+    assert health["gauge"] == 0 and health["errors_total"] == 2
     assert health["failure_limit"] == 2 and health["cooldown"] == 0.5
 
 
@@ -348,7 +355,7 @@ def test_card_failure_raises_blocks_then_reprobes(monkeypatch):
                                source="block").result(timeout=60)
     assert got == want and txverify.DEGRADE.state == "ok"
     assert len(reached) >= 4
-    counters = trace.snapshot()["counters"]
+    counters = trace.counters()
     assert counters["resilience.device_error"] == 3
     assert counters["resilience.device_fallback"] >= 2
     assert counters["resilience.device_reprobe"] == 1

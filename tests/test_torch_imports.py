@@ -7,8 +7,11 @@ JAX node's server; the port's node serves on the standard library) and
 ``filelock`` (the JAX peer book's lock; the port's is ``fcntl``), then
 imports every module of the port, and ``chip_smoke.py`` with it.  A second
 subprocess starts the port's node under the same finder, with its
-resident UTXO index armed on the CPU, and serves requests (``/`` with
-its degrade state and device runtime); a third builds a two-block chain
+resident UTXO index armed on the CPU, and serves requests (``/``, and
+``/metrics`` with its degrade gauge and the device runtime's armed event
+on ``/debug/events``, the telemetry package, the logger and a
+``/debug/profile`` capture on ``torch.profiler``); a third builds a
+two-block chain
 on one port node and syncs a second from it over HTTP
 (``node/peers.py``'s client).
 """
@@ -39,18 +42,24 @@ sys.meta_path.insert(0, Block())
 
 
 def serve():
-    import asyncio, json
+    import asyncio, json, os, tempfile
     from upow_tpu_torch.config import Config
+    from upow_tpu_torch.device.runtime import get_runtime
+    from upow_tpu_torch.telemetry import exposition
     from upow_tpu_torch.node.app import Node
     from upow_tpu_torch.node.http import fetch
 
     async def main():
         cfg = Config.load(node__db_path="", node__ip_config_file="",
-                          node__seed_url="", node__peers_file="")
+                          node__seed_url="", node__peers_file="",
+                          log__path="", log__json_format=True,
+                          profile__enabled=True,
+                          profile__trace_dir=tempfile.mkdtemp())
         cfg.device.verify_kernel = "complete"
         cfg.device.utxo_index = True
         node = Node(cfg, device="cpu")
         assert node.state.index_stats()["entries"] == 0
+        get_runtime("cpu").arm()  # as serve_forever does
         server = await node.serve("127.0.0.1", 0)
         try:
             base = "http://127.0.0.1:%d" % server.port
@@ -59,9 +68,22 @@ def serve():
             status, body = await fetch(base + "/push_tx", "POST", b"{}")
             assert status == 422, body
             status, body = await fetch(base + "/")
-            counters = json.loads(body)["counters"]
-            assert counters["device_health"]["state"] == "ok", counters
-            assert counters["device_runtime"]["device"] == "cpu", counters
+            assert sorted(json.loads(body)) == [
+                "counters", "ok", "timings", "unspent_outputs_hash",
+                "version"], body
+            status, body = await fetch(base + "/metrics")
+            assert not exposition.validate(body.decode()), body
+            scrape = exposition.samples(body.decode())
+            assert scrape["upow_device_verify_health"] == 0, scrape
+            status, body = await fetch(
+                base + "/debug/events?kind=device_runtime_armed")
+            armed = json.loads(body)["result"]
+            assert [e["platform"] for e in armed] == ["cpu"], armed
+            for action in ("start", "status", "stop"):
+                status, body = await fetch(
+                    base + "/debug/profile?action=" + action)
+                assert status == 200 and json.loads(body)["ok"], body
+            assert os.path.exists(json.loads(body)["result"]["trace_file"])
         finally:
             await node.close()
     asyncio.run(main())
@@ -152,7 +174,11 @@ def test_every_port_module_imports_without_jax():
                  "parallel.mesh", "mine.mesh_engine", "resilience",
                  "resilience.policy", "resilience.breaker",
                  "resilience.faultinject", "resilience.degrade",
-                 "device.runtime", "native"):
+                 "device.runtime", "native", "logger", "telemetry",
+                 "telemetry.scope", "telemetry.metrics",
+                 "telemetry.tracing", "telemetry.events",
+                 "telemetry.exposition", "telemetry.slo",
+                 "telemetry.device", "telemetry.selfcheck", "profiling"):
         assert "upow_tpu_torch." + must in names, must
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(

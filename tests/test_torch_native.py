@@ -177,7 +177,7 @@ def test_host_signature_path_is_the_native_batch(monkeypatch):
     monkeypatch.setattr(native.shutil, "which", lambda _name: None)
     trace.reset()
     assert native.load() is None and native.sha256(b"x") is None
-    assert trace.snapshot()["counters"]["native.unavailable"] == 1
+    assert trace.counters()["native.unavailable"] == 1
     assert txverify.run_sig_checks(checks, backend="host",
                                    use_cache=False) == want
     assert tminer.select_backend("cpu") == "torch"

@@ -49,6 +49,7 @@ from test_torch_block import JAX, PORT, T0, Chain
 from upow_tpu.crypto import p256 as jp256
 from upow_tpu_torch import trace
 from upow_tpu_torch.crypto import p256
+from upow_tpu_torch.telemetry import exposition
 
 LEAVES = 28
 BURST = 16
@@ -158,9 +159,9 @@ async def _sequence(pair, chain, leaves, tnode):
     burst = await asyncio.gather(*(
         pair.both("POST", "/push_tx", {"tx_hex": tx.hex()}) for tx in txs))
     assert all(r["ok"] for r in burst), burst
-    sizes = trace.snapshot()["observations"]["mempool.intake_batch_size"]
-    assert sum(sizes) == BURST
-    assert max(sizes) >= 8  # the device path ran
+    sizes = trace.histograms()["mempool.intake_batch_size"]
+    assert sizes["sum"] == BURST
+    assert max(tnode.intake.batch_sizes) >= 8  # the device path ran
 
     # the duplicate, a pending double spend, a bad signature, a coinbase
     # and garbage
@@ -492,7 +493,8 @@ def test_kernel_failure_is_no_reject(tmp_path, monkeypatch):
     """On a card, a complete kernel that fails to launch reaches the
     client as the node's 500 envelope, never as the invalid-tx reject:
     the tx is not admitted and not verified some other way, the degrade
-    records the failure (in ``txverify.DEGRADE`` and the node's ``/``),
+    records the failure (in ``txverify.DEGRADE`` and the node's
+    ``/metrics``),
     and once the kernel works again the same tx is accepted.  The card's
     rule runs here on the plain version (``host_may_serve`` answers as
     for a card).  A runtime that failed to arm its device also reaches
@@ -535,8 +537,12 @@ def test_kernel_failure_is_no_reject(tmp_path, monkeypatch):
                     failed = (r.status, await r.json())
                 counts.append(
                     await tnode.state.get_pending_transactions_count())
-                async with session.get(base) as r:
-                    health = (await r.json())["counters"]["device_health"]
+                async with session.get(base + "metrics") as r:
+                    scrape = exposition.samples(await r.text())
+                health = {**ttxverify.DEGRADE.snapshot(),
+                          "gauge": scrape["upow_device_verify_health"],
+                          "errors_total": scrape[
+                              "upow_resilience_device_error_total"]}
                 monkeypatch.setattr(p256, "verify_complete_packed", real)
                 async with session.post(base + "push_tx",
                                         json={"tx_hex": tx.hex()}) as r:
@@ -566,6 +572,7 @@ def test_kernel_failure_is_no_reject(tmp_path, monkeypatch):
                             "error": "Uncaught RuntimeError exception"})
     assert calls["broken"] == 1 and counts[0] == 0
     assert health["state"] == "ok" and health["errors"] == 1
+    assert health["gauge"] == 0 and health["errors_total"] == 1
     assert "launch failed for p256_complete" in health["last_error"]
     assert again[0] == 200 and again[1]["ok"], again
     assert unarmed == (500, {"ok": False,

@@ -97,7 +97,7 @@ async def resident_scenario(pkg, state):
 def test_resident_accept_matches_jax():
     trace.reset()
     got = asyncio.run(resident_scenario(PORT, _armed_port()))
-    counters = trace.snapshot()["counters"]
+    counters = trace.counters()
     want = asyncio.run(resident_scenario(JAX, _armed_jax()))
     # the indexes' stats apart: entries and consults must agree
     got_stats, want_stats = got.pop(), want.pop()
@@ -260,7 +260,7 @@ def test_node_probes_and_a_failing_probe_is_a_500(tmp_path, monkeypatch):
             status, body = await fetch(url + "push_tx", "POST", json.dumps(
                 {"tx_hex": pushed.hex()}).encode())
             admitted = (status, json.loads(body))
-            probes = trace.snapshot()["counters"].get("index.probes", 0)
+            probes = trace.counters().get("index.probes", 0)
             PORT.clock.advance(60)
             txs = [pushed] + [chain.spend([leaf]) for leaf in leaves[1:]]
             block = json.dumps({"block_content": await chain.header(txs),

@@ -249,8 +249,7 @@ def test_node_interface_retries_then_breaks():
                 snap = fault.get_injector().snapshot()
             finally:
                 fault.uninstall()
-            counters = (trace.counters() if name == "jax"
-                        else trace.snapshot()["counters"])
+            counters = trace.counters()
             return (errors, ctx.breakers.snapshot(), snap,
                     {k: v for k, v in counters.items()
                      if k.startswith("resilience.")})

@@ -201,7 +201,7 @@ def test_degrade_flip_mid_flight_drains_host_byte_identical(rt, monkeypatch):
         assert mgr.state == "degraded"
     assert fut.result(60.0) == jax_verdicts(checks)
     assert states and set(states) == {"degraded"}
-    assert trace.snapshot()["counters"]["resilience.device_fallback"] >= 1
+    assert trace.counters()["resilience.device_fallback"] >= 1
 
 
 def test_degrade_runtime_fault_site_drains_host(rt, monkeypatch):
@@ -214,7 +214,7 @@ def test_degrade_runtime_fault_site_drains_host(rt, monkeypatch):
     assert fut.result(60.0) == jax_verdicts(checks)
     assert mgr.state == "degraded"
     assert mgr.snapshot()["consecutive_failures"] == 1
-    assert trace.snapshot()["counters"].get("runtime.faults", 0) == 1
+    assert trace.counters().get("runtime.faults", 0) == 1
 
 
 def test_fault_site_on_boxed_call_surfaces_as_status(rt):
@@ -360,13 +360,13 @@ def test_queue_overflow_rejects():
 def test_runtime_trace_counters(rt):
     rt.submit_sig_checks(CHECKS[:8], backend="host",
                          source="block").result(60.0)
-    snap = trace.snapshot()
-    assert snap["counters"]["runtime.submissions"] >= 1
-    assert snap["counters"]["runtime.dispatches"] >= 1
-    assert snap["counters"]["runtime.source.block"] >= 1
+    counters, hists = trace.counters(), trace.histograms()
+    assert counters["runtime.submissions"] >= 1
+    assert counters["runtime.dispatches"] >= 1
+    assert counters["runtime.source.block"] >= 1
     for name in ("runtime.queue_depth", "runtime.coalesced",
                  "runtime.queue_wait.block"):
-        assert snap["observations"][name], name
+        assert hists[name]["count"], name
 
 
 def test_weights_config_parsing():

@@ -239,7 +239,7 @@ def test_sync_from_scratch_matches_jax(tmp_path):
             4 + EMPTY_TAIL + 1
         # a second sync finds nothing new
         assert (await _both_sync(session, cl))["ok"]
-        counters = trace.snapshot()["counters"]
+        counters = trace.counters()
         assert counters.get("sync.host_txid_retry", 0) == 0
         assert counters.get("snapshot_recommended", 0) == 0
     _run(tmp_path, scenario)
@@ -303,7 +303,7 @@ def test_sync_page_one_txid_batch_and_one_signature_verify(tmp_path,
         trace.reset()
         assert (await _both_sync(session, cl))["ok"]
         await _converged(cl, "a", "b", "c")
-        spans = trace.snapshot()["spans"]
+        spans = trace.stats()
         assert spans["sync.page_txids"]["count"] == 1
         assert spans["sync.page_sig_prefill"]["count"] == 1
         state = cl.nodes["b"].state
@@ -346,7 +346,7 @@ def test_faulty_device_txid_retries_on_host(tmp_path, monkeypatch):
         trace.reset()
         assert (await _both_sync(session, cl))["ok"]
         await _converged(cl, "a", "b", "c")
-        assert trace.snapshot()["counters"]["sync.host_txid_retry"] == 1
+        assert trace.counters()["sync.host_txid_retry"] == 1
         state = cl.nodes["b"].state
         block = await state.get_block_by_id(4)
         assert tx in await state.get_block_transaction_hashes(block["hash"])
@@ -362,7 +362,7 @@ def test_faulty_device_txid_retries_on_host(tmp_path, monkeypatch):
             errors = []
             assert await cl.nodes[name].create_blocks(page, errors), errors
         await _converged(cl, "a", "b", "c")
-        assert trace.snapshot()["counters"]["sync.host_txid_retry"] == 2
+        assert trace.counters()["sync.host_txid_retry"] == 2
 
     _run(tmp_path, scenario)
 

@@ -98,3 +98,14 @@ def load(name: str) -> ctypes.CDLL:
 def ptxas_report(name: str) -> str:
     path = BUILD / f"{name}.ptxas.txt"
     return path.read_text() if path.exists() else ""
+
+
+def entry_count() -> int:
+    """Kernel libraries built in ``_build/`` (one a ``csrc/*.cu``), or -1
+    when nothing was ever built here: the node's
+    ``compile_cache_persistent_entries`` gauge, the counterpart of the
+    JAX package's persistent compile cache entries."""
+    if not BUILD.is_dir():
+        return -1
+    return sum(1 for src in CSRC.glob("*.cu")
+               if library_path(src.stem).exists())

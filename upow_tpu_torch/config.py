@@ -7,11 +7,12 @@ JSON config file, ``UPOW_<SECTION>_<FIELD>`` environment variables
 ``section__field`` keyword overrides (``node__port=3007``): the JAX
 package's names and precedence, so a config file or environment that the
 JAX node reads configures the port's node the same way.  Sections and
-fields the port does not have yet (the resilience, cache, snapshot,
-archive, telemetry and watchtower settings, the node's peer and gossip
-settings with ``node.self_url``, and ``mempool.allow_rbf``) come with the
-slices that read them (ROADMAP.md);
-a config file naming them is read, and they are skipped.  So is
+fields the port does not read yet (the ``ws``, ``miner``, ``cache``,
+``snapshot``, ``archive`` and ``watchtower`` sections, the node's
+``db_backend`` and ``pg_dsn``, ``device.device``, ``device.search_backend``,
+``device_runtime.compile_cache_dir`` and ``mempool.allow_rbf``) come with
+the slices that read them (ROADMAP.md); a config file naming them is
+read, and they are skipped.  So is
 ``mempool.enabled``: the port's node always admits through the
 coalescing intake, whose replies are byte for byte those of the JAX
 node's serial path.
@@ -282,6 +283,55 @@ class NodeConfig:
 
 
 @dataclass
+class LogConfig:
+    """The logger (``logger.py``); overridable as ``UPOW_LOG_<FIELD>``."""
+
+    path: str = "logs/app.log"
+    level: str = "INFO"
+    max_bytes: int = 5 * 1024 * 1024   # my_logger.py rotation size
+    backups: int = 100
+    console: bool = True
+    json_format: bool = False       # JSONL records carrying trace_id
+
+
+@dataclass
+class TelemetryConfig:
+    """Observability knobs (upow_tpu_torch/telemetry/): operational
+    only, never consensus.  All overridable as
+    ``UPOW_TELEMETRY_<FIELD>``."""
+
+    trace_requests: bool = True     # root span per inbound HTTP request
+    trace_recent: int = 32          # completed traces kept, recency ring
+    trace_slowest: int = 16         # completed traces kept, slowest top-N
+    max_trace_spans: int = 512      # span budget per trace tree
+    events_buffer: int = 256        # /debug/events ring size
+    max_metric_names: int = 1024    # cardinality cap per registry kind
+    debug_endpoints: bool = True    # serve /debug/traces, /debug/events,
+                                    # /debug/breakers
+    instance_scope: bool = False    # per-node registries (several nodes
+                                    # in one process); default keeps the
+                                    # process globals
+
+
+@dataclass
+class ProfilingConfig:
+    """Opt-in performance capture (upow_tpu_torch/profiling/): all off
+    by default; overridable as ``UPOW_PROFILE_<FIELD>``."""
+
+    enabled: bool = False           # serve /debug/profile (also requires
+                                    # telemetry.debug_endpoints)
+    trace_dir: str = "logs/jax_traces"  # capture output directory (the
+                                    # JAX package's default; a
+                                    # torch.profiler Chrome trace here)
+    max_capture_seconds: float = 120.0  # auto-stop: a capture left
+                                    # running past this is closed on the
+                                    # next /debug/profile touch
+    cost_analysis: bool = False     # record each kernel's counted work
+                                    # (profiling.analyze_cost) next to
+                                    # the compile-cache counters
+
+
+@dataclass
 class Config:
     device: DeviceConfig = field(default_factory=DeviceConfig)
     device_runtime: DeviceRuntimeConfig = field(
@@ -289,6 +339,9 @@ class Config:
     node: NodeConfig = field(default_factory=NodeConfig)
     mempool: MempoolConfig = field(default_factory=MempoolConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    log: LogConfig = field(default_factory=LogConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    profile: ProfilingConfig = field(default_factory=ProfilingConfig)
 
     @classmethod
     def load(cls, path: Optional[str] = None, **overrides) -> "Config":
@@ -322,7 +375,9 @@ def _unread(section: str, fname: str) -> bool:
 
 _SECTIONS = {"device": DeviceConfig, "device_runtime": DeviceRuntimeConfig,
              "node": NodeConfig,
-             "mempool": MempoolConfig, "resilience": ResilienceConfig}
+             "mempool": MempoolConfig, "resilience": ResilienceConfig,
+             "log": LogConfig, "telemetry": TelemetryConfig,
+             "profile": ProfilingConfig}
 
 
 def _merge_dict(cfg: Config, data: dict) -> None:

@@ -51,11 +51,12 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import trace
+from .. import profiling, trace
 from ..core import curve as host_curve
 from ..core.codecs import is_on_curve
 from ..core.constants import CURVE_B, CURVE_N, CURVE_P
 from ..device import DeviceLike, resolve
+from ..telemetry import device as _ktel
 from . import fp
 
 PACKED_ROWS = 42           # z, r, s, qx, qy (8 words each), range_ok, rn_ok
@@ -886,7 +887,7 @@ def _verify(packed: torch.Tensor, w: int, groups: Optional[int] = None
         with _COUNT_LOCK:
             LAUNCHES += 1
             LAUNCHES_BY_WINDOW[w] += 1
-        trace.inc(f"kernel.p256_verify.w{w}.launches")  # a node's "/"
+        trace.inc(f"kernel.p256_verify.w{w}.launches")  # a node's /metrics
     return out
 
 
@@ -1030,6 +1031,14 @@ def bytes_needed(zs, rs, ss, qxs, qys, w: int = DEFAULT_WINDOW) -> int:
     return total
 
 
+def work_counts(zs, rs, ss, qxs, qys, kernel: str = "jac",
+                w: int = DEFAULT_WINDOW) -> dict:
+    """:func:`mul_ops_needed` and :func:`bytes_needed` of these lanes,
+    the figures a launch's bound divides (``profiling.analyze_cost``)."""
+    return {"mul_ops_needed": mul_ops_needed(zs, rs, ss, qxs, qys, kernel, w),
+            "bytes_needed": bytes_needed(zs, rs, ss, qxs, qys, w)}
+
+
 # --- entry point ---------------------------------------------------------
 
 def verify_batch_prehashed(
@@ -1076,7 +1085,14 @@ def verify_batch_prehashed(
     else:
         res = verify_packed(packed_tensor(fused, dev))
     res = res.cpu().numpy()
-    trace.record_batch("p256_verify", real=n, padded=n)
+    w = VERIFY_WINDOW if VERIFY_KERNEL == "jac" else DEFAULT_WINDOW
+    on_card = mesh is not None or dev.type == "cuda"
+    # a build's first launch of (kernel, window) is the compile miss
+    _ktel.record_batch("p256_verify", real=n, padded=n,
+                       compile_key=(VERIFY_KERNEL, w) if on_card else None)
+    if profiling.COST_ANALYSIS:
+        profiling.analyze_cost("p256_verify", work_counts, zs, rs, ss, qxs,
+                               qys, VERIFY_KERNEL, w)
     out = (res & 1) != 0
     exc = np.nonzero(res & 2)[0]
     if len(exc):

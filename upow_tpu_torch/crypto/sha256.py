@@ -55,8 +55,9 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import trace
+from .. import profiling, trace
 from ..device import DeviceLike, current_index, raw_stream, resolve
+from ..telemetry import device as _ktel
 
 log = logging.getLogger("upow_tpu_torch.crypto")
 
@@ -410,7 +411,17 @@ def pow_search(template: SearchTemplate, target, nonce_base: int, count: int,
         raise RuntimeError(f"sha256_search launch failed: CUDA error {rc}")
     with _COUNT_LOCK:
         LAUNCHES += 1
+    if profiling.COST_ANALYSIS:
+        profiling.analyze_cost("sha256_search", search_work_counts,
+                               template, target, count)
     return out
+
+
+def search_work_counts(template: SearchTemplate, target, count: int) -> dict:
+    """The least integer operations ``count`` nonces of this template
+    need (:func:`ops_per_nonce`), the figures B2's bound divides."""
+    alu, add = ops_per_nonce(template, target)
+    return {"alu_ops_needed": alu * count, "add_ops_needed": add * count}
 
 
 # --- batched digests of whole messages (txids) ---------------------------
@@ -689,10 +700,25 @@ def _digest_array(messages: Sequence[bytes],
     digests = sha256_ragged(words, table, dev).cpu().numpy().view(np.uint32)
     out = np.empty((len(messages), 32), dtype=np.uint8)
     out[order] = digests.astype(">u4").view(np.uint8).reshape(-1, 32)
-    trace.record_batch("sha256_txid",
+    _ktel.record_batch("sha256_txid",
                        real=sum(map(len, messages)), padded=words.size * 4,
-                       seconds=time.perf_counter() - t0)
+                       seconds=time.perf_counter() - t0,
+                       compile_key=("sha256_blocks",)
+                       if dev.type == "cuda" else None)
+    if profiling.COST_ANALYSIS:
+        profiling.analyze_cost("sha256_txid", blocks_work_counts,
+                               words.size // 16, len(messages))
     return out
+
+
+def blocks_work_counts(n_blocks: int, n_messages: int) -> dict:
+    """The least integer operations and bytes of one ragged batch of
+    ``n_blocks`` compressions over ``n_messages`` messages, the figures
+    B5's bound divides: :data:`BLOCK_ALU_OPS` and :data:`BLOCK_ADD_OPS`
+    a block, its words read once and each digest written once."""
+    return {"alu_ops_needed": n_blocks * BLOCK_ALU_OPS,
+            "add_ops_needed": n_blocks * BLOCK_ADD_OPS,
+            "bytes_needed": n_blocks * 64 + n_messages * 40}
 
 
 def sha256_batch(messages: Sequence[bytes],

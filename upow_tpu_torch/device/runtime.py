@@ -52,12 +52,22 @@ Where the JAX runtime differs, by design:
   (``_clear_jax_backends``) and its persistent compile cache have no
   counterpart: nvcc's libraries are rebuilt only when their sources
   change.
-* The queue-wait, depth and coalescing figures go to ``trace`` (the JAX
-  package records them in ``telemetry/``): counters
-  ``runtime.submissions``, ``runtime.source.<source>``,
-  ``runtime.dispatches`` and ``runtime.faults``, and samples
-  ``runtime.queue_depth``, ``runtime.coalesced`` and
-  ``runtime.queue_wait.<source>``.
+* **A span a dispatch.**  Each drained item adds a ``runtime.dispatch``
+  span (its source, kernel, the group's size and its queue wait) to the
+  trace of the request that submitted it, a span the JAX runtime does
+  not record: it splits a request's wall into queueing and the card.
+
+Telemetry (``telemetry/device.py``), under the JAX names: counters
+``runtime.submissions``, ``runtime.source.<source>`` and
+``runtime.faults``; every drain's ``record_runtime_dispatch``
+(``runtime.dispatches``, the ``runtime.coalesced``, ``runtime.queue_depth``
+and ``runtime.queue_wait.<source>`` histograms and the ``device_runtime``
+kernel series); and a ``device_runtime_armed`` event (platform, attempt,
+reason) after every arm, which here also carries ``probe_seconds`` and
+the warm launches (``warmed``).  The arm info itself stays on
+:meth:`DeviceRuntime.stats`.  A drain runs in the submitter's
+contextvars, so the spans recorded inside it join the submitting
+request's trace tree.
 
 A launch through ctypes uses the calling thread's current device and
 stream.  The drainer makes its card current once; everything it runs
@@ -69,6 +79,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import json
 import logging
 import queue
 import threading
@@ -80,7 +91,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .. import trace
+from ..telemetry import device as ktel
+from ..telemetry import events, metrics, tracing
 from . import DeviceLike
 
 log = logging.getLogger("upow_tpu_torch.device.runtime")
@@ -158,7 +170,7 @@ class _Box:
 
 class _Item:
     __slots__ = ("kind", "key", "checks", "precomputed", "fn", "timeout",
-                 "kernel", "source", "fut", "t0", "ctx")
+                 "kernel", "source", "fut", "t0", "ctx", "span")
 
     def __init__(self, kind, *, key=None, checks=None, precomputed=None,
                  fn=None, timeout=None, kernel="call", source="other"):
@@ -174,6 +186,7 @@ class _Item:
         self.t0 = time.perf_counter()
         # the drainer executes in the submitter's contextvars
         self.ctx = contextvars.copy_context()
+        self.span = tracing.current_span()
 
     @property
     def cost(self) -> int:
@@ -268,13 +281,24 @@ class DeviceRuntime:
                     f"device runtime failed to arm {self.device}: {reason}")
                 self._arm_error.__cause__ = e
                 log.warning("%s", self._arm_error)
+                self._armed_event(info)
                 raise self._arm_error
             finally:
                 self._arm_done.set()
             info.update(arm_failure_reason=None,
                         probe_seconds=round(time.perf_counter() - t0, 3))
             self._arm_error = None
+            self._armed_event(info)
             return dict(info)
+
+    @staticmethod
+    def _armed_event(info: dict) -> None:
+        events.emit("device_runtime_armed",
+                    platform=info["platform"] or "none",
+                    attempt=info["attempt"],
+                    reason=info["arm_failure_reason"] or "",
+                    probe_seconds=info["probe_seconds"],
+                    warmed=json.dumps(info["warmed"]))
 
     def _arm_card(self, info: dict, timeout: float, t0: float) -> None:
         from .. import _build
@@ -434,8 +458,8 @@ class DeviceRuntime:
             self.submissions += 1
             self.source_submissions[item.source] = \
                 self.source_submissions.get(item.source, 0) + 1
-            trace.inc("runtime.submissions")
-            trace.inc("runtime.source.%s" % item.source)
+            metrics.inc("runtime.submissions")
+            metrics.inc("runtime.source.%s" % item.source)
             self._cv.notify_all()
         self._ensure_thread()
 
@@ -521,20 +545,41 @@ class DeviceRuntime:
                 if len(lst) >= _WAITS_CAP:
                     del lst[: _WAITS_CAP // 2]
                 lst.append(wait)
-                trace.observe("runtime.queue_wait.%s" % m.source, wait)
 
     def _execute(self, group: List[_Item], depth: int) -> None:
-        self._record_waits(group, time.perf_counter())
+        """Run one group, record its telemetry, then settle its futures
+        (recorded first, as in the JAX runtime: a caller woken by its
+        result reads counts that include its own dispatch)."""
+        now = time.perf_counter()
+        self._record_waits(group, now)
         self.dispatches += 1
-        trace.inc("runtime.dispatches")
-        trace.observe("runtime.queue_depth", depth)
-        trace.observe("runtime.coalesced", len(group))
-        if group[0].kind == "sig":
-            self._execute_sig(group)
-        else:
-            self._execute_call(group[0])
+        waits: Dict[str, float] = {}
+        for m in group:
+            waits[m.source] = now - m.t0
+        real = sum(len(m.checks) for m in group) \
+            if group[0].kind == "sig" else 1
+        try:
+            outcomes = self._execute_sig(group) if group[0].kind == "sig" \
+                else self._execute_call(group[0])
+        # the exception travels to every submitter inside the futures
+        except Exception as e:
+            outcomes = [(m.fut, False, e) for m in group]
+        end = time.perf_counter()
+        # the port's kernels pad nothing: padded == real
+        ktel.record_runtime_dispatch(
+            n_submissions=len(group), waits_by_source=waits,
+            depth=depth, real=real, padded=real, seconds=end - now)
+        for m in group:
+            tracing.add_span(m.span, "runtime.dispatch", now, end,
+                             source=m.source, kernel=m.kernel,
+                             coalesced=len(group),
+                             queue_wait_ms=round((now - m.t0) * 1e3, 3))
+        for fut, ok, value in outcomes:
+            (_resolve if ok else _fail)(fut, value)
 
-    def _execute_sig(self, group: List[_Item]) -> None:
+    def _execute_sig(self, group: List[_Item]) -> list:
+        """The group's shared verify: (future, ok, verdicts or error)
+        for each item."""
         flat: List[tuple] = []
         slices: List[Tuple[int, int]] = []
         for m in group:
@@ -553,44 +598,32 @@ class DeviceRuntime:
             # the choke point: an injected dispatch fault degrades the
             # device path; the host serves the group only on the CPU
             txverify.DEGRADE.record_failure(e)
-            trace.inc("runtime.faults")
+            metrics.inc("runtime.faults")
             if not txverify.host_may_serve(self.device):
-                for m in group:
-                    _fail(m.fut, e)
-                return
+                return [(m.fut, False, e) for m in group]
             log.warning("device.runtime fault injected; a group of %d "
                         "served on the host", len(group))
             backend = "host"
-        try:
-            verdicts = group[0].ctx.run(
-                txverify.run_sig_checks, flat, backend=backend,
-                device=self.device, pad_block=pad_block,
-                device_timeout=device_timeout,
-                precomputed=group[0].precomputed, mesh_devices=mesh_devices)
-        # the exception travels to every submitter inside the futures
-        except Exception as e:
-            for m in group:
-                _fail(m.fut, e)
-            return
-        for m, (lo, hi) in zip(group, slices):
-            _resolve(m.fut, verdicts[lo:hi])
+        verdicts = group[0].ctx.run(
+            txverify.run_sig_checks, flat, backend=backend,
+            device=self.device, pad_block=pad_block,
+            device_timeout=device_timeout,
+            precomputed=group[0].precomputed, mesh_devices=mesh_devices)
+        return [(m.fut, True, verdicts[lo:hi])
+                for m, (lo, hi) in zip(group, slices)]
 
-    def _execute_call(self, item: _Item) -> None:
+    def _execute_call(self, item: _Item) -> list:
+        """The call: [(future, ok, result or error)]."""
         def wrapped():
             self._fire_fault("call:%s" % item.kernel)
             return item.fn()
 
-        try:
-            if item.timeout is not None:
-                # boxed: a fault or a hang becomes the status tuple and
-                # the caller applies its own degrade policy
-                _resolve(item.fut,
-                         item.ctx.run(self._boxed, wrapped, item.timeout))
-            else:
-                _resolve(item.fut, item.ctx.run(wrapped))
-        # the exception travels to the caller inside the future
-        except Exception as e:
-            _fail(item.fut, e)
+        if item.timeout is not None:
+            # boxed: a fault or a hang becomes the status tuple and the
+            # caller applies its own degrade policy
+            return [(item.fut, True,
+                     item.ctx.run(self._boxed, wrapped, item.timeout))]
+        return [(item.fut, True, item.ctx.run(wrapped))]
 
     def _boxed(self, fn: Callable[[], Any], timeout: float):
         """:func:`boxed_call` on the runtime's kept box thread (the
@@ -717,6 +750,16 @@ def reset_runtime() -> None:
         _RUNTIMES.clear()
     for rt in runtimes:
         rt.close()
+
+
+def armed_cards() -> List[int]:
+    """The indices of the cards this process's runtimes armed
+    (``telemetry.device.device_memory`` reads their memory)."""
+    with _RUNTIME_LOCK:
+        runtimes = list(_RUNTIMES.values())
+    return sorted(rt.device.index or 0 for rt in runtimes
+                  if rt.device.type == "cuda" and rt._arm_error is None
+                  and rt._arm_info["platform"] == "cuda")
 
 
 def arm_failure_reason() -> Optional[str]:

@@ -26,8 +26,11 @@ the host (verify/txverify.py).
 
 The ``mempool.intake`` fault site fires once a batch (keyed by its
 size); an injected fault rejects the whole batch, as in the JAX node.
-Left out until the telemetry package is ported (ROADMAP.md): the JAX
-intake's cross-task trace attribution.
+The drainer records each request's work against the submitting
+request's trace (the JAX intake's cross-task attribution): its queue
+wait (``intake.queue_wait``), the batch's shared signature dispatch
+(``intake.sig_dispatch``), its journal write and its effects, whose
+gossip then carries the submitter's trace id.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
+from collections import Counter
 from typing import Dict, List, Optional
 
 from .. import trace
@@ -51,6 +55,8 @@ ERR_JUST_ADDED = "Transaction just added"
 ERR_FORBIDDEN = "Access forbidden temporarily."
 ERR_PRESENT = "Transaction already present"
 MSG_ACCEPTED = "Transaction has been accepted"
+
+_BATCH_SIZE_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
 def _reject(error: str) -> dict:
@@ -69,7 +75,7 @@ def _log_drainer_exit(task: "asyncio.Task") -> None:
 
 class _Req:
     __slots__ = ("tx", "sender", "fut", "t0", "tx_hash", "first_address",
-                 "checks", "slice", "dup_of", "result")
+                 "checks", "slice", "dup_of", "result", "span", "wait_span")
 
     def __init__(self, tx, sender, fut):
         self.tx = tx
@@ -82,6 +88,11 @@ class _Req:
         self.slice = (0, 0)
         self.dup_of: Optional["_Req"] = None
         self.result: Optional[dict] = None
+        # trace attribution across the submit -> drainer task hop: the
+        # drainer records its per-request work against the submitting
+        # request's span
+        self.span = trace.current_span()
+        self.wait_span = trace.child_span(self.span, "intake.queue_wait")
 
 
 class IntakeCoordinator:
@@ -92,20 +103,26 @@ class IntakeCoordinator:
     _background).  The drainer task starts with the first submit and is
     registered in the node's background-task set so Node.close() reaps
     it.  Each drained batch's size is observed as
-    ``mempool.intake_batch_size`` (trace.py).
+    ``mempool.intake_batch_size`` (a histogram) and counted exactly in
+    :attr:`batch_sizes` (size -> batches), which ``chip_smoke.py``
+    prints.
     """
+
+    QUEUE_DEPTH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
 
     def __init__(self, node, banned_addresses=frozenset()):
         self.node = node
         self.banned = banned_addresses
         self._queue: List[_Req] = []
         self._drainer: Optional[asyncio.Task] = None
+        self.batch_sizes: Counter = Counter()
 
     async def submit(self, tx, sender: Optional[str]) -> dict:
         """Queue one tx and wait for its wire-compatible result dict."""
         fut = asyncio.get_running_loop().create_future()
         self._queue.append(_Req(tx, sender, fut))
-        trace.observe("mempool.intake_queue_depth", len(self._queue))
+        trace.observe("mempool.intake_queue_depth", len(self._queue),
+                      buckets=self.QUEUE_DEPTH_BUCKETS)
         self._ensure_drainer()
         return await fut
 
@@ -172,12 +189,18 @@ class IntakeCoordinator:
         node = self.node
         trace.inc("mempool.intake_batches")
         trace.inc("mempool.intake_txs", len(batch))
-        trace.observe("mempool.intake_batch_size", len(batch))
+        trace.observe("mempool.intake_batch_size", len(batch),
+                      buckets=_BATCH_SIZE_BUCKETS)
+        self.batch_sizes[len(batch)] += 1
 
         injector = get_injector()
         if injector is not None:
             try:
-                await injector.fire("mempool.intake", key=str(len(batch)))
+                # the batch-level fault goes to the first submitter's
+                # trace, so /debug/events can tie it to a request
+                with trace.attached(batch[0].span if batch else None):
+                    await injector.fire("mempool.intake",
+                                        key=str(len(batch)))
             except FaultInjected:
                 trace.inc("mempool.intake_faults")
                 for req in batch:
@@ -194,6 +217,7 @@ class IntakeCoordinator:
         seen: Dict[str, _Req] = {}
         survivors: List[_Req] = []
         for req in batch:
+            trace.finish_child(req.wait_span, batch=len(batch))
             tx = req.tx
             if getattr(tx, "is_coinbase", False) or any(
                     i.signature is None for i in tx.inputs):
@@ -244,12 +268,20 @@ class IntakeCoordinator:
             # a runtime that failed to arm raises out of the batch (see
             # _process): no verdict is guessed
             dev = node.config.device
+            t_dispatch = time.perf_counter()
             with trace.span("mempool.sig_dispatch", n=len(flat)):
                 verdicts = await get_front().submit(
                     flat, backend=dev.sig_backend, device=node.device,
                     pad_block=dev.verify_pad_block,
                     device_timeout=dev.verify_device_timeout,
                     mesh_devices=dev.mesh_devices, source="mempool")
+            # the ONE coalesced dispatch appears in EVERY sharing
+            # request's trace tree (same interval, n/coalesced fields)
+            t_done = time.perf_counter()
+            for req in survivors:
+                trace.add_span(req.span, "intake.sig_dispatch",
+                               t_dispatch, t_done, n=len(flat),
+                               coalesced=len(survivors))
 
         # -- phase C: finalize in batch order ------------------------------
         claimed: Dict[tuple, str] = {}  # intra-batch outpoint claims
@@ -267,7 +299,8 @@ class IntakeCoordinator:
                 self._resolve(req, _reject(ERR_NOT_ADDED))
                 continue
             try:
-                with trace.span("push_tx.journal_write"):
+                with trace.attached(req.span), \
+                        trace.span("push_tx.journal_write"):
                     last_seq = await node.state.add_pending_transaction(req.tx)
                 added += 1
             except Exception as e:  # serial parity (journal reject)
@@ -280,7 +313,10 @@ class IntakeCoordinator:
                 tx_hash=req.tx_hash, tx_hex=req.tx.hex(),
                 fees=await node.state.tx_fees(req.tx),
                 outpoints=outpoints, tx=req.tx))
-            with trace.span("push_tx.effects"):
+            # attached(): the gossip task spawned inside inherits THIS
+            # request's trace context, so its X-Upow-Trace header
+            # carries the submitter's id
+            with trace.attached(req.span), trace.span("push_tx.effects"):
                 await node.accept_tx_effects(req.tx, req.tx_hash,
                                              req.first_address, req.sender)
             self._resolve(req, {"ok": True, "result": MSG_ACCEPTED,

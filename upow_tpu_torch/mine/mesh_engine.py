@@ -37,7 +37,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import trace
+from ..telemetry import device as ktel
 from ..crypto import sha256 as sha_kernel
 from ..device import DeviceLike
 from ..device.runtime import get_runtime
@@ -233,7 +233,8 @@ class MeshEngine:
                 [hi for _, hi in shards], target, batch, spec, mesh)
             return _ReadBack(out) if out.device.type == "cuda" else out
 
-        trace.inc("mine.mesh.rounds")
+        ktel.record_mine_round([hi - lo for lo, hi in shards], batch,
+                               compile_key=(batch, self._n_dev, spec))
         # issued by the runtime; the miner thread waits on the handle
         return get_runtime(mesh[0]).submit_call(
             launch, kernel="sha256_search_mesh", source="mine").result()
@@ -248,8 +249,7 @@ class MeshEngine:
     def note_hit(self) -> None:
         """Record time-to-hit for the current job (mine.hit_latency)."""
         if self._job_t0:
-            trace.observe("mine.hit_latency",
-                          time.perf_counter() - self._job_t0)
+            ktel.record_mine_hit(time.perf_counter() - self._job_t0)
 
     # ----------------------------------------------------------- stats ---
 

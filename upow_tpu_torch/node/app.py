@@ -9,15 +9,23 @@ upow/node/main.py), served by the standard-library server in
 address and governance reads (``/get_address_info``,
 ``/get_address_transactions``, ``/get_block_details``,
 ``/get_blocks_details``, ``/get_validators_info``,
-``/get_delegates_info``, ``/dobby_info``, ``/get_supply_info``) and
-``/debug/breakers``.  Every body is byte for byte the JAX node's: the
-``{"ok": bool, ...}`` envelope, the reference's error strings, GET query
-params merged with a POST JSON body, and the middleware's IP filter,
-path normalisation, rate limits and 403/422/429/500 envelopes.  ``/``
-carries this node's own timings and counters (``trace.py``), among the
-counters the verify device path's degrade state (``device_health``) and
-its device runtime's counts and arm (``device_runtime``), where the JAX
-node carries its telemetry's and serves the degrade on ``/metrics``.
+``/get_delegates_info``, ``/dobby_info``, ``/get_supply_info``), the
+Prometheus exposition ``/metrics`` and, under
+``telemetry.debug_endpoints``, ``/debug/traces``, ``/debug/events``,
+``/debug/breakers`` and (with ``profile.enabled``) ``/debug/profile``.
+Every body is byte for byte the JAX node's: the ``{"ok": bool, ...}``
+envelope, the reference's error strings, GET query params merged with a
+POST JSON body, and the middleware's IP filter, path normalisation, rate
+limits and 403/422/429/500 envelopes.  ``/`` carries this process's
+span stats and counters (``trace.stats()``, ``trace.counters()``).
+
+Telemetry (:mod:`..telemetry`), as in the JAX node: each request but the
+scrape and debug ones runs under a trace root ``http.<path>`` that
+adopts a well-formed ``X-Upow-Trace`` header and echoes its id, so the
+gossip it spawns (whose RPCs carry the header) is one trace across
+nodes; the registered routes feed the ``slo.http.<route>`` latency
+histograms; ``telemetry.instance_scope`` gives the node registries of
+its own.
 
 Transactions come in through the coalescing intake
 (:mod:`..mempool.intake`), so a burst of concurrent ``push_tx`` requests
@@ -51,8 +59,10 @@ page's checks are collected, and again in each block's digest prep
 (``verify/block.py``), whose check keys the page's verdicts answer.
 
 Not ported yet (ROADMAP.md): ``send_to_address`` (with the wallet),
-``ws/``, replace-by-fee, the hot read cache, telemetry scopes, SLO
-capture and the trace header, snapshots and the archive tier.
+``ws/``, replace-by-fee, the hot read cache, snapshots, the archive tier
+and the watchtower (``/debug/alerts``, ``/debug/cache`` and
+``/debug/archive`` with them); ``/metrics`` carries the archive and
+alert families as zeros, as a JAX node with those tiers off does.
 """
 
 from __future__ import annotations
@@ -64,11 +74,12 @@ import json
 import logging
 import random
 import re
+import sys
 import time
 from decimal import Decimal
 from typing import List, Optional
 
-from .. import trace
+from .. import _build, telemetry, trace
 from ..config import Config
 from ..core.clock import timestamp
 from ..core.constants import (ENDIAN, MAX_BLOCK_SIZE_HEX, MAX_SUPPLY,
@@ -80,12 +91,14 @@ from ..core.tx import AmbiguousSignatureError, CoinbaseTx, Tx, tx_from_hex
 from ..crypto.sha256 import txid_batch
 from ..device import DeviceLike, resolve
 from ..device.runtime import get_runtime
+from ..logger import setup_logging
 from ..mempool import IntakeCoordinator, Mempool, MiningInfoCache, TTLSet
 from ..resilience import BreakerRegistry, ResilienceContext, faultinject
 from ..state.storage import ChainState
 from ..verify.block import BlockManager
 from ..verify import txverify
-from ..verify.txverify import TxVerifier, _resolve_backend, run_sig_checks_async
+from ..verify.txverify import (TxVerifier, _resolve_backend,
+                               run_sig_checks_async, sig_verdict_stats)
 from .http import (BodyTooLarge, HttpServer, Request, Response, json_response,
                    text_response)
 from .ipfilter import IpFilter, is_local_ip
@@ -102,6 +115,28 @@ _SYNCING = {"ok": False, "error": "Node is already syncing"}
 
 class _BadParam(Exception):
     """A malformed integer query parameter: the middleware answers 422."""
+
+
+class _HttpError(Exception):
+    """A response aiohttp raises past the JAX middleware's envelope and
+    SLO capture; each subclass bears the name of aiohttp's exception,
+    which a trace root records as its error."""
+
+    def __init__(self, response: Response):
+        super().__init__(response.status)
+        self.response = response
+
+
+class HTTPNotFound(_HttpError):
+    pass
+
+
+class HTTPMethodNotAllowed(_HttpError):
+    pass
+
+
+class HTTPRequestEntityTooLarge(_HttpError):
+    pass
 
 
 def _int_q(q, name: str, default: int, cap: Optional[int] = None) -> int:
@@ -133,6 +168,26 @@ class Node:
                  state: Optional[ChainState] = None,
                  device: DeviceLike = None):
         self.config = config or Config()
+        setup_logging(self.config.log)
+        telemetry.configure(self.config.telemetry)
+        # instance-scoped registries (several nodes in one process):
+        # every request this node handles, and every task spawned under
+        # it, reports into this node's own metrics, events and traces
+        self.telemetry_scope = None
+        if self.config.telemetry.instance_scope:
+            self.telemetry_scope = telemetry.TelemetryScope.from_config(
+                self.config.telemetry)
+        pcfg = self.config.profile
+        if pcfg.cost_analysis or pcfg.enabled:
+            from .. import profiling
+
+            if pcfg.cost_analysis:
+                profiling.COST_ANALYSIS = True
+            if pcfg.enabled and self.config.telemetry.debug_endpoints:
+                try:
+                    profiling.prime()
+                except Exception as e:  # the capture reports it later
+                    log.warning("torch profiler init failed: %s", e)
         self.config.device.apply_kernel_overrides()
         self.device = resolve(device)
         dcfg = self.config.device
@@ -207,8 +262,21 @@ class Node:
                 ("/get_blocks_details", self.h_get_blocks_details),
                 ("/dobby_info", self.h_dobby_info),
                 ("/get_supply_info", self.h_get_supply_info),
-                ("/debug/breakers", self.h_debug_breakers)):
+                ("/metrics", self.h_metrics)):
             self.routes[("GET", path)] = handler
+        if self.config.telemetry.debug_endpoints:
+            self.routes[("GET", "/debug/traces")] = self.h_debug_traces
+            self.routes[("GET", "/debug/events")] = self.h_debug_events
+            self.routes[("GET", "/debug/breakers")] = self.h_debug_breakers
+            if self.config.profile.enabled:
+                self.routes[("GET", "/debug/profile")] = self.h_debug_profile
+        # SLO latency series for the fixed route set (not /debug/*, which
+        # would meter the metering), preregistered so every route
+        # exports an all-zero family from the first scrape
+        self._slo_paths = {path for _m, path in self.routes
+                           if not path.startswith("/debug")}
+        with telemetry.scope.activate(self.telemetry_scope):
+            telemetry.slo.preregister(self._slo_paths)
         self.server: Optional[HttpServer] = None
 
     # ----------------------------------------------------------- plumbing --
@@ -332,9 +400,15 @@ class Node:
 
     # -------------------------------------------------------- middleware --
     async def handle(self, request: Request) -> Response:
-        """The JAX node's middleware (app.py:475-570, less telemetry
-        scopes, SLO capture and the trace header), then the route, then
-        the old txs' gossip."""
+        """The JAX node's middleware (app.py:475-570): the node's
+        telemetry scope around the whole request, then the IP filter,
+        path normalisation, rate limits, peer bookkeeping and bootstrap,
+        then the route under a request trace with SLO capture, then the
+        old txs' gossip."""
+        with telemetry.scope.activate(self.telemetry_scope):
+            return await self._handle(request)
+
+    async def _handle(self, request: Request) -> Response:
         client_ip = self._client_ip(request)
         if not self.ip_filter.allowed(client_ip):
             return json_response(
@@ -367,36 +441,76 @@ class Node:
                 self.self_url = f"{request.scheme}://{request.host}"
             self._spawn(self._bootstrap())
 
-        # aiohttp's add_get serves HEAD by the GET handler, and its 405
-        # names the route's methods in Allow
-        method = "GET" if request.method == "HEAD" else request.method
-        handler = self.routes.get((method, normalized))
-        if handler is None:
-            allowed = {m for m, path in self.routes if path == normalized}
-            if not allowed:
-                return text_response("404: Not Found", 404)
-            if "GET" in allowed:
-                allowed.add("HEAD")
-            response = text_response("405: Method Not Allowed", 405)
-            response.headers["Allow"] = ",".join(sorted(allowed))
-            return response
+        # request-scoped trace root: inbound gossip hops adopt the peer's
+        # X-Upow-Trace id, so one push_tx or push_block is one trace
+        # across nodes; scrape and debug endpoints stay untraced
+        traced = self.config.telemetry.trace_requests and not (
+            normalized in ("/metrics", "/ws")
+            or normalized.startswith("/debug"))
+        # SLO latency capture on the registered routes only
+        slo_t0 = time.perf_counter() if normalized in self._slo_paths \
+            else None
+        trace_id = None
         try:
-            response = await handler(request)
-        except BodyTooLarge as e:  # aiohttp's 413, past the envelope
-            return text_response(str(e), 413)
+            if traced:
+                with telemetry.request_trace(
+                        "http." + (normalized.strip("/") or "root"),
+                        trace_id=request.headers.get(
+                            telemetry.TRACE_HEADER.lower())) as troot:
+                    trace_id = troot.trace_id
+                    response = await self._route(request, normalized)
+            else:
+                response = await self._route(request, normalized)
+        except _HttpError as e:  # aiohttp's, past the envelope
+            return e.response
         except _BadParam as e:
+            if slo_t0 is not None:
+                telemetry.slo.observe_request(
+                    normalized, time.perf_counter() - slo_t0, 422,
+                    trace_id=trace_id)
             return json_response(
                 {"ok": False, "error": f"Invalid integer parameter {e}"},
                 status=422)
         except Exception as e:  # exception envelope (main.py:394-406)
             log.error("Error on %s, %s: %s", request.path, type(e).__name__,
                       e, exc_info=True)
+            if slo_t0 is not None:
+                telemetry.slo.observe_request(
+                    normalized, time.perf_counter() - slo_t0, 500,
+                    trace_id=trace_id)
             return json_response(
                 {"ok": False, "error": f"Uncaught {type(e).__name__} exception"},
                 status=500)
+        if slo_t0 is not None:
+            telemetry.slo.observe_request(
+                normalized, time.perf_counter() - slo_t0, response.status,
+                trace_id=trace_id)
         response.headers["Access-Control-Allow-Origin"] = "*"
+        if trace_id is not None:
+            response.headers[telemetry.TRACE_HEADER] = trace_id
         self._spawn(self._propagate_old_transactions())
         return response
+
+    async def _route(self, request: Request, normalized: str) -> Response:
+        """The route's handler; what aiohttp's router and body reader
+        raise (404, 405 with ``Allow``, 413) raises as :class:`_HttpError`.
+        aiohttp's ``add_get`` serves HEAD by the GET handler."""
+        method = "GET" if request.method == "HEAD" else request.method
+        handler = self.routes.get((method, normalized))
+        if handler is None:
+            allowed = {m for m, path in self.routes if path == normalized}
+            if not allowed:
+                raise HTTPNotFound(text_response("404: Not Found", 404))
+            if "GET" in allowed:
+                allowed.add("HEAD")
+            response = text_response("405: Method Not Allowed", 405)
+            response.headers["Allow"] = ",".join(sorted(allowed))
+            raise HTTPMethodNotAllowed(response)
+        try:
+            return await handler(request)
+        except BodyTooLarge as e:
+            raise HTTPRequestEntityTooLarge(text_response(str(e), 413)) \
+                from None
 
     # ------------------------------------------------------- tx intake ----
     def make_tx_verifier(self) -> TxVerifier:
@@ -450,20 +564,153 @@ class Node:
 
     # --------------------------------------------------------- handlers ---
     async def h_root(self, request: Request) -> Response:
-        """Health probe (reference main.py:266-275) with this node's
-        span timings and counters."""
-        snap = trace.snapshot()
-        runtime = get_runtime(self.device).stats()
-        runtime["queue_wait_max"] = {
-            src: max(w) for src, w in runtime.pop("queue_waits").items() if w}
+        """Health probe (reference main.py:266-275) + additive timing
+        stats from the span registry and the counters."""
         return json_response({
             "ok": True, "version": VERSION,
             "unspent_outputs_hash": await self.state.get_unspent_outputs_hash(),
-            "timings": snap["spans"],
-            "counters": {**snap["counters"],
-                         "device_health": self.manager.device_health(),
-                         "device_runtime": runtime},
+            "timings": trace.stats(),
+            "counters": trace.counters(),
         })
+
+    async def h_metrics(self, request: Request) -> Response:
+        """Prometheus text exposition (JAX app.py:765-1001): gauges of
+        the chain, mempool, peers and breakers, the device verify path's
+        health, the resident index and the mesh miner, the kernel
+        libraries built, the card's memory and the kernels' counted work;
+        the archive and alert families as zeros; then every counter, span
+        and histogram of the registries.  Rendering and name sanitising
+        are :mod:`..telemetry.exposition`'s."""
+        e = telemetry.exposition.Exposition()
+        e.gauge("block_height", await self.state.get_next_block_id() - 1,
+                "Height of the last accepted block")
+        e.gauge("mempool_transactions",
+                await self.state.get_pending_transactions_count(),
+                "Transactions waiting in the mempool")
+        last_block = await self.state.get_last_block()
+        lag = max(0, timestamp() - last_block["timestamp"]) \
+            if last_block else 0
+        e.gauge("sync_lag_seconds", lag,
+                "Seconds since the tip block's consensus timestamp")
+        # the port's node always runs the mempool (the JAX node's
+        # mempool.enabled, its default)
+        e.gauge("mempool_pool_depth", len(self.pool),
+                "Transactions in the in-memory fee-priority pool")
+        e.gauge("mempool_pool_bytes_hex", self.pool.total_bytes_hex,
+                "Total hex chars held by the in-memory pool")
+        e.counter("mining_info_cache_hits", self.mining_cache.hits,
+                  "Mining-info requests served from the"
+                  " generation-keyed cache")
+        e.counter("mining_info_cache_misses", self.mining_cache.misses,
+                  "Mining-info requests that rebuilt the template")
+        e.gauge("peers_known", len(self.peers.all_nodes()),
+                "Peers in the peer book")
+        e.gauge("peers_active", len(self.peers.recent_nodes()),
+                "Peers messaged within the activity window")
+        e.gauge("node_syncing", int(bool(self.is_syncing)),
+                "1 while a chain sync is in progress")
+        # the archive tier is not ported: its families as a JAX node
+        # with the tier disabled exports them
+        e.gauge("archive_segments", 0, "Published cold-archive segments")
+        e.gauge("archive_archived_blocks", 0,
+                "Blocks held by the published archive manifest")
+        e.gauge("archive_archived_txs", 0,
+                "Transactions held by the published archive manifest")
+        e.counter("archive_hot_rows_pruned", 0,
+                  "Hot block+tx rows deleted by the last compaction")
+        e.counter("archive_fallthrough_reads", 0,
+                  "Reads served from archive segments after a hot miss")
+        sig = sig_verdict_stats()
+        e.gauge("sig_cache_entries", sig["size"],
+                "Entries in the signature-verdict cache")
+        e.counter("sig_cache_hits", sig["hits"],
+                  "Signature checks answered from the verdict cache")
+        e.counter("sig_cache_misses", sig["misses"],
+                  "Signature checks that required verification")
+        for state_name, count in sorted(self.breakers.state_counts().items()):
+            e.gauge(f"breaker_{state_name}_peers", count,
+                    f"Peers whose circuit breaker is {state_name}")
+        e.gauge("device_verify_health",
+                self.manager.device_health()["gauge"],
+                "Device verify path: 0=ok 1=degraded(CPU) 2=poisoned")
+        index_stats = self.state.index_stats()
+        if index_stats is not None:
+            e.gauge("utxo_index_entries", index_stats["entries"],
+                    "Live outpoints across the HBM-resident UTXO"
+                    " index tables")
+            e.gauge("utxo_index_resident_bytes",
+                    index_stats["resident_bytes"],
+                    "Device bytes held by the resident UTXO index")
+            e.gauge("utxo_index_twin_fingerprints",
+                    index_stats["twin_fingerprints"],
+                    "Fingerprints that ever held two live outpoints"
+                    " (forces shadow consult on hit)")
+            e.counter("utxo_index_probes", index_stats["probes"],
+                      "Resident-index membership probe dispatches")
+            e.counter("utxo_index_shadow_consults",
+                      index_stats["shadow_consults"],
+                      "Probes answered by the host shadow map"
+                      " (ambiguity; steady-state target is zero)")
+        # read the mesh engine's stats only when the process loaded it
+        mesh_mod = sys.modules.get("upow_tpu_torch.mine.mesh_engine")
+        mesh_stats = mesh_mod.engine_stats() if mesh_mod else None
+        if mesh_stats is not None:
+            e.gauge("mine_mesh_shards", mesh_stats["devices"],
+                    "Devices in the resident mesh search program"
+                    " (0 = engine built but not yet armed)")
+            e.gauge("mine_mesh_batch_per_shard",
+                    mesh_stats["batch_per_device"],
+                    "Nonces per shard per round in the resident"
+                    " search program")
+            e.gauge("mine_mesh_armed", int(mesh_stats["armed"]),
+                    "Resident mesh engine armed (compiled + warm)")
+            e.counter("mine_mesh_rounds", mesh_stats["dispatches"],
+                      "Mesh search rounds dispatched through the"
+                      " device runtime")
+        e.gauge("mine_mesh_configured_devices",
+                self.config.device.mesh_devices,
+                "config.device.mesh_devices (0 = all visible)")
+        cache_entries = _build.entry_count()
+        if cache_entries >= 0:
+            e.gauge("compile_cache_persistent_entries", cache_entries,
+                    "Kernel libraries built in upow_tpu_torch/_build/")
+        for label, mem in sorted(telemetry.device.device_memory().items()):
+            for key, value in sorted(mem.items()):
+                e.gauge(f"device_{label}_{key}", value,
+                        "Best-effort device memory_stats() value")
+        # the kernels' counted work (profiling.analyze_cost), next to
+        # the compile-cache counters they contextualize
+        for kern, costs in sorted(telemetry.device.cost_estimates().items()):
+            for key, value in sorted(costs.items()):
+                e.gauge(f"kernel_{kern}_cost_{key}", value,
+                        "Counted work of the kernel's last batch")
+        # the watchtower is not ported: its families as a JAX node with
+        # the watchtower off exports them
+        e.gauge("alert_firing", 0,
+                "Alerts currently firing (docs/ALERTING.md)")
+        e.gauge("alert_pending", 0,
+                "Alert conditions inside their for-duration")
+        e.gauge("alert_silenced", 0,
+                "Active alerts suppressed by an operator silence")
+        e.gauge("alert_exemplars_firing", 0,
+                "Firing alerts carrying at least one exemplar trace id")
+        e.gauge("alert_eval_lag_seconds", 0.0,
+                "Wall seconds the last watchtower evaluation tick took")
+        e.counter("alert_evaluations", 0,
+                  "Watchtower evaluation ticks since start")
+        e.counter("alert_fired", 0, "pending->firing transitions since start")
+        e.counter("alert_resolved", 0,
+                  "firing->resolved transitions since start")
+        for name, value in sorted(trace.counters().items()):
+            e.counter(name, value)
+        for name, st in sorted(trace.stats().items()):
+            e.span_stats(name, st)
+        for name, h in sorted(trace.histograms().items()):
+            e.histogram(name, h["bounds"], h["counts"],
+                        h["count"], h["sum"],
+                        exemplars=h.get("exemplars"))
+        return Response(e.render().encode(), 200,
+                        content_type=telemetry.exposition.CONTENT_TYPE)
 
     async def h_push_tx(self, request: Request) -> Response:
         if self.is_syncing:
@@ -870,16 +1117,100 @@ class Node:
         return json_response(
             {"ok": True, "result": self.peers.recent_nodes()[:100]})
 
+    # -------------------------------------------------------------- debug --
+    # cap on debug ``limit`` params: far above any configurable ring
+    # size, so a clamped value never truncates a legitimate request
+    _DEBUG_LIMIT_CAP = 100_000
+
+    @classmethod
+    def _debug_limit(cls, params, default: int = 0):
+        """A debug endpoint's ``limit``: (value, None) or (None, 400
+        response).  Negative values clamp to 0 (everything), oversized
+        ones to the cap."""
+        raw = params.get("limit")
+        if raw is None or raw == "":
+            return default, None
+        try:
+            value = int(raw)
+        except ValueError:
+            return None, json_response(
+                {"ok": False, "error": "limit must be an integer"},
+                status=400)
+        return max(0, min(value, cls._DEBUG_LIMIT_CAP)), None
+
+    async def h_debug_traces(self, request: Request) -> Response:
+        """Completed trace trees: recency ring + slowest top-N.
+        ``limit`` bounds both lists (0 = all)."""
+        limit, err = self._debug_limit(request.query)
+        if err is not None:
+            return err
+        result = telemetry.traces()
+        if limit:
+            result = {"recent": result.get("recent", [])[-limit:],
+                      "slowest": result.get("slowest", [])[:limit]}
+        return json_response({"ok": True, "result": result})
+
+    async def h_debug_events(self, request: Request) -> Response:
+        """The structured event ring, oldest first, each record stamped
+        with the trace id active when it fired and a monotonic ``seq``;
+        ``since=<seq>`` reads incrementally (``next_seq``, ``missed``)."""
+        params = request.query
+        limit, err = self._debug_limit(params)
+        if err is not None:
+            return err
+        kind = params.get("kind")
+        since_raw = params.get("since")
+        if since_raw is not None and since_raw != "":
+            try:
+                since_v = int(since_raw)
+            except ValueError:
+                return json_response(
+                    {"ok": False, "error": "since must be an integer"},
+                    status=400)
+            got = telemetry.events.since(since_v, limit=limit or None,
+                                         kind=kind)
+            return json_response({
+                "ok": True, "result": got["events"],
+                "next_seq": got["next_seq"], "missed": got["missed"]})
+        return json_response({
+            "ok": True,
+            "result": telemetry.events.snapshot(limit=limit or None,
+                                                kind=kind)})
+
     async def h_debug_breakers(self, request: Request) -> Response:
         """Each peer's circuit state and EWMA score, what gossip and sync
-        rank peers by.  The JAX node serves it under
-        ``telemetry.debug_endpoints``; the port serves it always until
-        its telemetry (ROADMAP.md, A12)."""
+        rank peers by."""
         return json_response({"ok": True, "result": {
             "peers": self.breakers.snapshot(),
             "state_counts": self.breakers.state_counts(),
         }})
 
+    async def h_debug_profile(self, request: Request) -> Response:
+        """Opt-in ``torch.profiler`` capture control (``profile.*``):
+        ``?action=start|stop|status``.  Served only when both
+        ``telemetry.debug_endpoints`` and ``profile.enabled`` say so.
+        The calls run in an executor: a profiler start can block for
+        seconds."""
+        from .. import profiling
+
+        pcfg = self.config.profile
+        action = request.query.get("action", "status")
+        loop = asyncio.get_running_loop()
+        if action == "start":
+            result = await loop.run_in_executor(
+                None, profiling.start, pcfg.trace_dir,
+                pcfg.max_capture_seconds)
+        elif action == "stop":
+            result = await loop.run_in_executor(None, profiling.stop)
+        elif action == "status":
+            result = await loop.run_in_executor(None, profiling.status)
+        else:
+            return json_response(
+                {"ok": False,
+                 "error": "action must be start, stop or status"},
+                status=400)
+        return json_response({"ok": "error" not in result,
+                              "result": result})
 
     # ------------------------------------------------------------ sync ----
     @staticmethod

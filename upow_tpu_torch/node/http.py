@@ -294,13 +294,16 @@ async def _write(writer: asyncio.StreamWriter, response: Response,
 
 async def fetch(url: str, method: str = "GET", body: Optional[bytes] = None,
                 headers: Optional[Dict[str, str]] = None,
-                max_bytes: Optional[int] = None) -> Tuple[int, bytes]:
+                max_bytes: Optional[int] = None,
+                response_headers: Optional[Dict[str, str]] = None
+                ) -> Tuple[int, bytes]:
     """One request to ``url`` (``http://host:port/path?query``) on its
     own connection (TLS for ``https``); returns (status, body).  A dict
     or list ``body`` is not accepted: pass bytes
     (``json.dumps(...).encode()``).  A ``Host`` in ``headers`` replaces
     the URL's.  A response body longer than ``max_bytes`` raises
-    ``ValueError``."""
+    ``ValueError``.  ``response_headers``, when given, receives the
+    response's headers, their names lower-cased."""
     split = urlsplit(url)
     target = (split.path or "/") + (f"?{split.query}" if split.query else "")
     tls = split.scheme == "https"
@@ -325,6 +328,8 @@ async def fetch(url: str, method: str = "GET", body: Optional[bytes] = None,
         length = None
         for line in header_lines:
             name, _, value = line.partition(":")
+            if response_headers is not None:
+                response_headers[name.strip().lower()] = value.strip()
             if name.strip().lower() == "content-length":
                 length = int(value.strip())
         if length is not None:

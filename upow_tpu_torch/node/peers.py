@@ -19,7 +19,8 @@ connection, is cut after ``node.http_timeout`` seconds and refused past
 gated by the peer's circuit breaker, fires the fault site
 ``rpc.<path>``, and is retried with jittered backoff under
 ``resilience.rpc_deadline``; without one it is a single attempt.  Its
-requests carry ``Sender-Node``, this node's return address.
+requests carry ``Sender-Node``, this node's return address, and
+``X-Upow-Trace``, the current trace's id.
 """
 
 from __future__ import annotations
@@ -249,9 +250,14 @@ class NodeInterface:
 
     @staticmethod
     def _rpc_headers(sender_node: str) -> dict:
-        """This node's identity, the return address of the RPC.  (The
-        JAX package adds its trace id; the port's telemetry is A12.)"""
-        return {"Sender-Node": sender_node} if sender_node else {}
+        """Common outbound headers: peer identity plus the current trace
+        ID, so a gossiped tx/block keeps one trace across nodes (the
+        receiving middleware adopts X-Upow-Trace)."""
+        headers = {"Sender-Node": sender_node} if sender_node else {}
+        tid = trace.current_trace_id()
+        if tid is not None:
+            headers[trace.TRACE_HEADER] = tid
+        return headers
 
     async def get(self, path: str, params: Optional[dict] = None,
                   sender_node: str = "") -> dict:

@@ -4,12 +4,14 @@
 Reads the JAX package's config file and ``UPOW_*`` environment
 (``UPOW_DEVICE_VERIFY_KERNEL=complete`` selects the complete-formula
 kernel).  Verifies on the card by default and refuses to start without
-one; ``--device cpu`` runs the kernels' plain PyTorch versions.
+one; ``--device cpu`` runs the kernels' plain PyTorch versions.  The
+node configures the logger from ``Config.log`` (``UPOW_LOG_*``: a
+rotating ``logs/app.log`` and the console by default,
+``UPOW_LOG_JSON_FORMAT=1`` for JSONL lines carrying the trace id).
 """
 
 import argparse
 import asyncio
-import logging
 
 from ..config import Config
 from .app import serve_forever
@@ -27,7 +29,6 @@ def main() -> None:
         overrides["node__port"] = args.port
     if args.db is not None:
         overrides["node__db_path"] = args.db
-    logging.basicConfig(level=logging.INFO)
     try:
         asyncio.run(serve_forever(Config.load(args.config, **overrides),
                                   device=args.device))

@@ -54,7 +54,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import trace
+from ..telemetry import device as ktel
 from ..device import DeviceLike, current_index, raw_stream, resolve
 from ..device.runtime import get_runtime
 
@@ -664,8 +664,8 @@ class DeviceUtxoIndex:
             self._args = ProbeArgs(self._dev.unbind(0), n)
             self._dev_seal = self._seal(self._dev)
             self._dirty = False
-            trace.record_batch("utxo_apply", real=n, padded=cap,
-                               seconds=time.perf_counter() - t0)
+            ktel.record_batch("utxo_apply", real=n, padded=cap,
+                              seconds=time.perf_counter() - t0)
         return self._dev, len(self._host_keys)
 
     @staticmethod
@@ -754,9 +754,11 @@ class DeviceUtxoIndex:
         maybe = key_hit | overflow
         self._probes += 1
         self._shadow_consults += consults
-        trace.record_batch("utxo_probe", real=n, padded=n,
-                           seconds=time.perf_counter() - t0)
-        trace.record_index_probe(n, consults, int(ambiguous.sum()))
+        ktel.record_batch("utxo_probe", real=n, padded=n,
+                          seconds=time.perf_counter() - t0,
+                          compile_key=("utxo_probe",)
+                          if self.device.type == "cuda" else None)
+        ktel.record_index_probe(n, consults, int(ambiguous.sum()))
         return present, maybe, amounts, consults
 
     def _probe_eval(self, ops: Sequence[Outpoint], fps: np.ndarray,

@@ -288,7 +288,8 @@ class ChainState(StateViews):
     def index_stats(self) -> Optional[dict]:
         """The indexes' entries, resident bytes, probes, shadow consults
         and twin fingerprints summed over the tables; None when not
-        armed.  What the node's ``/metrics`` gauges will read (A12)."""
+        armed.  What the node's ``utxo_index_*`` gauges on ``/metrics``
+        read."""
         if not self._dev_index:
             return None
         agg = {"entries": 0, "resident_bytes": 0, "probes": 0,

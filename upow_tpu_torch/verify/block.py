@@ -55,7 +55,8 @@ from ..crypto.sha256 import txid_batch
 from ..device import DeviceLike, resolve
 from ..state.device_index import fused_probe
 from ..state.storage import ChainState, _INPUT_TABLE
-from ..trace import event, record_stage, span
+from ..telemetry import device as ktel
+from ..trace import event, span
 from . import txverify
 from .dispatch import get_front
 from .txverify import TxVerifier, device_verify_allowed
@@ -225,8 +226,8 @@ class BlockManager:
 
     @staticmethod
     def device_health() -> dict:
-        """The verify device path's degrade state (``txverify.DEGRADE``),
-        for the node's ``/``."""
+        """The verify device path's degrade state (``txverify.DEGRADE``);
+        its ``gauge`` is the node's ``device_verify_health``."""
         degrade = txverify.DEGRADE
         return {**degrade.snapshot(), "gauge": degrade.state_gauge()}
 
@@ -394,10 +395,10 @@ class BlockManager:
                   micro_batches=len(dispatches)):
             results = await asyncio.gather(*dispatches)
         wall = time.perf_counter() - t_wall
-        record_stage("block_decode", decode_busy,
-                     items=len(transactions), wall=wall)
-        record_stage("block_sig_wait", time.perf_counter() - t_tail,
-                     items=n_checks, wall=wall)
+        ktel.record_stage("block_decode", decode_busy,
+                          items=len(transactions), wall=wall)
+        ktel.record_stage("block_sig_wait", time.perf_counter() - t_tail,
+                          items=n_checks, wall=wall)
         if not all(all(r) for r in results):
             errors.append("signature verification failed")
             return False
@@ -485,8 +486,8 @@ class BlockManager:
                 by_table.setdefault(table, []).extend(ops)
                 presence.setdefault(table, []).extend(bool(p) for p in present)
                 n_probed += len(ops)
-        record_stage("accept_probe", time.perf_counter() - t0,
-                     items=n_probed)
+        ktel.record_stage("accept_probe", time.perf_counter() - t0,
+                          items=n_probed)
         return prep_cache, by_table, presence
 
     # ------------------------------------------------------ create_block --
@@ -496,7 +497,7 @@ class BlockManager:
         """Validate + apply one mined block (manager.py:650-757)."""
         errors = errors if errors is not None else []
         async with self._accept_lock:
-            with span("block_accept", txs=len(transactions)):
+            with span("block_accept", level="info", txs=len(transactions)):
                 return await self._create_block_timed(
                     block_content, transactions, errors)
 
@@ -631,7 +632,8 @@ class BlockManager:
                     await self.state.remove_pending_transactions_by_hash(
                         [tx.hash() for tx in transactions])
                     await self.state.remove_outputs(transactions)
-        self._notify_pending_removed([tx.hash() for tx in transactions])
+        with span("block.mempool_remove"):
+            self._notify_pending_removed([tx.hash() for tx in transactions])
         self.invalidate_difficulty()
         # first-seen stamp, sync-accept path (same semantics as timed)
         event("block_seen", hash=block_hash, height=block_no)

@@ -28,11 +28,14 @@ import logging
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from .. import trace
 from ..device import DeviceLike
 from ..device.runtime import get_runtime
+from ..telemetry import device as ktel
+from ..telemetry import metrics
 
 log = logging.getLogger("upow_tpu_torch.verify.dispatch")
+
+COALESCE_BUCKETS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
 
 
 class _Submission:
@@ -82,8 +85,8 @@ class SigDispatchFront:
         self._queue.append(_Submission(list(checks), key, precomputed, fut,
                                        source))
         self.submissions += 1
-        trace.inc("pipeline.front.submissions")
-        trace.inc("pipeline.front.source.%s" % source)
+        metrics.inc("pipeline.front.submissions")
+        metrics.inc("pipeline.front.source.%s" % source)
         self._ensure_drainer()
         return await fut
 
@@ -108,8 +111,9 @@ class SigDispatchFront:
         (backend, pad_block, device_timeout, mesh_devices, _,
          device) = group[0].key
         self.dispatches += 1
-        trace.inc("pipeline.front.dispatches")
-        trace.observe("pipeline.front.coalesced", len(group))
+        metrics.inc("pipeline.front.dispatches")
+        metrics.observe("pipeline.front.coalesced", len(group),
+                        buckets=COALESCE_BUCKETS)
         t0 = time.perf_counter()
         try:
             verdicts = await asyncio.wrap_future(
@@ -128,8 +132,9 @@ class SigDispatchFront:
                     s.fut.set_exception(e)
             return
         finally:
-            trace.record_batch("sig_front", real=len(flat), padded=len(flat),
-                               seconds=time.perf_counter() - t0)
+            # the port's kernels pad nothing: padded == real
+            ktel.record_batch("sig_front", real=len(flat), padded=len(flat),
+                              seconds=time.perf_counter() - t0)
         for s, (lo, hi) in zip(group, slices):
             if not s.fut.done():
                 s.fut.set_result(verdicts[lo:hi])
@@ -154,3 +159,11 @@ def get_front() -> SigDispatchFront:
         front = SigDispatchFront(loop)
         _FRONTS[id(loop)] = front
     return front
+
+
+def preregister() -> None:
+    """Export the front's metric families before the first dispatch."""
+    ktel.preregister("sig_front")
+    metrics.ensure_histogram("pipeline.front.coalesced", COALESCE_BUCKETS)
+    for c in ("submissions", "dispatches"):
+        metrics.ensure_counter("pipeline.front.%s" % c)

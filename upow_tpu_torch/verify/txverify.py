@@ -62,6 +62,7 @@ from ..device.runtime import ArmError, get_runtime, runtime_key
 from ..resilience.degrade import POISONED, DegradeManager, DeviceBlocked
 from ..resilience.faultinject import get_injector
 from ..state.storage import ChainState, _INPUT_TABLE
+from ..telemetry.device import DISPATCH_BUCKETS
 
 log = logging.getLogger("upow_tpu_torch.verify")
 
@@ -217,10 +218,20 @@ _SIG_VERDICTS_LOCK = threading.Lock()  # block verifies of two event
 # atomic
 
 
+_SIG_VERDICT_STATS = {"hits": 0, "misses": 0}
+
+
+def sig_verdict_stats() -> dict:
+    """Cache size + hit/miss counters (the node's /metrics)."""
+    with _SIG_VERDICTS_LOCK:
+        return {"size": len(_SIG_VERDICTS), **_SIG_VERDICT_STATS}
+
+
 def clear_sig_verdicts() -> None:
     """Drop the process-level signature-verdict cache (tests)."""
     with _SIG_VERDICTS_LOCK:
         _SIG_VERDICTS.clear()
+        _SIG_VERDICT_STATS["hits"] = _SIG_VERDICT_STATS["misses"] = 0
 
 
 _CANARY_LOCK = threading.Lock()
@@ -339,6 +350,8 @@ def run_sig_checks(checks: Sequence[tuple], backend: str = "auto",
                 else:
                     _SIG_VERDICTS.move_to_end(c)
                     out[i] = v
+            _SIG_VERDICT_STATS["hits"] += len(checks) - len(misses)
+            _SIG_VERDICT_STATS["misses"] += len(misses)
         if misses:
             miss_checks = [checks[i] for i in misses]
             resolved = _resolve_backend(backend, len(miss_checks), device)
@@ -467,7 +480,7 @@ def _device_batch(digests, sigs, pubs, device: DeviceLike = None,
     status, value = get_runtime(device).run_boxed(
         dispatch, device_timeout, kernel="p256_verify", source="verify")
     trace.observe("kernel.p256_verify.dispatch_seconds",
-                  time.perf_counter() - t0)
+                  time.perf_counter() - t0, buckets=DISPATCH_BUCKETS)
     if status == "ok":
         DEGRADE.record_success()
         return value
