@@ -240,6 +240,24 @@ Phases, one line each; any failure exits non-zero:
    ``telemetry.trace_requests`` on and off in turns (on, off, off, on),
    each on a fresh copy, takes the 1,024-tx burst and the
    8,160-tx push_block; every wall is printed.
+27. the node's operator surfaces (``surfaces``, inside phases 7 and 22;
+   the read cache and ``/ws`` at their defaults, on): a ``/ws``
+   subscriber (the port's stdlib ``ws_connect``, on a thread of its own)
+   on phase 7's node and on node A, subscribed to both channels, must
+   receive one ``new_transaction`` frame for each tx the 1,024-tx burst
+   (kernels 3/4) and A's 256-tx burst admitted, with the same hashes,
+   one ``new_block`` frame for the miner's block and exactly one for
+   the 8,160-tx push_block to A (kernel 1), whose ``block_no`` and hash
+   are A's tip, and no dropped message.  On A, ``get_block`` of the
+   height to come, read twice before the push, must hit the read cache
+   the second time (``upow_hotcache_hits_total`` up by 1); after the
+   push the generation must have moved and the re-read must equal the
+   ``X-Upow-Cache-Bypass`` body byte for byte.  A runs the watchtower
+   at a 0.5 s interval: ``/debug/alerts`` must answer ``enabled`` with
+   evaluations and nothing firing after the run, and ``/metrics`` must
+   carry the ``alert_*`` families.  The line prints the frame counts,
+   the burst walls with the subscriber connected, the cache's hits and
+   misses and the watchtower's evaluations and ``eval_lag_seconds``.
 
 Every path runs through the device runtime (``device/runtime.py``): the
 script arms a fresh runtime before each path, its warm launches before
@@ -314,6 +332,7 @@ from upow_tpu_torch.config import Config, DeviceConfig, LogConfig
 from upow_tpu_torch.core import clock, curve, point_to_string
 from upow_tpu_torch.core.constants import (
     CURVE_B, CURVE_GX, CURVE_GY, CURVE_N, CURVE_P)
+from upow_tpu_torch.core.header import split_block_content
 from upow_tpu_torch.core.difficulty import (
     START_DIFFICULTY, charset_count, check_pow_hash)
 from upow_tpu_torch.core.merkle import merkle_root
@@ -323,7 +342,7 @@ from upow_tpu_torch.device import runtime as truntime
 from upow_tpu_torch.mine import engine as mine_engine, miner
 from upow_tpu_torch.mine import mesh_engine
 from upow_tpu_torch.node.app import Node
-from upow_tpu_torch.node.http import fetch
+from upow_tpu_torch.node.http import WSMsgType, fetch, ws_connect
 from upow_tpu_torch.parallel import mesh as pmesh
 from upow_tpu_torch.resilience import DeviceBlocked, faultinject
 from upow_tpu_torch.logger import setup_logging
@@ -1047,14 +1066,68 @@ async def _burst(url: str, hexes, width: int = 256) -> list:
     return await asyncio.gather(*(push(h) for h in hexes))
 
 
+class WsSubscriber:
+    """A ``/ws`` client of the node at ``url`` on an event-loop thread of
+    its own, subscribed to both channels, keeping every frame."""
+
+    def __init__(self, url: str):
+        self.frames: list = []
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.ws = asyncio.run_coroutine_threadsafe(
+            self._open(url.rstrip("/") + "/ws"), self.loop).result(30)
+
+    async def _open(self, url: str):
+        ws = await ws_connect(url)
+        hello = await ws.receive_json()
+        if hello.get("type") != "connection_established":
+            fail(f"/ws at {url}: {hello}")
+        for channel in ("block", "transaction"):
+            await ws.send_json({"type": "subscribe_" + channel})
+            reply = await ws.receive_json()
+            if reply.get("type") != "success":
+                fail(f"/ws subscribe_{channel} at {url}: {reply}")
+        self.reader = asyncio.ensure_future(self._read(ws))
+        return ws
+
+    async def _read(self, ws) -> None:
+        while True:
+            msg = await ws.receive()
+            if msg.type != WSMsgType.TEXT:
+                return
+            self.frames.append(json.loads(msg.data))
+
+    def of(self, kind: str) -> list:
+        return [f["data"] for f in list(self.frames) if f["type"] == kind]
+
+    def close(self) -> None:
+        async def shut():
+            self.reader.cancel()
+            await asyncio.gather(self.reader, return_exceptions=True)
+            await self.ws.close()
+        asyncio.run_coroutine_threadsafe(shut(), self.loop).result(30)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(10)
+        self.loop.close()
+
+
+def ws_dropped(node: "NodeThread") -> int:
+    return int(node_metrics(node.url)["upow_ws_dropped_messages_total"])
+
+
 def node_path(dev: torch.device, kit: Kit, workdir: Path, leaves) -> dict:
     """The port's node under ``UPOW_DEVICE_VERIFY_KERNEL=complete``: a
     burst of push_tx through the coalescing intake, the duplicate and a
-    tampered tx, then ``miner.run(device="cuda", once=True)`` against it."""
+    tampered tx, then ``miner.run(device="cuda", once=True)`` against it;
+    a ``/ws`` subscriber gets a frame for each admitted tx and one for
+    the mined block."""
     db = str(workdir / "node.db")
     shutil.copyfile(workdir / "base.db", db)
     node = NodeThread(dev, db, "complete")
     burst = leaves[:BURST]
+    sub = WsSubscriber(node.url)
     try:
         txverify.clear_sig_verdicts()
         trace.reset()
@@ -1102,9 +1175,25 @@ def node_path(dev: torch.device, kit: Kit, workdir: Path, leaves) -> dict:
         if before != BURST or before - after != taken:
             fail(f"pending {before} -> {after}, block took {taken}")
         host_digest_fallbacks("node")
+        want = sorted(t.hash() for t in burst)
+        until("a /ws frame for each tx of the burst",
+              lambda: len(sub.of("new_transaction")) >= BURST)
+        until("the /ws frame of the mined block",
+              lambda: sub.of("new_block"))
+        got = sorted(f["tx_hash"] for f in sub.of("new_transaction"))
+        blocks = sub.of("new_block")
+        ws = {"tx_frames": len(got), "block_frames": len(blocks),
+              "dropped": ws_dropped(node)}
+        if got != want or [(b["block_no"], b["block_hash"]) for b in
+                           blocks] != [(tip["id"], tip["hash"])] \
+                or ws["dropped"]:
+            fail(f"node /ws: {ws}, hashes equal {got == want}, "
+                 f"blocks {[b['block_no'] for b in blocks]}")
     finally:
+        sub.close()
         node.close()
     return {"burst": len(burst), "burst_s": burst_s, "complete": complete,
+            "ws": ws,
             "jac": jac, "batches": sizes, "rejected": strings,
             "miner": {"run_s": run_s, "launches": sha_launches,
                       "txs": taken, "tip": tip["id"],
@@ -1846,9 +1935,17 @@ def gossip_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
     and a ``--device cpu`` node process's scrape is held beside."""
     for name in ("a", "b", "c", "cpu"):
         shutil.copyfile(workdir / "base.db", workdir / f"gossip_{name}.db")
+    # a node that has just taken the chain's newest block is not minutes
+    # behind it: while A runs, the script's clock (which every earlier
+    # phase advanced) stands a minute past block 4's timestamp, so A's
+    # watchtower reads the sync lag a live node would
+    resume = clock.timestamp()
+    clock.freeze(split_block_content(content)[3] + 60)
     a = NodeThread(dev, str(workdir / "gossip_a.db"), "jac",
-                   node__rate_limits_enabled=False)
+                   node__rate_limits_enabled=False,
+                   watchtower__enabled=True, watchtower__interval=0.5)
     a.node.self_url = a.url.rstrip("/")
+    sub = WsSubscriber(a.url)
     b = NodeProcess(str(workdir / "gossip_b.db"), UPOW_PROFILE_ENABLED="1",
                     UPOW_PROFILE_TRACE_DIR=str(workdir / "b_profile"))
     c = NodeProcess(str(workdir / "gossip_c.db"),
@@ -1872,6 +1969,9 @@ def gossip_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
         if b.url not in nodes or dead not in nodes:
             fail(f"gossip: A's get_nodes {nodes}")
 
+        # the read cache: the height to come, read twice before the push
+        read = cache_reads(a, "get_block?block=4")
+
         # the block: pushed to A under a trace, gossiped to B
         txverify.clear_sig_verdicts()
         trace.reset()
@@ -1886,6 +1986,9 @@ def gossip_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
         out["hop_s"] = out["telemetry"]["hop_s"]
         cpu.close()
         a_tip = a.call(a.node.state.get_last_block())["hash"]
+        out["cache"] = cache_after(a, "get_block?block=4", read, a_tip)
+        until("the /ws frame of the pushed block",
+              lambda: sub.of("new_block"))
         out["a_jac"] = p256.LAUNCHES
         out["b_block"] = kernel_counts(b.url, b0)
         if out["b_block"]["p256_verify"] == 0:
@@ -1904,6 +2007,8 @@ def gossip_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
         if not all(r.get("ok") for r in replies):
             fail(f"gossip burst: {[r for r in replies if not r.get('ok')][:3]}")
         want = sorted(t.hash() for t in spends)
+        until("a /ws frame for each tx of A's burst",
+              lambda: len(sub.of("new_transaction")) >= GOSSIP_BURST)
         _, out["burst_hop_s"] = until(
             "the burst in B's pool", lambda: pending_hashes(b.url) == want)
         if pending_hashes(a.url) != want:
@@ -1943,15 +2048,91 @@ def gossip_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
         if len(ends) != 1:
             fail(f"gossip: A, B and C end apart: {ends}")
         out["tip"] = a_tip
+        out["ws"] = ws_frames(a, sub, want, a_tip, len(leaves))
+        out["alerts"] = alert_checks(a)
     except SystemExit:
         for node in (b, c, cpu):
             print(f"  node log {node.url}: {node.tail()}", file=sys.stderr)
         raise
     finally:
+        sub.close()
         a.close()
         for node in (b, c, cpu):
             node.close()
+        clock.freeze(resume)
     return out
+
+
+def cache_status(node: "NodeThread") -> dict:
+    return http(node.url, "debug/cache")["result"]
+
+
+def cache_reads(node: "NodeThread", path: str) -> dict:
+    """``path`` read twice from ``node``: the second read must be a read
+    cache hit (``upow_hotcache_hits_total`` up by 1) with the same
+    body."""
+    hits0 = node_metrics(node.url)["upow_hotcache_hits_total"]
+    bodies = [asyncio.run(fetch(node.url + path))[1] for _ in range(2)]
+    hits = node_metrics(node.url)["upow_hotcache_hits_total"] - hits0
+    if hits != 1 or bodies[0] != bodies[1]:
+        fail(f"read cache: {path} read twice gave {hits} hits")
+    return {"body": bodies[0], "generation": cache_status(node)["generation"]}
+
+
+def cache_after(node: "NodeThread", path: str, before: dict,
+                tip_hash: str) -> dict:
+    """After a committed write: the generation moved, and the cached
+    re-read is the ``X-Upow-Cache-Bypass`` body byte for byte, naming
+    the new tip."""
+    cached = asyncio.run(fetch(node.url + path))[1]
+    fresh = asyncio.run(fetch(node.url + path,
+                              headers={"X-Upow-Cache-Bypass": "1"}))[1]
+    stats = cache_status(node)
+    if stats["generation"] <= before["generation"] or cached != fresh \
+            or cached == before["body"] or tip_hash.encode() not in cached:
+        fail(f"read cache after the push: generation "
+             f"{before['generation']} -> {stats['generation']}, re-read "
+             f"equals bypass {cached == fresh}")
+    return {"hits": stats["hits"], "misses": stats["misses"],
+            "generation": [before["generation"], stats["generation"]]}
+
+
+def ws_frames(node: "NodeThread", sub: WsSubscriber, tx_hashes: list,
+              tip_hash: str, n_txs: int) -> dict:
+    """Node A's ``/ws`` subscriber: one ``new_block`` frame, for the
+    8,160-tx block at A's tip; a ``new_transaction`` frame for each tx
+    of the burst; nothing dropped."""
+    blocks = sub.of("new_block")
+    got = sorted(f["tx_hash"] for f in sub.of("new_transaction"))
+    out = {"tx_frames": len(got), "block_frames": len(blocks),
+           "dropped": ws_dropped(node)}
+    if [(b["block_no"], b["block_hash"], b["transactions_count"])
+            for b in blocks] != [(4, tip_hash, n_txs)] \
+            or got != tx_hashes or out["dropped"]:
+        fail(f"/ws on A: {out}, hashes equal {got == tx_hashes}, blocks "
+             f"{[(b['block_no'], b['transactions_count']) for b in blocks]}")
+    return out
+
+
+def alert_checks(node: "NodeThread") -> dict:
+    """The watchtower on A after the clean run: enabled, evaluating,
+    nothing firing, and ``/metrics`` carrying the alert families."""
+    res = http(node.url, "debug/alerts")["result"]
+    scrape = node_metrics(node.url)
+    families = ("upow_alert_firing", "upow_alert_pending",
+                "upow_alert_evaluations_total", "upow_alert_eval_lag_seconds",
+                "upow_alert_rule_stuck_height_critical_firing")
+    if not res.get("enabled") or res["stats"]["evaluations"] <= 0 \
+            or res["counts"]["firing"] or res["stats"]["eval_errors"] \
+            or any(f not in scrape for f in families):
+        fail(f"watchtower on A: {json.dumps(res)[:600]}")
+    return {"evaluations": res["stats"]["evaluations"],
+            "eval_lag_seconds": res["stats"]["eval_lag_seconds"],
+            "pending": sorted(a["key"] for a in res["active"]
+                              if a["state"] == "pending"),
+            "probe_errors": res["stats"]["probe_errors"],
+            "alert_evaluations_total": int(
+                scrape["upow_alert_evaluations_total"])}
 
 
 async def _add_peer(node: Node, url: str) -> None:
@@ -3919,6 +4100,20 @@ def main() -> int:
                                     for k, v in tel["memory"].items()}),
           cpu_node_memory_gauges=0, scrapes_valid=True,
           card=json.dumps(card))
+    phase("surfaces", node_burst_tx_frames=nres["ws"]["tx_frames"],
+          node_burst_s_subscribed=round(nres["burst_s"], 3),
+          node_block_frames=nres["ws"]["block_frames"],
+          node_dropped=nres["ws"]["dropped"],
+          a_block_frames=g["ws"]["block_frames"],
+          a_burst_tx_frames=g["ws"]["tx_frames"],
+          a_burst_push_s_subscribed=round(g["burst_push_s"], 3),
+          a_dropped=g["ws"]["dropped"],
+          cache_hits=g["cache"]["hits"], cache_misses=g["cache"]["misses"],
+          cache_generation=json.dumps(g["cache"]["generation"]),
+          alert_evaluations=g["alerts"]["evaluations"],
+          alert_eval_lag_seconds=g["alerts"]["eval_lag_seconds"],
+          alert_pending=json.dumps(g["alerts"]["pending"]), alert_firing=0,
+          probe_errors=g["alerts"]["probe_errors"], card=json.dumps(card))
     for where, tree in (("a_push_block", tel["a_tree"]),
                         ("b_gossiped_push_block", tel["b_tree"]),
                         ("shared_push_block", shared["trees"]["push"]),

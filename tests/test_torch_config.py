@@ -6,11 +6,13 @@ the port reads, or raise the same error with the same text.  A key of
 the JAX schema that the port does not read yet is skipped; any other key
 raises the JAX package's ``KeyError`` (``unknown config section <s>``,
 ``unknown config field <s>.<f>``), in a file and in an override alike.
-The peer, gossip, resilience, degrade, device-runtime, log, telemetry
-and profiling fields of the port's ``NodeConfig``, ``ResilienceConfig``,
-``DeviceConfig``, ``DeviceRuntimeConfig``, ``LogConfig``,
-``TelemetryConfig`` and ``ProfilingConfig`` are held one by one, from a
-file and from ``UPOW_<SECTION>_<FIELD>``.
+The peer, gossip, resilience, degrade, device-runtime, log, telemetry,
+profiling, read-cache, ``/ws`` and watchtower fields of the port's
+``NodeConfig``, ``ResilienceConfig``, ``DeviceConfig``,
+``DeviceRuntimeConfig``, ``LogConfig``, ``TelemetryConfig``,
+``ProfilingConfig``, ``CacheConfig``, ``WsConfig`` and
+``WatchtowerConfig`` are held one by one, from a file and from
+``UPOW_<SECTION>_<FIELD>``.
 """
 
 import dataclasses
@@ -71,6 +73,41 @@ NEW_FIELDS = [
     ("profile", "trace_dir", "prof/out", "prof/out"),
     ("profile", "max_capture_seconds", 5.0, "5"),
     ("profile", "cost_analysis", True, "yes"),
+    ("cache", "enabled", False, "0"),
+    ("cache", "class_cap_bytes", 4096, "4096"),
+    ("cache", "class_caps", "address=100,blocks=200", "address=100,blocks=200"),
+    ("cache", "max_entry_bytes", 512, "512"),
+    ("cache", "revalidate_interval", -1.0, "-1"),
+    ("ws", "enabled", False, "false"),
+    ("ws", "max_connections", 3, "3"),
+    ("ws", "max_per_user", 2, "2"),
+    ("ws", "max_message_bytes", 1024, "1024"),
+    ("ws", "rate_limit_per_minute", 7, "7"),
+    ("ws", "heartbeat_interval", 2.5, "2.5"),
+    ("ws", "connection_expiry", 9.0, "9"),
+    ("ws", "cleanup_interval", 0.5, "0.5"),
+    ("ws", "send_queue_max", 0, "0"),
+    ("watchtower", "enabled", True, "1"),
+    ("watchtower", "interval", 0.5, "0.5"),
+    ("watchtower", "slo_target", 0.99, "0.99"),
+    ("watchtower", "fast_burn", 10.0, "10"),
+    ("watchtower", "slow_burn", 3.0, "3"),
+    ("watchtower", "window_scale", 0.01, "0.01"),
+    ("watchtower", "for_fast", 1.0, "1"),
+    ("watchtower", "for_slow", 2.0, "2"),
+    ("watchtower", "verify_min_rate", 5.0, "5"),
+    ("watchtower", "verify_z", 3.0, "3"),
+    ("watchtower", "mempool_spike_ratio", 4.0, "4"),
+    ("watchtower", "mempool_spike_floor", 10.0, "10"),
+    ("watchtower", "sync_lag_limit", 60.0, "60"),
+    ("watchtower", "breaker_storm_window", 30.0, "30"),
+    ("watchtower", "breaker_storm_opens", 2, "2"),
+    ("watchtower", "ws_drop_limit", 5.0, "5"),
+    ("watchtower", "arm_flap_window", 60.0, "60"),
+    ("watchtower", "arm_flaps", 1, "1"),
+    ("watchtower", "stuck_height_deadline", 30.0, "30"),
+    ("watchtower", "history", 8, "8"),
+    ("watchtower", "bench_events", "events.jsonl", "events.jsonl"),
 ]
 
 
@@ -124,13 +161,13 @@ def test_unknown_override_raises_the_jax_error(tmp_path, overrides, want):
 
 @pytest.mark.parametrize("how", ["file", "override"])
 @pytest.mark.parametrize("section, field, value", [
-    ("ws", "enabled", False),
-    ("cache", "enabled", False),
+    ("miner", "workers", 2),
+    ("archive", "dir", "archive"),
     ("mempool", "allow_rbf", True),
     ("mempool", "enabled", False),
     ("device_runtime", "compile_cache_dir", "cache"),
     ("device", "search_backend", "jnp"),
-    ("watchtower", "enabled", True),
+    ("snapshot", "dir", "snapshots"),
 ])
 def test_known_key_the_port_does_not_read_is_skipped(tmp_path, how, section,
                                                      field, value):

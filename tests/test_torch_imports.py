@@ -10,7 +10,9 @@ subprocess starts the port's node under the same finder, with its
 resident UTXO index armed on the CPU, and serves requests (``/``, and
 ``/metrics`` with its degrade gauge and the device runtime's armed event
 on ``/debug/events``, the telemetry package, the logger and a
-``/debug/profile`` capture on ``torch.profiler``); a third builds a
+``/debug/profile`` capture on ``torch.profiler``, one ``/ws`` exchange on
+the port's own WebSocket transport, ``/debug/cache`` after a cache hit
+and ``/debug/alerts`` with the watchtower on); a third builds a
 two-block chain
 on one port node and syncs a second from it over HTTP
 (``node/peers.py``'s client).
@@ -47,14 +49,16 @@ def serve():
     from upow_tpu_torch.device.runtime import get_runtime
     from upow_tpu_torch.telemetry import exposition
     from upow_tpu_torch.node.app import Node
-    from upow_tpu_torch.node.http import fetch
+    from upow_tpu_torch.node.http import fetch, ws_connect
 
     async def main():
         cfg = Config.load(node__db_path="", node__ip_config_file="",
                           node__seed_url="", node__peers_file="",
                           log__path="", log__json_format=True,
                           profile__enabled=True,
-                          profile__trace_dir=tempfile.mkdtemp())
+                          profile__trace_dir=tempfile.mkdtemp(),
+                          watchtower__enabled=True,
+                          watchtower__interval=0.05)
         cfg.device.verify_kernel = "complete"
         cfg.device.utxo_index = True
         node = Node(cfg, device="cpu")
@@ -84,6 +88,26 @@ def serve():
                     base + "/debug/profile?action=" + action)
                 assert status == 200 and json.loads(body)["ok"], body
             assert os.path.exists(json.loads(body)["result"]["trace_file"])
+            ws = await ws_connect(base + "/ws")
+            hello = await ws.receive_json()
+            assert hello["type"] == "connection_established", hello
+            await ws.send_json({"type": "subscribe_block"})
+            assert (await ws.receive_json())["type"] == "success"
+            await ws.send_json({"type": "ping"})
+            assert await ws.receive_json() == {"type": "pong"}
+            await ws.close()
+            assert ws.close_code == 1000
+            for _ in range(2):
+                status, body = await fetch(base + "/get_supply_info")
+                assert status == 200, body
+            status, body = await fetch(base + "/debug/cache")
+            stats = json.loads(body)["result"]
+            assert (stats["hits"], stats["misses"]) == (1, 1), stats
+            await asyncio.sleep(0.2)
+            status, body = await fetch(base + "/debug/alerts")
+            alerts = json.loads(body)["result"]
+            assert alerts["enabled"] and alerts["stats"]["evaluations"] > 0
+            assert alerts["counts"]["firing"] == 0, alerts
         finally:
             await node.close()
     asyncio.run(main())
@@ -178,7 +202,11 @@ def test_every_port_module_imports_without_jax():
                  "telemetry.scope", "telemetry.metrics",
                  "telemetry.tracing", "telemetry.events",
                  "telemetry.exposition", "telemetry.slo",
-                 "telemetry.device", "telemetry.selfcheck", "profiling"):
+                 "telemetry.device", "telemetry.selfcheck", "profiling",
+                 "state.hotcache", "ws", "ws.hub", "watchtower",
+                 "watchtower.alerts", "watchtower.burnrate",
+                 "watchtower.detectors", "watchtower.engine",
+                 "watchtower.benchlog", "watchtower.__main__"):
         assert "upow_tpu_torch." + must in names, must
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(

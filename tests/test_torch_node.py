@@ -19,7 +19,9 @@ block", "Previous hash not found" and a block with one corrupted
 signature.  Every body must be byte-equal (``/`` apart from its
 ``timings`` and ``counters``, which report each package's own
 instrumentation), and so must ``get_unspent_outputs_hash`` at the end.
-The JAX node serves uncached, as the port does.
+Both nodes run with the hot read cache and ``/ws`` at their defaults
+(on), so every read after an accept or an admission is also a check of
+the cache's invalidation.
 
 Beside it: the middleware's envelopes (403, 302, 404, 405, 422, 429)
 with rate limits on; the port's intake one request at a time against
@@ -134,8 +136,6 @@ def _configs(tmp_path, kernel):
     jcfg.node.ip_config_file = ""
     jcfg.node.rate_limits_enabled = False
     jcfg.device.verify_kernel = kernel
-    jcfg.ws.enabled = False
-    jcfg.cache.enabled = False  # the port serves uncached (its cache is A13)
     jcfg.log.path = ""
     jcfg.log.console = False
     tcfg = tconfig.Config.load(node__db_path=str(tmp_path / "port.db"),
@@ -369,7 +369,7 @@ def test_config_reads_the_jax_file_and_environment(tmp_path, monkeypatch):
     monkeypatch.setenv("UPOW_DEVICE_TXID_MIN_BATCH", "64")
     got = tconfig.Config.load(str(path), node__host="127.0.0.1")
     want = jconfig.Config.load(str(path), node__host="127.0.0.1")
-    for section in ("device", "node", "mempool"):
+    for section in ("device", "node", "mempool", "cache"):
         for f in __import__("dataclasses").fields(getattr(got, section)):
             assert getattr(getattr(got, section), f.name) == \
                 getattr(getattr(want, section), f.name), (section, f.name)
@@ -380,6 +380,7 @@ def test_config_reads_the_jax_file_and_environment(tmp_path, monkeypatch):
     assert (got.device.txid_backend, got.device.txid_min_batch) == \
         ("device", 64)
     assert got.mempool.reinject_on_reorg is False
+    assert got.cache.enabled is False
     # read by the JAX node, skipped by the port's until a slice reads them
     assert not want.mempool.enabled and want.mempool.allow_rbf
     for section, name in (("mempool", "enabled"), ("mempool", "allow_rbf")):
@@ -406,6 +407,10 @@ def test_serial_intake_and_journal_match_jax(tmp_path):
         shutil.copyfile(tmp_path / "chain.db", tmp_path / f"{name}.db")
     jcfg, tcfg = _configs(tmp_path, "complete")
     jcfg.mempool.enabled = False
+    # the journal's wipe below is a write behind both nodes' backs: both
+    # caches re-anchor on every read, so the next read sees it
+    for cfg in (jcfg, tcfg):
+        cfg.cache.revalidate_interval = 0.0
 
     async def main():
         jnode = japp.Node(jcfg)

@@ -119,8 +119,6 @@ def _jcfg(tmp_path, name, db=None, **node):
     cfg.node.ip_config_file = ""
     cfg.node.rate_limits_enabled = False
     cfg.node.sync_fetch_interval = 0
-    cfg.ws.enabled = False
-    cfg.cache.enabled = False  # the port serves uncached (its cache is A13)
     cfg.log.path = ""
     cfg.log.console = False
     for key, value in node.items():

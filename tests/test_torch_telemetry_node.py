@@ -3,7 +3,8 @@
 A JAX node on an aiohttp ``TestServer`` and the port's node on its
 standard-library server (``device="cpu"``), on copies of one JAX-written
 chain with both packages' clocks frozen (``test_torch_node.py``'s set-up:
-cache, ws and watchtower off, ``device.sig_backend = "device"`` so every
+the hot read cache and ``/ws`` on, as by default, the watchtower off,
+``device.sig_backend = "device"`` so every
 signature batch goes through the device path: the port's plain version,
 the JAX package's XLA program on the CPU), receive the same sequence:
 ``/``, three ``push_tx`` one at a time, ``get_mining_info``, a 404, a
@@ -66,7 +67,8 @@ PORT_ONLY = {
 
 #: families only the JAX node exports: the SLO series of its routes the
 #: port does not serve yet (send_to_address with the wallet, snapshots,
-#: the archive tier) — ROADMAP.md
+#: the archive tier) — ROADMAP.md.  The hotcache_*, ws_* and alert_*
+#: families are compared: both nodes export them
 JAX_ONLY = {
     r"upow_slo_http_(send_to_address|snapshot_\w+|archive_\w+)_\w+":
         "routes not ported",

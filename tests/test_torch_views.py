@@ -5,9 +5,9 @@ One chain is written by the JAX package (difficulty 1.0, frozen clocks):
 coinbases to a validator key, its stake and validator registration, a
 delegate funded, staked and voting for the validator, an inode funded,
 staked, registered and voted for by the validator, and two txs left in
-the pending journal.  A JAX node (read cache off, as the port serves
-uncached) and the port's node open copies of it, and each request goes
-to both: ``get_address_info`` with no flag, each flag and every flag,
+the pending journal.  A JAX node and the port's node, both with the
+hot read cache and ``/ws`` at their defaults (on), open copies of it,
+and each request goes to both: ``get_address_info`` with no flag, each flag and every flag,
 for each role, an unknown and a missing address;
 ``get_address_transactions`` over pages and the ``_page_param`` 400s;
 ``get_block_details`` by id, by hash and unknown; ``get_blocks_details``;
@@ -18,6 +18,7 @@ against the JAX ``ChainState``'s on the same file.
 """
 
 import asyncio
+import json
 import shutil
 from decimal import Decimal
 
@@ -248,3 +249,92 @@ def test_views_match_jax(gov_chain, view):
             state.close()
     assert got[0] == got[1]
     assert any(got[1])
+
+
+def test_dobby_info_follows_an_accept_after_a_read(tmp_path, gov_chain):
+    """C3: the accept refreshes the read routes' active-inode cache from
+    the list its rewards read (JAX ``verify/block.py:546-549``).  After a
+    first ``/dobby_info`` read, a second delegate is funded, stakes and
+    votes for the validator (the inode's power doubles), then an empty
+    block, each pushed to both nodes: the two ``/dobby_info`` bodies,
+    and ``get_address_info``'s ``is_inode_active``, stay equal, and the
+    power moved.  Before the repair the port's node served the first
+    read's list for 300 s."""
+    path, roles = gov_chain
+    for name in ("jax", "port", "build"):
+        shutil.copyfile(path, tmp_path / f"{name}.db")
+    t_read = JAX.clock.timestamp()
+
+    async def build():
+        chain = Chain(JAX, JAX.ChainState(str(tmp_path / "build.db")))
+        b = WalletBuilder(chain.state)
+        d_n, p_n = curve.keygen(rng=0x2DE1)
+        blocks = []
+        for make in (
+                lambda: b.create_transaction(chain.d, point_to_string(p_n),
+                                             "3"),
+                lambda: b.create_stake_transaction(d_n, "1"),
+                lambda: b.vote_as_delegate(d_n, 10, chain.addr), None):
+            txs = [await make()] if make else []
+            JAX.clock.advance(60)
+            content = await chain.header(txs)
+            errors = []
+            assert await chain.manager.create_block(content, txs,
+                                                    errors=errors), errors
+            tip = await chain.state.get_last_block()
+            blocks.append({"block_content": content,
+                           "txs": [t.hex() for t in txs],
+                           "block_no": tip["id"]})
+        chain.state.close()
+        return blocks
+
+    blocks = asyncio.run(build())
+    PORT.clock.freeze(JAX.clock.timestamp())
+    info = (f"/get_address_info?address={roles['inode']}"
+            "&address_state=true")
+
+    async def main():
+        jnode = japp.Node(_jcfg(tmp_path, "jax"))
+        tnode = tapp.Node(_tcfg(tmp_path, "port"), device="cpu")
+        server = TestServer(jnode.app)
+        await server.start_server()
+        tserver = await tnode.serve("127.0.0.1", 0)
+        bases = (f"http://127.0.0.1:{server.port}",
+                 f"http://127.0.0.1:{tserver.port}")
+        out = []
+        try:
+            async with aiohttp.ClientSession() as session:
+                async def both(method, q, body=None):
+                    got = []
+                    for base in bases:
+                        async with session.request(method, base + q,
+                                                   json=body) as r:
+                            got.append((r.status, await r.read()))
+                    assert got[1] == got[0], q
+                    return got[1]
+
+                out.append(await both("GET", "/dobby_info"))
+                out.append(await both("GET", info))
+                for body in blocks:
+                    assert await both("POST", "/push_block", body) == \
+                        (200, b'{"ok": true}')
+                out.append(await both("GET", "/dobby_info"))
+                out.append(await both("GET", info))
+        finally:
+            await server.close()
+            await jnode.close()
+            await tnode.close()
+        return out
+
+    try:
+        first, first_info, after, after_info = asyncio.run(main())
+    finally:
+        for pkg in (JAX, PORT):
+            pkg.clock.freeze(t_read)
+    assert first[0] == after[0] == 200
+    before = json.loads(first[1])["result"]
+    now = json.loads(after[1])["result"]
+    assert [e["wallet"] for e in before] == [e["wallet"] for e in now] \
+        == [roles["inode"]]
+    assert now[0]["power"] != before[0]["power"]
+    assert b'"is_inode_active": true' in after_info[1]

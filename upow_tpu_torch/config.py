@@ -7,8 +7,8 @@ JSON config file, ``UPOW_<SECTION>_<FIELD>`` environment variables
 ``section__field`` keyword overrides (``node__port=3007``): the JAX
 package's names and precedence, so a config file or environment that the
 JAX node reads configures the port's node the same way.  Sections and
-fields the port does not read yet (the ``ws``, ``miner``, ``cache``,
-``snapshot``, ``archive`` and ``watchtower`` sections, the node's
+fields the port does not read yet (the ``miner``, ``snapshot`` and
+``archive`` sections, the node's
 ``db_backend`` and ``pg_dsn``, ``device.device``, ``device.search_backend``,
 ``device_runtime.compile_cache_dir`` and ``mempool.allow_rbf``) come with
 the slices that read them (ROADMAP.md); a config file naming them is
@@ -227,6 +227,64 @@ class MempoolConfig:
 
 
 @dataclass
+class CacheConfig:
+    """Generation-anchored hot-state read cache (``state/hotcache.py``).
+    Operational only: the cache serves byte-identical responses, so
+    nodes with different cache settings stay bit-identical on the wire.
+    All overridable as ``UPOW_CACHE_<FIELD>``."""
+
+    enabled: bool = True
+    class_cap_bytes: int = 8 * 1024 * 1024  # default LRU byte cap per
+                                    # entry class (address/blocks/tx/...)
+    class_caps: str = ""            # per-class overrides, e.g.
+                                    # "address=16777216,blocks=4194304"
+    max_entry_bytes: int = 1 * 1024 * 1024  # bodies above this are
+                                    # served but never stored (one giant
+                                    # page must not flush a whole class)
+    revalidate_interval: float = 0.25  # seconds between re-anchoring the
+                                    # generation against the shared DB
+                                    # (tip hash + journal stamp) to catch
+                                    # OTHER workers' writes; 0 = every
+                                    # read, negative = never (sole-writer
+                                    # process)
+
+    def parsed_class_caps(self) -> dict:
+        caps = {}
+        for part in self.class_caps.split(","):
+            name, _, raw = part.strip().partition("=")
+            if name and raw:
+                try:
+                    caps[name] = int(raw)
+                except ValueError:
+                    raise ValueError(
+                        f"cache.class_caps entry {part!r}: cap must be an"
+                        f" integer byte count") from None
+        return caps
+
+
+@dataclass
+class WsConfig:
+    """The ``/ws`` push hub's limits (``ws/hub.py``); overridable as
+    ``UPOW_WS_<FIELD>``."""
+
+    enabled: bool = True
+    max_connections: int = 1000
+    max_per_user: int = 5
+    max_message_bytes: int = 64 * 1024
+    rate_limit_per_minute: int = 60
+    heartbeat_interval: float = 30.0
+    connection_expiry: float = 300.0
+    cleanup_interval: float = 60.0  # idle-expiry sweep period
+    send_queue_max: int = 256       # bounded per-subscriber send queue;
+                                    # overflow sheds that subscriber's
+                                    # oldest pending message
+                                    # (drop-slowest) and counts it as
+                                    # upow_ws_dropped_messages; 0 =
+                                    # unbounded (never shed)
+    channels: tuple = ("block", "transaction")
+
+
+@dataclass
 class ResilienceConfig:
     """Retries, deadlines and per-peer circuit breakers of outbound RPC,
     the device path's degrade (resilience/), and fault injection.
@@ -314,6 +372,46 @@ class TelemetryConfig:
 
 
 @dataclass
+class WatchtowerConfig:
+    """Streaming alerting engine (``watchtower/``): operational only,
+    never consensus.  Overridable as ``UPOW_WATCHTOWER_<FIELD>``.
+
+    Defaults describe the standing rule pack: verify-throughput
+    collapse, mempool depth spike, sync lag, breaker flip storm, ws drop
+    rate, device arm flaps, stuck block height, and per-route SLO burn
+    rates.  Thresholds are deliberately conservative: a clean run fires
+    no alert."""
+
+    enabled: bool = False           # run the evaluation task on this node
+    interval: float = 5.0           # evaluation cadence, seconds
+    # SLO burn-rate (burnrate.py): canonical 5m/1h + 30m/6h pairs,
+    # compressible for scenarios via window_scale.
+    slo_target: float = 0.999
+    fast_burn: float = 14.4
+    slow_burn: float = 6.0
+    window_scale: float = 1.0
+    # for-durations: fast rules page quickly, slow rules must sustain.
+    for_fast: float = 15.0
+    for_slow: float = 60.0
+    # rule thresholds
+    verify_min_rate: float = 1.0    # submissions/s EWMA floor before the
+                                    # collapse rule may judge a drop
+    verify_z: float = 6.0           # z-score magnitude for rate anomalies
+    mempool_spike_ratio: float = 8.0
+    mempool_spike_floor: float = 1000.0
+    sync_lag_limit: float = 600.0   # seconds behind tip timestamp
+    breaker_storm_window: float = 60.0
+    breaker_storm_opens: int = 6    # breaker open transitions in window
+    ws_drop_limit: float = 50.0     # dropped ws messages per second
+    arm_flap_window: float = 600.0
+    arm_flaps: int = 3              # degrade/arm-failure events in window
+    stuck_height_deadline: float = 300.0
+    history: int = 64               # firing/resolved transition ring
+    bench_events: str = ""          # append alert_fired JSONL records to
+                                    # this path
+
+
+@dataclass
 class ProfilingConfig:
     """Opt-in performance capture (upow_tpu_torch/profiling/): all off
     by default; overridable as ``UPOW_PROFILE_<FIELD>``."""
@@ -337,10 +435,13 @@ class Config:
     device_runtime: DeviceRuntimeConfig = field(
         default_factory=DeviceRuntimeConfig)
     node: NodeConfig = field(default_factory=NodeConfig)
+    ws: WsConfig = field(default_factory=WsConfig)
     mempool: MempoolConfig = field(default_factory=MempoolConfig)
+    cache: CacheConfig = field(default_factory=CacheConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     log: LogConfig = field(default_factory=LogConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    watchtower: WatchtowerConfig = field(default_factory=WatchtowerConfig)
     profile: ProfilingConfig = field(default_factory=ProfilingConfig)
 
     @classmethod
@@ -374,9 +475,10 @@ def _unread(section: str, fname: str) -> bool:
 
 
 _SECTIONS = {"device": DeviceConfig, "device_runtime": DeviceRuntimeConfig,
-             "node": NodeConfig,
-             "mempool": MempoolConfig, "resilience": ResilienceConfig,
-             "log": LogConfig, "telemetry": TelemetryConfig,
+             "node": NodeConfig, "ws": WsConfig,
+             "mempool": MempoolConfig, "cache": CacheConfig,
+             "resilience": ResilienceConfig, "log": LogConfig,
+             "telemetry": TelemetryConfig, "watchtower": WatchtowerConfig,
              "profile": ProfilingConfig}
 
 

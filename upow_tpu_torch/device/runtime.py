@@ -39,7 +39,9 @@ Where the JAX runtime differs, by design:
   serves every source on the CPU when its probe fails.  Here a failed
   build, load or warm launch on a card raises :class:`ArmError` out of
   :meth:`DeviceRuntime.arm`, and every pending and later item fails with
-  it; ``arm_failure_reason`` keeps the reason for the miner's watchdog.
+  it; ``arm_failure_reason`` keeps the reason for the miner's watchdog,
+  and an ``arm_failed`` event (one of the kinds the watchtower's
+  arm-flap rule counts) follows the ``device_runtime_armed`` one.
 * **A kept box thread.**  A boxed call (a device verify, under its
   deadline) runs on one daemon thread the runtime keeps from call to
   call, where the JAX runtime starts a thread a call; a call past its
@@ -282,6 +284,10 @@ class DeviceRuntime:
                 self._arm_error.__cause__ = e
                 log.warning("%s", self._arm_error)
                 self._armed_event(info)
+                # the kind the watchtower's arm-flap rule counts: on the
+                # port a failed arm is fatal to the device path
+                events.emit("arm_failed", device=str(self.device),
+                            attempt=attempt, reason=reason)
                 raise self._arm_error
             finally:
                 self._arm_done.set()

@@ -10,17 +10,30 @@ address and governance reads (``/get_address_info``,
 ``/get_address_transactions``, ``/get_block_details``,
 ``/get_blocks_details``, ``/get_validators_info``,
 ``/get_delegates_info``, ``/dobby_info``, ``/get_supply_info``), the
-Prometheus exposition ``/metrics`` and, under
-``telemetry.debug_endpoints``, ``/debug/traces``, ``/debug/events``,
-``/debug/breakers`` and (with ``profile.enabled``) ``/debug/profile``.
+Prometheus exposition ``/metrics``, the ``/ws`` push hub (under
+``ws.enabled``) and, under ``telemetry.debug_endpoints``,
+``/debug/traces``, ``/debug/events``, ``/debug/alerts`` (GET, and POST
+for the operator knobs), ``/debug/breakers``, ``/debug/cache`` and (with
+``profile.enabled``) ``/debug/profile``.
 Every body is byte for byte the JAX node's: the ``{"ok": bool, ...}``
 envelope, the reference's error strings, GET query params merged with a
 POST JSON body, and the middleware's IP filter, path normalisation, rate
 limits and 403/422/429/500 envelopes.  ``/`` carries this process's
 span stats and counters (``trace.stats()``, ``trace.counters()``).
 
+The read routes serve through the hot read cache
+(:mod:`..state.hotcache`, ``cache.*``): the encoded body is stored under
+a generation that every committed write advances (a block accept, a
+reorg, a pending-journal change), so a hit is byte for byte the uncached
+body; ``X-Upow-Cache-Bypass`` skips it for one request.  ``/ws``
+(:mod:`..ws`, on the transport of :mod:`.http`) pushes ``new_block`` for
+each block ``push_block`` accepts and ``new_transaction`` for each tx the
+intake admits.  With ``watchtower.enabled`` the watchtower
+(:mod:`..watchtower`) evaluates its rule pack over the node's telemetry
+every ``watchtower.interval`` seconds.
+
 Telemetry (:mod:`..telemetry`), as in the JAX node: each request but the
-scrape and debug ones runs under a trace root ``http.<path>`` that
+scrape, ``/ws`` and debug ones runs under a trace root ``http.<path>`` that
 adopts a well-formed ``X-Upow-Trace`` header and echoes its id, so the
 gossip it spawns (whose RPCs carry the header) is one trace across
 nodes; the registered routes feed the ``slo.http.<route>`` latency
@@ -59,10 +72,9 @@ page's checks are collected, and again in each block's digest prep
 (``verify/block.py``), whose check keys the page's verdicts answer.
 
 Not ported yet (ROADMAP.md): ``send_to_address`` (with the wallet),
-``ws/``, replace-by-fee, the hot read cache, snapshots, the archive tier
-and the watchtower (``/debug/alerts``, ``/debug/cache`` and
-``/debug/archive`` with them); ``/metrics`` carries the archive and
-alert families as zeros, as a JAX node with those tiers off does.
+replace-by-fee, snapshots and the archive tier (``/debug/archive`` with
+it); ``/metrics`` carries the archive families as zeros, as a JAX node
+with the tier off does.
 """
 
 from __future__ import annotations
@@ -94,13 +106,16 @@ from ..device.runtime import get_runtime
 from ..logger import setup_logging
 from ..mempool import IntakeCoordinator, Mempool, MiningInfoCache, TTLSet
 from ..resilience import BreakerRegistry, ResilienceContext, faultinject
+from ..state.hotcache import HotStateCache
 from ..state.storage import ChainState
 from ..verify.block import BlockManager
 from ..verify import txverify
 from ..verify.txverify import (TxVerifier, _resolve_backend,
                                run_sig_checks_async, sig_verdict_stats)
-from .http import (BodyTooLarge, HttpServer, Request, Response, json_response,
-                   text_response)
+from ..watchtower import WatchtowerEngine
+from ..ws import WsHub
+from .http import (BodyTooLarge, HTTPException, HttpServer, Request, Response,
+                   json_response, text_response)
 from .ipfilter import IpFilter, is_local_ip
 from .peers import NodeInterface, PeerBook, _normalize
 from .ratelimit import RateLimiter
@@ -112,19 +127,26 @@ _BANNED_ADDRESSES = {"DgQKikeDqS2Fzue23KuA36L4eJSFh649zA9jJ6zwbzUMp"}
 GENESIS_PREV_HASH = (18_884_643).to_bytes(32, ENDIAN).hex()
 _SYNCING = {"ok": False, "error": "Node is already syncing"}
 
+# any value in this header skips the hot read cache for one request (the
+# response is computed fresh and not stored)
+_CACHE_BYPASS_HEADER = "x-upow-cache-bypass"
+
+# every get_address_info query flag that shapes the response: the cache
+# key carries all of them
+_ADDRESS_INFO_FLAGS = (
+    "show_pending", "verify", "stake_outputs", "delegate_spent_votes",
+    "delegate_unspent_votes", "inode_registration_outputs",
+    "validator_unspent_votes", "validator_spent_votes", "address_state")
+
 
 class _BadParam(Exception):
     """A malformed integer query parameter: the middleware answers 422."""
 
 
-class _HttpError(Exception):
-    """A response aiohttp raises past the JAX middleware's envelope and
-    SLO capture; each subclass bears the name of aiohttp's exception,
-    which a trace root records as its error."""
-
-    def __init__(self, response: Response):
-        super().__init__(response.status)
-        self.response = response
+# a response aiohttp raises past the JAX middleware's envelope and SLO
+# capture; each subclass bears the name of aiohttp's exception, which a
+# trace root records as its error
+_HttpError = HTTPException
 
 
 class HTTPNotFound(_HttpError):
@@ -234,12 +256,41 @@ class Node:
         # app.py:188; the port's node always runs the mempool)
         self.state.reinject_reorg_txs = bool(mcfg.reinject_on_reorg)
         self.tx_cache = TTLSet(mcfg.tx_cache_size, mcfg.tx_cache_ttl)
+        # the hot read cache: read routes serve stored response bytes
+        # under a generation the hooks below advance after every
+        # committed write, so a hit never reflects a stale tip
+        self.hotcache = HotStateCache(self.state, self.config.cache)
+        if self.config.cache.enabled:
+            self.manager.on_state_committed = self.hotcache.bump
+            self.state.on_blocks_removed = \
+                lambda _from_id: self.hotcache.bump("reorg")
+            # GC evictions and mined-tx removals change the pending
+            # journal, which pending lists and show_pending views read
+            pool_remove = self.manager.on_pending_removed
+
+            def _pending_removed(hashes, _base=pool_remove):
+                _base(hashes)
+                self.hotcache.bump("pending_removed")
+
+            self.manager.on_pending_removed = _pending_removed
         self.is_syncing = False
         # the outbound RPC client of sync and gossip (a test may swap it)
         self.iface_factory = NodeInterface
         self._last_mempool_clean: Optional[float] = None  # monotonic
         self._closing = False
         self._background: set = set()
+        self._services: set = set()  # perpetual loops (the watchtower)
+        # the watchtower: rule evaluation over this node's registries
+        # (the scope's, or the process globals), fed live gauges by probes
+        self.watchtower = None
+        if self.config.watchtower.enabled:
+            self.watchtower = WatchtowerEngine(
+                self.config.watchtower, scope=self.telemetry_scope,
+                name=(self.telemetry_scope.name
+                      if self.telemetry_scope else "node"))
+            self._register_watchtower_probes()
+        self.ws_hub = WsHub(self.config.ws) if self.config.ws.enabled \
+            else None
         self.routes = {("GET", "/"): self.h_root}
         for path, handler in (("/push_tx", self.h_push_tx),
                               ("/push_block", self.h_push_block)):
@@ -267,17 +318,45 @@ class Node:
         if self.config.telemetry.debug_endpoints:
             self.routes[("GET", "/debug/traces")] = self.h_debug_traces
             self.routes[("GET", "/debug/events")] = self.h_debug_events
+            self.routes[("GET", "/debug/alerts")] = self.h_debug_alerts
+            self.routes[("POST", "/debug/alerts")] = \
+                self.h_debug_alerts_post
             self.routes[("GET", "/debug/breakers")] = self.h_debug_breakers
+            self.routes[("GET", "/debug/cache")] = self.h_debug_cache
             if self.config.profile.enabled:
                 self.routes[("GET", "/debug/profile")] = self.h_debug_profile
-        # SLO latency series for the fixed route set (not /debug/*, which
-        # would meter the metering), preregistered so every route
-        # exports an all-zero family from the first scrape
+        if self.ws_hub is not None:
+            self.routes[("GET", "/ws")] = self.ws_hub.handle
+        # SLO latency series for the fixed route set (not /ws, whose
+        # "latency" is a socket's lifetime, and not /debug/*, which would
+        # meter the metering), preregistered so every route exports an
+        # all-zero family from the first scrape
         self._slo_paths = {path for _m, path in self.routes
-                           if not path.startswith("/debug")}
+                           if not path.startswith(("/ws", "/debug"))}
         with telemetry.scope.activate(self.telemetry_scope):
             telemetry.slo.preregister(self._slo_paths)
         self.server: Optional[HttpServer] = None
+
+    def _register_watchtower_probes(self) -> None:
+        wt = self.watchtower
+
+        async def block_height() -> float:
+            return float(await self.state.get_next_block_id() - 1)
+
+        async def sync_lag() -> float:
+            last = await self.state.get_last_block()
+            return float(max(0, timestamp() - last["timestamp"])) \
+                if last else 0.0
+
+        def ws_dropped() -> float:
+            hub = self.ws_hub
+            return float(hub.get_stats()["dropped_messages"]) if hub else 0.0
+
+        wt.register_probe("block_height", block_height)
+        wt.register_probe("sync_lag", sync_lag)
+        # the port's node always runs the mempool
+        wt.register_probe("mempool_depth", lambda: float(len(self.pool)))
+        wt.register_probe("ws_dropped", ws_dropped)
 
     # ----------------------------------------------------------- plumbing --
     def _spawn(self, coro) -> None:
@@ -289,24 +368,40 @@ class Node:
         self._background.add(task)
         task.add_done_callback(self._background.discard)
 
+    def _spawn_service(self, coro) -> None:
+        """A long-lived service loop (the watchtower's cadence), ended
+        only by close(): kept out of the background set, the work
+        requests started, which a drain of that set waits for."""
+        if self._closing:
+            coro.close()
+            return
+        task = asyncio.ensure_future(coro)
+        self._services.add(task)
+        task.add_done_callback(self._services.discard)
+
     async def serve(self, host: Optional[str] = None,
                     port: Optional[int] = None) -> HttpServer:
-        """Start the HTTP server (``port=0``: a free port)."""
+        """Start the HTTP server (``port=0``: a free port), and the
+        watchtower's loop when it is on."""
         self.server = HttpServer(
             self.handle,
             host=self.config.node.host if host is None else host,
             port=self.config.node.port if port is None else port,
             max_body=self.config.node.response_cap)
         await self.server.start()
+        if self.watchtower is not None:
+            self._spawn_service(self.watchtower.run())
         return self.server
 
     async def close(self) -> None:
         self._closing = True
         if self.server is not None:
             await self.server.close()
+        if self.ws_hub is not None:
+            self.ws_hub.close()
         # cancel AND await, bounded: a task inside run_in_executor (a
         # verify on the card) cannot be cancelled until the call returns
-        tasks = list(self._background)
+        tasks = list(self._background) + list(self._services)
         for task in tasks:
             task.cancel()
         if tasks:
@@ -522,12 +617,21 @@ class Node:
                                 first_address: Optional[str],
                                 sender: Optional[str]) -> None:
         """Post-acceptance side effects of the intake: peer bookkeeping,
-        the gossip fan-out, the dedup cache and the log line (the WS
-        broadcast comes with ``ws/``)."""
+        the gossip fan-out, the ``/ws`` broadcast, the dedup cache and
+        the log line."""
         if sender:
             self.peers.update_last_message(sender)
         trace.event("tx_seen", hash=tx_hash)
         self._spawn(self.propagate("push_tx", {"tx_hex": tx.hex()}))
+        if self.ws_hub is not None:
+            amount = sum(o.amount for o in tx.outputs)
+            self._spawn(self.ws_hub.broadcast_new_transaction({
+                "tx_hash": tx_hash,
+                "from": first_address,
+                "to": [o.address for o in tx.outputs],
+                "amount": _fmt_amount(amount),
+                "fees": _fmt_amount(await self.state.tx_fees(tx)),
+            }))
         self.tx_cache.append(tx_hash)
         log.info("Transaction has been accepted: %s", tx_hash)
 
@@ -562,6 +666,25 @@ class Node:
         self.mining_cache.put(key, result)
         return result
 
+    # ------------------------------------------------------- read cache ---
+    async def _cached(self, request: Request, entry_class: str, key: tuple,
+                      build, dumps=json.dumps) -> Response:
+        """A read route through the hot read cache: ``build()`` makes the
+        payload, and what is stored is its encoded body (the bytes
+        :func:`json_response` would send), so a hit skips SQL and
+        encoding and is byte for byte the uncached body.  With the cache
+        off or ``X-Upow-Cache-Bypass`` set, the plain path, which leaves
+        the store alone."""
+        if not self.hotcache.enabled or \
+                _CACHE_BYPASS_HEADER in request.headers:
+            return json_response(await build(), dumps=dumps)
+
+        async def produce() -> bytes:
+            return dumps(await build()).encode("utf-8")
+
+        return Response(await self.hotcache.get_bytes(entry_class, key,
+                                                      produce))
+
     # --------------------------------------------------------- handlers ---
     async def h_root(self, request: Request) -> Response:
         """Health probe (reference main.py:266-275) + additive timing
@@ -575,12 +698,13 @@ class Node:
 
     async def h_metrics(self, request: Request) -> Response:
         """Prometheus text exposition (JAX app.py:765-1001): gauges of
-        the chain, mempool, peers and breakers, the device verify path's
-        health, the resident index and the mesh miner, the kernel
-        libraries built, the card's memory and the kernels' counted work;
-        the archive and alert families as zeros; then every counter, span
-        and histogram of the registries.  Rendering and name sanitising
-        are :mod:`..telemetry.exposition`'s."""
+        the chain, mempool, peers and breakers, the hot read cache, the
+        ``/ws`` hub, the device verify path's health, the resident index
+        and the mesh miner, the kernel libraries built, the card's memory
+        and the kernels' counted work; the watchtower's alert families
+        (zeros when it is off) and the archive's as zeros; then every
+        counter, span and histogram of the registries.  Rendering and
+        name sanitising are :mod:`..telemetry.exposition`'s."""
         e = telemetry.exposition.Exposition()
         e.gauge("block_height", await self.state.get_next_block_id() - 1,
                 "Height of the last accepted block")
@@ -627,6 +751,51 @@ class Node:
                   "Signature checks answered from the verdict cache")
         e.counter("sig_cache_misses", sig["misses"],
                   "Signature checks that required verification")
+        if self.hotcache.enabled:
+            cs = self.hotcache.stats()
+            e.counter("hotcache_hits", cs["hits"],
+                      "Read responses served from the hot-state cache")
+            e.counter("hotcache_misses", cs["misses"],
+                      "Read responses rebuilt from storage")
+            e.counter("hotcache_evictions", cs["evictions"],
+                      "Entries evicted by per-class LRU byte caps")
+            e.counter("hotcache_singleflight_coalesced",
+                      cs["singleflight_coalesced"],
+                      "Concurrent identical misses that shared one"
+                      " storage trip")
+            e.counter("hotcache_generation_bumps", cs["bumps"],
+                      "Local generation advances (block accept, reorg,"
+                      " pending-journal change)")
+            e.counter("hotcache_foreign_bumps", cs["foreign_bumps"],
+                      "Generation advances forced by another worker's"
+                      " write (journal-stamp revalidation)")
+            e.gauge("hotcache_generation", cs["generation"],
+                    "Current read-cache generation epoch")
+            e.gauge("hotcache_generation_age_seconds",
+                    cs["generation_age_seconds"],
+                    "Seconds since the generation last advanced")
+            e.gauge("hotcache_entries",
+                    sum(c["entries"] for c in cs["classes"].values()),
+                    "Entries across all hot-state cache classes")
+            e.gauge("hotcache_bytes",
+                    sum(c["bytes"] for c in cs["classes"].values()),
+                    "Encoded response bytes held by the hot-state cache")
+        if self.ws_hub is not None:
+            ws = self.ws_hub.get_stats()
+            e.gauge("ws_connections", ws["total_connections"],
+                    "Open WebSocket push connections")
+            e.gauge("ws_messages_out", ws["messages_out"],
+                    "WebSocket messages delivered")
+            e.counter("ws_connects_total", ws["connects_total"],
+                      "WebSocket connections accepted since start")
+            e.counter("ws_disconnects_total", ws["disconnects_total"],
+                      "WebSocket connections dropped since start")
+            e.counter("ws_dropped_messages", ws["dropped_messages"],
+                      "Broadcast messages shed by per-subscriber bounded"
+                      " send queues (drop-slowest policy)")
+            e.gauge("ws_send_queue_hwm", ws["send_queue_hwm"],
+                    "Deepest any subscriber send queue has ever been"
+                    " (high-watermark, including reaped connections)")
         for state_name, count in sorted(self.breakers.state_counts().items()):
             e.gauge(f"breaker_{state_name}_peers", count,
                     f"Peers whose circuit breaker is {state_name}")
@@ -684,23 +853,41 @@ class Node:
             for key, value in sorted(costs.items()):
                 e.gauge(f"kernel_{kern}_cost_{key}", value,
                         "Counted work of the kernel's last batch")
-        # the watchtower is not ported: its families as a JAX node with
-        # the watchtower off exports them
-        e.gauge("alert_firing", 0,
+        # the alert families export whether or not the watchtower runs
+        # (zeros when it is off)
+        wt = self.watchtower
+        wrow = wt.metric_rows() if wt is not None else {}
+        e.gauge("alert_firing", wrow.get("firing", 0),
                 "Alerts currently firing (docs/ALERTING.md)")
-        e.gauge("alert_pending", 0,
+        e.gauge("alert_pending", wrow.get("pending", 0),
                 "Alert conditions inside their for-duration")
-        e.gauge("alert_silenced", 0,
+        e.gauge("alert_silenced", wrow.get("silenced", 0),
                 "Active alerts suppressed by an operator silence")
-        e.gauge("alert_exemplars_firing", 0,
+        e.gauge("alert_exemplars_firing",
+                wrow.get("firing_with_exemplars", 0),
                 "Firing alerts carrying at least one exemplar trace id")
-        e.gauge("alert_eval_lag_seconds", 0.0,
+        e.gauge("alert_eval_lag_seconds",
+                wrow.get("eval_lag_seconds", 0.0),
                 "Wall seconds the last watchtower evaluation tick took")
-        e.counter("alert_evaluations", 0,
+        e.counter("alert_evaluations", wrow.get("evaluations", 0),
                   "Watchtower evaluation ticks since start")
-        e.counter("alert_fired", 0, "pending->firing transitions since start")
-        e.counter("alert_resolved", 0,
+        e.counter("alert_fired", wrow.get("fired_total", 0),
+                  "pending->firing transitions since start")
+        e.counter("alert_resolved", wrow.get("resolved_total", 0),
                   "firing->resolved transitions since start")
+        if wt is not None:
+            by_rule: dict = {}
+            for a in wt.alerts.active():
+                d = by_rule.setdefault(a.rule.name,
+                                       {"firing": 0, "pending": 0})
+                if a.state in d:
+                    d[a.state] += 1
+            for rname, rule in sorted(wt.rules.items()):
+                d = by_rule.get(rname, {"firing": 0, "pending": 0})
+                e.gauge(f"alert_rule_{rname}_{rule.severity}_firing",
+                        d["firing"], f"Firing alerts for rule {rname}")
+                e.gauge(f"alert_rule_{rname}_{rule.severity}_pending",
+                        d["pending"], f"Pending alerts for rule {rname}")
         for name, value in sorted(trace.counters().items()):
             e.counter(name, value)
         for name, st in sorted(trace.stats().items()):
@@ -726,8 +913,13 @@ class Node:
             log.debug("push_tx: rejecting unparseable tx: %s", e)
             return json_response(
                 {"ok": False, "error": f"Invalid transaction: {e}"})
-        return json_response(await self.intake.submit(
-            tx, request.headers.get("sender-node")))
+        result = await self.intake.submit(tx,
+                                          request.headers.get("sender-node"))
+        if result.get("ok"):
+            # the pending journal gained a row: cached pending lists and
+            # show_pending views are stale
+            self.hotcache.bump("pending_added")
+        return json_response(result)
 
     async def _parse_tx(self, tx_hex: str,
                         overlay: Optional[dict] = None) -> Tx:
@@ -833,6 +1025,17 @@ class Node:
                 block_content, final_transactions, errors=errors):
             return json_response(
                 {"ok": False, "error": errors[0]} if errors else {"ok": False})
+        if self.ws_hub is not None:
+            block_hash = hashlib.sha256(
+                bytes.fromhex(block_content)).hexdigest()
+            info = await self._mining_info_result()
+            self._spawn(self.ws_hub.broadcast_new_block({
+                "block_no": block_no,
+                "block_hash": block_hash,
+                "transactions_count": len(final_transactions),
+                "timestamp": timestamp(),
+                **info,
+            }))
         if sender:
             self.peers.update_last_message(sender)
         self._spawn(self.propagate("push_block", {
@@ -859,15 +1062,23 @@ class Node:
             {"ok": True, "result": await self._mining_info_result()})
 
     async def h_get_pending_transactions(self, request: Request) -> Response:
-        txs = await self.state.get_pending_transactions_limit(hex_only=True)
-        return json_response({"ok": True, "result": txs})
+        async def build():
+            txs = await self.state.get_pending_transactions_limit(
+                hex_only=True)
+            return {"ok": True, "result": txs}
+
+        return await self._cached(request, "pending", (), build)
 
     async def h_get_transaction(self, request: Request) -> Response:
-        tx = await self.state.get_nice_transaction(
-            request.query.get("tx_hash", ""))
-        if tx is None:
-            return json_response({"ok": False, "error": "Transaction not found"})
-        return json_response({"ok": True, "result": tx})
+        tx_hash = request.query.get("tx_hash", "")
+
+        async def build():
+            tx = await self.state.get_nice_transaction(tx_hash)
+            if tx is None:
+                return {"ok": False, "error": "Transaction not found"}
+            return {"ok": True, "result": tx}
+
+        return await self._cached(request, "tx", (tx_hash,), build)
 
     async def _block_lookup(self, block: str) -> Optional[dict]:
         if block.isdecimal():
@@ -881,20 +1092,25 @@ class Node:
         q = request.query
         block = q.get("block", "")
         full = q.get("full_transactions", "false").lower() in ("1", "true")
-        info = await self._block_lookup(block)
-        if not info:
-            return json_response({"ok": False, "error": "Block not found"})
-        block_hash = info["hash"]
-        return json_response({"ok": True, "result": {
-            "block": _json_block(info),
-            "transactions": (
-                await self.state.get_block_transactions(block_hash,
-                                                        hex_only=True)
-                if not full else None),
-            "full_transactions": (
-                await self.state.get_block_nice_transactions(block_hash)
-                if full else None),
-        }})
+
+        async def build():
+            info = await self._block_lookup(block)
+            if not info:
+                return {"ok": False, "error": "Block not found"}
+            block_hash = info["hash"]
+            return {"ok": True, "result": {
+                "block": _json_block(info),
+                "transactions": (
+                    await self.state.get_block_transactions(block_hash,
+                                                            hex_only=True)
+                    if not full else None),
+                "full_transactions": (
+                    await self.state.get_block_nice_transactions(block_hash)
+                    if full else None),
+            }}
+
+        return await self._cached(request, "block", ("block", block, full),
+                                  build)
 
     @staticmethod
     def _page_param(q, name: str, default: int, cap: int):
@@ -918,8 +1134,14 @@ class Node:
             limit, err = self._page_param(q, "limit", 100, 1000)
         if err is not None:
             return err
-        blocks = await self.state.get_blocks(offset, limit, size_capped=True)
-        return json_response({"ok": True, "result": blocks})
+
+        async def build():
+            blocks = await self.state.get_blocks(offset, limit,
+                                                 size_capped=True)
+            return {"ok": True, "result": blocks}
+
+        return await self._cached(request, "blocks",
+                                  ("blocks", offset, limit), build)
 
     async def h_get_blocks_details(self, request: Request) -> Response:
         q = request.query
@@ -928,55 +1150,82 @@ class Node:
             limit, err = self._page_param(q, "limit", 100, 1000)
         if err is not None:
             return err
-        blocks = await self.state.get_blocks(offset, limit, tx_details=True,
-                                             size_capped=True)
-        return json_response({"ok": True, "result": blocks})
+
+        async def build():
+            blocks = await self.state.get_blocks(offset, limit,
+                                                 tx_details=True,
+                                                 size_capped=True)
+            return {"ok": True, "result": blocks}
+
+        return await self._cached(request, "blocks",
+                                  ("details", offset, limit), build)
 
     async def h_get_block_details(self, request: Request) -> Response:
-        info = await self._block_lookup(request.query.get("block", ""))
-        if not info:
-            return json_response({"ok": False, "error": "Block not found"})
-        txs = await self.state.get_block_nice_transactions(info["hash"])
-        return json_response({"ok": True, "result": {
-            "block": _json_block(info), "transactions": txs}})
+        block = request.query.get("block", "")
+
+        async def build():
+            info = await self._block_lookup(block)
+            if not info:
+                return {"ok": False, "error": "Block not found"}
+            txs = await self.state.get_block_nice_transactions(info["hash"])
+            return {"ok": True, "result": {
+                "block": _json_block(info), "transactions": txs}}
+
+        return await self._cached(request, "block", ("details", block),
+                                  build)
 
     # ---------------------------------------- explorer and governance ----
     async def h_get_validators_info(self, request: Request) -> Response:
         """Inode ballot grouped by voting validator (main.py:698-725)."""
         q = request.query
-        rows = await self.state.get_ballots(
-            "inodes_ballot", q.get("inode"), offset=_int_q(q, "offset", 0),
-            limit=_int_q(q, "limit", 100, cap=1000))
-        by_validator: dict = {}
-        stakes: dict = {}  # one stake computation per validator
-        for row in rows:
-            ent = by_validator.setdefault(row["voter"], {
-                "validator": row["voter"], "vote": []})
-            ent["vote"].append(_vote(row))
-            if row["voter"] not in stakes:
-                stakes[row["voter"]] = str(
-                    await self.state.get_validators_stake(
-                        row["voter"], check_pending_txs=True))
-            ent["totalStake"] = stakes[row["voter"]]
-        return json_response(list(by_validator.values()))
+        inode = q.get("inode")
+        offset = _int_q(q, "offset", 0)
+        limit = _int_q(q, "limit", 100, cap=1000)
+
+        async def build():
+            rows = await self.state.get_ballots(
+                "inodes_ballot", inode, offset=offset, limit=limit)
+            by_validator: dict = {}
+            stakes: dict = {}  # one stake computation per validator
+            for row in rows:
+                ent = by_validator.setdefault(row["voter"], {
+                    "validator": row["voter"], "vote": []})
+                ent["vote"].append(_vote(row))
+                if row["voter"] not in stakes:
+                    stakes[row["voter"]] = str(
+                        await self.state.get_validators_stake(
+                            row["voter"], check_pending_txs=True))
+                ent["totalStake"] = stakes[row["voter"]]
+            return list(by_validator.values())
+
+        return await self._cached(request, "governance",
+                                  ("validators", inode, offset, limit),
+                                  build)
 
     async def h_get_delegates_info(self, request: Request) -> Response:
         """Validator ballot grouped by voting delegate (main.py:727-764)."""
         q = request.query
-        rows = await self.state.get_ballots(
-            "validators_ballot", q.get("validator"),
-            offset=_int_q(q, "offset", 0),
-            limit=_int_q(q, "limit", 100, cap=1000))
-        stakes = await self.state.get_multiple_address_stakes(
-            {row["voter"] for row in rows if row["voter"]},
-            check_pending_txs=True)
-        by_delegate: dict = {}
-        for row in rows:
-            ent = by_delegate.setdefault(row["voter"], {
-                "delegate": row["voter"], "vote": [], "totalStake": "0"})
-            ent["vote"].append(_vote(row))
-            ent["totalStake"] = str(stakes.get(row["voter"], Decimal(0)))
-        return json_response(list(by_delegate.values()))
+        validator = q.get("validator")
+        offset = _int_q(q, "offset", 0)
+        limit = _int_q(q, "limit", 100, cap=1000)
+
+        async def build():
+            rows = await self.state.get_ballots(
+                "validators_ballot", validator, offset=offset, limit=limit)
+            stakes = await self.state.get_multiple_address_stakes(
+                {row["voter"] for row in rows if row["voter"]},
+                check_pending_txs=True)
+            by_delegate: dict = {}
+            for row in rows:
+                ent = by_delegate.setdefault(row["voter"], {
+                    "delegate": row["voter"], "vote": [], "totalStake": "0"})
+                ent["vote"].append(_vote(row))
+                ent["totalStake"] = str(stakes.get(row["voter"], Decimal(0)))
+            return list(by_delegate.values())
+
+        return await self._cached(request, "governance",
+                                  ("delegates", validator, offset, limit),
+                                  build)
 
     async def h_get_address_info(self, request: Request) -> Response:
         q = request.query
@@ -997,66 +1246,71 @@ class Node:
             return [{"amount": str(r["vote"]), "tx_hash": r["tx_hash"],
                      "index": r["index"]} for r in rows]
 
-        state = self.state
-        outputs = await state.get_spendable_outputs(address)
-        stake = await state.get_address_stake(address)
-        result = {
-            "balance": _fmt_amount(sum(o.amount for o in outputs)),
-            "stake": str(stake),
-            "spendable_outputs": [
-                {"amount": _fmt_amount(o.amount), "tx_hash": o.tx_hash,
-                 "index": o.index} for o in outputs],
-            "pending_transactions": None,
-            "pending_spent_outputs": None,
-            "stake_outputs": None,
-            "delegate_spent_votes": None,
-            "delegate_unspent_votes": None,
-            "inode_registration_outputs": None,
-            "validator_unspent_votes": None,
-            "validator_spent_votes": None,
-            "is_inode": None,
-            "is_inode_active": None,
-            "is_validator": None,
-        }
-        if flag("show_pending"):
-            result["pending_transactions"] = [
-                await state.get_nice_transaction(
-                    tx.hash(), address if flag("verify") else None)
-                for tx in await state.get_address_pending_transactions(address)]
-            result["pending_spent_outputs"] = [
-                {"tx_hash": h, "index": i} for h, i in
-                await state.get_address_pending_spent_outpoints(address)]
-        if flag("stake_outputs"):
-            result["stake_outputs"] = out_list(
-                await state.get_outputs_by_address(
-                    "unspent_outputs", address, is_stake=True))
-        if flag("delegate_spent_votes"):
-            result["delegate_spent_votes"] = vote_list(
-                await state.get_delegates_spent_votes(address))
-        if flag("delegate_unspent_votes"):
-            result["delegate_unspent_votes"] = out_list(
-                await state.get_outputs_by_address(
-                    "delegates_voting_power", address))
-        if flag("inode_registration_outputs"):
-            result["inode_registration_outputs"] = out_list(
-                await state.get_outputs_by_address(
-                    "inode_registration_output", address))
-        if flag("validator_unspent_votes"):
-            result["validator_unspent_votes"] = out_list(
-                await state.get_outputs_by_address(
-                    "validators_voting_power", address))
-        if flag("validator_spent_votes"):
-            result["validator_spent_votes"] = vote_list(
-                await state.get_validators_spent_votes(address))
-        if flag("address_state"):
-            is_inode = await state.is_inode_registered(address)
-            result["is_inode"] = is_inode
-            result["is_inode_active"] = is_inode and any(
-                e.get("wallet") == address
-                for e in await self.manager.get_active_inodes_cached())
-            result["is_validator"] = await state.is_validator_registered(
-                address)
-        return json_response({"ok": True, "result": result})
+        async def build():
+            state = self.state
+            outputs = await state.get_spendable_outputs(address)
+            stake = await state.get_address_stake(address)
+            result = {
+                "balance": _fmt_amount(sum(o.amount for o in outputs)),
+                "stake": str(stake),
+                "spendable_outputs": [
+                    {"amount": _fmt_amount(o.amount), "tx_hash": o.tx_hash,
+                     "index": o.index} for o in outputs],
+                "pending_transactions": None,
+                "pending_spent_outputs": None,
+                "stake_outputs": None,
+                "delegate_spent_votes": None,
+                "delegate_unspent_votes": None,
+                "inode_registration_outputs": None,
+                "validator_unspent_votes": None,
+                "validator_spent_votes": None,
+                "is_inode": None,
+                "is_inode_active": None,
+                "is_validator": None,
+            }
+            if flag("show_pending"):
+                result["pending_transactions"] = [
+                    await state.get_nice_transaction(
+                        tx.hash(), address if flag("verify") else None)
+                    for tx in await state.get_address_pending_transactions(
+                        address)]
+                result["pending_spent_outputs"] = [
+                    {"tx_hash": h, "index": i} for h, i in
+                    await state.get_address_pending_spent_outpoints(address)]
+            if flag("stake_outputs"):
+                result["stake_outputs"] = out_list(
+                    await state.get_outputs_by_address(
+                        "unspent_outputs", address, is_stake=True))
+            if flag("delegate_spent_votes"):
+                result["delegate_spent_votes"] = vote_list(
+                    await state.get_delegates_spent_votes(address))
+            if flag("delegate_unspent_votes"):
+                result["delegate_unspent_votes"] = out_list(
+                    await state.get_outputs_by_address(
+                        "delegates_voting_power", address))
+            if flag("inode_registration_outputs"):
+                result["inode_registration_outputs"] = out_list(
+                    await state.get_outputs_by_address(
+                        "inode_registration_output", address))
+            if flag("validator_unspent_votes"):
+                result["validator_unspent_votes"] = out_list(
+                    await state.get_outputs_by_address(
+                        "validators_voting_power", address))
+            if flag("validator_spent_votes"):
+                result["validator_spent_votes"] = vote_list(
+                    await state.get_validators_spent_votes(address))
+            if flag("address_state"):
+                is_inode = await state.is_inode_registered(address)
+                result["is_inode"] = is_inode
+                result["is_inode_active"] = is_inode and any(
+                    e.get("wallet") == address
+                    for e in await self.manager.get_active_inodes_cached())
+                result["is_validator"] = await state.is_validator_registered(
+                    address)
+            return {"ok": True, "result": result}
+
+        key = (address,) + tuple(flag(n) for n in _ADDRESS_INFO_FLAGS)
+        return await self._cached(request, "address", key, build)
 
     async def h_get_address_transactions(self, request: Request) -> Response:
         q = request.query
@@ -1067,11 +1321,17 @@ class Node:
             return err
         # the product can pass int64 with both factors clamped
         offset = min((max(page, 1) - 1) * limit, 2 ** 63 - 1)
-        rows = await self.state.get_address_transactions(
-            q.get("address"), limit=limit, offset=offset)
-        return json_response({"ok": True, "result": {"transactions": [
-            await self.state.get_nice_transaction(r["tx_hash"])
-            for r in rows]}})
+        address = q.get("address")
+
+        async def build():
+            rows = await self.state.get_address_transactions(
+                address, limit=limit, offset=offset)
+            return {"ok": True, "result": {"transactions": [
+                await self.state.get_nice_transaction(r["tx_hash"])
+                for r in rows]}}
+
+        return await self._cached(request, "history",
+                                  (address, limit, offset), build)
 
     async def h_dobby_info(self, request: Request) -> Response:
         data = [
@@ -1082,13 +1342,16 @@ class Node:
         return json_response({"ok": True, "result": data}, dumps=_json_dumps)
 
     async def h_get_supply_info(self, request: Request) -> Response:
-        last_block = await self.state.get_last_block()
-        last_id = last_block["id"] if last_block else 0
-        return json_response({"ok": True, "result": {
-            "max_supply": float(MAX_SUPPLY),
-            "circulating_supply": float(get_circulating_supply(last_id)),
-            "last_block": _json_block(last_block),
-        }})
+        async def build():
+            last_block = await self.state.get_last_block()
+            last_id = last_block["id"] if last_block else 0
+            return {"ok": True, "result": {
+                "max_supply": float(MAX_SUPPLY),
+                "circulating_supply": float(get_circulating_supply(last_id)),
+                "last_block": _json_block(last_block),
+            }}
+
+        return await self._cached(request, "supply", (), build)
 
     # ------------------------------------------------------------ peers ---
     async def h_add_node(self, request: Request) -> Response:
@@ -1176,6 +1439,67 @@ class Node:
             "ok": True,
             "result": telemetry.events.snapshot(limit=limit or None,
                                                 kind=kind)})
+
+    async def h_debug_alerts(self, request: Request) -> Response:
+        """The watchtower, read-only: the rule pack, the active alerts
+        with their exemplar trace ids, the transition history and the
+        burn-rate readings; ``{"enabled": false}`` when it is off.  The
+        operator knobs are on POST."""
+        wt = self.watchtower
+        if wt is None:
+            return json_response({"ok": True, "result": {"enabled": False}})
+        result = wt.snapshot()
+        result["enabled"] = True
+        return json_response({"ok": True, "result": result})
+
+    async def h_debug_alerts_post(self, request: Request) -> Response:
+        """The watchtower's operator knobs: ``silence=<key>&seconds=<s>``,
+        ``unsilence=<key>``, ``ack=<key>``, as query parameters or a JSON
+        body (the body wins); answers the snapshot after them with an
+        ``actions`` record of what was applied."""
+        wt = self.watchtower
+        if wt is None:
+            return json_response({"ok": True, "result": {"enabled": False}})
+        q = dict(request.query)
+        if request.body_size:
+            try:
+                body = request.json()
+            except ValueError:
+                return json_response(
+                    {"ok": False, "error": "body must be JSON"}, status=400)
+            if not isinstance(body, dict):
+                return json_response(
+                    {"ok": False, "error": "body must be a JSON object"},
+                    status=400)
+            q.update({k: v for k, v in body.items() if v is not None})
+        actions = {}
+        key = q.get("silence")
+        if key:
+            try:
+                secs = float(q.get("seconds", 300))
+            except (TypeError, ValueError):
+                return json_response(
+                    {"ok": False, "error": "seconds must be a number"},
+                    status=400)
+            wt.silence(str(key), secs)
+            actions["silenced"] = key
+        key = q.get("unsilence")
+        if key:
+            wt.alerts.unsilence(str(key))
+            actions["unsilenced"] = key
+        key = q.get("ack")
+        if key:
+            actions["acked"] = wt.ack(str(key))
+        result = wt.snapshot()
+        result["enabled"] = True
+        if actions:
+            result["actions"] = actions
+        return json_response({"ok": True, "result": result})
+
+    async def h_debug_cache(self, request: Request) -> Response:
+        """The hot read cache: entries and bytes by class, the hit, miss,
+        eviction and coalesce counts, and the generation and its age."""
+        return json_response({"ok": True, "result": self.hotcache.stats()})
 
     async def h_debug_breakers(self, request: Request) -> Response:
         """Each peer's circuit state and EWMA score, what gossip and sync

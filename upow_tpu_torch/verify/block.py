@@ -20,14 +20,16 @@ the dispatch front to the device runtime (``source="block"``, weight 4,
 so a saturating miner cannot starve them), and the fused accept scan is
 one runtime slot a micro-batch (``kernel="accept_fused"``).  The node's
 hooks are here: the mempool GC (``clear_pending_transactions``), the
-``on_pending_removed`` notification, the cached difficulty, and the
+``on_pending_removed`` and ``on_state_committed`` notifications (the
+second is the node's hot read cache's generation bump), the cached
+difficulty, the active-inode cache that the read routes share with the
+accept (which refreshes it from the list its rewards read), and the
 chain-sync page verdicts (``page_sig_verdicts``, set by the node around
 a sync page's accept loop).  With the state's resident UTXO index armed
 (``ChainState.resident_indexes()``), ``check_block`` takes the fused
 accept scan: each micro-batch's outpoints are probed on the index
 (kernel B6) in the same call as its digest batch, and the double-spend
-verdict is read from the probes instead of SQL.  Not ported yet
-(ROADMAP.md): the hot-cache notification and the inode cache.
+verdict is read from the probes instead of SQL.
 
 Rules and quirks are otherwise replicated exactly; citations inline.
 """
@@ -214,6 +216,12 @@ class BlockManager:
         # node points this at Mempool.remove so the in-memory pool drops
         # mined txs at once instead of at the next stamp reconcile.
         self.on_pending_removed = None
+        # hot read cache notification (state/hotcache.py): called with no
+        # arguments after every committed block accept on either path;
+        # the node points it at HotStateCache.bump.  Reorgs reach the
+        # cache through ChainState.on_blocks_removed instead, since sync
+        # calls remove_blocks on the state directly.
+        self.on_state_committed = None
         # one acceptance at a time: check_block suspends (sql, executor
         # dispatch), so two concurrent push_block handlers could both
         # validate against tip N and race the same block id into the
@@ -245,6 +253,10 @@ class BlockManager:
     def _notify_pending_removed(self, hashes: List[str]) -> None:
         if self.on_pending_removed is not None and hashes:
             self.on_pending_removed(hashes)
+
+    def _notify_committed(self) -> None:
+        if self.on_state_committed is not None:
+            self.on_state_committed()
 
     # -------------------------------------------------------- difficulty --
 
@@ -514,6 +526,9 @@ class BlockManager:
          content_difficulty, nonce) = split_block_content(block_content)
 
         active_inodes = await self.state.get_active_inodes()
+        # the read routes' cache takes the list the rewards read
+        self._inode_cache = active_inodes
+        self._inode_cache_time = time.monotonic()
 
         block_reward = get_block_reward(block_no)  # int smallest units
         miner_reward_dec, inode_rewards_dec = get_inode_rewards(
@@ -562,6 +577,7 @@ class BlockManager:
         # a COMMITTED acceptance
         with span("block.mempool_remove"):
             self._notify_pending_removed([tx.hash() for tx in transactions])
+        self._notify_committed()
         self.invalidate_difficulty()
         # first-seen stamp for the fleet propagation tracker: emitted
         # once per node per committed block (timed accept path)
@@ -634,6 +650,7 @@ class BlockManager:
                     await self.state.remove_outputs(transactions)
         with span("block.mempool_remove"):
             self._notify_pending_removed([tx.hash() for tx in transactions])
+        self._notify_committed()
         self.invalidate_difficulty()
         # first-seen stamp, sync-accept path (same semantics as timed)
         event("block_seen", hash=block_hash, height=block_no)
