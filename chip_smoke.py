@@ -258,6 +258,26 @@ Phases, one line each; any failure exits non-zero:
    carry the ``alert_*`` families.  The line prints the frame counts,
    the burst walls with the subscriber connected, the cache's hits and
    misses and the watchtower's evaluations and ``eval_lag_seconds``.
+28. the PostgreSQL backend (``pg``, after phase 15; no process and no
+   chain build added): the port's node in this process on
+   ``PgChainState`` over ``MockPgDriver(threadsafe=True)`` (the card's
+   machine has no asyncpg and no server), injected as the JAX tests
+   inject it, its resident index armed on the card and
+   ``device.txid_backend = device``, with the reference schema's two
+   indexes made in the mock's database.  The 3-block base comes in as a
+   sync page (``create_blocks``); 256 of the block's txs are admitted by
+   ``push_tx`` and must stand in the pg pending table; the 8,160-tx
+   ``push_block`` over HTTP must answer ``{"ok": true}`` with B6, kernel
+   1 and B5 launched, no shadow consult and the pending table empty,
+   and its UTXO and full-state fingerprints must equal phase 15's node's
+   file; the two tampered blocks must be rejected with their strings.
+   B6 is held against its plain version and the three-way parity
+   (probe, shadow map, pg's SQL) must hold after the accept, after
+   ``check_replay_pg`` (which must give ``before == after``) and after
+   ``remove_blocks(4)``, which must restore the pre-accept UTXO hash;
+   then ``python -m upow_tpu_torch.state.reindex --db <phase 15's file>
+   --check`` must exit 0.  The line's walls are host walls on the mock
+   driver over sqlite, not on a PostgreSQL server.
 
 Every path runs through the device runtime (``device/runtime.py``): the
 script arms a fresh runtime before each path, its warm launches before
@@ -278,9 +298,10 @@ HTTP push_block's under complete
 for the complete kernel, ``miner.run``'s for the sha256 search kernel,
 the sync's for the txid kernel, the resident accept's for the probe
 kernel, the 4-shard accept's for the sharded verify and the mesh
-miner's for the mesh search), and the complete kernel's
-``launches_by_path`` gives each path it ran on.  Every phase that can
-reach the txid batch (6, 7, 8, 10, 11, 14, 15, 17, 18, 22 and 25) counts
+miner's for the mesh search), and ``launches_by_path`` gives each path
+it ran on (the complete kernel's; kernel 1's, B5's and B6's with phase
+28's push_block).  Every phase that can
+reach the txid batch (6, 7, 8, 10, 11, 14, 15, 17, 18, 22, 25 and 28) counts
 its txid kernel launches and fails if hashlib stood in for a device
 digest there (``txid.sample_mismatch`` or ``sync.host_txid_retry`` above
 0; in phase 22 read from each node's ``/metrics``).
@@ -347,6 +368,9 @@ from upow_tpu_torch.parallel import mesh as pmesh
 from upow_tpu_torch.resilience import DeviceBlocked, faultinject
 from upow_tpu_torch.logger import setup_logging
 from upow_tpu_torch.state import ChainState, device_index as tdi
+from upow_tpu_torch.state.pg import PG_SCHEMA, PgChainState
+from upow_tpu_torch.state.pgdriver import MockPgDriver
+from upow_tpu_torch.state.reindex import check_replay_pg
 from upow_tpu_torch.telemetry import exposition
 from upow_tpu_torch.verify import BlockManager, txverify
 
@@ -1018,7 +1042,7 @@ class NodeThread:
     peer book beside the database."""
 
     def __init__(self, dev: torch.device, db: str, kernel_env: str,
-                 **overrides):
+                 state=None, **overrides):
         os.environ["UPOW_DEVICE_VERIFY_KERNEL"] = kernel_env
         overrides = {"node__seed_url": "",
                      "node__peers_file": db + ".nodes.json", **overrides}
@@ -1032,10 +1056,10 @@ class NodeThread:
         self.thread = threading.Thread(target=self.loop.run_forever,
                                        daemon=True)
         self.thread.start()
-        self.node = self.call(self._start(dev))
+        self.node = self.call(self._start(dev, state))
 
-    async def _start(self, dev) -> Node:
-        node = Node(self.cfg, device=dev)
+    async def _start(self, dev, state) -> Node:
+        node = Node(self.cfg, state=state, device=dev)
         server = await node.serve()
         self.url = f"http://127.0.0.1:{server.port}/"
         return node
@@ -2682,21 +2706,24 @@ def resident_probe_check(state, sample, where: str) -> dict:
             "max_abs_err": max(err, err_mb)}
 
 
-def resident_parity(state, sample, where: str) -> None:
-    """The resident probe, the shadow map and SQL agree on ``sample``."""
+def resident_parity(state, sample, where: str, sql=None) -> None:
+    """The resident probe, the shadow map and SQL agree on ``sample``;
+    ``sql`` is the backend's own answer (default: the sqlite query)."""
     idx = state.resident_indexes()["unspent_outputs"]
     dev = [bool(v) for v in idx.contains_batch(sample)]
     shadow = [bool(v) for v in idx.shadow_contains_batch(sample)]
-    rows = set()
-    for lo in range(0, len(sample), 400):
-        chunk = sample[lo:lo + 400]
-        rows.update(state.db.execute(
-            "SELECT tx_hash, idx FROM unspent_outputs WHERE (tx_hash, idx)"
-            " IN (VALUES " + ",".join(["(?,?)"] * len(chunk)) + ")",
-            [v for o in chunk for v in o]).fetchall())
-    rows = {tuple(r) for r in rows}
-    sql = [tuple(o) in rows for o in sample]
-    if not dev == shadow == sql:
+    if sql is None:
+        rows = set()
+        for lo in range(0, len(sample), 400):
+            chunk = sample[lo:lo + 400]
+            rows.update(state.db.execute(
+                "SELECT tx_hash, idx FROM unspent_outputs WHERE"
+                " (tx_hash, idx) IN (VALUES "
+                + ",".join(["(?,?)"] * len(chunk)) + ")",
+                [v for o in chunk for v in o]).fetchall())
+        rows = {tuple(r) for r in rows}
+        sql = [tuple(o) in rows for o in sample]
+    if not dev == shadow == list(sql):
         fail(f"resident parity {where}: probe, shadow map and SQL differ")
 
 
@@ -2845,6 +2872,148 @@ def push_block_resident_path(dev: torch.device, kit: Kit, workdir: Path,
     finally:
         node.close()
     return out
+
+
+# --- phase 28: the PostgreSQL backend --------------------------------------
+
+PG_ADMIT = 256              # of the big block's txs admitted by push_tx first
+
+
+def pg_path(dev: torch.device, kit: Kit, workdir: Path, leaves,
+            content: str) -> dict:
+    """The port's node on its PostgreSQL backend: ``PgChainState`` over
+    ``MockPgDriver(threadsafe=True)`` (no server or asyncpg on the card's
+    machine; the node's loop thread makes every driver call), injected
+    into a node served on its own loop thread, the resident index on the
+    card and ``device.txid_backend = device``.  The 3-block base comes in as a sync page; then ``PG_ADMIT`` of
+    the block's txs by ``push_tx``, the 8,160-tx ``push_block`` over
+    HTTP, the tampered blocks, the probe against its plain version and
+    the three-way parity against pg's SQL after the accept, the replay
+    and ``remove_blocks(4)``, ``check_replay_pg``, and the reindex CLI's
+    ``--check`` on the sqlite resident node's file.  Walls are host
+    walls on the mock driver over sqlite, not on a PostgreSQL server."""
+    resident_db = str(workdir / "push_resident.db")
+    ref = ChainState(resident_db)
+    want = asyncio.run(_hashes(ref))
+    ref.close()
+    base = ChainState(str(workdir / "base.db"))
+    page = asyncio.run(base.get_blocks(1, 10))
+    base.close()
+    state = PgChainState(driver=MockPgDriver(threadsafe=True), device=dev)
+    # the reference schema's two indexes (``PG_SCHEMA``'s CREATE INDEX
+    # statements, which ``ensure_schema`` makes on a server), left out of
+    # the mock's sqlite DDL: without them every outpoint DELETE of the
+    # accept, the replay and the reorg scans its whole table
+    for stmt in PG_SCHEMA:
+        if stmt.startswith("CREATE INDEX"):
+            state.drv.execute(stmt)
+    # the digest prep on kernel B5 (``auto`` would hash a micro-batch's
+    # 3,072 payloads with hashlib, below its 16,384 rule)
+    node = NodeThread(dev, str(workdir / "pg.db"), "jac", state=state,
+                      node__db_backend="postgres",
+                      device__txid_backend="device")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        errors = []
+        if not node.call(node.node.create_blocks(page, errors)):
+            fail(f"pg: the base page was not accepted: {errors}")
+        out["load_s"] = time.perf_counter() - t0
+
+        async def arm():
+            state.enable_device_index()
+        t0 = time.perf_counter()
+        node.call(arm())
+        out["arm_s"] = time.perf_counter() - t0
+        pre_hash = node.call(state.get_unspent_outputs_hash())
+
+        admitted = leaves[:PG_ADMIT]
+        t0 = time.perf_counter()
+        replies = asyncio.run(_burst(node.url, [t.hex() for t in admitted]))
+        out["admit_s"] = time.perf_counter() - t0
+        if any(not r.get("ok") for r in replies):
+            fail(f"pg: push_tx refused: {[r for r in replies if not r.get('ok')][:3]}")
+        pending = node.call(state.get_pending_transactions_by_hash(
+            [t.hash() for t in admitted]))
+        if len(pending) != PG_ADMIT:
+            fail(f"pg: {len(pending)} of {PG_ADMIT} admitted txs pending")
+
+        body = {"block_content": content, "txs": [t.hex() for t in leaves]}
+        txverify.clear_sig_verdicts()
+        trace.reset()
+        p256.reset_counts()
+        tsha.reset_counts()
+        tdi.reset_counts()
+        t0 = time.perf_counter()
+        reply = node.request("push_block", body)
+        out["push_s"] = time.perf_counter() - t0
+        out.update(b6=tdi.PROBE_LAUNCHES, jac=p256.LAUNCHES,
+                   b5=tsha.BLOCKS_LAUNCHES,
+                   consults=trace.counters().get("index.shadow_consults", 0))
+        if reply != {"ok": True}:
+            fail(f"pg: push_block: {reply}")
+        if not (out["b6"] and out["jac"] and out["b5"]) or out["consults"]:
+            fail(f"pg: push_block launches and consults: {out}")
+        out["counters"] = host_digest_fallbacks("pg push_block")
+        if node.call(state.get_pending_transactions_count()) != 0:
+            fail("pg: the pending table is not empty after the block")
+        got = node.call(_hashes(state))
+        out["hashes_equal"] = got == want
+        if not out["hashes_equal"]:
+            fail(f"pg: fingerprints {got} != the sqlite node's {want}")
+
+        rejected = []
+        for txs in kit.tampered(leaves):
+            clock.advance(60)
+            header = node.call(kit.header(node.node.manager, txs))
+            reply = node.request("push_block", {
+                "block_content": header, "txs": [t.hex() for t in txs]})
+            rejected.append(reply.get("error"))
+        if rejected != REJECTED:
+            fail(f"pg: tampered blocks: {rejected}")
+
+        sample = [i.outpoint for t in leaves for i in t.inputs] \
+            + [(t.hash(), 0) for t in leaves] + ABSENT
+
+        def parity(where):
+            sql = node.call(state._outpoints_exist_sql(sample,
+                                                       "unspent_outputs"))
+            resident_parity(state, sample, f"pg {where}", sql)
+            return resident_probe_check(state, sample, f"pg {where}")
+
+        out["probe_checks"] = [parity("after the accept")]
+        t0 = time.perf_counter()
+        before, after = node.call(check_replay_pg(state))
+        out["replay_s"] = time.perf_counter() - t0
+        out["replay_equal"] = before == after == got[1]
+        if not out["replay_equal"]:
+            fail(f"pg: check_replay_pg {before} -> {after}")
+        out["probe_checks"].append(parity("after the replay"))
+        t0 = time.perf_counter()
+        node.call(state.remove_blocks(4))
+        out["remove_s"] = time.perf_counter() - t0
+        if node.call(state.get_unspent_outputs_hash()) != pre_hash:
+            fail("pg: remove_blocks(4) did not restore the UTXO hash")
+        out["probe_checks"].append(parity("after remove_blocks(4)"))
+    finally:
+        node.close()
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "upow_tpu_torch.state.reindex", "--db",
+         resident_db, "--check"], capture_output=True, text=True,
+        cwd=str(Path(__file__).resolve().parent), timeout=300)
+    out["reindex_s"] = time.perf_counter() - t0
+    out["reindex_rc"] = cli.returncode
+    if cli.returncode != 0 or not cli.stdout.rstrip().endswith(
+            "OK: live tables match the replay"):
+        fail(f"pg: reindex --check exited {cli.returncode}: "
+             f"{cli.stdout[-400:]} {cli.stderr[-400:]}")
+    return out
+
+
+async def _hashes(state) -> tuple:
+    return (await state.get_unspent_outputs_hash(),
+            await state.get_full_state_hash())
 
 
 # --- phase 7: the hash rate ---------------------------------------------------
@@ -3940,6 +4109,8 @@ def main() -> int:
         pushed_resident = push_block_resident_path(dev, kit, workdir, leaves,
                                                    content)
         fresh_runtime(dev, "push_block_resident")
+        pg = pg_path(dev, kit, workdir, leaves, content)
+        fresh_runtime(dev, "pg_path")
         txid_record = txid_phase(dev, {
             "micro_batch": micro_batch_payloads(leaves),
             "sync_page": page_payloads(str(workdir / "push_jac.db")),
@@ -3970,6 +4141,14 @@ def main() -> int:
             rec["window"]]
     probe_record["launches"] = resident["b6"]
     record["launches"] = res["launches"]
+    # the paths' own counts beside each record's: the HTTP push_block to
+    # the node on the PostgreSQL backend runs B6, kernel 1 and B5
+    probe_record["launches_by_path"] = {"accept_resident": resident["b6"],
+                                        "pg_push_block": pg["b6"]}
+    record["launches_by_path"] = {"main_path": res["launches"],
+                                  "pg_push_block": pg["jac"]}
+    txid_record["launches_by_path"] = {"sync_path": synced["b5"],
+                                       "pg_push_block": pg["b5"]}
     sha_record["launches"] = nres["miner"]["launches"]
     # one path's own count (the 8,160-tx push_block under complete), and
     # each path's count beside it: the paths are reset and read apart
@@ -4169,6 +4348,24 @@ def main() -> int:
           host_txid_retry=pushed_resident["counters"]["sync.host_txid_retry"],
           rejected=json.dumps(pushed_resident["rejected"]),
           card=json.dumps(card))
+    phase("pg", backend="PgChainState over MockPgDriver (sqlite)",
+          txid_backend="device",
+          walls="host, mock driver over sqlite, not a PostgreSQL server",
+          txs=len(leaves), load_s=round(pg["load_s"], 3),
+          arm_s=round(pg["arm_s"], 3), admitted=PG_ADMIT,
+          admit_s=round(pg["admit_s"], 3), push_wall_s=round(pg["push_s"], 3),
+          tx_per_s=round(len(leaves) / pg["push_s"], 1),
+          probe_launches=pg["b6"], jac_launches=pg["jac"],
+          txid_launches=pg["b5"], shadow_consults=pg["consults"],
+          sample_mismatch=pg["counters"]["txid.sample_mismatch"],
+          host_txid_retry=pg["counters"]["sync.host_txid_retry"],
+          hashes_equal_sqlite_resident=pg["hashes_equal"],
+          rejected=json.dumps(REJECTED), parity="accept,replay,reorg",
+          probe_vs_plain=json.dumps(pg["probe_checks"]),
+          replay_equal=pg["replay_equal"], replay_s=round(pg["replay_s"], 3),
+          remove_blocks_s=round(pg["remove_s"], 3),
+          reindex_check_rc=pg["reindex_rc"],
+          reindex_s=round(pg["reindex_s"], 3), card=json.dumps(card))
 
     rate = hashrate_phase(key)
     phase("hashrate", hashes=rate["tried"], seconds=round(rate["seconds"], 4),

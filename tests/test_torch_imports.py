@@ -15,7 +15,8 @@ the port's own WebSocket transport, ``/debug/cache`` after a cache hit
 and ``/debug/alerts`` with the watchtower on); a third builds a
 two-block chain
 on one port node and syncs a second from it over HTTP
-(``node/peers.py``'s client).
+(``node/peers.py``'s client); a fourth runs the port's node on its
+PostgreSQL backend (the mock driver, the index armed on the CPU).
 """
 
 import os
@@ -163,11 +164,68 @@ def sync():
     print("synced")
 
 
+def pg():
+    import asyncio, json, time
+    from decimal import Decimal
+    from upow_tpu_torch.config import Config
+    from upow_tpu_torch.core import clock, curve, difficulty, point_to_string
+    from upow_tpu_torch.core.header import BlockHeader
+    from upow_tpu_torch.core.merkle import merkle_root
+    from upow_tpu_torch.node.app import GENESIS_PREV_HASH, Node
+    from upow_tpu_torch.node.http import fetch
+    from upow_tpu_torch.state.pg import PgChainState
+    from upow_tpu_torch.state.pgdriver import MockPgDriver
+    from upow_tpu_torch.state.reindex import check_replay_pg
+
+    difficulty.START_DIFFICULTY = Decimal("1.0")
+    clock.freeze(int(time.time()) - 600)
+    addr = point_to_string(curve.keygen(rng=7)[1])
+
+    async def main():
+        state = PgChainState(driver=MockPgDriver(), device="cpu")
+        state.enable_device_index()
+        node = Node(Config.load(node__db_backend="postgres",
+                                node__ip_config_file="", node__seed_url="",
+                                node__peers_file=""),
+                    state=state, device="cpu")
+        try:
+            server = await node.serve("127.0.0.1", 0)
+            base = "http://127.0.0.1:%d" % server.port
+            for _ in range(2):
+                clock.advance(60)
+                diff, last = await node.manager.calculate_difficulty()
+                prev = last["hash"] if last else GENESIS_PREV_HASH
+                h = BlockHeader(previous_hash=prev, address=addr,
+                                merkle_root=merkle_root([]),
+                                timestamp=clock.timestamp(),
+                                difficulty_x10=int(diff * 10), nonce=0)
+                while last and not difficulty.check_pow(h.hex(), prev, diff):
+                    h.nonce += 1
+                if not last:  # the genesis block, as a sync takes it
+                    assert await node.manager.create_block(h.hex(), [])
+                    continue
+                status, body = await fetch(
+                    base + "/push_block", "POST",
+                    json.dumps({"block_content": h.hex(), "txs": []}).encode())
+                assert json.loads(body) == {"ok": True}, body
+            status, body = await fetch(base + "/get_block?block=2")
+            assert json.loads(body)["result"]["block"]["id"] == 2, body
+            assert state.index_stats()["entries"] == 2
+            before, after = await check_replay_pg(state)
+            assert before == after
+        finally:
+            await node.close()
+    asyncio.run(main())
+    print("pg served")
+
+
 for name in sys.argv[1:]:
     if name == "--serve":
         serve()
     elif name == "--sync":
         sync()
+    elif name == "--pg":
+        pg()
     else:
         importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -206,7 +264,8 @@ def test_every_port_module_imports_without_jax():
                  "state.hotcache", "ws", "ws.hub", "watchtower",
                  "watchtower.alerts", "watchtower.burnrate",
                  "watchtower.detectors", "watchtower.engine",
-                 "watchtower.benchlog", "watchtower.__main__"):
+                 "watchtower.benchlog", "watchtower.__main__", "state.pg",
+                 "state.pgdriver", "state.reindex"):
         assert "upow_tpu_torch." + must in names, must
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(
@@ -232,6 +291,18 @@ def test_port_node_syncs_without_jax_or_aiohttp():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "synced" in out.stdout
+
+
+def test_port_node_serves_on_pg_without_jax_or_aiohttp():
+    """The port's node on its PostgreSQL backend (the mock driver, the
+    resident index armed on the CPU): a block accepted, one pushed, a
+    read and the replay check."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKER, "--pg"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "pg served" in out.stdout
 
 
 def test_port_sources_name_no_jax_import():

@@ -8,8 +8,7 @@ JSON config file, ``UPOW_<SECTION>_<FIELD>`` environment variables
 package's names and precedence, so a config file or environment that the
 JAX node reads configures the port's node the same way.  Sections and
 fields the port does not read yet (the ``miner``, ``snapshot`` and
-``archive`` sections, the node's
-``db_backend`` and ``pg_dsn``, ``device.device``, ``device.search_backend``,
+``archive`` sections, ``device.device``, ``device.search_backend``,
 ``device_runtime.compile_cache_dir`` and ``mempool.allow_rbf``) come with
 the slices that read them (ROADMAP.md); a config file naming them is
 read, and they are skipped.  So is
@@ -314,7 +313,11 @@ class ResilienceConfig:
 class NodeConfig:
     host: str = "0.0.0.0"
     port: int = 3006                # reference run_node.py port
+    db_backend: str = "sqlite"      # sqlite | postgres
     db_path: str = "upow_tpu.db"    # sqlite file ('' -> in-memory)
+    pg_dsn: str = ""                # postgres DSN (db_backend=postgres):
+                                    # an existing uPow database
+                                    # (schema.sql); needs asyncpg
     seed_url: str = DEFAULT_SEED_URL  # the peer a fresh book starts from
     peers_file: str = "nodes.json"  # the peer book ('' -> not saved)
     ip_config_file: str = "ip_config.json"

@@ -21,6 +21,11 @@ POST JSON body, and the middleware's IP filter, path normalisation, rate
 limits and 403/422/429/500 envelopes.  ``/`` carries this process's
 span stats and counters (``trace.stats()``, ``trace.counters()``).
 
+The chain state is ``node.db_backend``'s: ``"sqlite"`` (the default, a
+:class:`~..state.storage.ChainState` on ``node.db_path``) or
+``"postgres"`` (a :class:`~..state.pg.PgChainState` on ``node.pg_dsn``,
+which needs asyncpg), as in the JAX node.
+
 The read routes serve through the hot read cache
 (:mod:`..state.hotcache`, ``cache.*``): the encoded body is stored under
 a generation that every committed write advances (a block accept, a
@@ -213,9 +218,31 @@ class Node:
         self.config.device.apply_kernel_overrides()
         self.device = resolve(device)
         dcfg = self.config.device
-        self.state = state if state is not None else ChainState(
-            self.config.node.db_path or None, device_index=dcfg.utxo_index,
-            device=self.device)
+        backend = self.config.node.db_backend
+        if state is not None:
+            # injected backend (tests and chip_smoke.py: the pg backend
+            # over the mock driver)
+            self.state = state
+        elif backend == "postgres":
+            # an existing uPow PostgreSQL database (schema.sql) through
+            # asyncpg; without asyncpg this raises, never falls back
+            from ..state.pg import PgChainState
+
+            self.state = PgChainState(
+                self.config.node.pg_dsn,
+                # the reference's sidecar file name (pickledb)
+                emission_path="emission_details.json", device=self.device)
+            self.state.ensure_schema()
+            if dcfg.utxo_index:
+                self.state.enable_device_index()
+        elif backend == "sqlite":
+            self.state = ChainState(
+                self.config.node.db_path or None,
+                device_index=dcfg.utxo_index, device=self.device)
+        else:
+            raise ValueError(
+                f"node.db_backend must be 'sqlite' or 'postgres', not"
+                f" {backend!r}")
         self.manager = BlockManager(
             self.state, device=self.device,
             verify_mesh_devices=dcfg.mesh_devices,

@@ -736,11 +736,6 @@ class ChainState(StateViews):
         ]
         return out
 
-    async def get_block_nice_transactions(self, block_hash: str) -> List[dict]:
-        nice = [await self.get_nice_transaction(h)
-                for h in await self.get_block_transaction_hashes(block_hash)]
-        return [t for t in nice if t is not None]
-
     # ------------------------------------------------------------ mempool --
 
     async def add_pending_transaction(self, tx: Tx) -> int:
@@ -1008,6 +1003,10 @@ class ChainState(StateViews):
             found.update((r["tx_hash"], r["idx"]) for r in rows)
         return [tuple(o) in found for o in outpoints]
 
+    async def get_unspent_outpoints(self, table: str = "unspent_outputs") -> set:
+        rows = self.db.execute(f"SELECT tx_hash, idx FROM {table}").fetchall()
+        return {(r["tx_hash"], r["idx"]) for r in rows}
+
     async def get_table_outpoints_hash(self, table: str) -> str:
         import hashlib
 
@@ -1154,6 +1153,12 @@ class ChainState(StateViews):
         return await self._table_outpoints(
             "delegates_voting_power", address, check_pending_txs)
 
+    async def get_validators_voting_power(self, address: str,
+                                          check_pending_txs: bool = False) -> List[Tuple[str, int]]:
+        """Unspent VALIDATOR_VOTING_POWER outputs owned by the address."""
+        return await self._table_outpoints(
+            "validators_voting_power", address, check_pending_txs)
+
     async def get_inode_registration_outputs(self, address: str,
                                              check_pending_txs: bool = False) -> List[Tuple[str, int]]:
         return await self._table_outpoints(
@@ -1242,3 +1247,22 @@ class ChainState(StateViews):
                 "vote": Decimal(r["amount"]) / SMALLEST,
             })
         return out
+
+    # ----------------------------------------------------------- rebuild --
+
+    async def rebuild_utxos(self) -> None:
+        """Full-chain replay of every output table from the transactions log
+        (reference create_unspent_outputs.py + database.py:846-862) — the
+        consensus-bug detector: any divergence from live tables is a bug."""
+        for table in ("unspent_outputs",) + _GOV_TABLES:
+            self.db.execute(f"DELETE FROM {table}")
+        rows = self.db.execute(
+            "SELECT t.tx_hex FROM transactions t JOIN blocks b ON"
+            " b.hash = t.block_hash ORDER BY b.id"
+        ).fetchall()
+        txs = [tx_from_hex(r["tx_hex"], check_signatures=False) for r in rows]
+        for tx in txs:
+            await self.add_transaction_outputs([tx])
+            await self.remove_outputs([tx])
+        self._commit()
+        self._index_rebuild()  # replay rewrote the tables wholesale

@@ -1,11 +1,18 @@
 """Chain-state views over the storage primitives.
 
 The consensus-critical read logic — the active-inode vote cascade,
-stake aggregation, fee math, UTXO fingerprints — kept apart from the
-sqlite primitives of :class:`.storage.ChainState`, as the JAX package
-keeps it (there it is shared with a PostgreSQL backend, which the port
-does not have yet).  The views here are the ones block acceptance, its
-rule checks and the node's explorer, address and governance routes call.
+stake aggregation, fee math, UTXO fingerprints — is identical whatever
+engine holds the tables.  :class:`StateViews` keeps that logic in ONE
+place over a small set of storage primitives, which each backend
+implements in its own dialect, as in the JAX package:
+
+* :class:`.storage.ChainState` — sqlite (denormalized amounts, JSON
+  address arrays),
+* :class:`.pg.PgChainState` — PostgreSQL, byte-exact to the reference's
+  ``schema.sql``.
+
+The views here are the ones block acceptance, its rule checks and the
+node's explorer, address and governance routes call.
 
 Primitives the storage class provides:
     get_transaction_info, get_output_amount, get_registered,
@@ -13,7 +20,8 @@ Primitives the storage class provides:
     get_delegates_voting_power, get_pending_spent_outpoints,
     _pending_decoded, get_transaction_block_timestamp,
     get_table_outpoints_hash, resolve_output_address, add_transactions,
-    get_stake_outputs, get_ballot_by_recipient.
+    get_stake_outputs, get_ballot_by_recipient, get_nice_transaction,
+    get_block_transaction_hashes.
 
 Every method cites its reference counterpart.
 """
@@ -289,6 +297,17 @@ class StateViews:
             if first == address:
                 out.append(tx)
         return out
+
+    # ---------------------------------------------------- explorer views --
+
+    async def get_block_nice_transactions(self, block_hash: str) -> List[dict]:
+        # a tx can vanish between the hash listing and the per-tx lookup
+        # under a concurrent reorg: drop the None, never embed null
+        nice = [
+            await self.get_nice_transaction(h)
+            for h in await self.get_block_transaction_hashes(block_hash)
+        ]
+        return [t for t in nice if t is not None]
 
     # ---------------------------------------------------------- emission --
 
