@@ -278,6 +278,34 @@ Phases, one line each; any failure exits non-zero:
    then ``python -m upow_tpu_torch.state.reindex --db <phase 15's file>
    --check`` must exit 0.  The line's walls are host walls on the mock
    driver over sqlite, not on a PostgreSQL server.
+29. the wallet (``wallet_path``, after phase 7; no chain build added): a
+   port node on a fresh copy of the chain's file, ``device.sig_backend =
+   device``, in a work directory whose ``key_pair_list.json`` holds the
+   chain's key (the script changes into it for the phase and back; no
+   keystore is written into the repo).  64 ``/send_to_address``
+   requests from localhost, one after another, to a fresh address must
+   each answer ``{"ok": true}``; then one ``python -m
+   upow_tpu_torch.wallet.cli send`` in a subprocess (``--db`` the node's
+   file, ``--node`` its URL) and one ``NodelessWallet.send`` to the node
+   must be accepted.  The pool must hold all 66, admitted with kernel-1
+   launches and no batch served on the host; ``miner.run(device="cuda",
+   once=True)`` must get a block of the 66 accepted with B2 launched,
+   and the recipient's ``get_address_info`` balance must be the sum
+   sent.  Host walls.
+30. snapshots (``snapshot``, after phase 15; no chain build added): node
+   S serves a copy of phase 15's file (the chain with the 8,160-tx
+   block) with ``snapshot.dir`` set and builds one generation of 64 KiB
+   chunks; node R starts on an empty file with ``device.utxo_index`` on,
+   ``device.txid_backend = device`` and its own ``snapshot.dir`` and
+   restores with ``bootstrap_from_snapshot(sources=[S])`` over HTTP.
+   The result must be a snapshot restore (not ``replay_fallback``), R's
+   UTXO and full-state fingerprints S's, and R's index, rebuilt on the
+   card inside the restore, must hold against its plain version and
+   against R's SQL (probe, shadow map, SQL); R must reject the two
+   tampered blocks with their strings; an honest block of 1,024 spends
+   of the big block's outputs, mined on R's tip, must be accepted by R
+   (B6, kernel 1 and B5 launched, no shadow consult) and by S, to equal
+   UTXO hashes.  Host walls: the build's, the restore's and the re-arm's.
 
 Every path runs through the device runtime (``device/runtime.py``): the
 script arms a fresh runtime before each path, its warm launches before
@@ -300,8 +328,9 @@ the sync's for the txid kernel, the resident accept's for the probe
 kernel, the 4-shard accept's for the sharded verify and the mesh
 miner's for the mesh search), and ``launches_by_path`` gives each path
 it ran on (the complete kernel's; kernel 1's, B5's and B6's with phase
-28's push_block).  Every phase that can
-reach the txid batch (6, 7, 8, 10, 11, 14, 15, 17, 18, 22, 25 and 28) counts
+28's push_block and phase 30's honest block on the restored node; kernel
+1's and B2's with phase 29's sends and block).  Every phase that can
+reach the txid batch (6, 7, 8, 10, 11, 14, 15, 17, 18, 22, 25, 28 and 30) counts
 its txid kernel launches and fails if hashlib stood in for a device
 digest there (``txid.sample_mismatch`` or ``sync.host_txid_retry`` above
 0; in phase 22 read from each node's ``/metrics``).
@@ -343,7 +372,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from urllib.parse import quote
+from decimal import Decimal
+from urllib.parse import quote, urlencode
 
 import numpy as np
 import torch
@@ -373,6 +403,7 @@ from upow_tpu_torch.state.pgdriver import MockPgDriver
 from upow_tpu_torch.state.reindex import check_replay_pg
 from upow_tpu_torch.telemetry import exposition
 from upow_tpu_torch.verify import BlockManager, txverify
+from upow_tpu_torch.wallet.nodeless import NodelessWallet
 
 KERNELS = ["p256_verify", "p256_verify_wide", "p256_complete",
            "sha256_search", "sha256_blocks", "utxo_probe"]
@@ -2874,6 +2905,216 @@ def push_block_resident_path(dev: torch.device, kit: Kit, workdir: Path,
     return out
 
 
+# --- phases 29 and 30: the wallet and snapshots ---------------------------
+
+WALLET_SENDS = 64           # sequential /send_to_address requests
+WALLET_AMOUNT = "0.0005"    # each send; a mid output (73,529 units) covers it
+WALLET_DEST_SEED = 0x5E7D   # the recipient's key
+SNAPSHOT_CHUNK = 1 << 16    # chunk bytes of the restore's generation
+HONEST = 1024               # spends of the big block's outputs on R's tip
+
+
+def wallet_path(dev: torch.device, kit: Kit, workdir: Path) -> dict:
+    """The wallet against the port's node on a fresh copy of the chain's
+    file: ``/send_to_address`` x 64, the wallet CLI and the nodeless
+    wallet, then the miner's block of the 66."""
+    wdir = workdir / "wallet"
+    wdir.mkdir()
+    db = str(wdir / "wallet.db")
+    shutil.copyfile(workdir / "base.db", db)
+    keys = wdir / "key_pair_list.json"
+    keys.write_text(json.dumps(
+        {"keys": [{"private_key": kit.d, "public_key": kit.addr}]}))
+    dest = point_to_string(curve.keygen(rng=WALLET_DEST_SEED)[1])
+    host_batches = []
+    real_host_batch = txverify._host_batch
+
+    def host_batch(*args, **kw):
+        host_batches.append(len(args[0]))
+        return real_host_batch(*args, **kw)
+    here = os.getcwd()
+    os.chdir(wdir)  # the node's KeyStore() reads the working directory
+    txverify._host_batch = host_batch
+    node = None
+    try:
+        node = NodeThread(dev, db, "jac", device__sig_backend="device")
+        txverify.clear_sig_verdicts()
+        trace.reset()
+        p256.reset_counts()
+        out = {}
+        t0 = time.perf_counter()
+        for k in range(WALLET_SENDS):
+            _status, raw = asyncio.run(fetch(
+                node.url + "send_to_address?" + urlencode(
+                    {"to_address": dest, "amount": WALLET_AMOUNT}),
+                headers={"Authorization": kit.addr}))
+            reply = json.loads(raw)
+            if not reply.get("ok"):
+                fail(f"wallet: send {k}: {reply}")
+        out["sends_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "upow_tpu_torch.wallet.cli", "send",
+             "-to", dest, "-a", WALLET_AMOUNT, "--wallet", str(keys),
+             "--db", db, "--node", node.url],
+            capture_output=True, text=True, cwd=str(wdir), timeout=300,
+            env=dict(os.environ, PYTHONPATH=str(
+                Path(__file__).resolve().parent)))
+        out["cli_s"] = time.perf_counter() - t0
+        if cli.returncode != 0 or "Transaction pushed." not in cli.stdout:
+            fail(f"wallet: cli send exited {cli.returncode}: "
+                 f"{cli.stdout[-400:]} {cli.stderr[-400:]}")
+        t0 = time.perf_counter()
+        asyncio.run(NodelessWallet(node.url).send(kit.d, dest,
+                                                  WALLET_AMOUNT))
+        out["nodeless_s"] = time.perf_counter() - t0
+        out.update(jac=p256.LAUNCHES, host_batches=len(host_batches),
+                   pool=len(node.node.pool),
+                   intake_batches=sum(node.node.intake.batch_sizes.values()))
+        if out["pool"] != WALLET_SENDS + 2 or out["jac"] == 0 \
+                or host_batches:
+            fail(f"wallet: pool and launches {out}")
+
+        clock.advance(60)
+        tsha.reset_counts()
+        t0 = time.perf_counter()
+        rc = miner.run(kit.addr, node.url, "cuda", SEARCH_BATCH, 90.0,
+                       once=True)
+        out["miner_s"] = time.perf_counter() - t0
+        out["b2"] = tsha.LAUNCHES
+        tip = node.call(node.node.state.get_last_block())
+        taken = len(node.call(node.node.state.get_block_transactions(
+            tip["hash"]))) - 1
+        info = node.request(f"get_address_info?address={dest}")["result"]
+        out.update(height=tip["id"], block_txs=taken,
+                   balance=str(info["balance"]))
+        want = Decimal(WALLET_AMOUNT) * (WALLET_SENDS + 2)
+        if rc != 0 or taken != WALLET_SENDS + 2 or out["b2"] == 0 \
+                or Decimal(str(info["balance"])) != want:
+            fail(f"wallet: miner.run rc {rc}, {out}, want {want}")
+        host_digest_fallbacks("wallet_path")
+    finally:
+        txverify._host_batch = real_host_batch
+        if node is not None:
+            node.close()
+        os.chdir(here)
+    return out
+
+
+def snapshot_path(dev: torch.device, kit: Kit, workdir: Path,
+                  leaves) -> dict:
+    """Node S builds a generation of phase 15's chain; node R, blank,
+    with its index on the card, restores from S over HTTP, holds its
+    index against its SQL, rejects the tampered blocks and accepts an
+    honest block on its tip, as S does."""
+    src = str(workdir / "snap_source.db")
+    shutil.copyfile(workdir / "push_resident.db", src)
+    out = {}
+    source = NodeThread(dev, src, "jac",
+                        snapshot__dir=str(workdir / "snap_s"),
+                        snapshot__chunk_bytes=SNAPSHOT_CHUNK,
+                        node__rate_limits_enabled=False)
+    restored = None
+    try:
+        t0 = time.perf_counter()
+        manifest = source.call(source.node.build_snapshot())
+        out.update(build_s=time.perf_counter() - t0,
+                   chunks=len(manifest["chunks"]),
+                   bytes=manifest["payload_bytes"])
+        want = source.call(_hashes(source.node.state))
+        restored = NodeThread(dev, str(workdir / "snap_r.db"), "jac",
+                              snapshot__dir=str(workdir / "snap_r"),
+                              device__utxo_index=True,
+                              device__txid_backend="device")
+        state = restored.node.state
+        if state.index_stats()["entries"] != 0:
+            fail("snapshot: R's index is not empty before the restore")
+        rearm = []
+        build_index = state._build_index
+
+        def timed_build():
+            t = time.perf_counter()
+            fresh = build_index()
+            rearm.append(time.perf_counter() - t)
+            return fresh
+        state._build_index = timed_build
+        t0 = time.perf_counter()
+        res = restored.call(restored.node.bootstrap_from_snapshot(
+            sources=[source.url.rstrip("/")]))
+        out["restore_s"] = time.perf_counter() - t0
+        state._build_index = build_index
+        out["rearm_s"] = sum(rearm)
+        if res.get("method") != "snapshot" or res.get("chunks") != \
+                out["chunks"] or len(rearm) != 1:
+            fail(f"snapshot: bootstrap {res}, re-arms {len(rearm)}")
+        got = restored.call(_hashes(state))
+        if got != want:
+            fail(f"snapshot: R's fingerprints {got} != S's {want}")
+        sample = [i.outpoint for t in leaves for i in t.inputs] \
+            + [(t.hash(), 0) for t in leaves] + ABSENT
+
+        async def parity(where):
+            resident_parity(state, sample, where)
+            return resident_probe_check(state, sample, where)
+        out["probe_check"] = restored.call(parity("after the restore"))
+        rows = restored.call(_row_counts(state))
+        entries = {t: index.stats()["entries"]
+                   for t, index in state.resident_indexes().items()}
+        if entries != rows:
+            fail(f"snapshot: R's index entries {entries}, rows {rows}")
+
+        rejected = []
+        for txs in kit.tampered(leaves):
+            clock.advance(60)
+            header = restored.call(kit.header(restored.node.manager, txs))
+            reply = restored.request("push_block", {
+                "block_content": header, "txs": [t.hex() for t in txs]})
+            rejected.append(reply.get("error"))
+        if rejected != REJECTED:
+            fail(f"snapshot: tampered blocks to R: {rejected}")
+        honest = [kit.spend([(t.hash(), 0)], [TxOutput(kit.addr,
+                                                      t.outputs[0].amount)])
+                  for t in leaves[:HONEST]]
+        clock.advance(60)
+        content = restored.call(kit.header(restored.node.manager, honest))
+        body = {"block_content": content, "txs": [t.hex() for t in honest]}
+        txverify.clear_sig_verdicts()
+        trace.reset()
+        p256.reset_counts()
+        tsha.reset_counts()
+        tdi.reset_counts()
+        t0 = time.perf_counter()
+        reply = restored.request("push_block", body)
+        out["push_s"] = time.perf_counter() - t0
+        out.update(b6=tdi.PROBE_LAUNCHES, jac=p256.LAUNCHES,
+                   b5=tsha.BLOCKS_LAUNCHES,
+                   consults=trace.counters().get("index.shadow_consults", 0))
+        if reply != {"ok": True} or not (out["b6"] and out["jac"]
+                                         and out["b5"]) or out["consults"]:
+            fail(f"snapshot: honest block to R: {reply} {out}")
+        host_digest_fallbacks("snapshot, the restored node's block")
+        reply = source.request("push_block", body)
+        if reply != {"ok": True}:
+            fail(f"snapshot: honest block to S: {reply}")
+        ends = [restored.call(state.get_unspent_outputs_hash()),
+                source.call(source.node.state.get_unspent_outputs_hash())]
+        if ends[0] != ends[1]:
+            fail(f"snapshot: R and S differ after the honest block {ends}")
+        out["probe_check_after"] = restored.call(parity(
+            "after the honest block"))
+    finally:
+        if restored is not None:
+            restored.close()
+        source.close()
+    return out
+
+
+async def _row_counts(state) -> dict:
+    """Rows of every UTXO-class table, by table."""
+    return {t: len(await state.export_snapshot_rows(t))
+            for t in state.resident_indexes()}
+
+
 # --- phase 28: the PostgreSQL backend --------------------------------------
 
 PG_ADMIT = 256              # of the big block's txs admitted by push_tx first
@@ -4100,7 +4341,9 @@ def main() -> int:
         msearch = mesh_search_phase(dev, kit, workdir)
         fresh_runtime(dev, "mesh_search")
         nres = node_path(dev, kit, workdir, leaves)
-        pushes, last = {}, "node_path"
+        fresh_runtime(dev, "node_path")
+        wal = wallet_path(dev, kit, workdir)
+        pushes, last = {}, "wallet_path"
         for k in ("complete", "jac"):
             fresh_runtime(dev, last)
             pushes[k] = push_block_path(dev, kit, workdir, leaves, content, k)
@@ -4109,6 +4352,8 @@ def main() -> int:
         pushed_resident = push_block_resident_path(dev, kit, workdir, leaves,
                                                    content)
         fresh_runtime(dev, "push_block_resident")
+        snap = snapshot_path(dev, kit, workdir, leaves)
+        fresh_runtime(dev, "snapshot")
         pg = pg_path(dev, kit, workdir, leaves, content)
         fresh_runtime(dev, "pg_path")
         txid_record = txid_phase(dev, {
@@ -4144,12 +4389,18 @@ def main() -> int:
     # the paths' own counts beside each record's: the HTTP push_block to
     # the node on the PostgreSQL backend runs B6, kernel 1 and B5
     probe_record["launches_by_path"] = {"accept_resident": resident["b6"],
-                                        "pg_push_block": pg["b6"]}
+                                        "pg_push_block": pg["b6"],
+                                        "snapshot_restored_block": snap["b6"]}
     record["launches_by_path"] = {"main_path": res["launches"],
-                                  "pg_push_block": pg["jac"]}
+                                  "pg_push_block": pg["jac"],
+                                  "wallet_sends": wal["jac"],
+                                  "snapshot_restored_block": snap["jac"]}
     txid_record["launches_by_path"] = {"sync_path": synced["b5"],
-                                       "pg_push_block": pg["b5"]}
+                                       "pg_push_block": pg["b5"],
+                                       "snapshot_restored_block": snap["b5"]}
     sha_record["launches"] = nres["miner"]["launches"]
+    sha_record["launches_by_path"] = {"miner_run": nres["miner"]["launches"],
+                                      "wallet_block": wal["b2"]}
     # one path's own count (the 8,160-tx push_block under complete), and
     # each path's count beside it: the paths are reset and read apart
     complete_record["launches"] = pushes["complete"]["complete"]
@@ -4205,6 +4456,16 @@ def main() -> int:
           complete_launches=mined["complete"],
           txid_launches=mined["txid_launches"],
           seconds=round(mined["run_s"], 3))
+    phase("wallet_path", walls="host", sends=WALLET_SENDS,
+          amount=WALLET_AMOUNT, sends_s=round(wal["sends_s"], 3),
+          s_a_send=round(wal["sends_s"] / WALLET_SENDS, 4),
+          cli_send_s=round(wal["cli_s"], 3),
+          nodeless_send_s=round(wal["nodeless_s"], 3), pool=wal["pool"],
+          intake_batches=wal["intake_batches"], jac_launches=wal["jac"],
+          host_batches=wal["host_batches"], mined_height=wal["height"],
+          block_txs=wal["block_txs"], miner_s=round(wal["miner_s"], 3),
+          b2_launches=wal["b2"], recipient_balance=wal["balance"],
+          card=json.dumps(card))
     for kernel, out in pushes.items():
         busy = out["device"].get("busy_s")
         phase(f"node_push_block_{kernel}", txs=len(leaves),
@@ -4347,6 +4608,18 @@ def main() -> int:
           sample_mismatch=pushed_resident["counters"]["txid.sample_mismatch"],
           host_txid_retry=pushed_resident["counters"]["sync.host_txid_retry"],
           rejected=json.dumps(pushed_resident["rejected"]),
+          card=json.dumps(card))
+    phase("snapshot", walls="host", chunk_bytes=SNAPSHOT_CHUNK,
+          build_s=round(snap["build_s"], 3), chunks=snap["chunks"],
+          payload_bytes=snap["bytes"], restore_s=round(snap["restore_s"], 3),
+          rearm_s=round(snap["rearm_s"], 4),
+          method="snapshot", fingerprints_equal=True,
+          probe_vs_plain=json.dumps([snap["probe_check"],
+                                     snap["probe_check_after"]]),
+          rejected=json.dumps(REJECTED), honest_txs=HONEST,
+          honest_push_s=round(snap["push_s"], 3),
+          probe_launches=snap["b6"], jac_launches=snap["jac"],
+          txid_launches=snap["b5"], shadow_consults=snap["consults"],
           card=json.dumps(card))
     phase("pg", backend="PgChainState over MockPgDriver (sqlite)",
           txid_backend="device",

@@ -7,12 +7,12 @@ the JAX schema that the port does not read yet is skipped; any other key
 raises the JAX package's ``KeyError`` (``unknown config section <s>``,
 ``unknown config field <s>.<f>``), in a file and in an override alike.
 The peer, gossip, resilience, degrade, device-runtime, log, telemetry,
-profiling, read-cache, ``/ws`` and watchtower fields of the port's
-``NodeConfig``, ``ResilienceConfig``, ``DeviceConfig``,
-``DeviceRuntimeConfig``, ``LogConfig``, ``TelemetryConfig``,
-``ProfilingConfig``, ``CacheConfig``, ``WsConfig`` and
-``WatchtowerConfig`` are held one by one, from a file and from
-``UPOW_<SECTION>_<FIELD>``.
+profiling, read-cache, ``/ws``, watchtower, replace-by-fee and snapshot
+fields of the port's ``NodeConfig``, ``ResilienceConfig``,
+``DeviceConfig``, ``DeviceRuntimeConfig``, ``LogConfig``,
+``TelemetryConfig``, ``ProfilingConfig``, ``CacheConfig``, ``WsConfig``,
+``WatchtowerConfig``, ``MempoolConfig`` and ``SnapshotConfig`` are held
+one by one, from a file and from ``UPOW_<SECTION>_<FIELD>``.
 """
 
 import dataclasses
@@ -108,6 +108,17 @@ NEW_FIELDS = [
     ("watchtower", "stuck_height_deadline", 30.0, "30"),
     ("watchtower", "history", 8, "8"),
     ("watchtower", "bench_events", "events.jsonl", "events.jsonl"),
+    ("mempool", "allow_rbf", True, "1"),
+    ("snapshot", "dir", "snapshots", "snapshots"),
+    ("snapshot", "chunk_bytes", 4096, "4096"),
+    ("snapshot", "blocks_tail", 8, "8"),
+    ("snapshot", "keep", 3, "3"),
+    ("snapshot", "chunk_retries", 0, "0"),
+    ("snapshot", "max_chunks", 64, "64"),
+    ("snapshot", "max_chunk_bytes", 1024, "1024"),
+    ("snapshot", "max_payload_bytes", 65536, "65536"),
+    ("snapshot", "rebuild_interval_blocks", 10, "10"),
+    ("snapshot", "rebuild_jitter_blocks", 4, "4"),
 ]
 
 
@@ -145,6 +156,8 @@ def _both(tmp_path, data=None, **overrides):
     ({"bogus": {"x": 1}}, "'unknown config section bogus'"),
     ({"node": {"port": 3007}, "mempool": {"nope": 1}},
      "'unknown config field mempool.nope'"),
+    ({"snapshot": {"dir": "s", "nope": 1}},
+     "'unknown config field snapshot.nope'"),
 ])
 def test_unknown_key_in_a_file_raises_the_jax_error(tmp_path, data, error):
     assert _both(tmp_path, data) == ("KeyError", error)
@@ -152,6 +165,8 @@ def test_unknown_key_in_a_file_raises_the_jax_error(tmp_path, data, error):
 
 @pytest.mark.parametrize("overrides, want", [
     ({"node__prot": 3007}, ("KeyError", "'unknown config field node__prot'")),
+    ({"snapshot__nope": 1},
+     ("KeyError", "'unknown config field snapshot__nope'")),
     ({"bogus__x": 1},
      ("AttributeError", "'Config' object has no attribute 'bogus'")),
 ])
@@ -163,11 +178,11 @@ def test_unknown_override_raises_the_jax_error(tmp_path, overrides, want):
 @pytest.mark.parametrize("section, field, value", [
     ("miner", "workers", 2),
     ("archive", "dir", "archive"),
-    ("mempool", "allow_rbf", True),
+    ("archive", "segment_blocks", 5),
     ("mempool", "enabled", False),
     ("device_runtime", "compile_cache_dir", "cache"),
     ("device", "search_backend", "jnp"),
-    ("snapshot", "dir", "snapshots"),
+    ("miner", "node_url", "http://127.0.0.1:3006"),
 ])
 def test_known_key_the_port_does_not_read_is_skipped(tmp_path, how, section,
                                                      field, value):

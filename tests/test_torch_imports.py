@@ -16,7 +16,9 @@ and ``/debug/alerts`` with the watchtower on); a third builds a
 two-block chain
 on one port node and syncs a second from it over HTTP
 (``node/peers.py``'s client); a fourth runs the port's node on its
-PostgreSQL backend (the mock driver, the index armed on the CPU).
+PostgreSQL backend (the mock driver, the index armed on the CPU); a
+fifth drives the wallet (``/send_to_address``, the nodeless wallet and
+the CLI) and a snapshot built on one node and restored into another.
 """
 
 import os
@@ -219,9 +221,87 @@ def pg():
     print("pg served")
 
 
+def wallet_snapshot():
+    import asyncio, json, os, tempfile, time
+    from decimal import Decimal
+    from urllib.parse import urlencode
+    from upow_tpu_torch.config import Config
+    from upow_tpu_torch.core import clock, curve, difficulty, point_to_string
+    from upow_tpu_torch.core.header import BlockHeader
+    from upow_tpu_torch.core.merkle import merkle_root
+    from upow_tpu_torch.node.app import GENESIS_PREV_HASH, Node
+    from upow_tpu_torch.node.http import fetch
+    from upow_tpu_torch.wallet import KeyStore, cli, nodeless
+
+    difficulty.START_DIFFICULTY = Decimal("1.0")
+    clock.freeze(int(time.time()) - 6000)
+    work = tempfile.mkdtemp()
+    os.chdir(work)
+    d, pub = curve.keygen(rng=11)
+    addr = point_to_string(pub)
+    with open("key_pair_list.json", "w") as fh:
+        json.dump({"keys": [{"private_key": d, "public_key": addr}]}, fh)
+
+    async def main():
+        nodes = [Node(Config.load(
+            node__db_path=os.path.join(work, "n%d.db" % i),
+            node__ip_config_file="", node__seed_url="",
+            node__peers_file="", node__rate_limits_enabled=False,
+            snapshot__dir=os.path.join(work, "snap%d" % i),
+            snapshot__chunk_bytes=512, device__utxo_index=True),
+            device="cpu") for i in range(2)]
+        try:
+            urls = []
+            for node in nodes:
+                server = await node.serve("127.0.0.1", 0)
+                urls.append("http://127.0.0.1:%d" % server.port)
+            manager = nodes[0].manager
+            for _ in range(3):
+                clock.advance(60)
+                diff, last = await manager.calculate_difficulty()
+                prev = last["hash"] if last else GENESIS_PREV_HASH
+                h = BlockHeader(previous_hash=prev, address=addr,
+                                merkle_root=merkle_root([]),
+                                timestamp=clock.timestamp(),
+                                difficulty_x10=int(diff * 10), nonce=0)
+                while last and not difficulty.check_pow(h.hex(), prev, diff):
+                    h.nonce += 1
+                assert await manager.create_block(h.hex(), [])
+            dest = point_to_string(curve.keygen(rng=12)[1])
+            status, body = await fetch(
+                urls[0] + "/send_to_address?" + urlencode(
+                    {"to_address": dest, "amount": "1.5"}),
+                headers={"Authorization": addr})
+            assert json.loads(body)["result"] == \
+                "Transaction has been accepted", body
+            w = nodeless.NodelessWallet(urls[0])
+            assert (await w.get_balance(addr))[0] == Decimal(18)
+            await w.send(d, dest, "0.5")
+            rc = await cli.amain(["balance", "--db",
+                                  os.path.join(work, "n0.db"), "--node", ""])
+            assert rc == 0 and KeyStore().addresses() == [addr]
+            manifest = await nodes[0].build_snapshot()
+            status, body = await fetch(urls[0] + "/snapshot/chunk/0")
+            assert json.loads(body)["result"]["i"] == 0, body
+            res = await nodes[1].bootstrap_from_snapshot(sources=[urls[0]])
+            assert res["method"] == "snapshot", res
+            assert res["chunks"] == len(manifest["chunks"]) > 1, res
+            assert nodes[1].state.index_stats()["entries"] == 3
+            for node in nodes:
+                assert (await node.state.get_unspent_outputs_hash()
+                        == manifest["utxo_fingerprint"])
+        finally:
+            for node in nodes:
+                await node.close()
+    asyncio.run(main())
+    print("wallet and snapshot served")
+
+
 for name in sys.argv[1:]:
     if name == "--serve":
         serve()
+    elif name == "--wallet-snapshot":
+        wallet_snapshot()
     elif name == "--sync":
         sync()
     elif name == "--pg":
@@ -265,7 +345,10 @@ def test_every_port_module_imports_without_jax():
                  "watchtower.alerts", "watchtower.burnrate",
                  "watchtower.detectors", "watchtower.engine",
                  "watchtower.benchlog", "watchtower.__main__", "state.pg",
-                 "state.pgdriver", "state.reindex"):
+                 "state.pgdriver", "state.reindex", "wallet",
+                 "wallet.keystore", "wallet.builders", "wallet.nodeless",
+                 "wallet.cli", "snapshot", "snapshot.layout",
+                 "snapshot.builder", "snapshot.client"):
         assert "upow_tpu_torch." + must in names, must
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(
@@ -303,6 +386,20 @@ def test_port_node_serves_on_pg_without_jax_or_aiohttp():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "pg served" in out.stdout
+
+
+def test_port_wallet_and_snapshot_without_jax_or_aiohttp():
+    """The port's wallet and snapshots under the blocker: a
+    ``/send_to_address`` from the keystore in the working directory, a
+    nodeless send, the CLI's balance, then a snapshot built on one node
+    and restored into a second over HTTP, its index re-armed on the
+    CPU."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKER, "--wallet-snapshot"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "wallet and snapshot served" in out.stdout
 
 
 def test_port_sources_name_no_jax_import():

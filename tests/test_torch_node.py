@@ -350,7 +350,7 @@ def test_node_on_the_card_raises_without_one(tmp_path):
 
 def test_config_reads_the_jax_file_and_environment(tmp_path, monkeypatch):
     """One config file and one environment configure both packages'
-    nodes alike; fields of the JAX schema the port does not read yet are
+    nodes alike; fields of the JAX schema the port does not read are
     skipped."""
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps({
@@ -381,10 +381,11 @@ def test_config_reads_the_jax_file_and_environment(tmp_path, monkeypatch):
         ("device", 64)
     assert got.mempool.reinject_on_reorg is False
     assert got.cache.enabled is False
-    # read by the JAX node, skipped by the port's until a slice reads them
-    assert not want.mempool.enabled and want.mempool.allow_rbf
-    for section, name in (("mempool", "enabled"), ("mempool", "allow_rbf")):
-        assert not hasattr(getattr(got, section), name)
+    # read by the JAX node, skipped by the port's (it always runs the
+    # coalescing intake); allow_rbf is read by both
+    assert not want.mempool.enabled
+    assert not hasattr(got.mempool, "enabled")
+    assert got.mempool.allow_rbf is want.mempool.allow_rbf is True
     assert got.node.self_url == want.node.self_url == "http://10.0.0.1:3111"
     got.device.apply_kernel_overrides()
     assert p256.VERIFY_KERNEL == "complete"

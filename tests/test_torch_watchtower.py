@@ -504,7 +504,7 @@ async def _call(session, method, url, params=None, **kw):
 
 #: the JAX node's routes the port does not serve yet (ROADMAP.md): their
 #: SLO series reach the JAX watchtower's burn-rate readings
-NOT_PORTED = re.compile(r"send_to_address|snapshot_.*|archive_.*")
+NOT_PORTED = re.compile(r"archive_.*")
 
 
 def _strip(body: bytes) -> dict:

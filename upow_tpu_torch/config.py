@@ -7,11 +7,11 @@ JSON config file, ``UPOW_<SECTION>_<FIELD>`` environment variables
 ``section__field`` keyword overrides (``node__port=3007``): the JAX
 package's names and precedence, so a config file or environment that the
 JAX node reads configures the port's node the same way.  Sections and
-fields the port does not read yet (the ``miner``, ``snapshot`` and
-``archive`` sections, ``device.device``, ``device.search_backend``,
-``device_runtime.compile_cache_dir`` and ``mempool.allow_rbf``) come with
-the slices that read them (ROADMAP.md); a config file naming them is
-read, and they are skipped.  So is
+fields the port does not read yet (the ``miner`` and ``archive``
+sections, ``device.device``, ``device.search_backend`` and
+``device_runtime.compile_cache_dir``) come with the slices that read
+them (ROADMAP.md); a config file naming them is read, and they are
+skipped.  So is
 ``mempool.enabled``: the port's node always admits through the
 coalescing intake, whose replies are byte for byte those of the JAX
 node's serial path.
@@ -221,8 +221,44 @@ class MempoolConfig:
     tx_cache_size: int = 1 << 16    # push_tx dedup set capacity
                                     # (replaces the 100-entry deque)
     tx_cache_ttl: float = 600.0     # seconds a dedup entry stays live
+    allow_rbf: bool = False         # pool replace-by-fee on a journal
+                                    # sync (push_tx keeps the reference
+                                    # reject either way)
     reinject_on_reorg: bool = True  # re-queue txs from rolled-back
                                     # blocks into the journal and pool
+
+
+@dataclass
+class SnapshotConfig:
+    """Block-hash-anchored UTXO snapshots (``snapshot/``, docs/SNAPSHOT.md).
+    Operational only: a snapshot-restored node and a full-replay node end
+    on byte-identical UTXO fingerprints, so none of these knobs touch
+    consensus.  All overridable as ``UPOW_SNAPSHOT_<FIELD>``."""
+
+    dir: str = ""                   # snapshot root directory; '' disables
+                                    # both building and serving
+    chunk_bytes: int = 1 << 20      # fixed chunk size the payload is
+                                    # split into (each chunk sha256'd
+                                    # into the manifest)
+    blocks_tail: int = 64           # recent block rows carried in the
+                                    # payload, so a restored node has a
+                                    # tip and fork-detection history
+    keep: int = 2                   # on-disk generations retained; older
+                                    # ones and stale staging dirs are
+                                    # pruned (never raising)
+    chunk_retries: int = 2          # per-chunk integrity retries against
+                                    # ONE source before failing over
+    max_chunks: int = 1 << 14       # restore-side ceilings on what a
+    max_chunk_bytes: int = 16 << 20  # peer manifest may declare; an
+    max_payload_bytes: int = 1 << 30  # oversize manifest is rejected
+                                    # before any chunk is fetched
+    rebuild_interval_blocks: int = 0  # rebuild the generation every N
+                                    # accepted blocks (0: operator-driven
+                                    # only)
+    rebuild_jitter_blocks: int = 0  # per-node deterministic offset (from
+                                    # the node's identity, 0..jitter)
+                                    # added to the cadence, so a fleet
+                                    # does not rebuild in lockstep
 
 
 @dataclass
@@ -441,6 +477,7 @@ class Config:
     ws: WsConfig = field(default_factory=WsConfig)
     mempool: MempoolConfig = field(default_factory=MempoolConfig)
     cache: CacheConfig = field(default_factory=CacheConfig)
+    snapshot: SnapshotConfig = field(default_factory=SnapshotConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     log: LogConfig = field(default_factory=LogConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
@@ -480,6 +517,7 @@ def _unread(section: str, fname: str) -> bool:
 _SECTIONS = {"device": DeviceConfig, "device_runtime": DeviceRuntimeConfig,
              "node": NodeConfig, "ws": WsConfig,
              "mempool": MempoolConfig, "cache": CacheConfig,
+             "snapshot": SnapshotConfig,
              "resilience": ResilienceConfig, "log": LogConfig,
              "telemetry": TelemetryConfig, "watchtower": WatchtowerConfig,
              "profile": ProfilingConfig}

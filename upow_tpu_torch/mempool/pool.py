@@ -80,9 +80,10 @@ class Mempool:
     """
 
     def __init__(self, max_bytes_hex: int = 64 * 1024 * 1024,
-                 tx_ttl: float = 0.0):
+                 tx_ttl: float = 0.0, allow_rbf: bool = False):
         self.max_bytes_hex = max_bytes_hex
         self.tx_ttl = tx_ttl
+        self.allow_rbf = allow_rbf
         self.generation = 0
         self._entries: Dict[str, MempoolEntry] = {}
         self._order: List[tuple] = []           # sorted entry sort_keys
@@ -134,26 +135,41 @@ class Mempool:
     # ------------------------------------------------------- mutations ----
 
     def add(self, entry: MempoolEntry) -> str:
-        """Insert; returns ``added`` | ``duplicate`` | ``conflict``.
+        """Insert; returns ``added`` | ``duplicate`` | ``conflict`` |
+        ``replaced``.
 
         A conflict (an outpoint already claimed by a pooled tx) is
-        rejected, first writer wins: the reference's reject.  (The JAX
-        pool's opt-in replace-by-fee comes with a slice that reads it,
-        ROADMAP.md.)
+        rejected unless RBF is enabled AND the newcomer pays a strictly
+        higher fee rate than the worst of the txs it conflicts with, in
+        which case every one of them is evicted first.  The intake's
+        rule checks refuse a conflicting ``push_tx`` before it reaches
+        the pool, so the wire behaviour stays the reference reject; the
+        reader RBF serves is :meth:`sync` of the journal (a wallet CLI's
+        direct insert of a higher-fee spend of a pooled outpoint).
         """
         if entry.tx_hash in self._entries:
             return "duplicate"
+        losers = []
         for op in entry.outpoints:
             holder = self._spends.get(op)
             if holder is not None and holder != entry.tx_hash:
+                losers.append(holder)
+        if losers:
+            if not self.allow_rbf:
                 return "conflict"
+            worst = min(self._entries[h].fee_rate for h in losers)
+            if entry.fee_rate <= worst:
+                return "conflict"
+            for h in dict.fromkeys(losers):
+                self._remove_one(h)
+            trace.inc("mempool.rbf", len(set(losers)))
         self._entries[entry.tx_hash] = entry
         insort(self._order, entry.sort_key)
         for op in entry.outpoints:
             self._spends[op] = entry.tx_hash
         self._bytes += entry.size_hex
         self.generation += 1
-        return "added"
+        return "replaced" if losers else "added"
 
     def _remove_one(self, tx_hash: str) -> Optional[MempoolEntry]:
         entry = self._entries.pop(tx_hash, None)

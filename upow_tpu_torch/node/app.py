@@ -10,6 +10,9 @@ address and governance reads (``/get_address_info``,
 ``/get_address_transactions``, ``/get_block_details``,
 ``/get_blocks_details``, ``/get_validators_info``,
 ``/get_delegates_info``, ``/dobby_info``, ``/get_supply_info``), the
+localhost-only custodial ``/send_to_address`` (GET and POST, gated on the
+client IP), the snapshot routes ``/snapshot/manifest`` and
+``/snapshot/chunk/{i}`` (the one route with a path parameter), the
 Prometheus exposition ``/metrics``, the ``/ws`` push hub (under
 ``ws.enabled``) and, under ``telemetry.debug_endpoints``,
 ``/debug/traces``, ``/debug/events``, ``/debug/alerts`` (GET, and POST
@@ -76,10 +79,18 @@ JAX package, the signing digests are hashed twice: with hashlib when the
 page's checks are collected, and again in each block's digest prep
 (``verify/block.py``), whose check keys the page's verdicts answer.
 
-Not ported yet (ROADMAP.md): ``send_to_address`` (with the wallet),
-replace-by-fee, snapshots and the archive tier (``/debug/archive`` with
-it); ``/metrics`` carries the archive families as zeros, as a JAX node
-with the tier off does.
+Snapshots (:mod:`..snapshot`, ``snapshot.*``): the node serves the
+published generation under ``snapshot.dir`` from disk, builds one on
+:meth:`Node.build_snapshot` (and every ``snapshot.rebuild_interval_blocks``
+blocks), and :meth:`Node.bootstrap_from_snapshot` restores from peers,
+falling back to block replay with a structured reason; a restore that
+cannot rebuild the resident index on the card raises.  The pool honours
+``mempool.allow_rbf`` on its journal sync.
+
+Not ported yet (ROADMAP.md): the archive tier (``/debug/archive`` and
+the archive compaction a snapshot rebuild runs in the JAX node);
+``/metrics`` carries the archive families as zeros, as a JAX node with
+the tier off does.
 """
 
 from __future__ import annotations
@@ -89,6 +100,7 @@ import functools
 import hashlib
 import json
 import logging
+import os
 import random
 import re
 import sys
@@ -111,12 +123,16 @@ from ..device.runtime import get_runtime
 from ..logger import setup_logging
 from ..mempool import IntakeCoordinator, Mempool, MiningInfoCache, TTLSet
 from ..resilience import BreakerRegistry, ResilienceContext, faultinject
+from ..snapshot import builder as snapshot_builder
+from ..snapshot import client as snapshot_client
+from ..snapshot import layout as snapshot_layout
 from ..state.hotcache import HotStateCache
 from ..state.storage import ChainState
 from ..verify.block import BlockManager
 from ..verify import txverify
 from ..verify.txverify import (TxVerifier, _resolve_backend,
                                run_sig_checks_async, sig_verdict_stats)
+from ..wallet import KeyStore, WalletBuilder
 from ..watchtower import WatchtowerEngine
 from ..ws import WsHub
 from .http import (BodyTooLarge, HTTPException, HttpServer, Request, Response,
@@ -135,6 +151,11 @@ _SYNCING = {"ok": False, "error": "Node is already syncing"}
 # any value in this header skips the hot read cache for one request (the
 # response is computed fresh and not stored)
 _CACHE_BYPASS_HEADER = "x-upow-cache-bypass"
+
+# the one route with a path parameter, and what aiohttp's router matches
+# for its ``{i}``: one segment, no braces
+_CHUNK_ROUTE = "/snapshot/chunk/{i}"
+_CHUNK_PATH = re.compile(r"/snapshot/chunk/([^{}/]+)")
 
 # every get_address_info query flag that shapes the response: the cache
 # key carries all of them
@@ -256,7 +277,7 @@ class Node:
             enabled=self.config.node.rate_limits_enabled)
         mcfg = self.config.mempool
         self.pool = Mempool(max_bytes_hex=mcfg.max_pool_bytes_hex,
-                            tx_ttl=mcfg.tx_ttl)
+                            tx_ttl=mcfg.tx_ttl, allow_rbf=mcfg.allow_rbf)
         # block acceptance and the mempool GC drop mined and doomed txs
         # from the pool directly; the stamp-driven sync() stays the
         # reconciliation backstop
@@ -301,8 +322,39 @@ class Node:
 
             self.manager.on_pending_removed = _pending_removed
         self.is_syncing = False
-        # the outbound RPC client of sync and gossip (a test may swap it)
+        # the outbound RPC client of sync, gossip and the snapshot
+        # bootstrap (a test may swap it)
         self.iface_factory = NodeInterface
+        # the snapshot bootstrap's progress (snapshot/client.py updates
+        # it in place; /metrics exports it), and the startup
+        # housekeeping: keep snapshot.keep generations and sweep the
+        # staging dirs a crashed build left (never raises)
+        self.snapshot_restore: dict = {}
+        scfg = self.config.snapshot
+        if scfg.dir:
+            snapshot_layout.prune_generations(scfg.dir, keep=scfg.keep)
+        # the rebuild cadence (snapshot.rebuild_interval_blocks): every
+        # committed block ticks a counter; at the interval plus a jitter
+        # seeded from the node's identity (a fleet started together does
+        # not rebuild in lockstep) a rebuild is spawned off the hook
+        self._snapshot_rebuild_inflight = False
+        self._blocks_since_rebuild = 0
+        if scfg.dir and scfg.rebuild_interval_blocks > 0:
+            ident = (self.config.node.self_url
+                     or f"{self.config.node.host}:{self.config.node.port}")
+            jitter = max(0, scfg.rebuild_jitter_blocks)
+            self._rebuild_target = scfg.rebuild_interval_blocks + (
+                int.from_bytes(
+                    hashlib.sha256(ident.encode()).digest()[:4], "big")
+                % (jitter + 1))
+            base_committed = self.manager.on_state_committed
+
+            def _committed(_base=base_committed):
+                if _base is not None:
+                    _base()
+                self._snapshot_rebuild_tick()
+
+            self.manager.on_state_committed = _committed
         self._last_mempool_clean: Optional[float] = None  # monotonic
         self._closing = False
         self._background: set = set()
@@ -320,7 +372,8 @@ class Node:
             else None
         self.routes = {("GET", "/"): self.h_root}
         for path, handler in (("/push_tx", self.h_push_tx),
-                              ("/push_block", self.h_push_block)):
+                              ("/push_block", self.h_push_block),
+                              ("/send_to_address", self.h_send_to_address)):
             self.routes[("GET", path)] = self.routes[("POST", path)] = handler
         for path, handler in (
                 ("/sync_blockchain", self.h_sync_blockchain),
@@ -340,6 +393,8 @@ class Node:
                 ("/get_blocks_details", self.h_get_blocks_details),
                 ("/dobby_info", self.h_dobby_info),
                 ("/get_supply_info", self.h_get_supply_info),
+                ("/snapshot/manifest", self.h_snapshot_manifest),
+                (_CHUNK_ROUTE, self.h_snapshot_chunk),
                 ("/metrics", self.h_metrics)):
             self.routes[("GET", path)] = handler
         if self.config.telemetry.debug_endpoints:
@@ -554,6 +609,15 @@ class Node:
         sender = request.headers.get("sender-node")
         if sender:
             self.peers.add(sender)
+        # the custodial send answers local clients only, by the client IP
+        # (the socket peer, or the proxy's report under
+        # trust_proxy_headers), not by the Host header the reference
+        # gates on (main.py:315-322)
+        if normalized == "/send_to_address" and not (
+                client_ip and is_local_ip(client_ip)):
+            return json_response(
+                {"ok": False, "error": "Access forbidden. This endpoint can "
+                 "only be accessed from localhost."}, status=403)
         # the first request from outside (by its Host header) bootstraps
         host = request.host.split(":")[0] if request.host else ""
         if normalized != "/get_nodes" and not self.started and \
@@ -618,9 +682,16 @@ class Node:
         raise (404, 405 with ``Allow``, 413) raises as :class:`_HttpError`.
         aiohttp's ``add_get`` serves HEAD by the GET handler."""
         method = "GET" if request.method == "HEAD" else request.method
-        handler = self.routes.get((method, normalized))
+        route = normalized
+        match = _CHUNK_PATH.fullmatch(normalized)
+        if match is not None:
+            route = _CHUNK_ROUTE
+            request.match_info = {"i": match.group(1)}
+        elif normalized == _CHUNK_ROUTE:
+            route = None  # the template itself names no resource
+        handler = self.routes.get((method, route))
         if handler is None:
-            allowed = {m for m, path in self.routes if path == normalized}
+            allowed = {m for m, path in self.routes if path == route}
             if not allowed:
                 raise HTTPNotFound(text_response("404: Not Found", 404))
             if "GET" in allowed:
@@ -760,6 +831,24 @@ class Node:
                 "Peers messaged within the activity window")
         e.gauge("node_syncing", int(bool(self.is_syncing)),
                 "1 while a chain sync is in progress")
+        snapshot_gen = self._snapshot_gen()
+        if snapshot_gen is not None:
+            m = snapshot_gen[1]
+            e.gauge("snapshot_published_height", m["anchor_height"],
+                    "Anchor height of the published snapshot generation")
+            e.gauge("snapshot_published_chunks", len(m["chunks"]),
+                    "Chunks in the published snapshot generation")
+            e.gauge("snapshot_published_bytes", m["payload_bytes"],
+                    "Payload bytes of the published snapshot generation")
+        if self.snapshot_restore:
+            sr = self.snapshot_restore
+            e.gauge("snapshot_restore_chunks_total", sr.get("total", 0),
+                    "Chunks the in-progress/last snapshot restore needs")
+            e.gauge("snapshot_restore_chunks_verified", sr.get("verified", 0),
+                    "Chunks verified by the current restore pass")
+            e.gauge("snapshot_restore_chunks_reused", sr.get("reused", 0),
+                    "Verified chunks reused from the journal (not"
+                    " re-downloaded) by the current restore pass")
         # the archive tier is not ported: its families as a JAX node
         # with the tier disabled exports them
         e.gauge("archive_segments", 0, "Published cold-archive segments")
@@ -940,13 +1029,42 @@ class Node:
             log.debug("push_tx: rejecting unparseable tx: %s", e)
             return json_response(
                 {"ok": False, "error": f"Invalid transaction: {e}"})
-        result = await self.intake.submit(tx,
-                                          request.headers.get("sender-node"))
+        return json_response(await self._submit_tx(
+            tx, request.headers.get("sender-node")))
+
+    async def _submit_tx(self, tx: Tx, sender: Optional[str]) -> dict:
+        """Admit one tx through the coalescing intake (it joins the
+        current micro-batch and shares its signature dispatch)."""
+        result = await self.intake.submit(tx, sender)
         if result.get("ok"):
             # the pending journal gained a row: cached pending lists and
             # show_pending views are stale
             self.hotcache.bump("pending_added")
-        return json_response(result)
+        return result
+
+    async def h_send_to_address(self, request: Request) -> Response:
+        """Localhost-only custodial send (main.py:481-518): the wallet
+        keystore in the working directory is looked up by the
+        ``Authorization`` address; the tx is built by the wallet's
+        builder and admitted as ``push_tx`` admits one."""
+        params = self._params(request)
+        to_address = params.get("to_address")
+        amount = params.get("amount")
+        if not to_address or not amount:
+            return json_response(
+                {"ok": False, "error": "Missing required params."}, status=422)
+        private_key = KeyStore().private_key_for_public(
+            request.headers.get("authorization"))
+        if private_key is None:
+            return json_response({"ok": False, "error": "Unauthorized"})
+        try:
+            tx = await WalletBuilder(self.state).create_transaction(
+                private_key, to_address, Decimal(str(amount)))
+        except Exception as e:
+            log.debug("send_to_address: tx build failed: %s", e)
+            return json_response({"ok": False, "error": str(e)})
+        return json_response(await self._submit_tx(
+            tx, request.headers.get("sender-node")))
 
     async def _parse_tx(self, tx_hex: str,
                         overlay: Optional[dict] = None) -> Tx:
@@ -1380,6 +1498,169 @@ class Node:
 
         return await self._cached(request, "supply", (), build)
 
+    # ------------------------------------------------------- snapshots ---
+    # Served ONLY from the published on-disk generation (manifest and
+    # chunk files), never the database, and not through the read cache:
+    # a restoring peer must not contend with block accept, and never
+    # needs a cache-bypass header to get the authoritative bytes.
+
+    def _snapshot_gen(self):
+        """(gen dir, manifest) of the published generation, or None."""
+        root = self.config.snapshot.dir
+        if not root:
+            return None
+        gen = snapshot_layout.current_gen_dir(root)
+        if gen is None:
+            return None
+        manifest = snapshot_layout.read_manifest(
+            os.path.join(gen, snapshot_layout.MANIFEST_NAME))
+        if manifest is None:
+            return None
+        return gen, manifest
+
+    @staticmethod
+    async def _snapshot_serve_fault(key: str) -> Optional[Response]:
+        """Fire the ``snapshot.serve`` fault site; a 503 keeps an
+        injected serve fault inside ordinary peer-error handling."""
+        injector = faultinject.get_injector()
+        if injector is not None:
+            try:
+                await injector.fire("snapshot.serve", key)
+            except faultinject.FaultInjected:
+                return json_response(
+                    {"ok": False,
+                     "error": "snapshot temporarily unavailable"},
+                    status=503)
+        return None
+
+    async def h_snapshot_manifest(self, request: Request) -> Response:
+        fault = await self._snapshot_serve_fault("manifest")
+        if fault is not None:
+            return fault
+        gen = self._snapshot_gen()
+        if gen is None:
+            return json_response(
+                {"ok": False, "error": "no snapshot available"}, status=404)
+        trace.inc("snapshot.manifest_served")
+        return json_response({"ok": True, "result": gen[1]})
+
+    async def h_snapshot_chunk(self, request: Request) -> Response:
+        try:
+            i = int(request.match_info["i"])
+        except (KeyError, ValueError):
+            return json_response(
+                {"ok": False, "error": "chunk index must be an integer"},
+                status=422)
+        fault = await self._snapshot_serve_fault(f"chunk/{i}")
+        if fault is not None:
+            return fault
+        gen = self._snapshot_gen()
+        if gen is None or not 0 <= i < len(gen[1]["chunks"]):
+            return json_response(
+                {"ok": False, "error": "no such chunk"}, status=404)
+        chunk_file = os.path.join(gen[0], snapshot_layout.chunk_name(i))
+
+        def read() -> bytes:
+            with open(chunk_file, "rb") as fh:
+                return fh.read()
+        try:
+            # chunks are up to 16 MiB: off the loop thread
+            data = await asyncio.get_running_loop().run_in_executor(
+                None, read)
+        except OSError:
+            return json_response(
+                {"ok": False, "error": "no such chunk"}, status=404)
+        injector = faultinject.get_injector()
+        if injector is not None:  # corrupt-kind rules rewrite payloads
+            data = injector.fire_mutate("snapshot.serve", f"chunk/{i}", data)
+        trace.inc("snapshot.chunks_served")
+        return json_response(
+            {"ok": True, "result": {"i": i, "data": data.hex()}})
+
+    async def build_snapshot(self) -> Optional[dict]:
+        """Build and publish a generation under ``snapshot.dir``; None
+        when the subsystem is off or the chain is empty."""
+        scfg = self.config.snapshot
+        if not scfg.dir:
+            return None
+        return await snapshot_builder.build_snapshot(
+            self.state, scfg.dir, chunk_bytes=scfg.chunk_bytes,
+            blocks_tail=scfg.blocks_tail, keep=scfg.keep)
+
+    async def bootstrap_from_snapshot(self, sources=None) -> dict:
+        """Onboard this node from a peer's snapshot, falling back to full
+        block replay (``sync_blockchain``) with a structured reason when
+        the restore cannot complete.  ``sources`` (peer URLs) overrides
+        peer selection; by default the peers in the health order sync
+        uses.  A resident index that cannot be rebuilt after the restore
+        raises :class:`~..state.device_index.IndexRearmError` instead:
+        no replay, no SQL."""
+        scfg = self.config.snapshot
+        if sources is None:
+            sources = self.peers.ranked(self.peers.recent_nodes())
+        reason = detail = ""
+        if not scfg.dir:
+            reason = "snapshot_disabled"
+        elif not sources:
+            reason = "no_sources"
+        else:
+            ifaces = [self.iface_factory(url, self.config.node,
+                                         resilience=self.resilience)
+                      for url in sources]
+            try:
+                result = await snapshot_client.bootstrap_from_snapshot(
+                    self.state, ifaces, scfg.dir,
+                    chunk_retries=scfg.chunk_retries,
+                    progress=self.snapshot_restore,
+                    max_chunks=scfg.max_chunks,
+                    max_chunk_bytes=scfg.max_chunk_bytes,
+                    max_payload_bytes=scfg.max_payload_bytes)
+                # the restored state invalidates everything derived from it
+                self.hotcache.bump("snapshot_restore")
+                self.manager.invalidate_difficulty()
+                return {"ok": True, **result}
+            except snapshot_client.SnapshotError as e:
+                reason, detail = e.reason, e.detail
+                if reason == "restored_state_mismatch":
+                    # the client wiped the unproven restore back to a
+                    # blank chain: derived caches must not outlive it
+                    self.hotcache.bump("snapshot_restore")
+                    self.manager.invalidate_difficulty()
+            finally:
+                for iface in ifaces:
+                    await iface.close()
+        trace.inc("snapshot.fallbacks")
+        telemetry.event("snapshot_fallback", reason=reason,
+                        detail=detail or None)
+        log.warning("snapshot bootstrap failed (%s); falling back to"
+                    " full replay", reason)
+        sync = await self.sync_blockchain()
+        return {"ok": bool(sync.get("ok")), "method": "replay_fallback",
+                "reason": reason, "sync": sync}
+
+    def _snapshot_rebuild_tick(self) -> None:
+        """Committed-block hook: arm a background snapshot rebuild every
+        ``rebuild_interval_blocks`` plus the jitter."""
+        self._blocks_since_rebuild += 1
+        if (self._blocks_since_rebuild >= self._rebuild_target
+                and not self._snapshot_rebuild_inflight):
+            self._blocks_since_rebuild = 0
+            self._snapshot_rebuild_inflight = True
+            self._spawn(self._snapshot_rebuild())
+
+    async def _snapshot_rebuild(self) -> None:
+        """One background rebuild.  (The JAX node also runs the archive
+        compaction here; the archive tier is not ported.)"""
+        try:
+            if await self.build_snapshot() is not None:
+                trace.inc("snapshot.auto_rebuilds")
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            log.warning("background snapshot rebuild failed: %s", e)
+        finally:
+            self._snapshot_rebuild_inflight = False
+
     # ------------------------------------------------------------ peers ---
     async def h_add_node(self, request: Request) -> Response:
         url = request.query.get("url", "").strip("/")
@@ -1642,7 +1923,8 @@ class Node:
             if remote_height - (i - 1) > cfg.sync_reorg_window:
                 trace.inc("snapshot_recommended")
                 trace.event("snapshot_recommended", peer=node_url,
-                            local_height=i - 1, remote_height=remote_height)
+                            local_height=i - 1, remote_height=remote_height,
+                            lag=remote_height - (i - 1))
             local_cache = None
             last_common_block = 0
             if last_block and last_block.get("id", 0) > cfg.sync_reorg_window:

@@ -115,6 +115,9 @@ class Request:
         self.body_size = body_size
         self.max_body = max_body
         self.peer_ip = peer_ip
+        # a path parameter's value by name (aiohttp's ``match_info``),
+        # filled by the router
+        self.match_info: Dict[str, str] = {}
         # the connection's streams, and the WebSocket that took it over
         self.stream: Optional[Tuple[asyncio.StreamReader,
                                     asyncio.StreamWriter]] = None

@@ -198,10 +198,15 @@ class NodeInterface:
             self.cfg.http_timeout)
         return json.loads(raw or b"{}")
 
-    async def _resilient(self, attempt, label: str):
+    async def _resilient(self, attempt, label: str,
+                         site: Optional[str] = None,
+                         site_key: Optional[str] = None):
         """``attempt`` (a coroutine factory) under the breaker, the fault
-        site ``rpc.<label>`` and the retry policy; a single attempt
-        without a ResilienceContext."""
+        site (``rpc.<label>`` keyed by the peer unless ``site`` and
+        ``site_key`` name another: the snapshot bootstrap's
+        ``snapshot.fetch``, so a chaos spec can fault restore traffic
+        alone) and the retry policy; a single attempt without a
+        ResilienceContext."""
         ctx = self._resilience
         if ctx is None:
             return await attempt()
@@ -213,7 +218,8 @@ class NodeInterface:
         async def guarded():
             injector = faultinject.get_injector()
             if injector is not None:
-                await injector.fire(f"rpc.{label}", self.base_url)
+                await injector.fire(site or f"rpc.{label}",
+                                    site_key or self.base_url)
             return await attempt()
 
         def on_retry(exc, retry_no):
@@ -260,13 +266,15 @@ class NodeInterface:
         return headers
 
     async def get(self, path: str, params: Optional[dict] = None,
-                  sender_node: str = "") -> dict:
+                  sender_node: str = "", site: Optional[str] = None,
+                  site_key: Optional[str] = None) -> dict:
         """GET ``path`` with query ``params``; the decoded JSON body."""
         query = urlencode(params or {})
         url = f"{self.base_url}/{path}" + (f"?{query}" if query else "")
         headers = self._rpc_headers(sender_node)
         return await self._resilient(
-            lambda: self._fetch(url, headers=headers), path)
+            lambda: self._fetch(url, headers=headers), path, site=site,
+            site_key=site_key)
 
     @staticmethod
     def _result(res: dict):
@@ -288,3 +296,18 @@ class NodeInterface:
 
     async def get_nodes(self) -> list:
         return self._result(await self.get("get_nodes"))
+
+    # Both snapshot RPCs run under the ordinary breaker and retry stack
+    # but fire the ``snapshot.fetch`` site, keyed by the document, so a
+    # chaos spec can fault restore traffic, or one chunk, alone.
+
+    async def snapshot_manifest(self) -> dict:
+        return self._result(await self.get(
+            "snapshot/manifest", site="snapshot.fetch",
+            site_key=f"{self.base_url}#manifest"))
+
+    async def snapshot_chunk(self, i: int) -> bytes:
+        doc = self._result(await self.get(
+            f"snapshot/chunk/{int(i)}", site="snapshot.fetch",
+            site_key=f"{self.base_url}#chunk/{int(i)}"))
+        return bytes.fromhex(doc["data"])

@@ -15,8 +15,10 @@ Sites are prefix-matched (``rpc`` matches ``rpc.get_blocks``) and
 ``key`` substring-filters the call's key (the peer URL).  ``kind`` is
 ``error`` (raise :class:`FaultInjected`), ``latency`` (sleep ``delay``,
 then go on), ``hang`` (sleep ``delay``, by default far past any
-deadline, then raise) or ``corrupt``, which the spec accepts as the JAX
-package's does and which no site of the port acts on yet.  ``p`` draws
+deadline, then raise) or ``corrupt``, which only the sites that pass
+payload bytes through :meth:`FaultInjector.fire_mutate` act on: the
+payload comes back with one byte flipped, a peer serving damaged data
+that only an integrity check can catch.  ``p`` draws
 from one seeded ``random.Random``, so a fixed seed replays the exact
 schedule; ``times`` caps how often a rule fires (-1: no cap).
 
@@ -27,7 +29,11 @@ dispatch, so a ``hang`` there is what the box absorbs),
 keyed ``sig:<sources>`` for a coalesced signature group or
 ``call:<kernel>`` for a call, so ``key=`` can pick one subsystem) and
 ``mempool.intake`` (``mempool/intake.py``, once per intake batch, keyed
-by its size).  :meth:`FaultInjector.fire` is the event loop's injection
+by its size), ``snapshot.serve`` (``node/app.py``, once per
+``/snapshot/manifest`` and ``/snapshot/chunk`` response, keyed
+``manifest`` or ``chunk/<i>``; ``corrupt`` flips served chunk bytes) and
+``snapshot.fetch`` (``node/peers.py``, once per snapshot RPC attempt of a
+bootstrap, keyed ``<source url>#manifest`` or ``<source url>#chunk/<i>``).  :meth:`FaultInjector.fire` is the event loop's injection
 point and :meth:`FaultInjector.fire_sync` the thread's.
 :func:`get_injector` is None unless :func:`install` ran with a
 non-empty spec.
@@ -120,10 +126,11 @@ class FaultInjector:
         self._rng = random.Random(seed)
         self._lock = threading.Lock()
 
-    def _pick(self, site: str, key: str) -> Optional[Fault]:
+    def _pick(self, site: str, key: str,
+              kinds=_FLOW_KINDS) -> Optional[Fault]:
         with self._lock:
             for fault in self.faults:
-                if fault.kind not in _FLOW_KINDS:
+                if fault.kind not in kinds:
                     continue
                 if fault.matches(site, key) and \
                         (fault.p >= 1.0 or self._rng.random() < fault.p):
@@ -159,6 +166,21 @@ class FaultInjector:
         if fault.kind == "hang":
             time.sleep(fault.delay)
         raise FaultInjected(site, key)
+
+    def fire_mutate(self, site: str, key: str, data: bytes) -> bytes:
+        """Payload injection point: a matching ``corrupt`` rule returns
+        the data with one byte flipped (the seeded RNG picks the offset),
+        so integrity checks downstream, not transport error handling,
+        must catch it."""
+        fault = self._pick(site, key, kinds=("corrupt",))
+        if fault is None or not data:
+            return data
+        self._count(fault, site, key)
+        with self._lock:
+            offset = self._rng.randrange(len(data))
+        out = bytearray(data)
+        out[offset] ^= 0xFF
+        return bytes(out)
 
     def _count(self, fault: Fault, site: str, key: str) -> None:
         trace.inc("resilience.faults_injected")

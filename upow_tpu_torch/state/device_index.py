@@ -452,6 +452,13 @@ def probe_bytes_needed(keys_hi, n_live: int, q_hi,
 
 # --- the index ---------------------------------------------------------------
 
+class IndexRearmError(RuntimeError):
+    """The resident index could not be rebuilt on its device after a
+    wholesale table rewrite (a snapshot restore).  The rewrite is rolled
+    back with it, so tables and index stay the pre-restore pair; nothing
+    falls back to SQL."""
+
+
 class DeviceUtxoIndex:
     """Sorted-fingerprint UTXO index resident on a device, one per
     UTXO-class table: 128-bit effective identity, the amount lanes, a

@@ -45,10 +45,13 @@ sqlite backend.  ``_restore_spent_outputs`` adds to the index once a
 table and decodes each source tx once, where the JAX package does both
 once an input; the answers are the same.
 
-Not here yet (ROADMAP A13d, which brings ``snapshot/`` and
-``archive/``): ``export_snapshot_*``, ``restore_snapshot``,
-``archive_*`` and the archive read fallthrough (``self.archive`` and the
-cold-block branches of the block and transaction reads).  Not supported
+The snapshot methods (``export_snapshot_*``, ``restore_snapshot``) give
+and take the payload of the sqlite backend, row for row; a restore
+rebuilds an armed index inside its transaction (zero value lanes, as
+every bulk load here).  Not here yet (ROADMAP A13d, which brings
+``archive/``): ``archive_*`` and the archive read fallthrough
+(``self.archive`` and the cold-block branches of the block and
+transaction reads).  Not supported
 on this backend (as in the JAX package): the sqlite memo caches and
 WAL-specific behaviours.
 """
@@ -57,6 +60,7 @@ from __future__ import annotations
 
 import asyncio
 import hashlib
+import logging
 from contextlib import asynccontextmanager
 from decimal import Decimal
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
@@ -66,12 +70,14 @@ from ..core.clock import timestamp as now_ts
 from ..core.constants import MAX_BLOCK_SIZE_HEX, SMALLEST
 from ..core.tx import CoinbaseTx, Tx, TxInput, tx_from_hex
 from ..device import DeviceLike, resolve
-from .device_index import DeviceUtxoIndex
+from .device_index import DeviceUtxoIndex, IndexRearmError
 from .pgdriver import AsyncpgDriver, _epoch, _utc
 from .storage import _GOV_TABLES, _INPUT_TABLE, _OUTPUT_TABLE
 from .views import StateViews
 
 AnyTx = Union[Tx, CoinbaseTx]
+
+log = logging.getLogger("upow_tpu_torch.state.pg")
 
 _COIN_Q = Decimal("0.000001")  # NUMERIC(14,6) quantum (schema.sql)
 
@@ -355,6 +361,11 @@ class PgChainState(StateViews):
         the event loop (reorg rollback / replay paths)."""
         if self._dev_index is None:
             return
+        self._dev_index = await self._aindex_fresh()
+
+    async def _aindex_fresh(self) -> Dict[str, DeviceUtxoIndex]:
+        """One index per UTXO-class table from the tables as the driver's
+        connection sees them (a restore's uncommitted rows included)."""
         device = resolve(self.device)
         fresh = {}
         for table in ("unspent_outputs",) + _GOV_TABLES:
@@ -362,7 +373,7 @@ class PgChainState(StateViews):
                 f'SELECT tx_hash, "index" FROM {table}')
             fresh[table] = DeviceUtxoIndex(
                 [(r["tx_hash"], r["index"]) for r in rows], device=device)
-        self._dev_index = fresh
+        return fresh
 
     # ------------------------------------------------------------- blocks --
 
@@ -1315,6 +1326,134 @@ class PgChainState(StateViews):
             async with self._writer():
                 await self._aindex_rebuild()
 
+
+    # ---------------------------------------------------------- snapshots --
+    # Canonical positional row shapes shared with the sqlite backend
+    # (docs/SNAPSHOT.md).  This schema has no amount columns on the
+    # UTXO tables — amounts travel in the canonical rows anyway (joined
+    # from transactions on export, dropped on restore) so one payload
+    # restores on either backend.
+
+    async def export_snapshot_rows(self, table: str) -> List[list]:
+        if table not in ("unspent_outputs",) + _GOV_TABLES:
+            raise ValueError(f"not a snapshot table: {table}")
+        if table == "unspent_outputs":
+            rows = await self.drv.afetch(
+                'SELECT u.tx_hash, u."index", u.address, u.is_stake,'
+                " t.outputs_amounts FROM unspent_outputs u"
+                " JOIN transactions t ON t.tx_hash = u.tx_hash"
+                ' ORDER BY u.tx_hash, u."index"')
+            out = []
+            for r in rows:
+                amounts = list(r["outputs_amounts"] or [])
+                idx = r["index"]
+                out.append([r["tx_hash"], idx, r["address"],
+                            int(amounts[idx]) if idx < len(amounts) else 0,
+                            int(bool(r["is_stake"]))])
+            return out
+        rows = await self.drv.afetch(
+            f'SELECT g.tx_hash, g."index", g.address, t.outputs_amounts'
+            f" FROM {table} g JOIN transactions t ON t.tx_hash = g.tx_hash"
+            ' ORDER BY g.tx_hash, g."index"')
+        out = []
+        for r in rows:
+            amounts = list(r["outputs_amounts"] or [])
+            idx = r["index"]
+            out.append([r["tx_hash"], idx, r["address"],
+                        int(amounts[idx]) if idx < len(amounts) else 0])
+        return out
+
+    async def export_snapshot_txs(self, tail: int) -> List[list]:
+        """Witness transactions (see the sqlite twin): every tx still
+        referenced by an exported outpoint plus the block tail's txs."""
+        union = " UNION ".join(
+            f"SELECT tx_hash FROM {t}"
+            for t in ("unspent_outputs",) + _GOV_TABLES)
+        rows = await self.drv.afetch(
+            "SELECT block_hash, tx_hash, tx_hex, inputs_addresses,"
+            " outputs_addresses, outputs_amounts, fees FROM transactions"
+            f" WHERE tx_hash IN ({union}) OR block_hash IN"
+            " (SELECT hash FROM blocks ORDER BY id DESC LIMIT $1)"
+            " ORDER BY tx_hash", (tail,))
+        return [[r["block_hash"], r["tx_hash"], r["tx_hex"],
+                 list(r["inputs_addresses"] or []),
+                 list(r["outputs_addresses"] or []),
+                 [int(a) for a in (r["outputs_amounts"] or [])],
+                 _units(r["fees"])] for r in rows]
+
+    async def export_snapshot_blocks(self, tail: int) -> List[list]:
+        rows = await self.drv.afetch(
+            "SELECT id, hash, content, address, random, difficulty,"
+            " reward, timestamp FROM blocks ORDER BY id DESC LIMIT $1",
+            (tail,))
+        return [[r["id"], r["hash"], r["content"], r["address"],
+                 r["random"], str(r["difficulty"]), _units(r["reward"]),
+                 _epoch(r["timestamp"])] for r in reversed(rows)]
+
+    async def restore_snapshot(self, tables: Dict[str, List[list]],
+                               txs: List[list], blocks: List[list]) -> None:
+        """Wholesale replace of chain state with verified snapshot rows
+        (one transaction; see the sqlite twin for the contract, the
+        index rebuild inside it included).  Witness txs from blocks
+        older than the carried tail dangle their block_hash foreign key,
+        so on real PostgreSQL the restore runs under
+        ``session_replication_role = replica`` (needs a superuser/owner
+        role); the SET is best-effort because the sqlite-backed mock
+        driver cannot parse it."""
+        for name in tables:
+            if name not in ("unspent_outputs",) + _GOV_TABLES:
+                raise ValueError(f"not a snapshot table: {name}")
+        async with self.atomic():
+            try:
+                await self.drv.aexecute(
+                    "SET session_replication_role = replica")
+            except Exception as e:
+                log.debug("replica role unavailable (%s); witness-tx "
+                          "FKs must hold on their own", e)
+            for table in ("unspent_outputs",) + _GOV_TABLES:
+                await self.drv.aexecute(f"DELETE FROM {table}")
+            for table in ("pending_spent_outputs", "pending_transactions",
+                          "transactions", "blocks"):
+                await self.drv.aexecute(f"DELETE FROM {table}")
+            await self.drv.aexecutemany(
+                "INSERT INTO blocks (id, hash, content, address, random,"
+                " difficulty, reward, timestamp)"
+                " VALUES ($1,$2,$3,$4,$5,$6,$7,$8)",
+                [(r[0], r[1], r[2], r[3], r[4], Decimal(r[5]),
+                  _coins(r[6]), _utc(r[7])) for r in blocks])
+            await self.drv.aexecutemany(
+                "INSERT INTO transactions (block_hash, tx_hash, tx_hex,"
+                " inputs_addresses, outputs_addresses, outputs_amounts,"
+                " fees) VALUES ($1,$2,$3,$4,$5,$6,$7)",
+                [(r[0], r[1], r[2], list(r[3]), list(r[4]),
+                  [int(a) for a in r[5]], _coins(r[6])) for r in txs])
+            await self.drv.aexecutemany(
+                'INSERT INTO unspent_outputs (tx_hash, "index", address,'
+                " is_stake) VALUES ($1,$2,$3,$4)",
+                [(r[0], r[1], r[2], bool(r[4]))
+                 for r in tables.get("unspent_outputs", [])])
+            for table in _GOV_TABLES:
+                await self.drv.aexecutemany(
+                    f'INSERT INTO {table} (tx_hash, "index", address)'
+                    " VALUES ($1,$2,$3)",
+                    [(r[0], r[1], r[2]) for r in tables.get(table, [])])
+            try:
+                await self.drv.aexecute(
+                    "SET session_replication_role = DEFAULT")
+            except Exception as e:
+                log.debug("could not reset replication role: %s", e)
+            if self._dev_index is not None:
+                try:
+                    fresh = await self._aindex_fresh()
+                except Exception as e:
+                    raise IndexRearmError(
+                        f"resident index not rebuilt after the restore:"
+                        f" {type(e).__name__}: {e}") from e
+                # under the writer lock, before the commit: a failed
+                # commit rolls back and rebuilds from the old tables
+                self._dev_index = fresh
+                self._index_mutations += 1
+        self._bump_fees_gen()
 
 def _row_keys(r) -> set:
     """Column names of a driver row (asyncpg Record or mock dict)."""

@@ -10,9 +10,12 @@ card unless ``device="cpu"``), kept in step with every UTXO write; it
 then answers ``outpoints_exist`` and the accept's fused scan.  Without
 it membership checks take the SQL path, as in the JAX package by
 default.  The mempool journal and the block and transaction reads serve
-the node's routes; tx propagation, the address and governance views,
-snapshots and the archive tier come with the later slices that call
-them (ROADMAP.md).
+the node's routes, the address and governance views the wallet's
+builders, and the snapshot methods (``export_snapshot_*``,
+``restore_snapshot``) the snapshot builder and bootstrap; the archive
+tier comes with a later slice (ROADMAP.md).  ``sole_writer=False`` (the
+wallet CLI beside a node writing the same file) checks for other
+connections' commits on every memo read.
 
 The reference couples all chain state to asyncpg/PostgreSQL through an
 ~80-method ``Database`` class (database.py, 1654 LoC).  This keeps the
@@ -54,7 +57,7 @@ from ..core.clock import timestamp as now_ts
 from ..core.constants import MAX_BLOCK_SIZE_HEX, SMALLEST
 from ..core.tx import CoinbaseTx, Tx, TxInput, tx_from_hex
 from ..device import DeviceLike, resolve
-from .device_index import DeviceUtxoIndex
+from .device_index import DeviceUtxoIndex, IndexRearmError
 
 AnyTx = Union[Tx, CoinbaseTx]
 
@@ -159,8 +162,14 @@ class ChainState(StateViews):
     primitives under them."""
 
     def __init__(self, path: Optional[str] = None,
-                 device_index: bool = False, device: DeviceLike = None):
+                 device_index: bool = False, device: DeviceLike = None,
+                 sole_writer: bool = True):
         self.path = path or ":memory:"
+        # sole_writer=False (a wallet CLI reading a file the node is
+        # writing) checks sqlite's data_version on every memo read
+        # instead of once per 50 ms, so a secondary reader never serves
+        # stale amounts or addresses into fee and coinbase computation
+        self.sole_writer = sole_writer
         self.db = sqlite3.connect(self.path)
         self.db.row_factory = sqlite3.Row
         if path:
@@ -204,10 +213,10 @@ class ChainState(StateViews):
         such commit may have deleted source txs — so the whole memo is
         dropped then.  The check is rate-limited to one PRAGMA per 50 ms
         (at ~25k lookups per 8k-tx block a pragma per hit halves the
-        accept rate); this connection's own deletions invalidate
-        explicitly."""
+        accept rate) unless ``sole_writer`` is False; this connection's
+        own deletions invalidate explicitly."""
         now = _time.monotonic()
-        if now - self._data_version_checked >= 0.05:
+        if not self.sole_writer or now - self._data_version_checked >= 0.05:
             self._data_version_checked = now
             version = self._db_data_version()
             if version != self._data_version:
@@ -256,6 +265,11 @@ class ChainState(StateViews):
         package disables the index and carries on with SQL: without a
         card (unless the device is the CPU), or when the index cannot be
         built, a node that asked for it does not start."""
+        self._dev_index = self._build_index()
+
+    def _build_index(self) -> Dict[str, DeviceUtxoIndex]:
+        """One index per UTXO-class table from the tables as this
+        connection sees them (a restore's uncommitted rows included)."""
         device = resolve(self.device)
         index = {}
         for table in ("unspent_outputs",) + _GOV_TABLES:
@@ -266,7 +280,7 @@ class ChainState(StateViews):
                 [(r["tx_hash"], r["idx"]) for r in rows],
                 values=[(r["amount"], r["address"] or "", 0) for r in rows],
                 device=device)
-        self._dev_index = index
+        return index
 
     def _index_add(self, table: str, outpoints, values=None) -> None:
         if self._dev_index is not None:
@@ -1266,3 +1280,112 @@ class ChainState(StateViews):
             await self.remove_outputs([tx])
         self._commit()
         self._index_rebuild()  # replay rewrote the tables wholesale
+
+    # ---------------------------------------------------------- snapshots --
+    # Canonical positional row shapes shared with the pg backend (the
+    # snapshot payload is backend-neutral, docs/SNAPSHOT.md):
+    #   unspent_outputs  [tx_hash, idx, address|null, amount, is_stake]
+    #   governance       [tx_hash, idx, address|null, amount]
+    #   tx               [block_hash, tx_hash, tx_hex, inputs_addresses,
+    #                     outputs_addresses, outputs_amounts, fees]
+    #   block            [id, hash, content, address, random,
+    #                     str(difficulty), reward, timestamp]
+    # Amounts/fees/rewards are int smallest-units everywhere; lists are
+    # real JSON arrays (this backend stores them json-encoded).
+
+    async def export_snapshot_rows(self, table: str) -> List[list]:
+        if table not in ("unspent_outputs",) + _GOV_TABLES:
+            raise ValueError(f"not a snapshot table: {table}")
+        if table == "unspent_outputs":
+            rows = self.db.execute(
+                "SELECT tx_hash, idx, address, amount, is_stake FROM"
+                " unspent_outputs ORDER BY tx_hash, idx").fetchall()
+            return [[r["tx_hash"], r["idx"], r["address"], r["amount"],
+                     r["is_stake"]] for r in rows]
+        rows = self.db.execute(
+            f"SELECT tx_hash, idx, address, amount FROM {table}"
+            " ORDER BY tx_hash, idx").fetchall()
+        return [[r["tx_hash"], r["idx"], r["address"], r["amount"]]
+                for r in rows]
+
+    async def export_snapshot_txs(self, tail: int) -> List[list]:
+        """Witness transactions: every tx still referenced by an
+        exported outpoint (the pg schema resolves amounts through — and
+        foreign-keys onto — the transactions table, so UTXO rows alone
+        cannot restore there) plus all txs of the carried block tail."""
+        union = " UNION ".join(
+            f"SELECT tx_hash FROM {t}"
+            for t in ("unspent_outputs",) + _GOV_TABLES)
+        rows = self.db.execute(
+            "SELECT block_hash, tx_hash, tx_hex, inputs_addresses,"
+            " outputs_addresses, outputs_amounts, fees FROM transactions"
+            f" WHERE tx_hash IN ({union}) OR block_hash IN"
+            " (SELECT hash FROM blocks ORDER BY id DESC LIMIT ?)"
+            " ORDER BY tx_hash", (tail,)).fetchall()
+        return [[r["block_hash"], r["tx_hash"], r["tx_hex"],
+                 json.loads(r["inputs_addresses"]),
+                 json.loads(r["outputs_addresses"]),
+                 json.loads(r["outputs_amounts"]), r["fees"]] for r in rows]
+
+    async def export_snapshot_blocks(self, tail: int) -> List[list]:
+        rows = self.db.execute(
+            "SELECT id, hash, content, address, random, difficulty,"
+            " reward, timestamp FROM blocks ORDER BY id DESC LIMIT ?",
+            (tail,)).fetchall()
+        return [[r["id"], r["hash"], r["content"], r["address"],
+                 r["random"], str(r["difficulty"]), r["reward"],
+                 r["timestamp"]] for r in reversed(rows)]
+
+    async def restore_snapshot(self, tables: Dict[str, List[list]],
+                               txs: List[list], blocks: List[list]) -> None:
+        """Wholesale replace of chain state with verified snapshot rows.
+        Callers verify every chunk hash AND the recomputed UTXO
+        fingerprint against the manifest BEFORE calling.  One
+        transaction, and an armed resident index is rebuilt on its
+        device inside it: a crash, or an index that cannot arm
+        (:class:`IndexRearmError`), leaves the previous tables and index
+        intact."""
+        for name in tables:
+            if name not in ("unspent_outputs",) + _GOV_TABLES:
+                raise ValueError(f"not a snapshot table: {name}")
+        old_index = self._dev_index
+        self.db.execute("BEGIN")
+        try:
+            for table in ("unspent_outputs",) + _GOV_TABLES:
+                self.db.execute(f"DELETE FROM {table}")
+            for table in ("pending_spent_outputs", "pending_transactions",
+                          "transactions", "blocks"):
+                self.db.execute(f"DELETE FROM {table}")
+            self.db.executemany(
+                "INSERT INTO blocks (id, hash, content, address, random,"
+                " difficulty, reward, timestamp) VALUES (?,?,?,?,?,?,?,?)",
+                [tuple(r) for r in blocks])
+            self.db.executemany(
+                "INSERT INTO transactions (block_hash, tx_hash, tx_hex,"
+                " inputs_addresses, outputs_addresses, outputs_amounts,"
+                " fees) VALUES (?,?,?,?,?,?,?)",
+                [(r[0], r[1], r[2], json.dumps(r[3]), json.dumps(r[4]),
+                  json.dumps(r[5]), r[6]) for r in txs])
+            self.db.executemany(
+                "INSERT INTO unspent_outputs (tx_hash, idx, address,"
+                " amount, is_stake) VALUES (?,?,?,?,?)",
+                [tuple(r) for r in tables.get("unspent_outputs", [])])
+            for table in _GOV_TABLES:
+                self.db.executemany(
+                    f"INSERT INTO {table} (tx_hash, idx, address, amount)"
+                    " VALUES (?,?,?,?)",
+                    [tuple(r) for r in tables.get(table, [])])
+            if old_index is not None:
+                try:
+                    self._dev_index = self._build_index()
+                except Exception as e:
+                    raise IndexRearmError(
+                        f"resident index not rebuilt after the restore:"
+                        f" {type(e).__name__}: {e}") from e
+            self.db.commit()
+        except BaseException:
+            self.db.rollback()
+            self._dev_index = old_index
+            raise
+        self._amount_cache.clear()
+        self._bump_fees_gen()
