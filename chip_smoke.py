@@ -306,6 +306,34 @@ Phases, one line each; any failure exits non-zero:
    of the big block's outputs, mined on R's tip, must be accepted by R
    (B6, kernel 1 and B5 launched, no shadow consult) and by S, to equal
    UTXO hashes.  Host walls: the build's, the restore's and the re-arm's.
+31. the cold-block archive (``archive``, after phase 30): node A in this
+   process on a copy of phase 15's file, ``device="cuda"``, its resident
+   index on, ``device.txid_backend = device``, ``snapshot.dir`` and
+   ``archive.dir`` in the work directory and the archive's default
+   ``segment_blocks`` 256 and ``safety_window`` 64.  A block of txs of
+   up to 255 inputs (signed on the host) spends every output of blocks
+   1-4 still unspent, then coinbase-only blocks take the chain to height
+   322, each mined by ``mine(job, "cuda")`` (the clock 60 s a block, so
+   the retargets keep the difficulty) and pushed by ``push_block`` over
+   HTTP; ``build_snapshot()`` and ``compact_archive()`` must report one
+   segment built, [1, 256] archived and blocks 1-4 (the 8,160-tx block
+   among them) pruned, the hot row counts dropping by the pruned counts;
+   ``/archive/manifest`` and ``/archive/segment/0`` must answer, the
+   segment's bytes hashing to its record.  The 8,160-tx block by height,
+   by hash and its details, two of its txs, a page across the seam and
+   the chain key's history deep in the archived span must answer byte
+   for byte as a twin port node on a copy of A's file taken before the
+   compaction, with reads served from the segment; A's index must hold
+   against its plain version and its SQL (probe, shadow map, SQL) after
+   the prune, and A's next block (spends of the 33 consolidated outputs
+   and of 64 coinbases) must be accepted with B6, kernel 1 and B5
+   launched and no shadow consult, the index holding after it.  Node J
+   (empty file, index on, ``txid_backend = device``) syncs from genesis
+   off A, its first blocks served from A's segment, to A's tip, UTXO and
+   full-state fingerprints with kernel 1 and B5 launched and neither
+   host fallback counter; node M mirrors A's archive by
+   ``fetch_archive_from_peer`` to byte-identical segment files, and a
+   second fetch reuses the segment.  Host walls.
 
 Every path runs through the device runtime (``device/runtime.py``): the
 script arms a fresh runtime before each path, its warm launches before
@@ -329,8 +357,11 @@ kernel, the 4-shard accept's for the sharded verify and the mesh
 miner's for the mesh search), and ``launches_by_path`` gives each path
 it ran on (the complete kernel's; kernel 1's, B5's and B6's with phase
 28's push_block and phase 30's honest block on the restored node; kernel
-1's and B2's with phase 29's sends and block).  Every phase that can
-reach the txid batch (6, 7, 8, 10, 11, 14, 15, 17, 18, 22, 25, 28 and 30) counts
+1's and B2's with phase 29's sends and block; kernel 1's, B2's, B5's and
+B6's with phase 31's ``archive`` path, from the extension through J's
+sync).  Every phase that can
+reach the txid batch (6, 7, 8, 10, 11, 14, 15, 17, 18, 22, 25, 28, 30
+and 31) counts
 its txid kernel launches and fails if hashlib stood in for a device
 digest there (``txid.sample_mismatch`` or ``sync.host_txid_retry`` above
 0; in phase 22 read from each node's ``/metrics``).
@@ -3115,6 +3146,247 @@ async def _row_counts(state) -> dict:
             for t in state.resident_indexes()}
 
 
+# --- phase 31: the cold-block archive ---------------------------------------
+
+ARCHIVE_SEGMENT = 256       # archive.segment_blocks, the default users run
+ARCHIVE_WINDOW = 64         # archive.safety_window, the default
+MAX_INPUTS = 255            # inputs a tx may carry
+ARCHIVE_HONEST = 64         # coinbase spends in A's block after the prune
+
+
+def raw_get(node: NodeThread, path: str) -> tuple:
+    """(status, body bytes) of one GET from this thread."""
+    return asyncio.run(fetch(node.url + path))
+
+
+async def _hot_block_rows(state, height: int) -> int:
+    """Rows of ``blocks`` at ``height`` in the hot table alone."""
+    return state.db.execute("SELECT COUNT(*) FROM blocks WHERE id = ?",
+                            (height,)).fetchone()[0]
+
+
+def archive_counts() -> dict:
+    return {"jac": p256.LAUNCHES, "b2": tsha.LAUNCHES,
+            "b5": tsha.BLOCKS_LAUNCHES, "b6": tdi.PROBE_LAUNCHES}
+
+
+def archive_path(dev: torch.device, kit: Kit, workdir: Path,
+                 leaves) -> dict:
+    """Node A, on a copy of phase 15's file with its index on the card and
+    the archive on at the default segment and safety window, takes blocks
+    mined on the card that spend every output of blocks 1-4 and extend
+    the chain past a full segment, builds a snapshot and compacts: blocks
+    1-4 (the 8,160-tx block among them) leave its hot tables for a
+    segment, and every read of them must answer as its unpruned twin's;
+    its index must hold across the prune and take its next block.  Node J
+    syncs the chain from genesis off A (its first blocks served from A's
+    segment) and node M mirrors A's archive."""
+    adir = workdir / "archive"
+    adir.mkdir()
+    a_db = str(adir / "a.db")
+    shutil.copyfile(workdir / "push_resident.db", a_db)
+    out, nodes = {}, []
+    # the extension advances the script's clock a minute a block; the
+    # later phases must see the clock the earlier phases left them
+    resume = clock.timestamp()
+    a = NodeThread(dev, a_db, "jac", device__utxo_index=True,
+                   device__txid_backend="device",
+                   node__rate_limits_enabled=False,
+                   snapshot__dir=str(adir / "a.snap"),
+                   archive__dir=str(adir / "a.archive"))
+    nodes.append(a)
+    try:
+        state = a.node.state
+        if a.cfg.archive.segment_blocks != ARCHIVE_SEGMENT \
+                or a.cfg.archive.safety_window != ARCHIVE_WINDOW:
+            fail(f"archive: defaults {a.cfg.archive}")
+        txverify.clear_sig_verdicts()
+        trace.reset()
+        p256.reset_counts()
+        tsha.reset_counts()
+        tdi.reset_counts()
+
+        def push(txs) -> None:
+            clock.advance(60)
+            header = a.call(kit.header(a.node.manager, txs))
+            reply = a.request("push_block", {
+                "block_content": header, "txs": [t.hex() for t in txs]})
+            if reply != {"ok": True}:
+                fail(f"archive: push_block at height "
+                     f"{a.call(state.get_next_block_id())}: {reply}")
+
+        # every output of blocks 1-4 still unspent (the big block's and
+        # the coinbases), in txs of up to 255 inputs: one block
+        t0 = time.perf_counter()
+        outs = a.call(state.get_spendable_outputs(kit.addr))
+        if len(outs) != len(leaves) + 3:
+            fail(f"archive: {len(outs)} unspent outputs of blocks 1-4")
+        spends = [kit.spend([(o.tx_hash, o.index) for o in chunk],
+                            [TxOutput(kit.addr, sum(o.amount
+                                                    for o in chunk))])
+                  for chunk in (outs[k:k + MAX_INPUTS]
+                                for k in range(0, len(outs), MAX_INPUTS))]
+        push(spends)
+        out["spend_txs"] = len(spends)
+        # coinbase-only blocks to a tip at which [1, 256] lies below the
+        # anchor less the safety window; the clock advances 60 s a block,
+        # so the retargets keep the difficulty
+        height = ARCHIVE_SEGMENT + ARCHIVE_WINDOW + 2
+        while a.call(state.get_next_block_id()) <= height:
+            push([])
+        out["extension_s"] = time.perf_counter() - t0
+        out["height"] = height
+        out["difficulty"] = str(a.call(
+            a.node.manager.calculate_difficulty())[0])
+        out["extension"] = archive_counts()
+        host_digest_fallbacks("archive, the extension")
+
+        big = a.call(state.get_block_by_id(4))
+        big_hashes = a.call(state.get_block_transaction_hashes(big["hash"]))
+        twin_db = str(adir / "twin.db")
+        with sqlite3.connect(a_db) as src, sqlite3.connect(twin_db) as dst:
+            src.backup(dst)  # the unpruned twin, WAL included
+        t0 = time.perf_counter()
+        manifest = a.call(a.node.build_snapshot())
+        out["snapshot_s"] = time.perf_counter() - t0
+        hot_before = a.call(state.archive_hot_row_counts())
+        t0 = time.perf_counter()
+        stats = a.call(a.node.compact_archive())
+        out["compact_s"] = time.perf_counter() - t0
+        hot_after = a.call(state.archive_hot_row_counts())
+        out.update(anchor=manifest["anchor_height"], stats=stats,
+                   hot_before=hot_before, hot_after=hot_after)
+        if not stats.get("ok") or stats["segments_built"] != 1 \
+                or stats["archived_through"] != ARCHIVE_SEGMENT \
+                or not stats["pruned_blocks"] or not stats["pruned_txs"]:
+            fail(f"archive: compaction {stats}")
+        if hot_before["blocks"] - hot_after["blocks"] \
+                != stats["pruned_blocks"] \
+                or hot_before["txs"] - hot_after["txs"] \
+                != stats["pruned_txs"]:
+            fail(f"archive: hot rows {hot_before} -> {hot_after}, {stats}")
+        if a.call(_hot_block_rows(state, 4)):
+            fail("archive: the 8,160-tx block stayed hot")
+
+        status, body = raw_get(a, "archive/manifest")
+        record = json.loads(body)["result"]["segments"][0]
+        status0, seg = raw_get(a, "archive/segment/0")
+        payload = bytes.fromhex(json.loads(seg)["result"]["data"])
+        if status != 200 or status0 != 200 or hashlib.sha256(
+                payload).hexdigest() != record["payload_sha256"]:
+            fail(f"archive: /archive/* answered {status}, {status0}")
+        out.update(segment_bytes=len(payload), segment_json_bytes=len(seg),
+                   segment_txs=record["txs"])
+
+        twin = NodeThread(dev, twin_db, "jac",
+                          node__rate_limits_enabled=False)
+        nodes.append(twin)
+        reads = ["get_block?block=4&full_transactions=true",
+                 f"get_block?block={big['hash']}",
+                 "get_block_details?block=4",
+                 f"get_transaction?tx_hash={big_hashes[1]}",
+                 f"get_transaction?tx_hash={big_hashes[-1]}",
+                 "get_blocks?offset=1&limit=8",
+                 f"get_address_transactions?address={kit.addr}"
+                 "&page=5&limit=100"]
+        t0 = time.perf_counter()
+        for path in reads:
+            got = [raw_get(n, path) for n in (a, twin)]
+            if got[0] != got[1] or got[0][0] != 200:
+                fail(f"archive: {path} differs from the unpruned twin "
+                     f"({got[0][0]}, {got[1][0]}, {len(got[0][1])} and "
+                     f"{len(got[1][1])} bytes)")
+        out["reads_s"] = time.perf_counter() - t0
+        out["fallthrough_reads"] = state.archive.stats()["fallthrough_reads"]
+        if not out["fallthrough_reads"]:
+            fail("archive: no read fell through to the segment")
+        if not state.archive.stats()["segments"] == 1:
+            fail(f"archive: reader {state.archive.stats()}")
+
+        # the index across the prune: probe, shadow map and SQL, then B6
+        # against its plain version on its lanes
+        spent = [(o.tx_hash, o.index) for o in outs]
+        sample = spent + [(t.hash(), 0) for t in spends] + ABSENT
+
+        async def parity(where):
+            resident_parity(state, sample, where)
+            return resident_probe_check(state, sample, where)
+        out["probe_check"] = a.call(parity("after the prune"))
+        coinbases = [o for o in a.call(state.get_spendable_outputs(kit.addr))
+                     if o.tx_hash not in {t.hash() for t in spends}]
+        honest = [kit.spend([(t.hash(), 0)],
+                            [TxOutput(kit.addr, t.outputs[0].amount)])
+                  for t in spends]
+        honest += [kit.spend([(o.tx_hash, o.index)],
+                             [TxOutput(kit.addr, o.amount)])
+                   for o in coinbases[:ARCHIVE_HONEST]]
+        txverify.clear_sig_verdicts()
+        trace.reset()
+        before = archive_counts()
+        t0 = time.perf_counter()
+        push(honest)
+        out["honest_push_s"] = time.perf_counter() - t0
+        after = archive_counts()
+        out["honest"] = {k: after[k] - before[k] for k in after}
+        out["honest"]["consults"] = trace.counters().get(
+            "index.shadow_consults", 0)
+        if not (out["honest"]["b6"] and out["honest"]["jac"]
+                and out["honest"]["b5"]) or out["honest"]["consults"]:
+            fail(f"archive: A's block after the prune {out['honest']}")
+        host_digest_fallbacks("archive, A's block after the prune")
+        out["honest_txs"] = len(honest)
+        out["probe_check_after"] = a.call(parity("after A's next block"))
+
+        # J syncs from genesis off A: the page below the seam is served
+        # from A's segment
+        j = NodeThread(dev, str(adir / "j.db"), "jac",
+                       device__utxo_index=True,
+                       device__txid_backend="device",
+                       node__sync_fetch_interval=0)
+        nodes.append(j)
+        trace.reset()
+        before = archive_counts()
+        t0 = time.perf_counter()
+        reply = sync_request(j, a)
+        out["sync_s"] = time.perf_counter() - t0
+        after = archive_counts()
+        out["sync"] = {k: after[k] - before[k] for k in after}
+        if reply != {"ok": True, "peer": a.url.rstrip("/")}:
+            fail(f"archive: J's sync {reply}")
+        ends = [(n.call(n.node.state.get_last_block())["hash"],
+                 n.call(_hashes(n.node.state))) for n in (j, a)]
+        if ends[0] != ends[1]:
+            fail(f"archive: J {ends[0]} and A {ends[1]} differ")
+        if not (out["sync"]["jac"] and out["sync"]["b5"]):
+            fail(f"archive: J's sync launched {out['sync']}")
+        out["sync_counters"] = host_digest_fallbacks("archive, J's sync")
+        out["sync_blocks"] = j.call(j.node.state.get_next_block_id()) - 1
+        out["all"] = archive_counts()
+
+        # M mirrors A's archive; a second fetch reuses every segment
+        m = NodeThread(dev, str(adir / "m.db"), "jac",
+                       archive__dir=str(adir / "m.archive"))
+        nodes.append(m)
+        t0 = time.perf_counter()
+        fetched = m.call(m.node.fetch_archive_from_peer(a.url.rstrip("/")))
+        out["mirror_s"] = time.perf_counter() - t0
+        again = m.call(m.node.fetch_archive_from_peer(a.url.rstrip("/")))
+        if fetched != {"ok": True, "segments": 1, "fetched": 1, "reused": 0,
+                       "archived_through": ARCHIVE_SEGMENT} \
+                or again.get("reused") != 1 or again.get("fetched") != 0:
+            fail(f"archive: M's mirror {fetched}, then {again}")
+        name = record["name"]
+        for f in ("payload.jsonl", "index.json"):
+            if (adir / "a.archive" / name / f).read_bytes() != \
+                    (adir / "m.archive" / name / f).read_bytes():
+                fail(f"archive: M's {name}/{f} differs from A's")
+    finally:
+        for n in reversed(nodes):
+            n.close()
+        clock.freeze(resume)
+    return out
+
+
 # --- phase 28: the PostgreSQL backend --------------------------------------
 
 PG_ADMIT = 256              # of the big block's txs admitted by push_tx first
@@ -4354,6 +4626,8 @@ def main() -> int:
         fresh_runtime(dev, "push_block_resident")
         snap = snapshot_path(dev, kit, workdir, leaves)
         fresh_runtime(dev, "snapshot")
+        arch = archive_path(dev, kit, workdir, leaves)
+        fresh_runtime(dev, "archive")
         pg = pg_path(dev, kit, workdir, leaves, content)
         fresh_runtime(dev, "pg_path")
         txid_record = txid_phase(dev, {
@@ -4390,17 +4664,21 @@ def main() -> int:
     # the node on the PostgreSQL backend runs B6, kernel 1 and B5
     probe_record["launches_by_path"] = {"accept_resident": resident["b6"],
                                         "pg_push_block": pg["b6"],
-                                        "snapshot_restored_block": snap["b6"]}
+                                        "snapshot_restored_block": snap["b6"],
+                                        "archive": arch["all"]["b6"]}
     record["launches_by_path"] = {"main_path": res["launches"],
                                   "pg_push_block": pg["jac"],
                                   "wallet_sends": wal["jac"],
-                                  "snapshot_restored_block": snap["jac"]}
+                                  "snapshot_restored_block": snap["jac"],
+                                  "archive": arch["all"]["jac"]}
     txid_record["launches_by_path"] = {"sync_path": synced["b5"],
                                        "pg_push_block": pg["b5"],
-                                       "snapshot_restored_block": snap["b5"]}
+                                       "snapshot_restored_block": snap["b5"],
+                                       "archive": arch["all"]["b5"]}
     sha_record["launches"] = nres["miner"]["launches"]
     sha_record["launches_by_path"] = {"miner_run": nres["miner"]["launches"],
-                                      "wallet_block": wal["b2"]}
+                                      "wallet_block": wal["b2"],
+                                      "archive": arch["all"]["b2"]}
     # one path's own count (the 8,160-tx push_block under complete), and
     # each path's count beside it: the paths are reset and read apart
     complete_record["launches"] = pushes["complete"]["complete"]
@@ -4621,6 +4899,34 @@ def main() -> int:
           probe_launches=snap["b6"], jac_launches=snap["jac"],
           txid_launches=snap["b5"], shadow_consults=snap["consults"],
           card=json.dumps(card))
+    st = arch["stats"]
+    phase("archive", walls="host", segment_blocks=ARCHIVE_SEGMENT,
+          safety_window=ARCHIVE_WINDOW, height=arch["height"],
+          difficulty=arch["difficulty"], spend_txs=arch["spend_txs"],
+          extension_s=round(arch["extension_s"], 3),
+          snapshot_s=round(arch["snapshot_s"], 3),
+          compact_s=round(arch["compact_s"], 3),
+          archived_through=st["archived_through"],
+          pruned_blocks=st["pruned_blocks"], pruned_txs=st["pruned_txs"],
+          hot_rows=f"{json.dumps(arch['hot_before'])}->"
+          f"{json.dumps(arch['hot_after'])}",
+          segment_bytes=arch["segment_bytes"],
+          segment_json_bytes=arch["segment_json_bytes"],
+          segment_txs=arch["segment_txs"], reads_twin_equal=True,
+          reads_s=round(arch["reads_s"], 3),
+          fallthrough_reads=arch["fallthrough_reads"],
+          probe_vs_plain=json.dumps([arch["probe_check"],
+                                     arch["probe_check_after"]]),
+          honest_txs=arch["honest_txs"],
+          honest_push_s=round(arch["honest_push_s"], 3),
+          honest_launches=json.dumps(arch["honest"]),
+          extension_launches=json.dumps(arch["extension"]),
+          j_sync_s=round(arch["sync_s"], 3), j_blocks=arch["sync_blocks"],
+          j_sync_launches=json.dumps(arch["sync"]),
+          sample_mismatch=arch["sync_counters"]["txid.sample_mismatch"],
+          host_txid_retry=arch["sync_counters"]["sync.host_txid_retry"],
+          m_mirror_s=round(arch["mirror_s"], 3), m_files_equal=True,
+          path_launches=json.dumps(arch["all"]), card=json.dumps(card))
     phase("pg", backend="PgChainState over MockPgDriver (sqlite)",
           txid_backend="device",
           walls="host, mock driver over sqlite, not a PostgreSQL server",

@@ -7,12 +7,13 @@ the JAX schema that the port does not read yet is skipped; any other key
 raises the JAX package's ``KeyError`` (``unknown config section <s>``,
 ``unknown config field <s>.<f>``), in a file and in an override alike.
 The peer, gossip, resilience, degrade, device-runtime, log, telemetry,
-profiling, read-cache, ``/ws``, watchtower, replace-by-fee and snapshot
-fields of the port's ``NodeConfig``, ``ResilienceConfig``,
+profiling, read-cache, ``/ws``, watchtower, replace-by-fee, snapshot and
+archive fields of the port's ``NodeConfig``, ``ResilienceConfig``,
 ``DeviceConfig``, ``DeviceRuntimeConfig``, ``LogConfig``,
 ``TelemetryConfig``, ``ProfilingConfig``, ``CacheConfig``, ``WsConfig``,
-``WatchtowerConfig``, ``MempoolConfig`` and ``SnapshotConfig`` are held
-one by one, from a file and from ``UPOW_<SECTION>_<FIELD>``.
+``WatchtowerConfig``, ``MempoolConfig``, ``SnapshotConfig`` and
+``ArchiveConfig`` are held one by one, from a file and from
+``UPOW_<SECTION>_<FIELD>``.
 """
 
 import dataclasses
@@ -119,6 +120,12 @@ NEW_FIELDS = [
     ("snapshot", "max_payload_bytes", 65536, "65536"),
     ("snapshot", "rebuild_interval_blocks", 10, "10"),
     ("snapshot", "rebuild_jitter_blocks", 4, "4"),
+    ("archive", "dir", "archive", "archive"),
+    ("archive", "segment_blocks", 5, "5"),
+    ("archive", "safety_window", 8, "8"),
+    ("archive", "reader_cache_segments", 2, "2"),
+    ("archive", "max_segment_bytes", 1 << 20, "1048576"),
+    ("archive", "max_segments", 16, "16"),
 ]
 
 
@@ -177,8 +184,8 @@ def test_unknown_override_raises_the_jax_error(tmp_path, overrides, want):
 @pytest.mark.parametrize("how", ["file", "override"])
 @pytest.mark.parametrize("section, field, value", [
     ("miner", "workers", 2),
-    ("archive", "dir", "archive"),
-    ("archive", "segment_blocks", 5),
+    ("miner", "ttl", 30),
+    ("device", "device", "cpu"),
     ("mempool", "enabled", False),
     ("device_runtime", "compile_cache_dir", "cache"),
     ("device", "search_backend", "jnp"),

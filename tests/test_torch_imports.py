@@ -18,7 +18,10 @@ on one port node and syncs a second from it over HTTP
 (``node/peers.py``'s client); a fourth runs the port's node on its
 PostgreSQL backend (the mock driver, the index armed on the CPU); a
 fifth drives the wallet (``/send_to_address``, the nodeless wallet and
-the CLI) and a snapshot built on one node and restored into another.
+the CLI) and a snapshot built on one node and restored into another; a
+sixth runs the archive's storage differential, a node's compaction and
+its ``/archive/*`` routes, and a three-node swarm that carries a mined
+block to every node over the loopback transport.
 """
 
 import os
@@ -297,8 +300,54 @@ def wallet_snapshot():
     print("wallet and snapshot served")
 
 
+def archive_swarm():
+    import asyncio, json, os, tempfile
+    from upow_tpu_torch.archive import parity
+    from upow_tpu_torch.node.http import fetch
+    from upow_tpu_torch.swarm import Swarm
+    from upow_tpu_torch.swarm.scenarios import _wallet, deterministic_world
+
+    res = asyncio.run(parity.storage_differential(
+        96, segment_blocks=8, safety_window=8))
+    assert res["ok"] and res["reader"]["fallthrough_reads"] > 0, res
+    work = tempfile.mkdtemp()
+
+    async def main():
+        swarm = await Swarm(3, seed=4).start()
+        try:
+            node = swarm.nodes[0]
+            node.config.snapshot.dir = os.path.join(work, "snap")
+            node.config.snapshot.blocks_tail = 2
+            node.config.archive.dir = os.path.join(work, "archive")
+            node.config.archive.segment_blocks = 2
+            node.config.archive.safety_window = 2
+            from upow_tpu_torch.archive import ArchiveReader
+            node.state.archive = ArchiveReader(node.config.archive.dir)
+            _, addr = _wallet(4, "shared")
+            for _ in range(6):
+                assert (await swarm.mine(0, addr))["ok"]
+            await swarm.settle()
+            assert await swarm.wait_converged()
+            await node.build_snapshot()
+            stats = await node.compact_archive()
+            assert stats["ok"] and stats["archived_through"] == 2, stats
+            seg = await swarm.get(0, "archive/segment/0")
+            assert seg["result"]["name"] == "seg-000000001-000000002", seg
+            server = await node.serve("127.0.0.1", 0)
+            _s, body = await fetch("http://127.0.0.1:%d/archive/manifest"
+                                   % server.port)
+            assert json.loads(body)["result"]["archived_through"] == 2
+        finally:
+            await swarm.close()
+    with deterministic_world(4):
+        asyncio.run(main())
+    print("archive and swarm served")
+
+
 for name in sys.argv[1:]:
-    if name == "--serve":
+    if name == "--archive-swarm":
+        archive_swarm()
+    elif name == "--serve":
         serve()
     elif name == "--wallet-snapshot":
         wallet_snapshot()
@@ -348,7 +397,12 @@ def test_every_port_module_imports_without_jax():
                  "state.pgdriver", "state.reindex", "wallet",
                  "wallet.keystore", "wallet.builders", "wallet.nodeless",
                  "wallet.cli", "snapshot", "snapshot.layout",
-                 "snapshot.builder", "snapshot.client"):
+                 "snapshot.builder", "snapshot.client", "archive",
+                 "archive.store", "archive.reader", "archive.compactor",
+                 "archive.parity", "archive.__main__", "swarm",
+                 "swarm.links", "swarm.transport", "swarm.adversary",
+                 "swarm.harness", "swarm.scenarios", "fleet",
+                 "fleet.recorder"):
         assert "upow_tpu_torch." + must in names, must
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(
@@ -419,3 +473,12 @@ def test_port_sources_name_no_jax_import():
                              "from aiohttp")):
                 bad.append((path, s))
     assert len(sources) > 20 and not bad, bad
+
+
+def test_port_archive_and_swarm_without_jax_or_aiohttp():
+    env = dict(os.environ, PYTHONPATH=ROOT, UPOW_NODE_SEED_URL="")
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKER, "--archive-swarm"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "archive and swarm served" in out.stdout

@@ -65,13 +65,11 @@ PORT_ONLY = {
     r"upow_native_unavailable_total": "no g++",
 }
 
-#: families only the JAX node exports: the SLO series of its routes the
-#: port does not serve yet (the archive tier) — ROADMAP.md.  The
-#: hotcache_*, ws_*, alert_*, send_to_address and snapshot_* families
-#: are compared: both nodes export them
-JAX_ONLY = {
-    r"upow_slo_http_archive_\w+_\w+": "routes not ported",
-}
+#: families only the JAX node exports: none.  The hotcache_*, ws_*,
+#: alert_*, send_to_address, snapshot_* and archive_* families (the
+#: archive routes' SLO series among them) are compared: both nodes
+#: export them
+JAX_ONLY = {}
 
 #: counters both packages count alike
 SAME_COUNTS = (
@@ -88,6 +86,10 @@ SAME_COUNTS = (
     "upow_block_height", "upow_mempool_transactions",
     "upow_mempool_pool_depth", "upow_device_verify_health",
     "upow_verify_canary_pass_total",
+    # the archive tier is off on both nodes: its families read zero
+    "upow_archive_segments", "upow_archive_archived_blocks",
+    "upow_archive_archived_txs", "upow_archive_hot_rows_pruned_total",
+    "upow_archive_fallthrough_reads_total",
 )
 
 #: spans only the port records (a runtime dispatch in its submitter's

@@ -10,18 +10,18 @@ read-only, POST silence and unsilence, the 400s of a bad body or
 ``seconds``), the ``alert_*`` and ``alert_rule_*`` families of
 ``/metrics`` and the ``/debug/events`` cursor with the watchtower on,
 and ``{"enabled": false}`` with zero-valued families with it off.  The
-port's own: a failed device-runtime arm and a degrade trip emit the
+flight recorder's trigger precedence (an alert that reached firing
+outranks the fault and the SLO breach) runs on both packages' recorders.
+The port's own: a failed device-runtime arm and a degrade trip emit the
 event kinds the arm-flap rule counts, and the CLI runs legs 1 and 2 and
 exits non-zero, naming ROADMAP A13f, when asked for leg 3.
 
-The JAX cases that need ``fleet/`` or ``swarm/`` (the flight recorder's
-trigger, the ``watchtower_storm`` scenario and the clean geo-soak) wait
-for ROADMAP A13f.
+The JAX cases that need the swarm's scenarios (the ``watchtower_storm``
+scenario and the clean geo-soak) wait for ROADMAP A13f.
 """
 
 import asyncio
 import json
-import re
 import subprocess
 import sys
 import time
@@ -33,12 +33,14 @@ import torch
 from aiohttp.test_utils import TestServer
 
 import upow_tpu.config as jconfig
+import upow_tpu.fleet.recorder as jrecorder
 import upow_tpu.node.app as japp
 import upow_tpu.telemetry as jtelemetry
 import upow_tpu.telemetry.events as jevents
 import upow_tpu.telemetry.scope as jscope
 import upow_tpu.watchtower as jwatchtower
 import upow_tpu_torch.config as tconfig
+import upow_tpu_torch.fleet.recorder as trecorder
 import upow_tpu_torch.node.app as tapp
 import upow_tpu_torch.telemetry as ttelemetry
 import upow_tpu_torch.telemetry.events as tevents
@@ -441,6 +443,24 @@ def test_engine_slo_burn_pages_route_and_records_bench_event(P, tmp_path):
                and r["source"] == "watchtower" for r in recs)
 
 
+# ------------------------------------------------- recorder precedence ----
+
+@pytest.mark.parametrize("recorder", [jrecorder, trecorder],
+                         ids=["jax", "port"])
+def test_recorder_trigger_alert_outranks_fault_and_slo_breach(recorder):
+    evs = [{"kind": "fault_injected", "spec": "rpc:error"},
+           {"kind": "alert", "state": "firing",
+            "rule": "breaker_flip_storm"}]
+    slow = {"swarm.x.node0": {"p99_ms": 900.0}}
+    assert recorder.trigger_reason(True, evs, slo_rows=slow,
+                                   p99_budget_ms=100.0) \
+        == "alert:breaker_flip_storm"
+    pending_only = [{"kind": "alert", "state": "pending", "rule": "r"},
+                    {"kind": "fault_injected"}]
+    assert recorder.trigger_reason(True, pending_only) == "fault_injected"
+    assert recorder.trigger_reason(False, evs) == "core_assertion_failed"
+
+
 # ------------------------------------------------- the port's emitters ----
 
 def test_port_arm_failure_and_degrade_feed_the_arm_flap_rule(monkeypatch):
@@ -502,20 +522,11 @@ async def _call(session, method, url, params=None, **kw):
         return r.status, await r.read()
 
 
-#: the JAX node's routes the port does not serve yet (ROADMAP.md): their
-#: SLO series reach the JAX watchtower's burn-rate readings
-NOT_PORTED = re.compile(r"archive_.*")
-
-
 def _strip(body: bytes) -> dict:
-    """A /debug/alerts body without its wall-clock figures and the
-    burn-rate readings of routes not ported."""
+    """A /debug/alerts body without its wall-clock figures; the burn-rate
+    readings of every route are compared (the archive routes' too)."""
     out = json.loads(body)
-    res = out.get("result", {})
-    res.get("stats", {}).pop("eval_lag_seconds", None)
-    burn = res.get("burnrate", {})
-    for route in [r for r in burn if NOT_PORTED.fullmatch(r)]:
-        del burn[route]
+    out.get("result", {}).get("stats", {}).pop("eval_lag_seconds", None)
     return out
 
 

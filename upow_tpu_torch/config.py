@@ -7,8 +7,8 @@ JSON config file, ``UPOW_<SECTION>_<FIELD>`` environment variables
 ``section__field`` keyword overrides (``node__port=3007``): the JAX
 package's names and precedence, so a config file or environment that the
 JAX node reads configures the port's node the same way.  Sections and
-fields the port does not read yet (the ``miner`` and ``archive``
-sections, ``device.device``, ``device.search_backend`` and
+fields the port does not read yet (the ``miner`` section,
+``device.device``, ``device.search_backend`` and
 ``device_runtime.compile_cache_dir``) come with the slices that read
 them (ROADMAP.md); a config file naming them is read, and they are
 skipped.  So is
@@ -262,6 +262,32 @@ class SnapshotConfig:
 
 
 @dataclass
+class ArchiveConfig:
+    """Cold-block archival tier (``archive/``, docs/ARCHIVE.md).
+    Operational only: pruned and unpruned nodes answer every read
+    byte-identically, so none of these knobs touch consensus.  All
+    overridable as ``UPOW_ARCHIVE_<FIELD>``."""
+
+    dir: str = ""                   # archive root directory; '' disables
+                                    # the whole tier (no reader attach,
+                                    # no compactor, /archive/* serve 404)
+    segment_blocks: int = 256       # fixed height range per segment;
+                                    # a pure function of chain content,
+                                    # so every node on the same chain
+                                    # with the same setting produces
+                                    # byte-identical segments
+    safety_window: int = 64         # blocks below the snapshot anchor
+                                    # kept hot regardless (must exceed
+                                    # any plausible reorg depth; pair
+                                    # with node.sync_reorg_window)
+    reader_cache_segments: int = 4  # parsed segments kept in memory for
+                                    # fallthrough reads (LRU)
+    max_segment_bytes: int = 256 << 20  # fetch-side ceiling on what a
+    max_segments: int = 1 << 12         # peer manifest may declare
+                                        # (as the snapshot restore caps)
+
+
+@dataclass
 class CacheConfig:
     """Generation-anchored hot-state read cache (``state/hotcache.py``).
     Operational only: the cache serves byte-identical responses, so
@@ -478,6 +504,7 @@ class Config:
     mempool: MempoolConfig = field(default_factory=MempoolConfig)
     cache: CacheConfig = field(default_factory=CacheConfig)
     snapshot: SnapshotConfig = field(default_factory=SnapshotConfig)
+    archive: ArchiveConfig = field(default_factory=ArchiveConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     log: LogConfig = field(default_factory=LogConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
@@ -517,7 +544,7 @@ def _unread(section: str, fname: str) -> bool:
 _SECTIONS = {"device": DeviceConfig, "device_runtime": DeviceRuntimeConfig,
              "node": NodeConfig, "ws": WsConfig,
              "mempool": MempoolConfig, "cache": CacheConfig,
-             "snapshot": SnapshotConfig,
+             "snapshot": SnapshotConfig, "archive": ArchiveConfig,
              "resilience": ResilienceConfig, "log": LogConfig,
              "telemetry": TelemetryConfig, "watchtower": WatchtowerConfig,
              "profile": ProfilingConfig}

@@ -12,12 +12,13 @@ address and governance reads (``/get_address_info``,
 ``/get_delegates_info``, ``/dobby_info``, ``/get_supply_info``), the
 localhost-only custodial ``/send_to_address`` (GET and POST, gated on the
 client IP), the snapshot routes ``/snapshot/manifest`` and
-``/snapshot/chunk/{i}`` (the one route with a path parameter), the
+``/snapshot/chunk/{i}``, the archive routes ``/archive/manifest`` and
+``/archive/segment/{i}`` (the two routes with a path parameter), the
 Prometheus exposition ``/metrics``, the ``/ws`` push hub (under
 ``ws.enabled``) and, under ``telemetry.debug_endpoints``,
 ``/debug/traces``, ``/debug/events``, ``/debug/alerts`` (GET, and POST
-for the operator knobs), ``/debug/breakers``, ``/debug/cache`` and (with
-``profile.enabled``) ``/debug/profile``.
+for the operator knobs), ``/debug/breakers``, ``/debug/cache``,
+``/debug/archive`` and (with ``profile.enabled``) ``/debug/profile``.
 Every body is byte for byte the JAX node's: the ``{"ok": bool, ...}``
 envelope, the reference's error strings, GET query params merged with a
 POST JSON body, and the middleware's IP filter, path normalisation, rate
@@ -87,10 +88,19 @@ falling back to block replay with a structured reason; a restore that
 cannot rebuild the resident index on the card raises.  The pool honours
 ``mempool.allow_rbf`` on its journal sync.
 
-Not ported yet (ROADMAP.md): the archive tier (``/debug/archive`` and
-the archive compaction a snapshot rebuild runs in the JAX node);
-``/metrics`` carries the archive families as zeros, as a JAX node with
-the tier off does.
+The cold-block archive (:mod:`..archive`, ``archive.*``): with
+``archive.dir`` set the node attaches an
+:class:`~..archive.reader.ArchiveReader` to its state, so every block and
+transaction read that misses the hot tables falls through to the
+archive's segments (archived rows never change, so the read cache's
+generation does not move for them); :meth:`Node.compact_archive` (also
+run after each background snapshot rebuild) moves fully spent history
+below the snapshot anchor less ``archive.safety_window`` into segments
+and prunes it from the hot tables; ``/archive/manifest`` and
+``/archive/segment/{i}`` serve the published segments from disk, not
+through the read cache; :meth:`Node.fetch_archive_from_peer` mirrors a
+peer's archive; ``/metrics`` carries the ``archive_*`` families (zeros
+with the tier off, as in a JAX node).
 """
 
 from __future__ import annotations
@@ -109,6 +119,9 @@ from decimal import Decimal
 from typing import List, Optional
 
 from .. import _build, telemetry, trace
+from ..archive import ArchiveReader
+from ..archive import compactor as archive_compactor
+from ..archive.reader import ArchiveFetchError, fetch_archive
 from ..config import Config
 from ..core.clock import timestamp
 from ..core.constants import (ENDIAN, MAX_BLOCK_SIZE_HEX, MAX_SUPPLY,
@@ -152,10 +165,13 @@ _SYNCING = {"ok": False, "error": "Node is already syncing"}
 # response is computed fresh and not stored)
 _CACHE_BYPASS_HEADER = "x-upow-cache-bypass"
 
-# the one route with a path parameter, and what aiohttp's router matches
-# for its ``{i}``: one segment, no braces
+# the routes with a path parameter, and what aiohttp's router matches
+# for their ``{i}``: one segment, no braces
 _CHUNK_ROUTE = "/snapshot/chunk/{i}"
-_CHUNK_PATH = re.compile(r"/snapshot/chunk/([^{}/]+)")
+_SEGMENT_ROUTE = "/archive/segment/{i}"
+_PARAM_ROUTES = tuple(
+    (route, re.compile(re.escape(route[:-len("{i}")]) + r"([^{}/]+)"))
+    for route in (_CHUNK_ROUTE, _SEGMENT_ROUTE))
 
 # every get_address_info query flag that shapes the response: the cache
 # key carries all of them
@@ -333,6 +349,14 @@ class Node:
         scfg = self.config.snapshot
         if scfg.dir:
             snapshot_layout.prune_generations(scfg.dir, keep=scfg.keep)
+        # the cold-block archive: the read fallthrough on the state.
+        # Archived rows are immutable, so the read cache's generation
+        # does not move for them: a cached body is the same either way
+        self.archive_compact: dict = {}
+        if self.config.archive.dir:
+            self.state.archive = ArchiveReader(
+                self.config.archive.dir,
+                cache_segments=self.config.archive.reader_cache_segments)
         # the rebuild cadence (snapshot.rebuild_interval_blocks): every
         # committed block ticks a counter; at the interval plus a jitter
         # seeded from the node's identity (a fleet started together does
@@ -395,6 +419,8 @@ class Node:
                 ("/get_supply_info", self.h_get_supply_info),
                 ("/snapshot/manifest", self.h_snapshot_manifest),
                 (_CHUNK_ROUTE, self.h_snapshot_chunk),
+                ("/archive/manifest", self.h_archive_manifest),
+                (_SEGMENT_ROUTE, self.h_archive_segment),
                 ("/metrics", self.h_metrics)):
             self.routes[("GET", path)] = handler
         if self.config.telemetry.debug_endpoints:
@@ -405,6 +431,7 @@ class Node:
                 self.h_debug_alerts_post
             self.routes[("GET", "/debug/breakers")] = self.h_debug_breakers
             self.routes[("GET", "/debug/cache")] = self.h_debug_cache
+            self.routes[("GET", "/debug/archive")] = self.h_debug_archive
             if self.config.profile.enabled:
                 self.routes[("GET", "/debug/profile")] = self.h_debug_profile
         if self.ws_hub is not None:
@@ -471,9 +498,15 @@ class Node:
             port=self.config.node.port if port is None else port,
             max_body=self.config.node.response_cap)
         await self.server.start()
+        self.start_services()
+        return self.server
+
+    def start_services(self) -> None:
+        """The node's long-lived loops (the watchtower's), which
+        :meth:`serve` starts beside its server; a node served with no
+        socket (the swarm's loopback transport) starts them here."""
         if self.watchtower is not None:
             self._spawn_service(self.watchtower.run())
-        return self.server
 
     async def close(self) -> None:
         self._closing = True
@@ -683,12 +716,15 @@ class Node:
         aiohttp's ``add_get`` serves HEAD by the GET handler."""
         method = "GET" if request.method == "HEAD" else request.method
         route = normalized
-        match = _CHUNK_PATH.fullmatch(normalized)
-        if match is not None:
-            route = _CHUNK_ROUTE
-            request.match_info = {"i": match.group(1)}
-        elif normalized == _CHUNK_ROUTE:
-            route = None  # the template itself names no resource
+        for template, pattern in _PARAM_ROUTES:
+            match = pattern.fullmatch(normalized)
+            if match is not None:
+                route = template
+                request.match_info = {"i": match.group(1)}
+                break
+            if normalized == template:
+                route = None  # the template itself names no resource
+                break
         handler = self.routes.get((method, route))
         if handler is None:
             allowed = {m for m, path in self.routes if path == route}
@@ -799,10 +835,10 @@ class Node:
         the chain, mempool, peers and breakers, the hot read cache, the
         ``/ws`` hub, the device verify path's health, the resident index
         and the mesh miner, the kernel libraries built, the card's memory
-        and the kernels' counted work; the watchtower's alert families
-        (zeros when it is off) and the archive's as zeros; then every
-        counter, span and histogram of the registries.  Rendering and
-        name sanitising are :mod:`..telemetry.exposition`'s."""
+        and the kernels' counted work; the watchtower's and the archive's
+        families (zeros when either is off); then every counter, span and
+        histogram of the registries.  Rendering and name sanitising are
+        :mod:`..telemetry.exposition`'s."""
         e = telemetry.exposition.Exposition()
         e.gauge("block_height", await self.state.get_next_block_id() - 1,
                 "Height of the last accepted block")
@@ -849,16 +885,22 @@ class Node:
             e.gauge("snapshot_restore_chunks_reused", sr.get("reused", 0),
                     "Verified chunks reused from the journal (not"
                     " re-downloaded) by the current restore pass")
-        # the archive tier is not ported: its families as a JAX node
-        # with the tier disabled exports them
-        e.gauge("archive_segments", 0, "Published cold-archive segments")
-        e.gauge("archive_archived_blocks", 0,
+        # archive families are emitted unconditionally (zeros when the
+        # tier is off) so the scrape's family set does not depend on it
+        ast = self.state.archive.stats() if self.state.archive else {}
+        e.gauge("archive_segments", ast.get("segments", 0),
+                "Published cold-archive segments")
+        e.gauge("archive_archived_blocks", ast.get("archived_blocks", 0),
                 "Blocks held by the published archive manifest")
-        e.gauge("archive_archived_txs", 0,
+        e.gauge("archive_archived_txs", ast.get("archived_txs", 0),
                 "Transactions held by the published archive manifest")
-        e.counter("archive_hot_rows_pruned", 0,
+        e.counter("archive_hot_rows_pruned",
+                  (self.archive_compact.get("pruned_blocks", 0)
+                   + self.archive_compact.get("pruned_txs", 0))
+                  if self.archive_compact.get("ok") else 0,
                   "Hot block+tx rows deleted by the last compaction")
-        e.counter("archive_fallthrough_reads", 0,
+        e.counter("archive_fallthrough_reads",
+                  ast.get("fallthrough_reads", 0),
                   "Reads served from archive segments after a hot miss")
         sig = sig_verdict_stats()
         e.gauge("sig_cache_entries", sig["size"],
@@ -1638,6 +1680,97 @@ class Node:
         return {"ok": bool(sync.get("ok")), "method": "replay_fallback",
                 "reason": reason, "sync": sync}
 
+    # --------------------------------------------------------- archive ---
+    # Served from disk like /snapshot/*: the bytes come straight from the
+    # published manifest and segment files, not through the read cache
+    # (a peer verifying content hashes needs the store's truth, with no
+    # cache-bypass header).
+
+    async def _archive_manifest(self) -> Optional[dict]:
+        reader = self.state.archive
+        if not self.config.archive.dir or reader is None:
+            return None
+        return await asyncio.get_running_loop().run_in_executor(
+            None, reader.store.current_manifest)
+
+    async def h_archive_manifest(self, request: Request) -> Response:
+        manifest = await self._archive_manifest()
+        if manifest is None:
+            return json_response(
+                {"ok": False, "error": "no archive available"}, status=404)
+        trace.inc("archive.manifest_served")
+        return json_response({"ok": True, "result": manifest})
+
+    async def h_archive_segment(self, request: Request) -> Response:
+        try:
+            i = int(request.match_info["i"])
+        except (KeyError, ValueError):
+            return json_response(
+                {"ok": False, "error": "segment index must be an integer"},
+                status=422)
+        manifest = await self._archive_manifest()
+        if manifest is None or not 0 <= i < len(manifest["segments"]):
+            return json_response(
+                {"ok": False, "error": "no such segment"}, status=404)
+        record = manifest["segments"][i]
+        try:
+            # segments can be tens of MB: off the loop thread
+            data = await asyncio.get_running_loop().run_in_executor(
+                None, self.state.archive.store.read_payload,
+                record["name"])
+        except OSError:
+            return json_response(
+                {"ok": False, "error": "no such segment"}, status=404)
+        trace.inc("archive.segments_served")
+        return json_response(
+            {"ok": True, "result": {"i": i, "name": record["name"],
+                                    "data": data.hex()}})
+
+    async def h_debug_archive(self, request: Request) -> Response:
+        reader = self.state.archive
+        if reader is None:
+            return json_response(
+                {"ok": False, "error": "archive disabled"}, status=404)
+        await reader.coverage()  # stats() reads the cached manifest
+        return json_response({"ok": True, "result": {
+            "reader": reader.stats(),
+            "last_compaction": self.archive_compact,
+            "hot_rows": await self.state.archive_hot_row_counts(),
+        }}, dumps=_json_dumps)
+
+    async def compact_archive(self) -> dict:
+        """One compaction cycle against the newest published snapshot
+        generation (``archive/compactor.py``; crash-safe, idempotent)."""
+        acfg = self.config.archive
+        if not acfg.dir or not self.config.snapshot.dir:
+            return {"ok": False, "reason": "archive_disabled"}
+        stats = await archive_compactor.compact(
+            self.state, acfg.dir, self.config.snapshot.dir, acfg,
+            reader=self.state.archive)
+        self.archive_compact = stats
+        return stats
+
+    async def fetch_archive_from_peer(self, source: str) -> dict:
+        """Mirror a peer's archive (the deep-history sync feed)."""
+        acfg = self.config.archive
+        if not acfg.dir:
+            return {"ok": False, "reason": "archive_disabled"}
+        iface = self.iface_factory(source, self.config.node,
+                                   resilience=self.resilience)
+        try:
+            result = await fetch_archive(
+                iface, acfg.dir,
+                max_segment_bytes=acfg.max_segment_bytes,
+                max_segments=acfg.max_segments)
+        except (ArchiveFetchError, ConnectionError, asyncio.TimeoutError,
+                OSError) as e:
+            return {"ok": False, "reason": str(e)}
+        finally:
+            await iface.close()
+        if self.state.archive is not None:
+            self.state.archive.invalidate()
+        return result
+
     def _snapshot_rebuild_tick(self) -> None:
         """Committed-block hook: arm a background snapshot rebuild every
         ``rebuild_interval_blocks`` plus the jitter."""
@@ -1649,11 +1782,13 @@ class Node:
             self._spawn(self._snapshot_rebuild())
 
     async def _snapshot_rebuild(self) -> None:
-        """One background rebuild.  (The JAX node also runs the archive
-        compaction here; the archive tier is not ported.)"""
+        """One background rebuild, then the archive compaction the new
+        generation enables (with ``archive.dir`` set)."""
         try:
             if await self.build_snapshot() is not None:
                 trace.inc("snapshot.auto_rebuilds")
+            if self.config.archive.dir:
+                await self.compact_archive()
         except asyncio.CancelledError:
             raise
         except Exception as e:

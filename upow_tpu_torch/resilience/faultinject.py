@@ -33,7 +33,14 @@ by its size), ``snapshot.serve`` (``node/app.py``, once per
 ``/snapshot/manifest`` and ``/snapshot/chunk`` response, keyed
 ``manifest`` or ``chunk/<i>``; ``corrupt`` flips served chunk bytes) and
 ``snapshot.fetch`` (``node/peers.py``, once per snapshot RPC attempt of a
-bootstrap, keyed ``<source url>#manifest`` or ``<source url>#chunk/<i>``).  :meth:`FaultInjector.fire` is the event loop's injection
+bootstrap, keyed ``<source url>#manifest`` or ``<source url>#chunk/<i>``),
+``archive.compact`` (``archive/compactor.py``, at each phase of a cycle,
+keyed ``closure``, ``segment/<lo>``, ``publish`` or ``prune``: an error
+at ``prune`` is a kill between the archive commit and the hot delete),
+``archive.fetch`` (``archive/reader.py`` ``fetch_archive``, keyed
+``manifest`` or ``segment/<i>``; ``corrupt`` flips fetched segment
+bytes) and ``swarm.link`` (``swarm/links.py``, once per simulated link
+transfer, keyed ``<src>-><dst>``).  :meth:`FaultInjector.fire` is the event loop's injection
 point and :meth:`FaultInjector.fire_sync` the thread's.
 :func:`get_injector` is None unless :func:`install` ran with a
 non-empty spec.

@@ -20,8 +20,8 @@ of either package restores from the other's.  A restore rebuilds the
 resident UTXO index on the state's device when one is armed
 (``restore_snapshot`` of both backends); an index that cannot arm
 raises, never falling back to SQL.  Not here yet: ``__main__`` (the
-smoke CLI, which drives the JAX package's ``swarm/``), with ROADMAP
-A13f's swarm; ROADMAP A13d lists it with the archive tier.
+smoke CLI, whose churn leg is a swarm scenario), with the swarm's
+scenarios (ROADMAP A13f).
 """
 
 from .builder import build_snapshot

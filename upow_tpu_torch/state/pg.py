@@ -48,12 +48,12 @@ once an input; the answers are the same.
 The snapshot methods (``export_snapshot_*``, ``restore_snapshot``) give
 and take the payload of the sqlite backend, row for row; a restore
 rebuilds an armed index inside its transaction (zero value lanes, as
-every bulk load here).  Not here yet (ROADMAP A13d, which brings
-``archive/``): ``archive_*`` and the archive read fallthrough
-(``self.archive`` and the cold-block branches of the block and
-transaction reads).  Not supported
-on this backend (as in the JAX package): the sqlite memo caches and
-WAL-specific behaviours.
+every bulk load here).  The archive seam (``archive_export_span``,
+``archive_prune_span``, ``archive_hot_row_counts``) gives the sqlite
+backend's canonical rows, and with ``self.archive`` attached every block
+and transaction read that misses the hot tables falls through to the
+archive's segments, as on sqlite.  Not supported on this backend (as in
+the JAX package): the sqlite memo caches and WAL-specific behaviours.
 """
 
 from __future__ import annotations
@@ -196,6 +196,9 @@ class PgChainState(StateViews):
         # reorg notification for the hot-state read cache — same hook
         # as the sqlite backend (ChainState.on_blocks_removed)
         self.on_blocks_removed = None
+        # cold-block archive fallthrough (archive/) — same seam as the
+        # sqlite backend
+        self.archive = None
 
     def _writer(self):
         if self._write_lock is None:
@@ -402,14 +405,36 @@ class PgChainState(StateViews):
             "timestamp": _epoch(r["timestamp"]),
         }
 
+    @staticmethod
+    def _archive_block_dict(b: list) -> dict:
+        """Canonical archive block row -> the hot _block_dict shape
+        (reward int smallest-units -> NUMERIC-coin Decimal, matching
+        what the column would have held)."""
+        return {
+            "id": b[0],
+            "hash": b[1],
+            "content": b[2],
+            "address": b[3],
+            "random": b[4],
+            "difficulty": Decimal(b[5]),
+            "reward": _coins(b[6]),
+            "timestamp": b[7],
+        }
+
     async def get_block(self, block_hash: str) -> Optional[dict]:
         rows = await self.drv.afetch(
             "SELECT * FROM blocks WHERE hash = $1", (block_hash,))
+        if not rows and self.archive is not None:
+            b = await self.archive.block_by_hash(block_hash)
+            return self._archive_block_dict(b) if b else None
         return self._block_dict(rows[0]) if rows else None
 
     async def get_block_by_id(self, block_id: int) -> Optional[dict]:
         rows = await self.drv.afetch(
             "SELECT * FROM blocks WHERE id = $1", (block_id,))
+        if not rows and self.archive is not None:
+            b = await self.archive.block_by_height(block_id)
+            return self._archive_block_dict(b) if b else None
         return self._block_dict(rows[0]) if rows else None
 
     async def get_last_block(self) -> Optional[dict]:
@@ -445,6 +470,19 @@ class PgChainState(StateViews):
                 by_hash[t["block_hash"]].append((t["tx_hash"], t["tx_hex"]))
         entries = [(r["id"], self._block_dict(r), by_hash[r["hash"]])
                    for r in rows]
+        if self.archive is not None:
+            cov = await self.archive.coverage()
+            if cov is not None and offset <= cov[1]:
+                # overlay archived blocks into the page (hot wins on
+                # overlap; see the sqlite twin's note)
+                hot_ids = {e[0] for e in entries}
+                for b, atxs in await self.archive.span(
+                        offset, offset + limit - 1):
+                    if b[0] not in hot_ids:
+                        entries.append((b[0], self._archive_block_dict(b),
+                                        [(t[1], t[2]) for t in atxs]))
+                entries.sort(key=lambda e: e[0])
+                entries = entries[:limit]
         out = []
         size = 0
         for _bid, block, txs_b in entries:
@@ -594,6 +632,10 @@ class PgChainState(StateViews):
             rows = await self.drv.afetch(
                 "SELECT tx_hex FROM pending_transactions WHERE tx_hash = $1",
                 (tx_hash,))
+        if not rows and self.archive is not None:
+            hit = await self.archive.tx_by_hash(tx_hash)
+            if hit is not None:
+                return tx_from_hex(hit[0][2], check_signatures=False)
         return tx_from_hex(rows[0]["tx_hex"], check_signatures=False) \
             if rows else None
 
@@ -601,6 +643,16 @@ class PgChainState(StateViews):
         rows = await self.drv.afetch(
             "SELECT * FROM transactions WHERE tx_hash = $1", (tx_hash,))
         if not rows:
+            if self.archive is not None:
+                hit = await self.archive.tx_by_hash(tx_hash)
+                if hit is not None:
+                    t = hit[0]
+                    return {
+                        "block_hash": t[0], "tx_hash": t[1],
+                        "tx_hex": t[2], "inputs_addresses": t[3],
+                        "outputs_addresses": t[4],
+                        "outputs_amounts": t[5], "fees": t[6],
+                    }
             return None
         r = rows[0]
         return {
@@ -618,6 +670,14 @@ class PgChainState(StateViews):
         rows = await self.drv.afetch(
             "SELECT tx_hex FROM transactions WHERE block_hash = $1",
             (block_hash,))
+        if not rows and self.archive is not None:
+            # pruned blocks lose their ENTIRE tx set (never split)
+            atxs = await self.archive.txs_for_block(block_hash)
+            if atxs:
+                if hex_only:
+                    return [t[2] for t in atxs]
+                return [tx_from_hex(t[2], check_signatures=False)
+                        for t in atxs]
         if hex_only:
             return [r["tx_hex"] for r in rows]
         return [tx_from_hex(r["tx_hex"], check_signatures=False) for r in rows]
@@ -634,6 +694,12 @@ class PgChainState(StateViews):
             "SELECT tx_hex FROM pending_transactions WHERE tx_hash = $1",
             (tx_hash,))
         if not rows:
+            if self.archive is not None:
+                hit = await self.archive.tx_by_hash(tx_hash)
+                if hit is not None:
+                    addresses = hit[0][4]
+                    return (addresses[index]
+                            if index < len(addresses) else None)
             return None
         tx = tx_from_hex(rows[0]["tx_hex"], check_signatures=False)
         return tx.outputs[index].address if index < len(tx.outputs) else None
@@ -650,6 +716,12 @@ class PgChainState(StateViews):
             "SELECT tx_hex FROM pending_transactions WHERE tx_hash = $1",
             (tx_hash,))
         if not rows:
+            if self.archive is not None:
+                hit = await self.archive.tx_by_hash(tx_hash)
+                if hit is not None:
+                    amounts = hit[0][5]
+                    return (amounts[index]
+                            if index < len(amounts) else None)
             return None
         tx = tx_from_hex(rows[0]["tx_hex"], check_signatures=False)
         return tx.outputs[index].amount if index < len(tx.outputs) else None
@@ -1000,14 +1072,31 @@ class PgChainState(StateViews):
 
     async def get_address_transactions(self, address: str, limit: int = 50,
                                        offset: int = 0) -> List[dict]:
+        if self.archive is None:
+            rows = await self.drv.afetch(
+                "SELECT t.tx_hash, b.id AS block_id FROM transactions t"
+                " JOIN blocks b ON b.hash = t.block_hash"
+                " WHERE $1 = ANY(inputs_addresses)"
+                " OR $1 = ANY(outputs_addresses)"
+                " ORDER BY b.id DESC LIMIT $2 OFFSET $3",
+                (address, limit, offset))
+            return [dict(r) for r in rows]
+        # merge archived matches before paginating (see the sqlite
+        # twin's note on why the hot prefix of offset+limit suffices)
         rows = await self.drv.afetch(
             "SELECT t.tx_hash, b.id AS block_id FROM transactions t"
             " JOIN blocks b ON b.hash = t.block_hash"
             " WHERE $1 = ANY(inputs_addresses)"
             " OR $1 = ANY(outputs_addresses)"
-            " ORDER BY b.id DESC LIMIT $2 OFFSET $3",
-            (address, limit, offset))
-        return [dict(r) for r in rows]
+            " ORDER BY b.id DESC LIMIT $2",
+            (address, offset + limit))
+        merged = [dict(r) for r in rows]
+        seen = {r["tx_hash"] for r in merged}
+        for b, t in await self.archive.address_history(address):
+            if t[1] not in seen:
+                merged.append({"tx_hash": t[1], "block_id": b[0]})
+        merged.sort(key=lambda r: -r["block_id"])
+        return merged[offset:offset + limit]
 
     # --------------------------------------------------------- governance --
 
@@ -1193,6 +1282,11 @@ class PgChainState(StateViews):
         rows = await self.drv.afetch(
             "SELECT b.timestamp AS ts FROM transactions t JOIN blocks b ON"
             " b.hash = t.block_hash WHERE t.tx_hash = $1", (tx_hash,))
+        if not rows and self.archive is not None:
+            hit = await self.archive.tx_by_hash(tx_hash)
+            if hit is not None:
+                b = await self.archive.block_by_height(hit[1])
+                return b[7] if b else None
         return _epoch(rows[0]["ts"]) if rows else None
 
     # ---------------------------------------------------- explorer views --
@@ -1211,6 +1305,18 @@ class PgChainState(StateViews):
             rows = await self.drv.afetch(
                 "SELECT tx_hash, tx_hex, inputs_addresses FROM"
                 " pending_transactions WHERE tx_hash = $1", (tx_hash,))
+        if not rows and self.archive is not None:
+            hit = await self.archive.tx_by_hash(tx_hash)
+            if hit is not None:
+                t, height = hit
+                b = await self.archive.block_by_height(height)
+                # plain dict stands in for the driver row (_row_keys
+                # handles both; _epoch passes int timestamps through)
+                rows = [{"tx_hash": t[1], "tx_hex": t[2],
+                         "inputs_addresses": t[3], "block_hash": t[0],
+                         "block_no": height,
+                         "block_ts": b[7] if b else 0}]
+                is_confirm = True
         if not rows:
             return None
         r = rows[0]
@@ -1276,6 +1382,10 @@ class PgChainState(StateViews):
         rows = await self.drv.afetch(
             "SELECT tx_hash FROM transactions WHERE block_hash = $1",
             (block_hash,))
+        if not rows and self.archive is not None:
+            atxs = await self.archive.txs_for_block(block_hash)
+            if atxs:
+                return [t[1] for t in atxs]
         return [r["tx_hash"] for r in rows]
 
     async def get_address_pending_transactions(self, address: str) -> List[Tx]:
@@ -1454,6 +1564,74 @@ class PgChainState(StateViews):
                 self._dev_index = fresh
                 self._index_mutations += 1
         self._bump_fees_gen()
+
+    # ------------------------------------------------------------- archive --
+    # Compactor seam (archive/compactor.py, docs/ARCHIVE.md); same
+    # contract as the sqlite twin.
+
+    async def archive_export_span(self, lo: int, hi: int):
+        """Canonical rows for heights [lo, hi]: (block rows ascending,
+        {block_hash: [tx rows in acceptance order]}).  Within-block tx
+        order relies on insertion order, the same assumption
+        get_block_transactions already makes on this schema."""
+        rows = await self.drv.afetch(
+            "SELECT id, hash, content, address, random, difficulty,"
+            " reward, timestamp FROM blocks WHERE id BETWEEN $1 AND $2"
+            " ORDER BY id", (lo, hi))
+        blocks = [[r["id"], r["hash"], r["content"], r["address"],
+                   r["random"], str(r["difficulty"]), _units(r["reward"]),
+                   _epoch(r["timestamp"])] for r in rows]
+        txs_by_block: Dict[str, list] = {}
+        if blocks:
+            txs = await self.drv.afetch(
+                "SELECT block_hash, tx_hash, tx_hex, inputs_addresses,"
+                " outputs_addresses, outputs_amounts, fees FROM"
+                " transactions WHERE block_hash = ANY($1)",
+                ([b[1] for b in blocks],))
+            for t in txs:
+                txs_by_block.setdefault(t["block_hash"], []).append(
+                    [t["block_hash"], t["tx_hash"], t["tx_hex"],
+                     list(t["inputs_addresses"] or []),
+                     list(t["outputs_addresses"] or []),
+                     [int(a) for a in (t["outputs_amounts"] or [])],
+                     _units(t["fees"])])
+        return blocks, txs_by_block
+
+    async def archive_prune_span(self, lo: int, hi: int) -> dict:
+        """Delete hot blocks in [lo, hi] whose ENTIRE tx set is outside
+        the snapshot witness closure, plus those blocks' txs (see the
+        sqlite twin).  Doomed txs have no UTXO/governance references by
+        construction, so the explicit deletes never trip a foreign
+        key."""
+        union = " UNION ".join(
+            f"SELECT tx_hash FROM {t}"
+            for t in ("unspent_outputs",) + _GOV_TABLES)
+        async with self._txn():
+            rows = await self.drv.afetch(
+                "SELECT hash FROM blocks b WHERE b.id BETWEEN $1 AND $2"
+                " AND NOT EXISTS (SELECT 1 FROM transactions t WHERE"
+                f" t.block_hash = b.hash AND t.tx_hash IN ({union}))",
+                (lo, hi))
+            doomed = [r["hash"] for r in rows]
+            n_txs = 0
+            if doomed:
+                counted = await self.drv.afetch(
+                    "SELECT COUNT(*) AS n FROM transactions WHERE"
+                    " block_hash = ANY($1)", (doomed,))
+                n_txs = int(counted[0]["n"] or 0)
+                await self.drv.aexecute(
+                    "DELETE FROM transactions WHERE block_hash = ANY($1)",
+                    (doomed,))
+                await self.drv.aexecute(
+                    "DELETE FROM blocks WHERE hash = ANY($1)", (doomed,))
+            self._bump_fees_gen()  # memos may hold pruned-source rows
+        return {"blocks": len(doomed), "txs": n_txs}
+
+    async def archive_hot_row_counts(self) -> dict:
+        b = await self.drv.afetch("SELECT COUNT(*) AS n FROM blocks")
+        t = await self.drv.afetch("SELECT COUNT(*) AS n FROM transactions")
+        return {"blocks": int(b[0]["n"] or 0), "txs": int(t[0]["n"] or 0)}
+
 
 def _row_keys(r) -> set:
     """Column names of a driver row (asyncpg Record or mock dict)."""

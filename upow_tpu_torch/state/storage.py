@@ -11,11 +11,16 @@ then answers ``outpoints_exist`` and the accept's fused scan.  Without
 it membership checks take the SQL path, as in the JAX package by
 default.  The mempool journal and the block and transaction reads serve
 the node's routes, the address and governance views the wallet's
-builders, and the snapshot methods (``export_snapshot_*``,
-``restore_snapshot``) the snapshot builder and bootstrap; the archive
-tier comes with a later slice (ROADMAP.md).  ``sole_writer=False`` (the
-wallet CLI beside a node writing the same file) checks for other
-connections' commits on every memo read.
+builders, the snapshot methods (``export_snapshot_*``,
+``restore_snapshot``) the snapshot builder and bootstrap, and the
+archive seam (``archive_export_span``, ``archive_prune_span``,
+``archive_hot_row_counts``) the archive compactor.  With an
+:class:`~..archive.reader.ArchiveReader` attached as ``self.archive``
+(the node attaches one when ``archive.dir`` is set), every block and
+transaction read that misses the hot tables falls through to the
+archive's segments, so a pruned state answers as an unpruned one does.
+``sole_writer=False`` (the wallet CLI beside a node writing the same
+file) checks for other connections' commits on every memo read.
 
 The reference couples all chain state to asyncpg/PostgreSQL through an
 ~80-method ``Database`` class (database.py, 1654 LoC).  This keeps the
@@ -194,6 +199,10 @@ class ChainState(StateViews):
         # reorg notification: called with the first removed block id
         # after a remove_blocks rollback commits
         self.on_blocks_removed = None
+        # cold-block archive fallthrough (archive/): the node attaches an
+        # ArchiveReader when archive.dir is set; None keeps every read
+        # path exactly on its hot-only query
+        self.archive = None
         self._data_version = self._db_data_version()
         self._data_version_checked = 0.0
         # the resident UTXO index, one per UTXO-class table, on
@@ -365,8 +374,27 @@ class ChainState(StateViews):
             "timestamp": r["timestamp"],
         }
 
+    @staticmethod
+    def _archive_block_dict(b: list) -> dict:
+        """Canonical archive block row -> the same dict _block_dict
+        builds from a hot row (difficulty is archived as str, reward as
+        int smallest-units — identical to the hot column encodings)."""
+        return {
+            "id": b[0],
+            "hash": b[1],
+            "content": b[2],
+            "address": b[3],
+            "random": b[4],
+            "difficulty": Decimal(b[5]),
+            "reward": Decimal(b[6]) / SMALLEST,
+            "timestamp": b[7],
+        }
+
     async def get_block_by_id(self, block_id: int) -> Optional[dict]:
         r = self.db.execute("SELECT * FROM blocks WHERE id = ?", (block_id,)).fetchone()
+        if r is None and self.archive is not None:
+            b = await self.archive.block_by_height(block_id)
+            return self._archive_block_dict(b) if b else None
         return self._block_dict(r) if r else None
 
     async def get_last_block(self) -> Optional[dict]:
@@ -375,6 +403,9 @@ class ChainState(StateViews):
 
     async def get_block(self, block_hash: str) -> Optional[dict]:
         r = self.db.execute("SELECT * FROM blocks WHERE hash = ?", (block_hash,)).fetchone()
+        if r is None and self.archive is not None:
+            b = await self.archive.block_by_hash(block_hash)
+            return self._archive_block_dict(b) if b else None
         return self._block_dict(r) if r else None
 
     async def get_next_block_id(self) -> int:
@@ -391,7 +422,9 @@ class ChainState(StateViews):
         gone under a concurrent reorg is dropped).  ``size_capped``
         truncates the page once the accumulated hex passes 8 full
         blocks' worth (the HTTP layer passes it; the reference caps
-        inside Database.get_blocks unconditionally)."""
+        inside Database.get_blocks unconditionally).  With an archive
+        attached, archived blocks are laid into the page where the hot
+        rows have gaps."""
         rows = self.db.execute(
             "SELECT * FROM blocks WHERE id >= ? ORDER BY id LIMIT ?",
             (offset, limit),
@@ -405,14 +438,29 @@ class ChainState(StateViews):
                     f"SELECT block_hash, tx_hash, tx_hex FROM transactions"
                     f" WHERE block_hash IN ({marks})", chunk):
                 by_hash[t["block_hash"]].append((t["tx_hash"], t["tx_hex"]))
+        entries = [(r["id"], self._block_dict(r), by_hash[r["hash"]])
+                   for r in rows]
+        if self.archive is not None:
+            cov = await self.archive.coverage()
+            if cov is not None and offset <= cov[1]:
+                # the page reaches into the archived span: overlay
+                # archived blocks (hot wins on overlap — same content
+                # either way; witness blocks stay hot below the archive
+                # horizon, so hot gaps can appear anywhere in the page)
+                hot_ids = {e[0] for e in entries}
+                for b, atxs in await self.archive.span(
+                        offset, offset + limit - 1):
+                    if b[0] not in hot_ids:
+                        entries.append((b[0], self._archive_block_dict(b),
+                                        [(t[1], t[2]) for t in atxs]))
+                entries.sort(key=lambda e: e[0])
+                entries = entries[:limit]
         out = []
         size = 0
-        for r in rows:
-            txs = by_hash[r["hash"]]
+        for _bid, block, txs in entries:
             size += sum(len(h) for _th, h in txs)
             if size_capped and size > MAX_BLOCK_SIZE_HEX * 8:
                 break
-            block = self._block_dict(r)
             block["difficulty"] = float(block["difficulty"])
             block["reward"] = str(block["reward"])
             if tx_details:
@@ -583,6 +631,10 @@ class ChainState(StateViews):
                 "SELECT tx_hex FROM pending_transactions WHERE tx_hash = ?",
                 (tx_hash,),
             ).fetchone()
+        if r is None and self.archive is not None:
+            hit = await self.archive.tx_by_hash(tx_hash)
+            if hit is not None:
+                return tx_from_hex(hit[0][2], check_signatures=False)
         return tx_from_hex(r["tx_hex"], check_signatures=False) if r else None
 
     async def get_transaction_info(self, tx_hash: str) -> Optional[dict]:
@@ -590,6 +642,16 @@ class ChainState(StateViews):
             "SELECT * FROM transactions WHERE tx_hash = ?", (tx_hash,)
         ).fetchone()
         if r is None:
+            if self.archive is not None:
+                hit = await self.archive.tx_by_hash(tx_hash)
+                if hit is not None:
+                    t = hit[0]
+                    return {
+                        "block_hash": t[0], "tx_hash": t[1],
+                        "tx_hex": t[2], "inputs_addresses": t[3],
+                        "outputs_addresses": t[4],
+                        "outputs_amounts": t[5], "fees": t[6],
+                    }
             return None
         return {
             "block_hash": r["block_hash"],
@@ -620,6 +682,15 @@ class ChainState(StateViews):
                 (tx_hash,),
             ).fetchone()
             if r is None:
+                if self.archive is not None:
+                    hit = await self.archive.tx_by_hash(tx_hash)
+                    if hit is not None:
+                        addresses = hit[0][4]
+                        addr = (addresses[index]
+                                if index < len(addresses) else None)
+                        if addr is not None:
+                            self._amount_cache_put(key, addr)
+                        return addr
                 return None
             tx = tx_from_hex(r["tx_hex"], check_signatures=False)
             addr = (tx.outputs[index].address
@@ -655,6 +726,15 @@ class ChainState(StateViews):
                 (tx_hash,),
             ).fetchone()
             if r is None:
+                if self.archive is not None:
+                    hit = await self.archive.tx_by_hash(tx_hash)
+                    if hit is not None:
+                        amounts = hit[0][5]
+                        amount = (amounts[index]
+                                  if index < len(amounts) else None)
+                        if amount is not None:
+                            self._amount_cache_put(key, amount)
+                        return amount
                 return None
             tx = tx_from_hex(r["tx_hex"], check_signatures=False)
             amount = (tx.outputs[index].amount
@@ -668,6 +748,15 @@ class ChainState(StateViews):
         rows = self.db.execute(
             "SELECT tx_hex FROM transactions WHERE block_hash = ?", (block_hash,)
         ).fetchall()
+        if not rows and self.archive is not None:
+            # pruned blocks lose their ENTIRE tx set (never split), so
+            # an empty hot read is the only case needing fallthrough
+            atxs = await self.archive.txs_for_block(block_hash)
+            if atxs:
+                if hex_only:
+                    return [t[2] for t in atxs]
+                return [tx_from_hex(t[2], check_signatures=False)
+                        for t in atxs]
         if hex_only:
             return [r["tx_hex"] for r in rows]
         return [tx_from_hex(r["tx_hex"], check_signatures=False) for r in rows]
@@ -677,6 +766,10 @@ class ChainState(StateViews):
             "SELECT tx_hash FROM transactions WHERE block_hash = ?",
             (block_hash,),
         ).fetchall()
+        if not rows and self.archive is not None:
+            atxs = await self.archive.txs_for_block(block_hash)
+            if atxs:
+                return [t[1] for t in atxs]
         return [r["tx_hash"] for r in rows]
 
     async def get_nice_transaction(self, tx_hash: str,
@@ -696,6 +789,18 @@ class ChainState(StateViews):
                 "SELECT tx_hash, tx_hex, inputs_addresses FROM"
                 " pending_transactions WHERE tx_hash = ?", (tx_hash,),
             ).fetchone()
+        if r is None and self.archive is not None:
+            hit = await self.archive.tx_by_hash(tx_hash)
+            if hit is not None:
+                t, height = hit
+                b = await self.archive.block_by_height(height)
+                # a plain dict stands in for the sqlite Row (same keys;
+                # inputs_addresses json-encoded like the hot column)
+                r = {"tx_hash": t[1], "tx_hex": t[2],
+                     "inputs_addresses": json.dumps(t[3]),
+                     "block_hash": t[0], "block_no": height,
+                     "block_ts": b[7] if b else None}
+                is_confirm = True
         if r is None:
             return None
         keys = r.keys()
@@ -1074,14 +1179,42 @@ class ChainState(StateViews):
     async def get_address_transactions(self, address: str, limit: int = 50,
                                        offset: int = 0) -> List[dict]:
         """Confirmed txs naming the address, newest block first."""
+        if self.archive is None:
+            rows = self.db.execute(
+                "SELECT t.*, b.id AS block_id, b.timestamp AS block_ts FROM transactions t"
+                " JOIN blocks b ON b.hash = t.block_hash"
+                " WHERE t.inputs_addresses LIKE ? OR t.outputs_addresses LIKE ?"
+                " ORDER BY b.id DESC LIMIT ? OFFSET ?",
+                (f'%"{address}"%', f'%"{address}"%', limit, offset),
+            ).fetchall()
+            return [dict(r) for r in rows]
+        # archived history has to be merged in before paginating: fetch
+        # the hot prefix deep enough to cover the requested page, then
+        # overlay archive matches (dedup by tx_hash — witness txs below
+        # the archive horizon exist in both tiers) and re-slice.  Any
+        # hot row beyond the prefix sorts after >= offset+limit rows,
+        # so it can never land inside the page.
         rows = self.db.execute(
             "SELECT t.*, b.id AS block_id, b.timestamp AS block_ts FROM transactions t"
             " JOIN blocks b ON b.hash = t.block_hash"
             " WHERE t.inputs_addresses LIKE ? OR t.outputs_addresses LIKE ?"
-            " ORDER BY b.id DESC LIMIT ? OFFSET ?",
-            (f'%"{address}"%', f'%"{address}"%', limit, offset),
+            " ORDER BY b.id DESC LIMIT ?",
+            (f'%"{address}"%', f'%"{address}"%', offset + limit),
         ).fetchall()
-        return [dict(r) for r in rows]
+        merged = [dict(r) for r in rows]
+        seen = {r["tx_hash"] for r in merged}
+        for b, t in await self.archive.address_history(address):
+            if t[1] in seen:
+                continue
+            merged.append({
+                "block_hash": t[0], "tx_hash": t[1], "tx_hex": t[2],
+                "inputs_addresses": json.dumps(t[3]),
+                "outputs_addresses": json.dumps(t[4]),
+                "outputs_amounts": json.dumps(t[5]), "fees": t[6],
+                "block_id": b[0], "block_ts": b[7],
+            })
+        merged.sort(key=lambda r: -r["block_id"])
+        return merged[offset:offset + limit]
 
     async def get_outputs_by_address(self, table: str, address: str,
                                      check_pending_txs: bool = False,
@@ -1151,6 +1284,11 @@ class ChainState(StateViews):
             "SELECT b.timestamp AS ts FROM transactions t JOIN blocks b ON"
             " b.hash = t.block_hash WHERE t.tx_hash = ?", (tx_hash,),
         ).fetchone()
+        if r is None and self.archive is not None:
+            hit = await self.archive.tx_by_hash(tx_hash)
+            if hit is not None:
+                b = await self.archive.block_by_height(hit[1])
+                return b[7] if b else None
         return r["ts"] if r else None
 
     async def _table_outpoints(self, table: str, address: str,
@@ -1389,3 +1527,75 @@ class ChainState(StateViews):
             raise
         self._amount_cache.clear()
         self._bump_fees_gen()
+
+    # ------------------------------------------------------------- archive --
+    # Compactor seam (archive/compactor.py, docs/ARCHIVE.md).  Export
+    # gives the canonical positional row shapes of the snapshot payload;
+    # prune evaluates the witness closure live, at delete time, so
+    # re-running after a crash is an idempotent no-op for already-pruned
+    # rows.  A prune deletes block and transaction rows only, never a
+    # UTXO-class row, so an armed resident index does not move.
+
+    async def archive_export_span(self, lo: int, hi: int):
+        """Canonical rows for heights [lo, hi]: (block rows ascending,
+        {block_hash: [tx rows in acceptance order]})."""
+        rows = self.db.execute(
+            "SELECT id, hash, content, address, random, difficulty,"
+            " reward, timestamp FROM blocks WHERE id BETWEEN ? AND ?"
+            " ORDER BY id", (lo, hi)).fetchall()
+        blocks = [[r["id"], r["hash"], r["content"], r["address"],
+                   r["random"], str(r["difficulty"]), r["reward"],
+                   r["timestamp"]] for r in rows]
+        txs_by_block: Dict[str, list] = {}
+        hashes = [b[1] for b in blocks]
+        for i in range(0, len(hashes), 900):
+            chunk = hashes[i:i + 900]
+            marks = ",".join("?" * len(chunk))
+            for t in self.db.execute(
+                    "SELECT block_hash, tx_hash, tx_hex,"
+                    " inputs_addresses, outputs_addresses,"
+                    " outputs_amounts, fees FROM transactions WHERE"
+                    f" block_hash IN ({marks}) ORDER BY rowid", chunk):
+                txs_by_block.setdefault(t["block_hash"], []).append(
+                    [t["block_hash"], t["tx_hash"], t["tx_hex"],
+                     json.loads(t["inputs_addresses"]),
+                     json.loads(t["outputs_addresses"]),
+                     json.loads(t["outputs_amounts"]), t["fees"]])
+        return blocks, txs_by_block
+
+    async def archive_prune_span(self, lo: int, hi: int) -> dict:
+        """Delete hot blocks in [lo, hi] whose ENTIRE tx set is outside
+        the snapshot witness closure, plus those blocks' txs.  A block
+        with even one witness tx keeps ALL its rows hot, so a block's
+        txs are never split across the hot/archive seam and every hot
+        join stays intact."""
+        union = " UNION ".join(
+            f"SELECT tx_hash FROM {t}"
+            for t in ("unspent_outputs",) + _GOV_TABLES)
+        doomed = [r["hash"] for r in self.db.execute(
+            "SELECT hash FROM blocks b WHERE b.id BETWEEN ? AND ?"
+            " AND NOT EXISTS (SELECT 1 FROM transactions t WHERE"
+            f" t.block_hash = b.hash AND t.tx_hash IN ({union}))",
+            (lo, hi)).fetchall()]
+        tx_hashes: List[str] = []
+        for i in range(0, len(doomed), 900):
+            chunk = doomed[i:i + 900]
+            marks = ",".join("?" * len(chunk))
+            tx_hashes.extend(r["tx_hash"] for r in self.db.execute(
+                "SELECT tx_hash FROM transactions WHERE block_hash IN"
+                f" ({marks})", chunk))
+            self.db.execute(
+                f"DELETE FROM transactions WHERE block_hash IN ({marks})",
+                chunk)
+            self.db.execute(
+                f"DELETE FROM blocks WHERE hash IN ({marks})", chunk)
+        self._amount_cache_drop(tx_hashes)
+        self._commit()
+        return {"blocks": len(doomed), "txs": len(tx_hashes)}
+
+    async def archive_hot_row_counts(self) -> dict:
+        b = self.db.execute(
+            "SELECT COUNT(*) AS n FROM blocks").fetchone()["n"]
+        t = self.db.execute(
+            "SELECT COUNT(*) AS n FROM transactions").fetchone()["n"]
+        return {"blocks": b, "txs": t}

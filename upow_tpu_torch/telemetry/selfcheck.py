@@ -11,8 +11,8 @@ standard-library server (``node/http.py``) on a free 127.0.0.1 port,
 where the JAX check uses aiohttp's ``TestClient``, against an in-memory
 chain on the CPU with no seed and no peers.  The fleet half
 (``_run_fleet``: three nodes, one gossiped block, the merged
-``upow_fleet_*`` families) waits for the port's ``fleet/`` and
-``swarm/`` (ROADMAP.md, A13).
+``upow_fleet_*`` families) waits for ``fleet/``'s scraper, which comes
+with the swarm's scenarios (ROADMAP.md, A13f).
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ REQUIRED = (
     "upow_kernel_p256_verify_compile_cache_misses_total",
     "upow_block_height",
     "upow_mempool_transactions",
-    # the archive and alert families: zeros while those tiers are not
-    # there, so a bare node still carries them
+    # the archive and alert families: zeros while those tiers are off,
+    # so a bare node still carries them
     "upow_archive_segments",
     "upow_archive_archived_blocks",
     "upow_archive_archived_txs",

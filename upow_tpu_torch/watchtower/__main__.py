@@ -15,8 +15,8 @@ legs, and any failure exits non-zero:
    traffic is not judged.  Plus the alert state machine: for-duration,
    dedup, resolve, silence expiry.
 3. **Scenario**: the ``watchtower_storm`` swarm scenario, which needs
-   the swarm simulator (``swarm/``, ROADMAP A13f) that the port does
-   not have yet.  Without ``--units-only`` the run names it and exits
+   the swarm's scenarios and ``fleet/`` (ROADMAP A13f) that the port
+   does not have yet.  Without ``--units-only`` the run names it and exits
    non-zero, after legs 1 and 2: the leg is never skipped silently.
 """
 
@@ -31,7 +31,7 @@ from .detectors import EwmaZScore, RateTracker, SpikeDetector, StuckGauge
 
 #: what leg 3 waits for
 SCENARIO_MISSING = ("watchtower_storm scenario: not run, the port has no "
-                    "swarm simulator yet (ROADMAP A13f); pass --units-only "
+                    "swarm scenarios yet (ROADMAP A13f); pass --units-only "
                     "to run legs 1 and 2 alone")
 
 
