@@ -334,6 +334,26 @@ Phases, one line each; any failure exits non-zero:
    host fallback counter; node M mirrors A's archive by
    ``fetch_archive_from_peer`` to byte-identical segment files, and a
    second fetch reuses the segment.  Host walls.
+32. the swarm's scenarios (``swarm``, last in the work directory's block;
+   no chain build added): ``run_matrix("fast", seed=7,
+   device="cpu")``, the ten scenarios with the JAX swarm's configuration
+   on the host, then the same ten with the nodes on the card and each
+   scenario's ``cfg_hook`` wrapped (a ``dataclasses.replace`` of its
+   frozen spec) to set ``device.sig_backend`` and
+   ``device.txid_backend`` to ``device``, ``device.txid_min_batch`` to 1
+   and ``device.utxo_index`` on: every fingerprint and the matrix's the
+   host's, every core flag true, neither host fallback counter in any
+   node's registry, and kernel 1, B5 and B6 launched.  partition_heal at
+   50 nodes and seed 3 on the host and on the card: equal cores, and
+   before the card swarm closes every node's UTXO fingerprint node 0's
+   and the host run's, every node's index held against its plain
+   version and its SQL.  The scenarios' deterministic worlds freeze the
+   clock and reset the telemetry; the path puts back the frozen clock it
+   found.  Then ``python -m upow_tpu_torch.swarm --matrix fast``,
+   ``python -m upow_tpu_torch.telemetry.selfcheck`` and ``python -m
+   upow_tpu_torch.fleet --check-determinism``, with no ``--device``, as
+   processes of their own at once: each exits 0, the matrix's
+   fingerprint the host run's.  Host walls.
 
 Every path runs through the device runtime (``device/runtime.py``): the
 script arms a fresh runtime before each path, its warm launches before
@@ -359,12 +379,14 @@ it ran on (the complete kernel's; kernel 1's, B5's and B6's with phase
 28's push_block and phase 30's honest block on the restored node; kernel
 1's and B2's with phase 29's sends and block; kernel 1's, B2's, B5's and
 B6's with phase 31's ``archive`` path, from the extension through J's
-sync).  Every phase that can
-reach the txid batch (6, 7, 8, 10, 11, 14, 15, 17, 18, 22, 25, 28, 30
-and 31) counts
+sync; kernel 1's, B5's, B6's and the complete kernel's with phase 32's
+card swarms, the checks' own launches left out).  Every phase that can
+reach the txid batch (6, 7, 8, 10, 11, 14, 15, 17, 18, 22, 25, 28, 30,
+31 and 32) counts
 its txid kernel launches and fails if hashlib stood in for a device
 digest there (``txid.sample_mismatch`` or ``sync.host_txid_retry`` above
-0; in phase 22 read from each node's ``/metrics``).
+0; in phase 22 read from each node's ``/metrics``, in phase 32 from
+each swarm node's registry).
 The last is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero and prints no result.
 
@@ -372,7 +394,8 @@ the script exits non-zero and prints no result.
 
 runs the card line, the build and the named kernel phases alone (a
 comma-separated list of ``KERNEL_PHASES``: ``utxo_probe``,
-``jac_windows``, ``txid_ragged``, ``runtime_path``) and prints no result.
+``jac_windows``, ``txid_ragged``, ``runtime_path``, ``swarm_path``) and
+prints no result.
 
     python3 chip_smoke.py --sass LIB.so [LIB.so ...]
 
@@ -386,6 +409,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -432,6 +456,7 @@ from upow_tpu_torch.state import ChainState, device_index as tdi
 from upow_tpu_torch.state.pg import PG_SCHEMA, PgChainState
 from upow_tpu_torch.state.pgdriver import MockPgDriver
 from upow_tpu_torch.state.reindex import check_replay_pg
+from upow_tpu_torch.swarm import scenarios as tsc
 from upow_tpu_torch.telemetry import exposition
 from upow_tpu_torch.verify import BlockManager, txverify
 from upow_tpu_torch.wallet.nodeless import NodelessWallet
@@ -3387,6 +3412,263 @@ def archive_path(dev: torch.device, kit: Kit, workdir: Path,
     return out
 
 
+# --- phase 32: the swarm's scenarios ---------------------------------------
+
+SWARM_SEED = 7              # the fast matrix's seed, the CLI's default
+SWARM_WIDE = (50, 3)        # partition_heal at the 10-50 node envelope's top
+SWARM_FALLBACKS = ("txid.sample_mismatch", "sync.host_txid_retry")
+
+
+def swarm_counts() -> dict:
+    return {"jac": p256.LAUNCHES, "complete": p256.COMPLETE_LAUNCHES,
+            "b5": tsha.BLOCKS_LAUNCHES, "b6": tdi.PROBE_LAUNCHES,
+            "b2": tsha.LAUNCHES}
+
+
+def _count_delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def swarm_backends(inner):
+    """A scenario's ``cfg_hook`` followed by the device backends: every
+    verify, txid batch (from one payload) and UTXO probe of the node
+    goes through the device runtime to the card."""
+    def hook(i, cfg):
+        if inner is not None:
+            inner(i, cfg)
+        cfg.device.sig_backend = "device"
+        cfg.device.txid_backend = "device"
+        cfg.device.txid_min_batch = 1
+        cfg.device.utxo_index = True
+    return hook
+
+
+def swarm_spec(spec, card: bool, after):
+    """The frozen ``ScenarioSpec`` replaced: on the card with the device
+    backends, and ``after(swarm, launches)`` awaited between the
+    scenario's end and its swarm's close (``launches`` the scenario's
+    own counts, read before ``after`` runs anything)."""
+    kwargs = dict(spec.swarm_kwargs)
+    if card:
+        kwargs["cfg_hook"] = swarm_backends(kwargs.get("cfg_hook"))
+
+    async def fn(swarm, seed, _inner=spec.fn):
+        before = swarm_counts()
+        out = await _inner(swarm, seed)
+        await swarm.settle()
+        await after(swarm, _count_delta(swarm_counts(), before))
+        return out
+    return dataclasses.replace(spec, fn=fn, swarm_kwargs=kwargs)
+
+
+def swarm_fallbacks(swarm) -> dict:
+    """The two host-digest counters over the driver's registry and every
+    node's own (the swarm's nodes count in their scopes)."""
+    regs = [trace.counters()] + [node.telemetry_scope.metrics.counters()
+                                 for node in swarm.nodes
+                                 if node.telemetry_scope is not None]
+    return {k: sum(r.get(k, 0) for r in regs) for k in SWARM_FALLBACKS}
+
+
+def swarm_matrix(dev, card: bool, seen: dict) -> dict:
+    """``run_matrix("fast")`` on ``dev`` with every spec replaced by
+    :func:`swarm_spec`; ``seen[name]`` gets each scenario's launches and
+    fallback counts, read before its swarm closes."""
+    specs = dict(tsc.SCENARIOS)
+
+    def after_for(name):
+        async def after(swarm, launches):
+            seen[name] = {"launches": launches,
+                          "fallbacks": swarm_fallbacks(swarm)}
+        return after
+    try:
+        for name, spec in specs.items():
+            tsc.SCENARIOS[name] = swarm_spec(spec, card, after_for(name))
+        return tsc.run_matrix("fast", seed=SWARM_SEED, device=dev)
+    finally:
+        tsc.SCENARIOS.update(specs)
+
+
+def swarm_wide(dev, card: bool, check) -> tuple:
+    """partition_heal at :data:`SWARM_WIDE` on ``dev`` with ``check``
+    awaited before its swarm closes; (artifact, host seconds)."""
+    nodes, seed = SWARM_WIDE
+    spec = tsc.SCENARIOS["partition_heal"]
+    tsc.SCENARIOS["partition_heal"] = swarm_spec(spec, card, check)
+    try:
+        t0 = time.perf_counter()
+        art = tsc.run_scenario("partition_heal", nodes=nodes, seed=seed,
+                               device=dev)
+        return art, time.perf_counter() - t0
+    finally:
+        tsc.SCENARIOS["partition_heal"] = spec
+
+
+def swarm_sample(state, seed: int, misses: int = 64) -> list:
+    """Every unspent outpoint of ``state`` and ``misses`` seeded absent
+    ones."""
+    rows = [tuple(r) for r in state.db.execute(
+        "SELECT tx_hash, idx FROM unspent_outputs ORDER BY tx_hash, idx")]
+    rng = random.Random(seed)
+    return rows + [(rng.randbytes(32).hex(), rng.randrange(4))
+                   for _ in range(misses)]
+
+
+def swarm_path(dev: torch.device) -> dict:
+    """The swarm's ten scenarios (``run_matrix("fast")``, seed 7): on the
+    host (``device="cpu"``, the JAX swarm's configuration), then with the
+    swarm's nodes on the card and the device backends; each fingerprint
+    the host's, every core flag true.  Then partition_heal at 50 nodes,
+    seed 3, on the host and on the card: equal cores, every card node's
+    UTXO fingerprint node 0's and the host run's, and every node's
+    resident index held against its plain version and its SQL before
+    the swarm closes.  The scenarios' deterministic worlds freeze the
+    clock and reset the telemetry; the path puts back the frozen clock
+    it found."""
+    resume = clock.timestamp()
+    out = {"host_walls": {}, "card_walls": {}, "per_scenario": {}}
+    try:
+        t0 = time.perf_counter()
+        host = tsc.run_matrix("fast", seed=SWARM_SEED, device="cpu")
+        out["host_s"] = time.perf_counter() - t0
+        for run in host["runs"]:
+            if not tsc.core_ok(run["core"]):
+                fail(f"swarm: {run['scenario']} on the host: {run['core']}")
+            out["host_walls"][run["scenario"]] = run["observed"]["elapsed_s"]
+        out["host_fp"] = host["fingerprint"]
+
+        txverify.clear_sig_verdicts()   # the host run's verdicts
+        p256.reset_counts()
+        tsha.reset_counts()
+        tdi.reset_counts()
+        seen = out["per_scenario"]
+        t0 = time.perf_counter()
+        card = swarm_matrix(dev, True, seen)
+        out["card_s"] = time.perf_counter() - t0
+        out["matrix"] = swarm_counts()
+        want = {r["scenario"]: r for r in host["runs"]}
+        for run in card["runs"]:
+            name = run["scenario"]
+            if run["fingerprint"] != want[name]["fingerprint"] \
+                    or not tsc.core_ok(run["core"]):
+                fail(f"swarm: {name} on the card: {run['fingerprint']} "
+                     f"against the host's {want[name]['fingerprint']}: "
+                     f"{run['core']}")
+            if any(seen[name]["fallbacks"].values()):
+                fail(f"swarm: {name}: hashlib stood in for device digests: "
+                     f"{seen[name]['fallbacks']}")
+            out["card_walls"][name] = run["observed"]["elapsed_s"]
+        if card["fingerprint"] != host["fingerprint"]:
+            fail(f"swarm: the card's matrix {card['fingerprint']} against "
+                 f"the host's {host['fingerprint']}")
+        out["card_recorders"] = {
+            r["scenario"]: r.get("flight_recorder", {}).get("reason")
+            for r in card["runs"]}
+        out["host_recorders"] = {
+            r["scenario"]: r.get("flight_recorder", {}).get("reason")
+            for r in host["runs"]}
+
+        wide = {}
+
+        async def host_check(swarm, launches):
+            wide["host_utxo"] = await swarm.nodes[0].state \
+                .get_unspent_outputs_hash()
+
+        async def card_check(swarm, launches):
+            wide["launches"] = launches
+            wide["fallbacks"] = swarm_fallbacks(swarm)
+            hashes = [await node.state.get_unspent_outputs_hash()
+                      for node in swarm.nodes]
+            if len(set(hashes)) != 1 or hashes[0] != wide["host_utxo"]:
+                fail(f"swarm: {len(set(hashes))} UTXO fingerprints over "
+                     f"{len(hashes)} card nodes; node 0 {hashes[0]}, the "
+                     f"host's {wide['host_utxo']}")
+            checks = []
+            for i, node in enumerate(swarm.nodes):
+                sample = swarm_sample(node.state, i)
+                checks.append(resident_probe_check(
+                    node.state, sample, f"swarm node {i}"))
+                resident_parity(node.state, sample, f"swarm node {i}")
+            wide["probe_checks"] = checks
+
+        host_wide, out["wide_host_s"] = swarm_wide("cpu", False, host_check)
+        txverify.clear_sig_verdicts()
+        card_wide, out["wide_card_s"] = swarm_wide(dev, True, card_check)
+        for art in (host_wide, card_wide):
+            if not tsc.core_ok(art["core"]):
+                fail(f"swarm: partition_heal at {SWARM_WIDE}: {art['core']}")
+        core = card_wide["core"]
+        if core != host_wide["core"] or not (
+                core["converged_after_heal"] and core["losers_reorged"]
+                and core["trace_spans_nodes"]):
+            fail(f"swarm: partition_heal at {SWARM_WIDE} on the card "
+                 f"{core} against the host's {host_wide['core']}")
+        if any(wide["fallbacks"].values()):
+            fail(f"swarm: 50 nodes: hashlib stood in for device digests: "
+                 f"{wide['fallbacks']}")
+        out["wide"] = wide
+        out["wide_fp"] = card_wide["fingerprint"]
+        out["all"] = {k: out["matrix"][k] + wide["launches"][k]
+                      for k in out["matrix"]}
+        for k in ("jac", "b5", "b6"):
+            if not out["all"][k]:
+                fail(f"swarm: no {k} launch on the card's scenarios "
+                     f"{out['all']}")
+    finally:
+        clock.freeze(resume)
+    return out
+
+
+def swarm_entry_points(want_fp: str) -> dict:
+    """The three CLIs as a user runs them on a card machine, with no
+    ``--device``, at once: the fast matrix (its fingerprint
+    ``want_fp``), the selfcheck's two halves, the geo soak twice."""
+    root = str(Path(__file__).resolve().parent)
+    runs = {"swarm": ["upow_tpu_torch.swarm", "--matrix", "fast"],
+            "selfcheck": ["upow_tpu_torch.telemetry.selfcheck"],
+            "fleet": ["upow_tpu_torch.fleet", "--check-determinism"]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, "-m", *argv], cwd=root,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, argv in runs.items()}
+    out = {}
+
+    def wait(k, proc):
+        # each process's own wall: its pipes drained on a thread of its own
+        stdout, stderr = proc.communicate(timeout=600)
+        out[k] = (proc.returncode, stdout, stderr, time.perf_counter() - t0)
+    waiters = [threading.Thread(target=wait, args=kv, daemon=True)
+               for kv in procs.items()]
+    try:
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join(660)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if len(out) != len(runs):
+        fail(f"swarm: the entry points {sorted(set(runs) - set(out))} "
+             f"did not finish")
+    for k, (rc, stdout, stderr, _) in out.items():
+        if rc != 0:
+            fail(f"swarm: python -m {' '.join(runs[k])} exited {rc}: "
+                 f"{stdout[-600:]} {stderr[-600:]}")
+    last = json.loads(out["swarm"][1].splitlines()[-1])
+    if last != {"kind": "swarm_matrix", "fingerprint": want_fp}:
+        fail(f"swarm: the CLI's matrix {last} against {want_fp}")
+    oks = [ln for ln in out["selfcheck"][1].splitlines()
+           if ln.startswith("metrics-check: OK")]
+    if len(oks) != 2 or "fleet" not in oks[1]:
+        fail(f"swarm: the selfcheck printed {out['selfcheck'][1]}")
+    if "ok   determinism: fp=" not in out["fleet"][1]:
+        fail(f"swarm: the fleet CLI printed {out['fleet'][1]}")
+    return {k: round(v[3], 3) for k, v in out.items()}
+
+
 # --- phase 28: the PostgreSQL backend --------------------------------------
 
 PG_ADMIT = 256              # of the big block's txs admitted by push_tx first
@@ -4498,6 +4780,45 @@ def runtime_path(dev: torch.device, block: list, mix: tuple,
     return out
 
 
+def swarm_line(swarm: dict, card: str) -> None:
+    """The ``swarm`` line of :func:`swarm_path` and its entry points."""
+    phase("swarm", walls="host", seed=SWARM_SEED,
+          scenarios=len(swarm["host_walls"]),
+          matrix_fp=swarm["host_fp"][:16], card_fp_equal=True,
+          host_s=round(swarm["host_s"], 3), card_s=round(swarm["card_s"], 3),
+          host_walls_s=json.dumps(swarm["host_walls"], sort_keys=True),
+          card_walls_s=json.dumps(swarm["card_walls"], sort_keys=True),
+          card_launches=json.dumps(
+              {k: v["launches"] for k, v in swarm["per_scenario"].items()},
+              sort_keys=True),
+          matrix_launches=json.dumps(swarm["matrix"]),
+          geo_soak_recorder=json.dumps(
+              swarm["card_recorders"]["geo_soak"]),
+          card_recorders=json.dumps(swarm["card_recorders"], sort_keys=True),
+          host_recorders=json.dumps(swarm["host_recorders"], sort_keys=True),
+          wide_nodes=SWARM_WIDE[0], wide_seed=SWARM_WIDE[1],
+          wide_fp=swarm["wide_fp"][:16],
+          wide_host_s=round(swarm["wide_host_s"], 3),
+          wide_card_s=round(swarm["wide_card_s"], 3),
+          wide_launches=json.dumps(swarm["wide"]["launches"]),
+          wide_utxo_equal=True,
+          wide_probe_vs_plain=json.dumps(
+              max(c["max_abs_err"] for c in swarm["wide"]["probe_checks"])),
+          path_launches=json.dumps(swarm["all"]),
+          entry_points_s=json.dumps(swarm["entry_s"]),
+          sample_mismatch=0, host_txid_retry=0, card=json.dumps(card))
+
+
+def swarm_only(dev: torch.device) -> None:
+    """``--only swarm_path``: phase 32 and the three entry points."""
+    fresh_runtime(dev, "the build")
+    swarm = swarm_path(dev)
+    fresh_runtime(dev, "swarm_path")
+    swarm["entry_s"] = swarm_entry_points(swarm["host_fp"])
+    degrade_clean("the swarm's entry points")
+    swarm_line(swarm, tdevice.card_line())
+
+
 def runtime_only(dev: torch.device) -> None:
     """``--only runtime_path``: the phase on a block of 8,160 one-input
     txs signed over synthetic outpoints (no chain is built)."""
@@ -4515,7 +4836,8 @@ KERNEL_PHASES = {"utxo_probe": probe_phase,
                  "jac_windows": lambda dev: windows_phase(
                      dev, signature_mix(LANES)),
                  "txid_ragged": txid_ragged_phase,
-                 "runtime_path": runtime_only}
+                 "runtime_path": runtime_only,
+                 "swarm_path": swarm_only}
 
 
 def main() -> int:
@@ -4653,6 +4975,10 @@ def main() -> int:
         degrade_clean("tracing_cost")
         runtime = runtime_path(dev, leaf_checks(leaves, kit.pub), mix, card)
         fresh_runtime(dev, "runtime_path")
+        swarm = swarm_path(dev)
+        fresh_runtime(dev, "swarm_path")
+        swarm["entry_s"] = swarm_entry_points(swarm["host_fp"])
+        degrade_clean("the swarm's entry points")
     clock.reset()
     txid_record["launches"] = synced["b5"]
     for rec in window_records:
@@ -4665,16 +4991,19 @@ def main() -> int:
     probe_record["launches_by_path"] = {"accept_resident": resident["b6"],
                                         "pg_push_block": pg["b6"],
                                         "snapshot_restored_block": snap["b6"],
-                                        "archive": arch["all"]["b6"]}
+                                        "archive": arch["all"]["b6"],
+                                        "swarm": swarm["all"]["b6"]}
     record["launches_by_path"] = {"main_path": res["launches"],
                                   "pg_push_block": pg["jac"],
                                   "wallet_sends": wal["jac"],
                                   "snapshot_restored_block": snap["jac"],
-                                  "archive": arch["all"]["jac"]}
+                                  "archive": arch["all"]["jac"],
+                                  "swarm": swarm["all"]["jac"]}
     txid_record["launches_by_path"] = {"sync_path": synced["b5"],
                                        "pg_push_block": pg["b5"],
                                        "snapshot_restored_block": snap["b5"],
-                                       "archive": arch["all"]["b5"]}
+                                       "archive": arch["all"]["b5"],
+                                       "swarm": swarm["all"]["b5"]}
     sha_record["launches"] = nres["miner"]["launches"]
     sha_record["launches_by_path"] = {"miner_run": nres["miner"]["launches"],
                                       "wallet_block": wal["b2"],
@@ -4685,7 +5014,8 @@ def main() -> int:
     complete_record["launches_by_path"] = {
         "node_burst": nres["complete"],
         "miner_run": nres["miner"]["complete"],
-        "node_push_block_complete": pushes["complete"]["complete"]}
+        "node_push_block_complete": pushes["complete"]["complete"],
+        "swarm": swarm["all"]["complete"]}
     blocks = kit.mined
     phase("chain_mining", blocks=len(blocks), difficulty=res["difficulty"],
           start_difficulty=START_DIFFICULTY,
@@ -4945,6 +5275,8 @@ def main() -> int:
           remove_blocks_s=round(pg["remove_s"], 3),
           reindex_check_rc=pg["reindex_rc"],
           reindex_s=round(pg["reindex_s"], 3), card=json.dumps(card))
+
+    swarm_line(swarm, card)
 
     rate = hashrate_phase(key)
     phase("hashrate", hashes=rate["tried"], seconds=round(rate["seconds"], 4),

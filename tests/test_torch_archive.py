@@ -17,15 +17,19 @@ each mirrors the other's archive to byte-identical files; a reorg inside
 the safety window whose rollback restores outputs of pruned blocks gives
 both packages the same UTXO hash on both backends; and a compaction
 leaves an armed resident index (on the CPU) equal to SQL without
-re-arming it.  The port's CLI prints the JAX CLI's lines for legs 1 and
-2, and without ``--differential-only`` names the missing scenario leg
-and exits 1.
+re-arming it.  The ``archive_prune`` scenario runs on both packages with
+equal fingerprints, and so do ``archive_rows`` and
+``observatory_section``.  The port's CLI prints the JAX CLI's lines for
+all three legs with ``--device cpu``; without it and without a card,
+leg 3 fails naming the missing card.
 """
 
 import asyncio
+import functools
 import hashlib
 import json
 import os
+import re
 import shutil
 import sqlite3
 import subprocess
@@ -35,6 +39,7 @@ from types import SimpleNamespace
 
 import aiohttp
 import pytest
+import torch
 from aiohttp.test_utils import TestServer
 
 import upow_tpu.archive.compactor as jcompactor
@@ -87,7 +92,9 @@ A = {
         store=tstore, ArchiveConfig=tconfig.ArchiveConfig, app=tapp,
         RateLimiter=tratelimit.RateLimiter, faultinject=tfaultinject,
         builder=tbuilder, client=tclient, layout=tlayout, pg=tpg, drv=tdrv,
-        swarm=tswarm, scenarios=tscenarios),
+        swarm=SimpleNamespace(Swarm=functools.partial(tswarm.Swarm,
+                                                      device="cpu")),
+        scenarios=tscenarios),
 }
 ACTORS = make_actors()
 GENESIS = ACTORS["genesis"]
@@ -973,15 +980,18 @@ def test_compaction_leaves_the_armed_index_alone(tmp_path, backend,
 # ------------------------------------------------------------------ CLI ----
 
 def test_cli_legs_print_the_jax_lines_and_leg_3_names_a13f(tmp_path):
-    """``python -m upow_tpu_torch.archive --differential-only`` exits 0
-    with the JAX CLI's lines (the differential and the resume); without
-    the flag it runs the same two legs, then names the missing scenario
-    leg (ROADMAP A13f) and exits 1."""
+    """``python -m upow_tpu_torch.archive --check-determinism --device
+    cpu`` exits 0 with the JAX CLI's lines for all three legs (the
+    scenario's wall time apart): the differential, the resume, the
+    ``archive_prune`` scenario and its determinism.  Without a card and
+    without ``--device`` it runs legs 1 and 2, then fails leg 3 naming
+    the missing card (it named ROADMAP A13f before the scenario came)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root, JAX_PLATFORMS="cpu")
     runs = {
-        "jax": ["upow_tpu.archive", "--differential-only"],
-        "port": ["upow_tpu_torch.archive", "--differential-only"],
+        "jax": ["upow_tpu.archive", "--check-determinism"],
+        "port": ["upow_tpu_torch.archive", "--check-determinism",
+                 "--device", "cpu"],
         "port_all": ["upow_tpu_torch.archive"],
     }
     procs = {k: subprocess.Popen([sys.executable, "-m", *argv], cwd=tmp_path,
@@ -991,35 +1001,88 @@ def test_cli_legs_print_the_jax_lines_and_leg_3_names_a13f(tmp_path):
     out = {k: p.communicate(timeout=300) + (p.returncode,)
            for k, p in procs.items()}
     assert out["jax"][2] == out["port"][2] == 0, out
-    assert out["port"][0] == out["jax"][0]
-    assert out["port"][0].startswith("ok   differential blocks=2400 ")
-    assert out["port_all"][2] == 1
-    lines = out["port_all"][0].splitlines()
-    assert lines[:2] == out["port"][0].splitlines()
-    assert lines[2] == "FAIL " + tarchive_main.SCENARIO_MISSING
-    assert "ROADMAP A13f" in lines[2]
+    lines = {k: re.sub(r" \d+\.\d\ds fp=", " Xs fp=", out[k][0]).splitlines()
+             for k in ("jax", "port")}
+    assert lines["port"] == lines["jax"]
+    assert len(lines["port"]) == 5
+    assert lines["port"][0].startswith("ok   differential blocks=2400 ")
+    assert lines["port"][2].startswith("ok      archive_prune n=3 seed=7 ")
+    assert lines["port"][4].startswith("ok   determinism fp1=")
+    if not torch.cuda.is_available():
+        assert out["port_all"][2] == 1
+        assert out["port_all"][0].splitlines() == \
+            out["port"][0].splitlines()[:2]
+        assert "no CUDA device is available" in out["port_all"][1]
 
 
 @pytest.mark.parametrize("args, missing", [
     (["--differential-only"], []),
-    ([], ["SCENARIO_MISSING"]),
-    (["--differential-only", "--check-determinism"],
-     ["DETERMINISM_MISSING"]),
-    (["--check-determinism"], ["SCENARIO_MISSING", "DETERMINISM_MISSING"]),
+    ([], ["scenario"]),
+    (["--differential-only", "--check-determinism"], []),
+    (["--check-determinism"], ["scenario", "scenario"]),
 ])
 def test_cli_never_passes_a_scenario_check_it_cannot_run(args, missing,
                                                          monkeypatch,
                                                          capsys):
-    """With legs 1 and 2 green, the CLI exits 0 only when it was asked
-    for nothing else: leg 3 and ``--check-determinism`` (which reruns
-    leg 3) each print what they wait for and make it exit 1."""
+    """With legs 1 and 2 green, leg 3 runs the scenario (``missing``
+    lists the runs each flag set asks for; ``--check-determinism``
+    reruns it) and the CLI exits 0 only when every run's core held and
+    the two fingerprints agree: a failed core flag or a fingerprint
+    that moved makes it exit 1.  ``--differential-only`` runs no
+    scenario, ``--check-determinism`` with it included."""
     monkeypatch.setattr(tarchive_main, "_differential", lambda *a: True)
 
     async def resumed(*a):
         return []
     monkeypatch.setattr(tarchive_main, "_drive_resume", resumed)
-    rc = tarchive_main.main(args)
-    lines = capsys.readouterr().out.splitlines()
-    assert lines == ["FAIL " + getattr(tarchive_main, m) for m in missing]
-    assert rc == (1 if missing else 0)
-    assert all("ROADMAP A13f" in ln for ln in lines)
+    for core, fps, rc in (({"held": True}, ["a", "a"], 0),
+                          ({"held": False}, ["a", "a"], 1),
+                          ({"held": True}, ["a", "b"], 1)):
+        calls = []
+
+        def run(name, seed=7, device=None, _core=core, _fps=fps):
+            calls.append((name, seed, device))
+            return {"scenario": name, "nodes": 3, "seed": seed,
+                    "core": _core, "fingerprint": _fps[len(calls) - 1],
+                    "observed": {"elapsed_s": 1.0, "probes": 5}}
+        monkeypatch.setattr(tarchive_main, "run_scenario", run)
+        got = tarchive_main.main(args + ["--device", "cpu"])
+        capsys.readouterr()
+        assert calls == [("archive_prune", 7, "cpu")] * len(missing)
+        if not missing:
+            assert got == 0
+        elif len(missing) == 1:
+            assert got == (0 if core["held"] else 1)
+        else:
+            assert got == rc
+
+
+def test_archive_prune_scenario_green_and_deterministic():
+    """JAX ``tests/test_archive.py``'s scenario case, on both packages,
+    with equal fingerprints; and the observatory rows it shapes."""
+    arts = {}
+    for name, mod, kw in (("jax", jscenarios, {}),
+                          ("port", tscenarios, {"device": "cpu"})):
+        a = mod.run_scenario("archive_prune", seed=7, **kw)
+        assert mod.core_ok(a["core"]), {
+            k: v for k, v in a["core"].items()
+            if isinstance(v, bool) and not v}
+        assert a["core"]["hot_blocks_after"] < a["core"]["hot_blocks_before"]
+        b = mod.run_scenario("archive_prune", seed=7, **kw)
+        assert a["fingerprint"] == b["fingerprint"]
+        arts[name] = a
+    assert arts["port"]["core"] == arts["jax"]["core"]
+    assert arts["port"]["fingerprint"] == arts["jax"]["fingerprint"]
+    rows = tparity.archive_rows(arts["port"])
+    assert rows["kernels"] == jparity.archive_rows(arts["jax"])["kernels"]
+    assert rows["kernels"]["archive_parity_ok"]["value"] == 1.0
+    assert set(rows["slo_endpoints"]) == \
+        set(jparity.archive_rows(arts["jax"])["slo_endpoints"])
+    broken = {**arts["port"], "core": {**arts["port"]["core"],
+                                      "parity_after_reorg": False}}
+    assert tparity.archive_rows(broken)["kernels"]["archive_parity_ok"][
+        "value"] == 0.0
+    sec = tparity.observatory_section(seed=7, device="cpu")
+    jsec = jparity.observatory_section(seed=7)
+    assert sec["section"] == jsec["section"]
+    assert sec["kernels"] == jsec["kernels"]

@@ -313,7 +313,7 @@ def archive_swarm():
     work = tempfile.mkdtemp()
 
     async def main():
-        swarm = await Swarm(3, seed=4).start()
+        swarm = await Swarm(3, seed=4, device="cpu").start()
         try:
             node = swarm.nodes[0]
             node.config.snapshot.dir = os.path.join(work, "snap")
@@ -401,8 +401,12 @@ def test_every_port_module_imports_without_jax():
                  "archive.store", "archive.reader", "archive.compactor",
                  "archive.parity", "archive.__main__", "swarm",
                  "swarm.links", "swarm.transport", "swarm.adversary",
-                 "swarm.harness", "swarm.scenarios", "fleet",
-                 "fleet.recorder"):
+                 "swarm.harness", "swarm.scenarios", "swarm.__main__",
+                 "fleet", "fleet.recorder", "fleet.scrape", "fleet.stitch",
+                 "fleet.propagation", "fleet.geosoak", "fleet.__main__",
+                 "loadgen", "loadgen.population", "loadgen.runner",
+                 "loadgen.gate", "loadgen.observatory",
+                 "snapshot.__main__"):
         assert "upow_tpu_torch." + must in names, must
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(

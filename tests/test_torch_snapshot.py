@@ -14,13 +14,19 @@ the same bodies (bad chunk indexes included); after a restore with the
 resident index armed on the CPU the index answers as its own backend's
 SQL, and an index that cannot be rebuilt rolls the restore back and
 raises through the node's bootstrap, never replaying.  The two swarm
-cases run on two port nodes on ``chip_smoke.NodeThread``s.
+cases run on two port nodes on ``chip_smoke.NodeThread``s.  The
+``snapshot_churn`` scenario runs on both packages with equal
+fingerprints, and ``python -m upow_tpu_torch.snapshot --device cpu``
+prints the JAX CLI's lines (the round trip and the scenario).
 """
 
 import asyncio
 import os
+import re
 import shutil
 import sqlite3
+import subprocess
+import sys
 from types import SimpleNamespace
 
 import aiohttp
@@ -33,6 +39,7 @@ import upow_tpu.node.app as japp
 import upow_tpu.snapshot.builder as jbuilder
 import upow_tpu.snapshot.client as jclient
 import upow_tpu.snapshot.layout as jlayout
+import upow_tpu.swarm.scenarios as jsc
 import upow_tpu_torch.node.app as tapp
 import upow_tpu_torch.snapshot.builder as tbuilder
 import upow_tpu_torch.snapshot.client as tclient
@@ -41,6 +48,7 @@ import upow_tpu_torch.state.device_index as tdi
 import upow_tpu_torch.state.pg as tpg
 import upow_tpu_torch.state.pgdriver as tdrv
 import upow_tpu_torch.state.storage as tstorage
+import upow_tpu_torch.swarm.scenarios as tsc
 from test_torch_block import JAX, PORT, T0
 from test_torch_gossip import _jcfg, _tcfg
 from test_torch_wallet import Run, easy_chain  # noqa: F401  (fixture)
@@ -933,3 +941,48 @@ def test_snapshot_fetch_faults_restore_traffic_alone(tmp_path):
     method, _chunks, fired, hashes = out["port"]
     assert method == "snapshot" and hashes == out["server"]
     assert [f["fired"] for f in fired] == [0, 1]
+
+
+# -------------------------------------------------------------- scenario ----
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_snapshot_churn_scenario_green_and_deterministic(pkg):
+    """JAX ``tests/test_snapshot.py``'s scenario case, on each package;
+    the port's fingerprint equals the JAX one."""
+    mod, kw = (jsc, {}) if pkg == "jax" else (tsc, {"device": "cpu"})
+    a = mod.run_scenario("snapshot_churn", seed=7, **kw)
+    assert mod.core_ok(a["core"]), {
+        k: v for k, v in a["core"].items()
+        if isinstance(v, bool) and not v}
+    assert a["observed"]["snapshot_rpcs"] < a["observed"]["replay_rpcs"]
+    b = mod.run_scenario("snapshot_churn", seed=7, **kw)
+    assert a["fingerprint"] == b["fingerprint"]
+    if pkg == "port":
+        j = jsc.run_scenario("snapshot_churn", seed=7)
+        assert a["core"] == j["core"]
+        assert a["fingerprint"] == j["fingerprint"]
+        assert a["flight_recorder"]["reason"] == \
+            j["flight_recorder"]["reason"] == "fault_injected"
+
+
+def test_cli_prints_the_jax_lines():
+    """``python -m upow_tpu_torch.snapshot --check-determinism --device
+    cpu``: the round trip, the scenario and its determinism, the JAX
+    CLI's lines (the scenario's wall time apart); exit 0 on both."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, JAX_PLATFORMS="cpu")
+    procs = [subprocess.Popen([sys.executable, "-m", *argv], cwd=root,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv in (["upow_tpu.snapshot", "--check-determinism"],
+                          ["upow_tpu_torch.snapshot", "--check-determinism",
+                           "--device", "cpu"])]
+    outs = [p.communicate(timeout=300) + (p.returncode,) for p in procs]
+    assert outs[0][2] == outs[1][2] == 0, outs[1][1]
+    jlines, tlines = ([re.sub(r" \d+\.\d\ds fp=", " Xs fp=", ln)
+                       for ln in o[0].splitlines()] for o in outs)
+    assert tlines == jlines
+    assert len(tlines) == 4
+    assert tlines[0].startswith("ok   round-trip height=8 ")
+    assert tlines[1].startswith("ok     snapshot_churn n=5 seed=7 ")
+

@@ -21,6 +21,7 @@ under one trace id across the gossip hops.
 """
 
 import asyncio
+import functools
 import os
 import random
 import subprocess
@@ -211,7 +212,7 @@ def test_loopback_interface_overrides_only_the_attempt_seam():
 
 def test_loopback_dispatch_real_middleware():
     async def main():
-        swarm = Swarm(2, seed=0)
+        swarm = Swarm(2, seed=0, device="cpu")
         await swarm.start()
         try:
             res = await swarm.get(0, "/")
@@ -235,7 +236,7 @@ def test_loopback_dispatch_real_middleware():
 
 def test_debug_breakers_endpoint():
     async def main():
-        swarm = Swarm(2, seed=0)
+        swarm = Swarm(2, seed=0, device="cpu")
         await swarm.start()
         try:
             swarm.matrix.partition([[swarm.urls[0]], [swarm.urls[1]]])
@@ -263,7 +264,7 @@ def test_transport_carries_the_callers_ip():
     1's IP on node 0's blocklist, node 1's RPC is refused by node 0's IP
     filter and the driver's (127.0.0.1) is served."""
     async def main():
-        swarm = await Swarm(2, seed=0).start()
+        swarm = await Swarm(2, seed=0, device="cpu").start()
         try:
             swarm.nodes[0].ip_filter.blocklist = {swarm.ips[1]}
             iface = swarm.nodes[1].iface_factory(
@@ -283,9 +284,10 @@ def test_transport_carries_the_callers_ip():
 
 # ------------------------------------- both packages' swarms, one case ----
 
-def _swarm_pkg(swarm, harness, transport, adversary, scenarios, recorder):
+def _swarm_pkg(swarm, harness, transport, adversary, scenarios, recorder,
+               **swarm_kw):
     return SimpleNamespace(
-        Swarm=harness.Swarm, LoopbackWsClient=transport.LoopbackWsClient,
+        Swarm=functools.partial(harness.Swarm, **swarm_kw), LoopbackWsClient=transport.LoopbackWsClient,
         EclipseAdversary=adversary.EclipseAdversary,
         SpamAdversary=adversary.SpamAdversary, LinkDown=swarm.LinkDown,
         world=scenarios.deterministic_world, wallet=scenarios._wallet,
@@ -298,7 +300,8 @@ SWARMS = {
     "jax": _swarm_pkg(jswarm, jswarm.harness, jswarm.transport,
                       jswarm.adversary, jswarm.scenarios, jrecorder),
     "port": _swarm_pkg(tswarm, tswarm.harness, tswarm.transport,
-                       tswarm.adversary, tswarm.scenarios, trecorder),
+                       tswarm.adversary, tswarm.scenarios, trecorder,
+                       device="cpu"),
 }
 
 
@@ -497,7 +500,7 @@ def roots(node, tid):
 
 
 async def main():
-    swarm = await Swarm(3, seed=11).start()
+    swarm = await Swarm(3, seed=11, device="cpu").start()
     try:
         _, addr = _wallet(11, "shared")
         for _ in range(2):

@@ -1,7 +1,8 @@
 """CLI entry: archive smoke — differential, kill -9 resume, scenario.
 
     python -m upow_tpu_torch.archive                      # all three legs
-    python -m upow_tpu_torch.archive --differential-only  # legs 1 and 2
+    python -m upow_tpu_torch.archive --differential-only  # skip the swarm leg
+    python -m upow_tpu_torch.archive --check-determinism  # scenario twice, cmp fp
 
 The port's copy of the JAX package's ``archive/__main__.py``.  Three
 legs, any failure exits non-zero:
@@ -19,12 +20,9 @@ legs, any failure exits non-zero:
    directory must publish byte-identical segment digests.
 3. **Scenario** — the ``archive_prune`` swarm scenario (full HTTP
    parity incl. a reorg inside the safety window, peer mirror over
-   ``/archive/*``), which needs the swarm's scenarios (ROADMAP A13f)
-   that the port does not have yet.  Without ``--differential-only``
-   the run names it and exits non-zero, after legs 1 and 2: the leg is
-   never skipped silently.  ``--check-determinism`` reruns that leg, so
-   it fails the same way, with ``--differential-only`` too: the flag
-   asks for a check the port cannot run yet.
+   ``/archive/*``), on the swarm's ``--device`` (``cuda`` by default,
+   raising without a card; ``cpu`` the host).  ``--check-determinism``
+   runs it twice and the core fingerprints must match.
 """
 
 from __future__ import annotations
@@ -35,16 +33,8 @@ import sys
 import tempfile
 
 from ..resilience import faultinject
+from ..swarm.scenarios import core_ok, run_scenario
 from . import parity
-
-#: what leg 3 waits for
-SCENARIO_MISSING = ("archive_prune scenario: not run, the port has no swarm "
-                    "scenarios yet (ROADMAP A13f); pass --differential-only "
-                    "to run legs 1 and 2 alone")
-#: what --check-determinism waits for
-DETERMINISM_MISSING = ("determinism: not checked, it reruns the "
-                       "archive_prune scenario, which waits for the port's "
-                       "swarm scenarios (ROADMAP A13f)")
 
 
 def _differential(seed: int, blocks: int) -> bool:
@@ -145,6 +135,24 @@ async def _drive_resume(seed: int, blocks: int) -> list:
     return failures
 
 
+def _print_scenario(artifact: dict) -> bool:
+    core = artifact["core"]
+    good = core_ok(core)
+    print(f"{'ok  ' if good else 'FAIL'} {artifact['scenario']:>16} "
+          f"n={artifact['nodes']} seed={artifact['seed']} "
+          f"{artifact['observed']['elapsed_s']:.2f}s "
+          f"fp={artifact['fingerprint'][:16]}")
+    if not good:
+        for key, val in sorted(core.items()):
+            if isinstance(val, bool) and not val:
+                print(f"     core failed: {key}", file=sys.stderr)
+    print(f"     archived_through={core.get('archived_through')} "
+          f"hot_blocks={core.get('hot_blocks_before')}->"
+          f"{core.get('hot_blocks_after')} "
+          f"probes={artifact['observed'].get('probes')}")
+    return good
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m upow_tpu_torch.archive",
@@ -159,8 +167,10 @@ def main(argv=None) -> int:
     parser.add_argument("--check-determinism", action="store_true",
                         help="run the scenario twice with the same seed "
                              "and fail unless the core fingerprints are "
-                             "identical (fails until the port has the "
-                             "scenario)")
+                             "identical")
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                        help="where the scenario's swarm runs "
+                             "(default cuda)")
     args = parser.parse_args(argv)
 
     ok = _differential(args.seed, args.blocks)
@@ -170,11 +180,17 @@ def main(argv=None) -> int:
         ok = False
 
     if not args.differential_only:
-        print(f"FAIL {SCENARIO_MISSING}")
-        ok = False
-    if args.check_determinism:
-        print(f"FAIL {DETERMINISM_MISSING}")
-        ok = False
+        artifact = run_scenario("archive_prune", seed=args.seed,
+                                device=args.device)
+        ok = _print_scenario(artifact) and ok
+        if args.check_determinism:
+            again = run_scenario("archive_prune", seed=args.seed,
+                                 device=args.device)
+            same = again["fingerprint"] == artifact["fingerprint"]
+            print(f"{'ok  ' if same else 'FAIL'} determinism "
+                  f"fp1={artifact['fingerprint'][:16]} "
+                  f"fp2={again['fingerprint'][:16]}")
+            ok = ok and same
 
     return 0 if ok else 1
 

@@ -8,9 +8,12 @@ row, and every read the archive now backs — block by id/hash, block
 pages across the hot/archive seam, transaction lookups, address
 history — must answer byte-identically (canonical JSON fingerprints).
 This is what ``python -m upow_tpu_torch.archive`` drives, including the
-kill -9 resume leg.  The JAX module's ``archive_rows`` and
-``observatory_section`` read the swarm's ``archive_prune`` scenario and
-come with it (ROADMAP A13f).
+kill -9 resume leg.  :func:`observatory_section` runs the swarm
+``archive_prune`` scenario (full HTTP surface, reorg inside the safety
+window, peer mirror) and shapes it into observatory gate rows;
+``archive_parity_ok`` zeroes on ANY failed core assertion, so a baseline
+of 1.0 fails the enforced gate regardless of tolerance — the same
+divergence-zeroing idiom as ``fleet_core_ok``.
 """
 
 from __future__ import annotations
@@ -205,3 +208,57 @@ async def storage_differential(blocks: int = 2400, *, seed: int = 0,
         if owns_tmp:
             await asyncio.get_running_loop().run_in_executor(
                 None, lambda: shutil.rmtree(tmp, ignore_errors=True))
+
+
+# ------------------------------------------------------- observatory ----
+
+def archive_rows(art: dict) -> dict:
+    """Gate-facing rows from an ``archive_prune`` scenario artifact."""
+    from ..swarm.scenarios import core_ok
+
+    core = art["core"]
+    ok = core_ok(core)
+    kernels = {
+        "archive_parity_ok": {
+            "value": 1.0 if ok else 0.0, "unit": "bool",
+            "direction": "higher",
+            "desc": "pruned node answered every archived read "
+                    "byte-identically to its unpruned twin "
+                    "(0 = divergence)"},
+        "archive_hot_blocks_pruned": {
+            "value": float(core.get("hot_blocks_before", 0)
+                           - core.get("hot_blocks_after", 0)),
+            "unit": "blocks", "direction": "higher",
+            "desc": "hot-tier block rows retired to the cold archive "
+                    "by the scenario's compaction"},
+    }
+    slo_endpoints = {
+        k.replace("swarm.", "archive.", 1): v
+        for k, v in art["slo"]["endpoints"].items()}
+    return {"kernels": kernels, "slo_endpoints": slo_endpoints}
+
+
+def observatory_section(seed: int = 7, device=None) -> dict:
+    """Run the archive_prune scenario and shape it for the observatory
+    artifact (the ``fleet`` section's idiom); its swarm runs on
+    ``device`` (None: the card)."""
+    from ..swarm.scenarios import run_scenario
+
+    art = run_scenario("archive_prune", seed=seed, device=device)
+    rows = archive_rows(art)
+    core = art["core"]
+    section = {
+        "scenario": "archive_prune",
+        "nodes": art["nodes"],
+        "seed": seed,
+        "fingerprint": art["fingerprint"],
+        "core_ok": rows["kernels"]["archive_parity_ok"]["value"] == 1.0,
+        "archived_through": core.get("archived_through", 0),
+        "hot_blocks": {"before": core.get("hot_blocks_before", 0),
+                       "after": core.get("hot_blocks_after", 0)},
+        "hot_txs": {"before": core.get("hot_txs_before", 0),
+                    "after": core.get("hot_txs_after", 0)},
+        "flight_recorder": art.get("flight_recorder", {}).get("reason"),
+    }
+    return {"section": section, "kernels": rows["kernels"],
+            "slo_endpoints": rows["slo_endpoints"], "artifact": art}

@@ -19,9 +19,9 @@ The payload and manifest are the JAX package's byte for byte, so a node
 of either package restores from the other's.  A restore rebuilds the
 resident UTXO index on the state's device when one is armed
 (``restore_snapshot`` of both backends); an index that cannot arm
-raises, never falling back to SQL.  Not here yet: ``__main__`` (the
-smoke CLI, whose churn leg is a swarm scenario), with the swarm's
-scenarios (ROADMAP A13f).
+raises, never falling back to SQL.  ``python -m upow_tpu_torch.snapshot``
+is the smoke CLI: a two-node swarm round trip and the ``snapshot_churn``
+swarm scenario.
 """
 
 from .builder import build_snapshot

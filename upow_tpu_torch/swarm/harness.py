@@ -2,9 +2,13 @@
 port's copy of the JAX package's ``swarm/harness.py``).
 
 Each node is a full :class:`~..node.app.Node` — in-memory sqlite state,
-host sig backend on ``device="cpu"``, so no swarm node touches CUDA, its
-own PeerBook/breakers/mempool — reachable at a virtual URL
-(``http://10.77.0.<i>:3006``).  The only alteration is
+host sig backend, its own PeerBook/breakers/mempool — reachable at a
+virtual URL (``http://10.77.0.<i>:3006``).  Every node of a swarm runs
+on the swarm's ``device``, resolved as every port entry point resolves
+it: None is the card (and raises without one), ``"cpu"`` the host.  On a
+card the nodes share that card's one device runtime; a ``cfg_hook``
+that sets ``device.sig_backend = "device"`` sends their verifies
+through it.  The only alteration is
 ``iface_factory``: outbound RPC goes through
 :class:`~.transport.LoopbackInterface` and pays the
 :class:`~.links.LinkMatrix` toll.  The scenario driver talks to nodes
@@ -13,8 +17,7 @@ shaping, local IP), mirroring how tests drive a real cluster.
 
 Resilience knobs are tightened for simulation speed (milliseconds of
 backoff, sub-second breaker reopen) — operational policy only, chain
-state stays bit-identical to default-config nodes.  The JAX harness's
-``slo_summary`` reads ``loadgen/`` and comes with it (ROADMAP A13f).
+state stays bit-identical to default-config nodes.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Callable, List, Optional
 
 from .. import trace
 from ..config import Config
+from ..device import DeviceLike, resolve
 from ..logger import get_logger
 from ..node.app import GENESIS_PREV_HASH, Node
 from .links import LinkMatrix, LinkPolicy
@@ -82,8 +86,10 @@ class Swarm:
     def __init__(self, n: int, seed: int = 0,
                  link: Optional[LinkPolicy] = None, ws: bool = False,
                  ws_queue_max: int = 0, reorg_window: int = 0,
-                 cfg_hook: Optional[Callable[[int, Config], None]] = None):
+                 cfg_hook: Optional[Callable[[int, Config], None]] = None,
+                 device: DeviceLike = None):
         self.n = n
+        self.device = resolve(device)
         self.seed = seed
         self.matrix = LinkMatrix(seed, default=link)
         self.hub = LoopbackHub(self.matrix)
@@ -109,7 +115,7 @@ class Swarm:
                                reorg_window=self.reorg_window)
             if self.cfg_hook is not None:
                 self.cfg_hook(i, cfg)
-            node = Node(cfg, device="cpu")
+            node = Node(cfg, device=self.device)
             node.self_url = url
             node.started = True  # skip first-request bootstrap
             if node.telemetry_scope is not None:
@@ -249,3 +255,18 @@ class Swarm:
     def breaker_summary(self) -> dict:
         return {f"node{i}": node.breakers.snapshot()
                 for i, node in enumerate(self.nodes)}
+
+    def slo_summary(self) -> dict:
+        """Per-node client-side latency quantiles over every driver and
+        peer dispatch that landed on that node."""
+        from ..loadgen.runner import summarize_latencies
+
+        per_node: dict = {}
+        for (url, _path), vals in self.hub.latencies.items():
+            per_node.setdefault(url, []).extend(vals)
+        out = {}
+        for i, url in enumerate(self.urls):
+            vals = per_node.get(url)
+            if vals:
+                out[f"node{i}"] = summarize_latencies(vals)
+        return out

@@ -1,22 +1,24 @@
-"""``python -m upow_tpu_torch.telemetry.selfcheck``: boot the port's
-node on a loopback port, scrape ``/metrics`` and run the exposition
-validator.
+"""``python -m upow_tpu_torch.telemetry.selfcheck [--device cuda|cpu]``:
+boot the port's node on a loopback port, scrape ``/metrics`` and run the
+exposition validator — then boot a 3-node swarm, merge its per-node
+scrapes into the ``upow_fleet_*`` families and validate those too.
 
-The port's copy of the single-node half of the JAX package's
-``telemetry/selfcheck.py`` (its ``_run``): it fails when any exported
-name is illegal, any histogram's cumulative buckets regress, the content
-type drifts from 0.0.4, a required metric family disappears, or a
-/debug endpoint stops returning well-formed JSON.  The node runs on the
-standard-library server (``node/http.py``) on a free 127.0.0.1 port,
-where the JAX check uses aiohttp's ``TestClient``, against an in-memory
-chain on the CPU with no seed and no peers.  The fleet half
-(``_run_fleet``: three nodes, one gossiped block, the merged
-``upow_fleet_*`` families) waits for ``fleet/``'s scraper, which comes
-with the swarm's scenarios (ROADMAP.md, A13f).
+The port's copy of the JAX package's ``telemetry/selfcheck.py``: it
+fails when any exported name is illegal, any histogram's cumulative
+buckets regress, the content type drifts from 0.0.4, a required metric
+family disappears (single-node or fleet), or a /debug endpoint stops
+returning well-formed JSON.  The node runs on the standard-library
+server (``node/http.py``) on a free 127.0.0.1 port, where the JAX check
+uses aiohttp's ``TestClient``, against an in-memory chain with no seed
+and no peers; the swarm runs on the loopback hub.  Both run on
+``--device``: the card by default, as every port entry point (without
+one the check fails naming the missing card, and runs nothing on the
+host); ``cpu`` runs the plain versions on the host.
 """
 
 from __future__ import annotations
 
+import argparse
 import asyncio
 import json
 import sys
@@ -52,7 +54,20 @@ REQUIRED = (
 )
 
 
-async def _run() -> int:
+#: families the merged fleet rendering must always carry
+#: (substring match on the render_fleet output)
+REQUIRED_FLEET = (
+    "upow_fleet_nodes",
+    "upow_fleet_height_spread",
+    "upow_fleet_events_total",
+    "upow_fleet_traces_total",
+    "upow_fleet_block_propagation_p95_ms",
+    "upow_fleet_block_propagation_seconds_bucket",
+    "upow_fleet_tx_propagation_seconds_bucket",
+)
+
+
+async def _run(device) -> int:
     from ..config import Config
     from ..node.app import Node
     from ..node.http import fetch
@@ -63,9 +78,10 @@ async def _run() -> int:
         node__seed_url="",                # no external seed
         node__peers_file=f"{scratch}/nodes.json",
         node__ip_config_file="",
+        ws__enabled=False,
         device__sig_backend="host",
         log__console=False, log__path="")
-    node = Node(cfg, device="cpu")
+    node = Node(cfg, device=device)
     server = await node.serve("127.0.0.1", 0)
     base = f"http://127.0.0.1:{server.port}"
     failures = []
@@ -98,8 +114,66 @@ async def _run() -> int:
     return 0
 
 
-def main() -> int:
-    return asyncio.run(_run())
+async def _run_fleet(device) -> int:
+    """Fleet half of the gate: 3 scoped nodes, one gossiped block, the
+    merged ``upow_fleet_*`` rendering through the same validator."""
+    from ..fleet import scrape
+    from ..swarm.harness import Swarm
+    from ..swarm.scenarios import _wallet, deterministic_world
+
+    failures = []
+    with deterministic_world(0):
+        async def drive():
+            swarm = await Swarm(3, seed=0, device=device).start()
+            try:
+                _, addr = _wallet(0, "metrics_check")
+                res = await swarm.mine(0, addr)
+                if not res.get("ok"):
+                    failures.append(f"fleet bootstrap mine failed: {res}")
+                await swarm.wait_converged()
+                await swarm.settle()
+                return await scrape.scrape(swarm)
+            finally:
+                await swarm.close()
+
+        snapshot = await drive()
+    for label, rec in snapshot["nodes"].items():
+        if rec["metrics_status"] != 200:
+            failures.append(f"{label} /metrics -> {rec['metrics_status']}")
+        failures.extend(f"{label}: {v}"
+                        for v in exposition.validate(rec["metrics_text"]))
+    text = scrape.render_fleet(snapshot)
+    failures.extend(f"fleet: {v}" for v in exposition.validate(text))
+    for name in REQUIRED_FLEET:
+        if name not in text:
+            failures.append(f"required fleet metric missing: {name}")
+    if failures:
+        for f in failures:
+            print(f"metrics-check: FAIL {f}")
+        return 1
+    print(f"metrics-check: OK fleet ({len(snapshot['nodes'])} nodes "
+          f"merged, {len(text.splitlines())} exposition lines, "
+          f"{len(REQUIRED_FLEET)} required fleet families present)")
+    return 0
+
+
+def main(argv=None) -> int:
+    from ..device import resolve
+
+    parser = argparse.ArgumentParser(
+        prog="python -m upow_tpu_torch.telemetry.selfcheck",
+        description="exposition check of one node's /metrics and of "
+                    "a 3-node swarm's merged fleet families")
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                        help="where the nodes run (default cuda)")
+    args = parser.parse_args(argv)
+    try:
+        device = resolve(args.device)
+    except RuntimeError as e:
+        print(f"metrics-check: FAIL {e}")
+        return 1
+    rc = asyncio.run(_run(device))
+    return rc or asyncio.run(_run_fleet(device))
 
 
 if __name__ == "__main__":

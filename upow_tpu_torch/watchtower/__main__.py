@@ -1,7 +1,8 @@
 """CLI entry: alert smoke, the golden units and the storm scenario.
 
-    python -m upow_tpu_torch.watchtower                # all legs
-    python -m upow_tpu_torch.watchtower --units-only   # legs 1 and 2
+    python -m upow_tpu_torch.watchtower                      # all legs
+    python -m upow_tpu_torch.watchtower --units-only         # skip the swarm leg
+    python -m upow_tpu_torch.watchtower --check-determinism  # scenario twice, cmp fp
 
 The port's copy of the JAX package's ``watchtower/__main__.py``.  Three
 legs, and any failure exits non-zero:
@@ -14,10 +15,12 @@ legs, and any failure exits non-zero:
    pair, a slow 0.8% drizzle tickets the slow pair, and a route with no
    traffic is not judged.  Plus the alert state machine: for-duration,
    dedup, resolve, silence expiry.
-3. **Scenario**: the ``watchtower_storm`` swarm scenario, which needs
-   the swarm's scenarios and ``fleet/`` (ROADMAP A13f) that the port
-   does not have yet.  Without ``--units-only`` the run names it and exits
-   non-zero, after legs 1 and 2: the leg is never skipped silently.
+3. **Scenario**: the ``watchtower_storm`` swarm scenario (injected
+   gossip faults must page ``breaker_flip_storm`` with a cross-node
+   exemplar trace and a flight-recorder dump whose trigger is the
+   alert), on the swarm's ``--device`` (``cuda`` by default, raising
+   without a card; ``cpu`` the host); with ``--check-determinism`` it
+   runs twice and the core fingerprints must match byte-identically.
 """
 
 from __future__ import annotations
@@ -28,11 +31,6 @@ import sys
 from .alerts import AlertManager, AlertRule
 from .burnrate import BurnRateEvaluator
 from .detectors import EwmaZScore, RateTracker, SpikeDetector, StuckGauge
-
-#: what leg 3 waits for
-SCENARIO_MISSING = ("watchtower_storm scenario: not run, the port has no "
-                    "swarm scenarios yet (ROADMAP A13f); pass --units-only "
-                    "to run legs 1 and 2 alone")
 
 
 def _check(failures: list, cond: bool, label: str) -> None:
@@ -187,13 +185,41 @@ def _state_machine_goldens() -> list:
     return failures
 
 
+def _print_scenario(artifact: dict) -> bool:
+    from ..swarm.scenarios import core_ok
+
+    core = artifact["core"]
+    good = core_ok(core)
+    print(f"{'ok  ' if good else 'FAIL'} {artifact['scenario']:>16} "
+          f"n={artifact['nodes']} seed={artifact['seed']} "
+          f"{artifact['observed']['elapsed_s']:.2f}s "
+          f"fp={artifact['fingerprint'][:16]}")
+    if not good:
+        for key, val in sorted(core.items()):
+            if isinstance(val, bool) and not val:
+                print(f"     core failed: {key}", file=sys.stderr)
+    print(f"     rule={core.get('storm_rule')} "
+          f"opens={artifact['observed'].get('breaker_opens_windowed')} "
+          f"stitched={artifact['observed'].get('stitched_nodes')} "
+          f"recorder={artifact.get('flight_recorder', {}).get('reason')}")
+    return good
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m upow_tpu_torch.watchtower",
         description="alert smoke: detector/burn-rate/state-machine "
                     "goldens and the watchtower_storm scenario")
+    parser.add_argument("--seed", type=int, default=7)
     parser.add_argument("--units-only", action="store_true",
                         help="skip the swarm scenario leg")
+    parser.add_argument("--check-determinism", action="store_true",
+                        help="run the scenario twice with the same seed "
+                             "and fail unless the core fingerprints are "
+                             "identical")
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                        help="where the scenario's swarm runs "
+                             "(default cuda)")
     args = parser.parse_args(argv)
 
     ok = True
@@ -207,8 +233,19 @@ def main(argv=None) -> int:
         ok = ok and not failures
 
     if not args.units_only:
-        print(f"FAIL {SCENARIO_MISSING}")
-        ok = False
+        from ..swarm.scenarios import run_scenario
+
+        artifact = run_scenario("watchtower_storm", seed=args.seed,
+                                device=args.device)
+        ok = _print_scenario(artifact) and ok
+        if args.check_determinism:
+            again = run_scenario("watchtower_storm", seed=args.seed,
+                                 device=args.device)
+            same = again["fingerprint"] == artifact["fingerprint"]
+            print(f"{'ok  ' if same else 'FAIL'} determinism "
+                  f"fp1={artifact['fingerprint'][:16]} "
+                  f"fp2={again['fingerprint'][:16]}")
+            ok = ok and same
 
     return 0 if ok else 1
 
