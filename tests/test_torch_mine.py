@@ -10,7 +10,12 @@
 * end to end: ``miner.run(..., device="cpu", once=True)`` against a
   stdlib stub node over the port's ``ChainState`` pushes the same bytes
   as JAX ``run(..., device="jnp", once=True)`` against a twin stub over a
-  JAX-built chain, and both nodes accept the block.
+  JAX-built chain, and both nodes accept the block;
+* the miner's telemetry: its counters against what ``mine()`` and
+  ``run`` report, the dry hand-offs of fake rounds, its endpoint's
+  ``/metrics``, ``/debug/traces`` and ``/debug/profile`` (the spans in
+  the capture), no endpoint without ``--metrics-port``, and on the card
+  the gaps between rounds on the device clock.
 """
 
 import asyncio
@@ -47,6 +52,10 @@ import upow_tpu_torch.state as tstate
 import upow_tpu_torch.verify as tverify
 from upow_tpu_torch.crypto import sha256 as tsha
 from upow_tpu_torch.parallel import multihost as tmultihost
+from upow_tpu_torch.telemetry import counters as tcounters
+from upow_tpu_torch.telemetry import histograms as thistograms
+from upow_tpu_torch.telemetry import stats as tstats
+from upow_tpu_torch.telemetry import traces as ttraces
 
 T0 = 1_760_000_000
 RNG = np.random.default_rng(0x313E)
@@ -382,3 +391,303 @@ def test_run_once_pushes_the_same_block_as_jax(frozen, monkeypatch, capsys):
     finally:
         for stub in stubs.values():
             stub.close()
+
+
+# --- the miner's telemetry: counters, gaps, its endpoint ---------------------
+
+def _counts():
+    return dict(tcounters())
+
+
+def _delta(before: dict, name: str) -> int:
+    return tcounters().get(name, 0) - before.get(name, 0)
+
+
+def _hist_count(name: str) -> int:
+    return thistograms().get(name, {}).get("count", 0)
+
+
+@pytest.mark.parametrize("backend", ["torch", "python"])
+@pytest.mark.parametrize("diff,kw", [
+    ("2", dict(stride_end=1 << 16)),
+    ("9", dict(start=1000, stride_end=1000 + 3 * 4096 + 17)),
+])
+def test_engine_counts_the_nonces_and_rounds_it_reports(backend, diff, kw):
+    """``mine.hashes`` and ``mine.rounds`` move by the nonces and rounds
+    that ``mine()`` reports, a hit or a ragged miss, device and host
+    backends alike."""
+    _jjob, tjob = _jobs(diff)
+    before = _counts()
+    res = tengine.mine(tjob, backend, batch=4096, **kw)
+    assert _delta(before, "mine.hashes") == res.hashes_tried > 0
+    assert _delta(before, "mine.rounds") == -(-res.hashes_tried // 4096)
+    assert _delta(before, "mine.rounds_dry") == 0
+
+
+class _FakeEvent:
+    def __init__(self, finished: bool):
+        self.finished = finished
+
+    def query(self) -> bool:
+        return self.finished
+
+
+class _FakeHandle:
+    """A round whose result is a miss and whose ``done`` event reports
+    ``finished`` whenever asked."""
+
+    def __init__(self, finished: bool):
+        self.done = _FakeEvent(finished)
+
+    def __int__(self) -> int:
+        return int(tsha.SENTINEL)
+
+
+@pytest.mark.parametrize("finished", [True, False])
+def test_rounds_dry_counts_the_handoffs_that_found_the_round_done(
+        monkeypatch, finished):
+    """A hand-off (queuing a round while one is in flight) at which the
+    round queued last has already finished counts as dry: every hand-off
+    for handles that are always done, none for handles that stay
+    pending.  Each dispatch is timed on the host."""
+    monkeypatch.setattr(tengine, "_make_dispatcher",
+                        lambda *a, **k: lambda start, count:
+                        _FakeHandle(finished))
+    _jjob, tjob = _jobs("9")
+    before, timed = _counts(), _hist_count(tengine.ROUND_DISPATCH)
+    res = tengine.mine(tjob, "torch", batch=4096, stride_end=5 * 4096)
+    assert res.nonce is None and _delta(before, "mine.rounds") == 5
+    # five rounds, the first queued with nothing in flight
+    assert _delta(before, "mine.rounds_dry") == (4 if finished else 0)
+    assert _hist_count(tengine.ROUND_DISPATCH) - timed == 5
+
+
+def _info(diff: float) -> dict:
+    return {"difficulty": diff, "last_block": {},
+            "pending_transactions_hashes": []}
+
+
+def test_cli_counts_templates_expiries_and_pushes_once(monkeypatch):
+    """``run`` counts a template when it mines one, an expiry when the
+    TTL ends it, and a push and an accept for a found block; its fetch
+    and build are spans of a ``mine.template`` trace, a push is a
+    ``mine.push_block`` trace, and the rounds belong to neither.  (The
+    node is faked: a port node in this process would write events that
+    the JAX package's ring never sees.)"""
+    pushed = []
+    monkeypatch.setattr(tminer, "push_block",
+                        lambda node, *block: pushed.append(block)
+                        or {"ok": True})
+    for diff, ttl, rc, want in (
+            (9.0, 0.0, 1, {"mine.templates": 1, "mine.templates_expired": 1,
+                           "mine.blocks_pushed": 0,
+                           "mine.blocks_accepted": 0}),
+            (2.0, 60.0, 0, {"mine.templates": 1, "mine.templates_expired": 0,
+                            "mine.blocks_pushed": 1,
+                            "mine.blocks_accepted": 1})):
+        monkeypatch.setattr(tminer, "fetch_mining_info",
+                            lambda node, diff=diff: _info(diff))
+        before, spans = _counts(), tstats()
+        assert tminer.run(ADDR, "http://127.0.0.1:1/", "torch", 4096, ttl,
+                          once=True) == rc
+        assert {k: _delta(before, k) for k in tengine.COUNTERS[3:]} == want
+    assert len(pushed) == 1
+    names = ("mine.template_fetch", "mine.template_build", "mine.push_block")
+    for name in names:
+        assert tstats()[name]["count"] - spans.get(name, {"count": 0})[
+            "count"] == 1
+    template, push = ttraces()["recent"][-2:]
+    assert template["name"] == "mine.template"
+    assert [c["name"] for c in template["spans"]] == list(names[:2])
+    assert push["name"] == "mine.push_block" and "spans" not in push
+
+
+def test_no_metrics_port_opens_no_socket_and_no_thread(monkeypatch):
+    """Without ``--metrics-port`` the miner builds no endpoint; with one
+    it serves on that port and closes it when ``run`` returns."""
+    from upow_tpu_torch.mine import endpoint
+
+    made = []
+
+    class Recorder:
+        def __init__(self, port, tcfg, pcfg):
+            made.append(port)
+
+        def close(self):
+            made.append("closed")
+
+    monkeypatch.setattr(endpoint, "MinerEndpoint", Recorder)
+    monkeypatch.setattr(tminer, "fetch_mining_info", lambda node: _info(9.0))
+    threads = {t.name for t in threading.enumerate()}
+    assert tminer.run(ADDR, "http://127.0.0.1:1/", "torch", 4096, 0.0,
+                      once=True) == 1
+    assert made == []
+    # at most the device runtime's drainer, which the rounds arm
+    new = {t.name for t in threading.enumerate()} - threads
+    assert all(name.startswith("upow-device-runtime-") for name in new), new
+    assert tminer.run(ADDR, "http://127.0.0.1:1/", "torch", 4096, 0.0,
+                      once=True, metrics_port=9123) == 1
+    assert made == [9123, "closed"]
+
+
+def test_cli_passes_the_metrics_port(monkeypatch):
+    seen = {}
+    monkeypatch.setattr(tminer, "run",
+                        lambda *a, **k: seen.setdefault("k", k))
+    tminer.main([ADDR, "--device", "cpu", "--once",
+                 "--node", "http://127.0.0.1:1/", "--metrics-port", "9123"])
+    assert seen["k"]["metrics_port"] == 9123
+    assert "--metrics-port" not in tminer._child_cmd(_args())
+    assert tminer._child_cmd(_args(), 9124)[-2:] == ["--metrics-port", "9124"]
+
+
+def _get(url: str):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read().decode(), r.headers["Content-Type"]
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode(), e.headers["Content-Type"]
+
+
+class _FakeNode:
+    """``get_mining_info`` at difficulty 2.0 on the genesis tip, and a
+    ``push_block`` that accepts, on a loopback port."""
+
+    def __init__(self):
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *_a):
+                pass
+
+            def _reply(self, body: dict):
+                data = json.dumps(body).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):
+                self._reply({"ok": True, "result": _info(2.0)})
+
+            def do_POST(self):
+                self.rfile.read(int(self.headers["Content-Length"]))
+                self._reply({"ok": True})
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_port}/"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(10)
+
+
+def test_miner_cli_serves_metrics_traces_and_profile(tmp_path):
+    """``python -m upow_tpu_torch.mine.miner ... --metrics-port N`` as a
+    process of its own: ``/metrics`` carries the miner's families from
+    its first scrape; ``/debug/profile`` start, templates mined, then
+    stop writes a Chrome trace holding the template's spans as user
+    annotations; ``/debug/traces`` holds the templates' trees."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    from upow_tpu_torch.telemetry import exposition
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    node = _FakeNode()
+    env = dict(os.environ, UPOW_MINER_CHILD="1", UPOW_PROFILE_ENABLED="1",
+               UPOW_PROFILE_TRACE_DIR=str(tmp_path), UPOW_LOG_PATH="",
+               UPOW_LOG_CONSOLE="0")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "upow_tpu_torch.mine.miner", ADDR,
+         "--node", node.url, "--device", "torch", "--batch", "4096",
+         "--metrics-port", str(port)], env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            assert proc.poll() is None, proc.stderr.read().decode()[-2000:]
+            try:
+                status, text, ctype = _get(url + "/metrics")
+                break
+            except OSError:
+                assert time.monotonic() < deadline
+                time.sleep(0.2)
+        assert status == 200 and ctype == exposition.CONTENT_TYPE
+        assert exposition.validate(text) == []
+        samples = exposition.samples(text)
+        for name in tengine.COUNTERS:
+            assert "upow_" + name.replace(".", "_") + "_total" in samples
+        for name in (tengine.GAP_HANDOFF, tengine.GAP_REFRESH,
+                     tengine.ROUND_DISPATCH):
+            assert "upow_" + name.replace(".", "_") + "_count" in samples
+        started = json.loads(_get(url + "/debug/profile?action=start")[1])
+        assert started["ok"] and started["result"]["active"]
+
+        def accepted() -> float:
+            return exposition.samples(_get(url + "/metrics")[1])[
+                "upow_mine_blocks_accepted_total"]
+
+        first = accepted()
+        while accepted() < first + 2:
+            assert time.monotonic() < deadline and proc.poll() is None
+            time.sleep(0.1)
+        stopped = json.loads(_get(url + "/debug/profile?action=stop")[1])
+        assert stopped["ok"], stopped
+        with open(stopped["result"]["trace_file"]) as f:
+            events = json.load(f)["traceEvents"]
+        marked = {e["name"] for e in events
+                  if e.get("cat") == "user_annotation"}
+        assert {"mine.template", "mine.template_fetch", "mine.template_build",
+                "mine.push_block"} <= marked
+        traces = json.loads(_get(url + "/debug/traces")[1])["result"]
+        assert {t["name"] for t in traces["recent"]} == {
+            "mine.template", "mine.push_block"}
+        assert _get(url + "/debug/profile?action=nope")[0] == 400
+        assert _get(url + "/nope")[0] == 404
+    finally:
+        proc.terminate()
+        proc.wait(30)
+        node.close()
+
+
+@pytest.mark.cuda
+def test_round_gaps_on_card(monkeypatch):
+    """On the card: one ``mine.round_gap.*`` sample at each round
+    boundary of two templates (the first template's first round has no
+    round before it), every gap non-negative on the device clock (runs
+    on a machine with a card; skips elsewhere)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gaps = []
+    gap = tengine._ReadBack.gap
+
+    def spy(self):
+        seconds = gap(self)
+        gaps.append(seconds)
+        return seconds
+
+    monkeypatch.setattr(tengine._ReadBack, "gap", spy)
+    tengine._clocks.clear()
+    _jjob, tjob = _jobs("9")
+    counts = {n: _hist_count(n)
+              for n in (tengine.GAP_HANDOFF, tengine.GAP_REFRESH)}
+    for _ in range(2):
+        res = tengine.mine(tjob, "cuda", batch=4096, stride_end=16 * 4096)
+        assert res.nonce is None and res.hashes_tried == 16 * 4096
+    assert gaps[0] is None and len(gaps) == 32
+    assert all(g is not None and g >= 0 for g in gaps[1:])
+    assert _hist_count(tengine.GAP_HANDOFF) - counts[tengine.GAP_HANDOFF] == 30
+    assert _hist_count(tengine.GAP_REFRESH) - counts[tengine.GAP_REFRESH] == 1

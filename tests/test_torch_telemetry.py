@@ -19,7 +19,9 @@
   stops a capture left past ``max_capture_seconds``), ``analyze_cost``
   records a kernel's counted work and a node under
   ``profile.cost_analysis`` exports the txid batch's, and
-  ``exposition.samples`` reads a scrape back.
+  ``exposition.samples`` reads a scrape back; inside a capture the
+  spans are user annotations in the trace, outside one they never
+  build a ``record_function``.
 """
 
 import asyncio
@@ -551,3 +553,57 @@ def test_cost_analysis_on_a_node_exports_the_txid_batchs_work(monkeypatch):
             "mul_ops_needed", "bytes_needed"}
     finally:
         asyncio.run(node.close())
+
+
+def test_spans_in_a_profiling_session_are_user_annotations(tmp_path):
+    """While the program's own capture runs, a span (on any thread) and
+    a trace root are ``record_function`` ranges of their names in the
+    Chrome trace; the capture's end turns the bridge off."""
+    import threading
+
+    profiling.reset()
+    profiling.prime()
+    assert not ttelemetry.tracing.ANNOTATE
+    assert profiling.start(str(tmp_path), max_seconds=60.0)["active"]
+    assert ttelemetry.tracing.ANNOTATE
+    with ttelemetry.request_trace("bridge.root"):
+        with ttelemetry.span("bridge.span"):
+            pass
+    with ttelemetry.tracing.annotation("bridge.annotation"):
+        pass
+
+    def on_thread():
+        with ttelemetry.span("bridge.thread"):
+            pass
+
+    worker = threading.Thread(target=on_thread)
+    worker.start()
+    worker.join(10)
+    assert not worker.is_alive()
+    stopped = profiling.stop()
+    assert not ttelemetry.tracing.ANNOTATE
+    with open(stopped["trace_file"]) as f:
+        events = json.load(f)["traceEvents"]
+    marked = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"bridge.root", "bridge.span", "bridge.thread",
+            "bridge.annotation"} <= marked
+    assert ttrace.stats()["bridge.span"]["count"] == 1
+
+
+def test_spans_outside_a_session_enter_no_record_function(monkeypatch):
+    """With no capture of the program's running, a span, a trace root and
+    an annotation never build a ``record_function``."""
+    import torch
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) outside a session")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    profiling.reset()
+    assert not ttelemetry.tracing.ANNOTATE
+    with ttelemetry.request_trace("quiet.root"):
+        with ttelemetry.span("quiet.span"):
+            pass
+    with ttelemetry.tracing.annotation("quiet.annotation"):
+        pass
+    assert ttrace.stats()["quiet.span"]["count"] == 1

@@ -63,6 +63,11 @@ PORT_ONLY = {
     r"upow_compile_cache_persistent_entries": "kernel libraries built",
     # the native host batch's library could not be built (no g++)
     r"upow_native_unavailable_total": "no g++",
+    # the test mines its block in the node's process, and the port's
+    # engine counts every backend's nonces (the miner's /metrics)
+    r"upow_mine_hashes_total": "nonces the in-process engine searched",
+    # ... and its rounds, beside them
+    r"upow_mine_rounds_total": "rounds the in-process engine searched",
 }
 
 #: families only the JAX node exports: none.  The hotcache_*, ws_*,

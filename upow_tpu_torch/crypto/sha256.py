@@ -50,7 +50,7 @@ import logging
 import random
 import threading
 import time
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -377,16 +377,21 @@ def _kernel_lib(name: str = "sha256_search"):
 
 
 def pow_search(template: SearchTemplate, target, nonce_base: int, count: int,
-               device: DeviceLike = None) -> torch.Tensor:
+               device: DeviceLike = None,
+               before_launch: Optional[Callable[[], None]] = None
+               ) -> torch.Tensor:
     """Search ``[nonce_base, nonce_base + count)`` for the least nonce
     that meets ``target`` (the :func:`pack_target` vector).
 
     On the card (the default) this launches the kernel on the current
     stream and returns at once: the 0-d int64 result is a fresh tensor
     filled with SENTINEL before every launch, so no hit leaks from one
-    round into the next, and ``int()`` of it waits.  ``device="cpu"``
-    runs :func:`pow_search_plain`.  Without a card, and without
-    ``"cpu"``, it raises."""
+    round into the next, and ``int()`` of it waits.  ``before_launch``
+    is called just before the kernel is launched, after the fill (the
+    mining engine records a timing event on the stream there, by which
+    it times the card's gaps between rounds).
+    ``device="cpu"`` runs :func:`pow_search_plain`.  Without a card,
+    and without ``"cpu"``, it raises."""
     global LAUNCHES
     dev = resolve(device)
     if dev.type == "cpu":
@@ -402,6 +407,8 @@ def pow_search(template: SearchTemplate, target, nonce_base: int, count: int,
     index = out.get_device()
     launch_args = (args.ctypes.data, args.size, out.data_ptr(), index,
                    raw_stream(index))
+    if before_launch is not None:
+        before_launch()
     if current_index() == index:
         rc = lib.sha256_search_launch(*launch_args)
     else:

@@ -21,15 +21,39 @@ card fairly with verify and index batches.  The closure launches and
 returns the round's handle without synchronising; the miner thread
 waits on the handle, so the pipelining depth of :func:`mine` keeps its
 overlap.
+
+What :func:`mine` records (``telemetry.metrics``; the miner CLI
+registers the families at its start, :func:`preregister`):
+
+* ``mine.hashes`` and ``mine.rounds``: the nonces and rounds searched,
+  every backend, added up in the call and recorded as it returns;
+* ``mine.round_dispatch``: host seconds from a tensor backend's
+  ``dispatch(start, count)`` to its handle: the runtime's queue
+  (``runtime.queue_wait.mine`` is its finer split), the drainer's hop,
+  the launch and the read-back's set-up;
+* ``mine.rounds_dry``: hand-offs at which the round queued last had
+  already finished when the host came to queue the next, so the card
+  had nothing of this engine's to run (inside a ``profiling`` session
+  such a dispatch is the annotation ``mine.round_handoff_dry``);
+* on the single-card ``cuda`` backend, the card's idle time between two
+  rounds on the device clock: the end of one round's read-back to the
+  start of the next round's kernel, both CUDA timing events on the
+  stream (:class:`_RoundClock`), into ``mine.round_gap.handoff`` between two
+  rounds of one template and ``mine.round_gap.refresh`` between a
+  template's last round and the next template's first (the drain, any
+  push, the fetch, the build and the dispatcher's set-up).  A gap is
+  read once both of its events have completed, which the round loop
+  waits for anyway.
 """
 
 from __future__ import annotations
 
 import hashlib
+import threading
 import time
 from dataclasses import dataclass
 from decimal import Decimal
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -38,8 +62,37 @@ from ..core.header import BlockHeader
 from ..crypto import sha256 as sha_kernel
 from ..device import DeviceLike, resolve
 from ..device.runtime import get_runtime
+from ..telemetry import metrics, tracing
 
 SEARCH_BACKENDS = ("cuda", "torch", "mesh", "native", "python")
+
+#: a round gap's buckets, in seconds: a hand-off that kept the card fed
+#: reads about 0, a dry one tens of µs to ms, a refresh ms to tens of ms
+GAP_BUCKETS = (1e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 0.01,
+               0.025, 0.05, 0.1, 0.25, 1.0)
+#: ``mine.round_dispatch``'s buckets, in seconds
+DISPATCH_BUCKETS = (5e-5, 1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 0.01,
+                    0.05, 0.1, 1.0)
+GAP_HANDOFF = "mine.round_gap.handoff"
+GAP_REFRESH = "mine.round_gap.refresh"
+ROUND_DISPATCH = "mine.round_dispatch"
+#: counted here (hashes, rounds, dry hand-offs) and by the CLI's loop
+#: (templates mined and expired, blocks pushed and accepted)
+COUNTERS = ("mine.hashes", "mine.rounds", "mine.rounds_dry",
+            "mine.templates", "mine.templates_expired",
+            "mine.blocks_pushed", "mine.blocks_accepted")
+
+
+def preregister() -> None:
+    """The miner's families, all zero until they count, so that a scrape
+    of the miner (``miner --metrics-port``) carries them from its first
+    read.  The CLI calls it at its start; ``telemetry.configure`` does
+    not, so a node's ``/metrics`` keeps its families."""
+    for name in COUNTERS:
+        metrics.ensure_counter(name)
+    for name in (GAP_HANDOFF, GAP_REFRESH):
+        metrics.ensure_histogram(name, GAP_BUCKETS)
+    metrics.ensure_histogram(ROUND_DISPATCH, DISPATCH_BUCKETS)
 
 
 def check_search_backend(name: str) -> str:
@@ -89,6 +142,49 @@ class MiningJob:
         return check_pow_hash(digest, self.previous_hash, self.difficulty)
 
 
+class _RoundClock:
+    """One card's events for the gaps between the engine's rounds: a
+    ring of (begin, end) timing-event pairs reused round after round,
+    and the end event of the round launched last, which outlives a
+    :func:`mine` call so that the gap across a refresh is timed too.
+    Only the runtime's drainer for the card launches, so one thread
+    takes pairs, on its current stream (looked up at its first launch)."""
+
+    #: more pairs than rounds alive at once: the pipeline's depth in
+    #: flight, and the round behind the oldest, whose end a gap reads
+    RING = 8
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.ring = [(torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                     for _ in range(self.RING)]
+        self.next = 0
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.last_end: Optional[torch.cuda.Event] = None
+
+    def take(self) -> tuple:
+        """The next (begin, end) pair and a call that records ``begin``
+        on the launching thread's stream."""
+        if self.stream is None:
+            self.stream = torch.cuda.current_stream(self.device)
+        begin, end = self.ring[self.next]
+        self.next = (self.next + 1) % self.RING
+        return begin, end, lambda: begin.record(self.stream)
+
+
+_clocks: Dict[torch.device, _RoundClock] = {}
+_clocks_lock = threading.Lock()
+
+
+def _clock(device: torch.device) -> _RoundClock:
+    with _clocks_lock:
+        clock = _clocks.get(device)
+        if clock is None:
+            clock = _clocks[device] = _RoundClock(device)
+        return clock
+
+
 class _ReadBack:
     """A round's result on its way to the host.
 
@@ -96,18 +192,43 @@ class _ReadBack:
     every round queued after it, so each read would wait for the next
     round too and the card would idle while the host launched the one
     after.  Here the copy and an event are queued right behind the
-    round's own kernel, and ``int()`` waits for that event alone."""
+    round's own kernel, and ``int()`` waits for that event alone.
 
-    def __init__(self, value: torch.Tensor):
+    With a ``clock`` (the single-card engine), ``done`` and ``begin`` are
+    the clock's timing events (``begin`` recorded just before the
+    round's kernel), both on the clock's stream, and the round keeps the
+    end event of the round launched before it on the card, for
+    :meth:`gap`."""
+
+    def __init__(self, value: torch.Tensor,
+                 clock: Optional[_RoundClock] = None,
+                 begin: Optional[torch.cuda.Event] = None,
+                 done: Optional[torch.cuda.Event] = None):
         self.host = torch.empty((), dtype=value.dtype, pin_memory=True)
         with torch.cuda.device(value.device):
             self.host.copy_(value, non_blocking=True)
-            self.done = torch.cuda.Event()
-            self.done.record()
+            if clock is None:
+                self.done = torch.cuda.Event()
+                self.done.record()
+            else:
+                self.done = done
+                done.record(clock.stream)
+        self.begin, self.prev = begin, None
+        if clock is not None:
+            self.prev, clock.last_end = clock.last_end, self.done
 
     def __int__(self) -> int:
         self.done.synchronize()
         return int(self.host)
+
+    def gap(self) -> Optional[float]:
+        """Seconds on the device clock from the end of the round launched
+        before this one to the start of this round's kernel; None where
+        either is untimed.  Read after ``int()``: both events have
+        completed."""
+        if self.begin is None or self.prev is None:
+            return None
+        return self.prev.elapsed_time(self.begin) / 1e3
 
 
 def _make_dispatcher(job: MiningJob, backend: str, mesh_devices: int = 0,
@@ -142,10 +263,16 @@ def _make_dispatcher(job: MiningJob, backend: str, mesh_devices: int = 0,
     target = sha_kernel.pack_target(
         sha_kernel.target_spec(job.previous_hash, job.difficulty))
 
+    clock = _clock(device) if device.type == "cuda" else None
+
     def launch(start: int, count: int):
+        if clock is None:
+            return sha_kernel.pow_search(template, target, start, count,
+                                         device=device)
+        begin, done, mark = clock.take()
         out = sha_kernel.pow_search(template, target, start, count,
-                                    device=device)
-        return _ReadBack(out) if device.type == "cuda" else out
+                                    device=device, before_launch=mark)
+        return _ReadBack(out, clock, begin, done)
 
     return _through_runtime(launch, "sha256_search", device)
 
@@ -218,10 +345,27 @@ def mine(job: MiningJob, backend: str = "cuda", *, start: int = 0,
     ``mesh_devices`` and ``device`` are the ``mesh`` backend's (see
     :func:`_make_dispatcher`).
     """
-    stride_end = min(stride_end, MAX_SEARCH_END)
+    counts = {"mine.hashes": 0, "mine.rounds": 0, "mine.rounds_dry": 0}
+    try:
+        return _mine(job, backend, start, min(stride_end, MAX_SEARCH_END),
+                     batch, ttl, progress, mesh_devices, device, counts)
+    finally:
+        # counted by plain adds, recorded once a call (a template)
+        for name, n in counts.items():
+            if n:
+                metrics.inc(name, n)
+
+
+def _mine(job: MiningJob, backend: str, start: int, stride_end: int,
+          batch: int, ttl: float, progress: Optional[Callable],
+          mesh_devices: int, device: DeviceLike,
+          counts: Dict[str, int]) -> MineResult:
+    """:func:`mine`'s rounds; ``counts`` takes the nonces, rounds and dry
+    hand-offs as they pass."""
     t0 = time.time()
     tried = 0
     cursor = start
+    perf = time.perf_counter
 
     dispatch = _make_dispatcher(job, backend, mesh_devices=mesh_devices,
                                 batch=batch, device=device)
@@ -232,14 +376,31 @@ def mine(job: MiningJob, backend: str = "cuda", *, start: int = 0,
         # rounds (already dispatched).
         depth = 2
         inflight = []  # (handle, base, count)
+        gap_name = GAP_REFRESH  # the template's first round: a refresh
         while cursor < stride_end or inflight:
             while len(inflight) < depth and cursor < stride_end:
                 count = min(batch, stride_end - cursor)
-                inflight.append((dispatch(cursor, count), cursor, count))
+                t_dispatch = perf()
+                if inflight and _ran_dry(inflight[-1][0]):
+                    counts["mine.rounds_dry"] += 1
+                    with tracing.annotation("mine.round_handoff_dry"):
+                        handle = dispatch(cursor, count)
+                else:
+                    handle = dispatch(cursor, count)
+                metrics.observe(ROUND_DISPATCH, perf() - t_dispatch,
+                                DISPATCH_BUCKETS)
+                inflight.append((handle, cursor, count))
                 cursor += count
             handle, _, count = inflight.pop(0)
             hit = int(handle)
             tried += count
+            counts["mine.hashes"] += count
+            counts["mine.rounds"] += 1
+            gap = getattr(handle, "gap", None)
+            seconds = gap() if gap is not None else None
+            if seconds is not None:
+                metrics.observe(gap_name, seconds, GAP_BUCKETS)
+            gap_name = GAP_HANDOFF
             if hit != int(sha_kernel.SENTINEL):
                 if job.check(hit):
                     if backend == "mesh":
@@ -262,6 +423,8 @@ def mine(job: MiningJob, backend: str = "cuda", *, start: int = 0,
         count = min(batch, stride_end - cursor)
         hit = search(cursor, count)
         tried += count
+        counts["mine.hashes"] += count
+        counts["mine.rounds"] += 1
         if hit is not None:
             # backend says hit; host double-checks before shipping (cheap)
             if job.check(hit):
@@ -275,3 +438,12 @@ def mine(job: MiningJob, backend: str = "cuda", *, start: int = 0,
             break
         cursor += count
     return MineResult(None, tried, time.time() - t0)
+
+
+def _ran_dry(handle) -> bool:
+    """Whether the round ``handle`` (the one queued last) has finished:
+    then the card has nothing of this engine's left to run as the host
+    queues the next.  Handles without a ``done`` event (the plain
+    version's tensors) never run dry."""
+    done = getattr(handle, "done", None)
+    return done is not None and done.query()

@@ -4,6 +4,7 @@ Usage:
     python -m upow_tpu_torch.mine.miner <address> [--device cuda|cpu|mesh|...]
                                         [--node URL] [--batch N] [--ttl S]
                                         [--shard i/k] [--once]
+                                        [--metrics-port N]
 
 Protocol (miner.py:126-156): GET {node}/get_mining_info → build a template
 (merkle over ALL pending tx hashes, miner.py:15-18,68), search nonces, POST
@@ -21,6 +22,19 @@ visible).  With
 ``UPOW_COORDINATOR_ADDRESS`` (and ``WORLD_SIZE``, ``RANK``) set and no
 ``--shard``, the process joins a ``torch.distributed`` run and mines its
 slot of the plan.
+
+``--metrics-port N`` (default 0: off, no socket and no thread) serves the
+miner's telemetry on port N (``endpoint.py``): ``/metrics``,
+``/debug/traces`` and, with ``UPOW_PROFILE_ENABLED=1``,
+``/debug/profile?action=start|stop|status``.  A rig's Prometheus scrapes
+the card's rate (``upow_mine_hashes_total``), the dry hand-offs
+(``upow_mine_rounds_dry_total`` against ``upow_mine_rounds_total``), the
+card's idle time between rounds on the device clock
+(``upow_mine_round_gap_handoff`` and ``_refresh``, seconds), the host's
+time a dispatch (``upow_mine_round_dispatch``) and the runtime's queue
+wait (``upow_runtime_queue_wait_mine``), the templates (mined and
+expired, the fetch's and the build's spans) and the blocks pushed and
+accepted.  Workers (``<address> <N>``) serve on N + i, one port a worker.
 """
 
 from __future__ import annotations
@@ -33,9 +47,10 @@ import urllib.error
 import urllib.request
 from typing import Optional
 
+from .. import telemetry
 from ..core.clock import timestamp
 from ..core.merkle import miner_merkle_root
-from .engine import MiningJob, check_search_backend, mine
+from .engine import MiningJob, check_search_backend, mine, preregister
 
 GENESIS_PREV_HASH = (18_884_643).to_bytes(32, "little").hex()  # miner.py:37-40
 # backends whose rounds are tensor dispatches: watched and supervised
@@ -163,7 +178,7 @@ def _start_hang_watchdog(heartbeat: dict, limit: float, _exit=None):
 def run(address: str, node: str, device: str = "cuda", batch: int = 1 << 24,
         ttl: float = 90.0, shard: tuple = (0, 1), once: bool = False,
         mesh_devices: int = 0, hang_grace: float = 90.0,
-        first_round_grace: float = 240.0) -> int:
+        first_round_grace: float = 240.0, metrics_port: int = 0) -> int:
     backend = select_backend(device)
     i, k = shard
     from ..parallel.multihost import plan_nonce_ranges
@@ -171,51 +186,83 @@ def run(address: str, node: str, device: str = "cuda", batch: int = 1 << 24,
     lo, hi = plan_nonce_ranges(k)[i]
     print(f"upow_tpu_torch miner: backend={backend} shard={i}/{k} "
           f"nonces=[{lo}, {hi}) node={node}")
+    preregister()
+    endpoint = None
+    if metrics_port:  # 0 opens nothing
+        from ..config import Config
+        from .endpoint import MinerEndpoint
+
+        cfg = Config.load()
+        endpoint = MinerEndpoint(metrics_port, cfg.telemetry, cfg.profile)
     # first round gets extra headroom: the kernel's first nvcc build can
     # legitimately exceed the steady-state ttl+grace budget
     heartbeat = {"t": time.monotonic(),
                  "limit": ttl + hang_grace + first_round_grace}
     if backend in TENSOR_BACKENDS and not once:
         _start_hang_watchdog(heartbeat, ttl + hang_grace)
-    while True:
-        heartbeat["t"] = time.monotonic()
+    try:
+        while True:
+            heartbeat["t"] = time.monotonic()
+            rc = _mine_template(address, node, backend, lo, hi, batch, ttl,
+                                mesh_devices, heartbeat, ttl + hang_grace)
+            if rc is not None and once:
+                return rc
+    finally:
+        if endpoint is not None:
+            endpoint.close()
+
+
+def _mine_template(address: str, node: str, backend: str, lo: int, hi: int,
+                   batch: int, ttl: float, mesh_devices: int,
+                   heartbeat: dict, steady_limit: float) -> Optional[int]:
+    """One template: fetch, build, mine, and push a found block.  None
+    when the node could not be reached; else what ``--once`` exits
+    with (0 for an accepted block).  The fetch and the build are one
+    ``mine.template`` trace and a push is a ``mine.push_block`` trace;
+    the rounds between belong to none (a tree would take one
+    ``runtime.dispatch`` span a round)."""
+    with telemetry.request_trace("mine.template"):
         try:
-            info = fetch_mining_info(node)
+            with telemetry.span("mine.template_fetch"):
+                info = fetch_mining_info(node)
         except (urllib.error.URLError, OSError, ValueError,
                 RuntimeError) as e:
             # RuntimeError carries a node error envelope (syncing,
             # rate-limited) — transient, retry like unreachable
             print(f"node unreachable: {e}; retrying", file=sys.stderr)
             time.sleep(1)
-            continue
-        job, pending_hashes, block_no = build_job(info, address)
-        print(f"difficulty: {info['difficulty']}  block: {block_no}  "
-              f"confirming {len(pending_hashes)} transactions")
+            return None
+        with telemetry.span("mine.template_build"):
+            job, pending_hashes, block_no = build_job(info, address)
+    telemetry.inc("mine.templates")
+    print(f"difficulty: {info['difficulty']}  block: {block_no}  "
+          f"confirming {len(pending_hashes)} transactions")
 
-        def progress(tried, elapsed):
-            heartbeat["t"] = time.monotonic()
-            heartbeat["limit"] = ttl + hang_grace  # built: steady budget
-            print(f"{tried / elapsed / 1e6:.2f} MH/s ({tried} hashes)")
+    def progress(tried, elapsed):
+        heartbeat["t"] = time.monotonic()
+        heartbeat["limit"] = steady_limit  # built: steady budget
+        print(f"{tried / elapsed / 1e6:.2f} MH/s ({tried} hashes)")
 
-        result = mine(job, backend, start=lo, stride_end=hi, batch=batch,
-                      ttl=ttl, progress=progress, mesh_devices=mesh_devices)
-        if result.nonce is None:
-            print(f"template expired after {result.hashes_tried} hashes; refreshing")
-            if once:
-                return 1
-            continue
-        content = job.block_content(result.nonce)
-        print(f"found nonce {result.nonce} at {result.hashrate / 1e6:.2f} MH/s")
-        try:
+    result = mine(job, backend, start=lo, stride_end=hi, batch=batch,
+                  ttl=ttl, progress=progress, mesh_devices=mesh_devices)
+    if result.nonce is None:
+        telemetry.inc("mine.templates_expired")
+        print(f"template expired after {result.hashes_tried} hashes; refreshing")
+        return 1
+    content = job.block_content(result.nonce)
+    print(f"found nonce {result.nonce} at {result.hashrate / 1e6:.2f} MH/s")
+    telemetry.inc("mine.blocks_pushed")
+    try:
+        with telemetry.request_trace("mine.push_block"):
             reply = push_block(node, content, pending_hashes, block_no)
-        except (urllib.error.URLError, OSError, ValueError) as e:
-            print(f"push_block failed: {e}", file=sys.stderr)
-            reply = {"ok": False}
-        print(reply)
-        if reply.get("ok"):
-            print("BLOCK MINED\n")
-        if once:
-            return 0 if reply.get("ok") else 1
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        print(f"push_block failed: {e}", file=sys.stderr)
+        reply = {"ok": False}
+    print(reply)
+    if reply.get("ok"):
+        telemetry.inc("mine.blocks_accepted")
+        print("BLOCK MINED\n")
+    return 0 if reply.get("ok") else 1
 
 
 def _reap(procs, timeout: float = 5.0) -> None:
@@ -232,13 +279,17 @@ def _reap(procs, timeout: float = 5.0) -> None:
             p.wait()
 
 
-def _child_cmd(args) -> list:
+def _child_cmd(args, metrics_port: int = 0) -> list:
     """Base child command shared by the supervisor and the worker fan-out
-    (one home so new flags cannot silently diverge).  The child is this
-    package's miner, never the JAX package's."""
-    return [sys.executable, "-m", "upow_tpu_torch.mine.miner", args.address,
-            "--node", args.node, "--device", args.device,
-            "--batch", str(args.batch), "--ttl", str(args.ttl)]
+    (one home so new flags cannot silently diverge), serving its
+    endpoint on ``metrics_port`` (0: none).  The child is this package's
+    miner, never the JAX package's."""
+    cmd = [sys.executable, "-m", "upow_tpu_torch.mine.miner", args.address,
+           "--node", args.node, "--device", args.device,
+           "--batch", str(args.batch), "--ttl", str(args.ttl)]
+    if metrics_port:
+        cmd += ["--metrics-port", str(metrics_port)]
+    return cmd
 
 
 def _supervise(args) -> int:
@@ -249,7 +300,7 @@ def _supervise(args) -> int:
     import subprocess
 
     env = dict(os.environ, UPOW_MINER_CHILD="1")
-    cmd = _child_cmd(args) + ["--shard", args.shard]
+    cmd = _child_cmd(args, args.metrics_port) + ["--shard", args.shard]
     child = None
     rc_meaning = {
         RC_HANG: "watchdog: device hang (backend had armed)",
@@ -292,15 +343,17 @@ def _run_workers(args) -> int:
     import os
 
     procs = []
-    base = _child_cmd(args)
-    if args.once:
-        base.append("--once")
     # workers are leaf miners: the child marker stops each one becoming a
     # nested supervisor (which would mask failures and orphan grandchildren)
     env = dict(os.environ, UPOW_MINER_CHILD="1")
     for i in range(args.workers):
+        # one endpoint a worker: N + i
+        cmd = _child_cmd(args, args.metrics_port + i
+                         if args.metrics_port else 0)
+        if args.once:
+            cmd.append("--once")
         procs.append(subprocess.Popen(
-            base + ["--shard", f"{i}/{args.workers}"], env=env))
+            cmd + ["--shard", f"{i}/{args.workers}"], env=env))
     try:
         while True:
             codes = [p.poll() for p in procs]
@@ -333,6 +386,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ttl", type=float, default=90.0)
     ap.add_argument("--shard", default="0/1", help="i/k disjoint nonce-range shard")
     ap.add_argument("--once", action="store_true", help="mine a single template and exit")
+    ap.add_argument("--metrics-port", type=int, default=0,
+                    help="serve /metrics, /debug/traces and (profile."
+                         "enabled) /debug/profile on this port; 0 = off")
     args = ap.parse_args(argv)
     from ..config import Config
 
@@ -365,7 +421,8 @@ def main(argv=None) -> int:
     node = args.node.rstrip("/") + "/"
     return run(args.address, node, args.device, args.batch, args.ttl,
                shard=(i, k), once=args.once,
-               mesh_devices=cfg.device.mesh_devices)
+               mesh_devices=cfg.device.mesh_devices,
+               metrics_port=args.metrics_port)
 
 
 if __name__ == "__main__":

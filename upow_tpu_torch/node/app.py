@@ -1046,14 +1046,7 @@ class Node:
                         d["firing"], f"Firing alerts for rule {rname}")
                 e.gauge(f"alert_rule_{rname}_{rule.severity}_pending",
                         d["pending"], f"Pending alerts for rule {rname}")
-        for name, value in sorted(trace.counters().items()):
-            e.counter(name, value)
-        for name, st in sorted(trace.stats().items()):
-            e.span_stats(name, st)
-        for name, h in sorted(trace.histograms().items()):
-            e.histogram(name, h["bounds"], h["counts"],
-                        h["count"], h["sum"],
-                        exemplars=h.get("exemplars"))
+        e.registries()
         return Response(e.render().encode(), 200,
                         content_type=telemetry.exposition.CONTENT_TYPE)
 

@@ -6,8 +6,9 @@ capabilities, both off unless asked for (``UPOW_PROFILE_*`` /
 profiling must never take the node down:
 
 * :func:`start` / :func:`stop` / :func:`status` — one process-wide
-  ``torch.profiler.profile`` session (CPU activities, and CUDA ones
-  where a card is visible), driven by the
+  ``torch.profiler.profile`` session (CPU activities of every thread,
+  with the program's spans as user annotations, and CUDA ones where a
+  card is visible), driven by the
   ``/debug/profile?action=start|stop|status`` endpoint.  :func:`stop`
   writes a Chrome trace (``<trace_dir>/upow-<pid>-<n>.pt.trace.json``):
   CUPTI's kernel activity is process-wide, so the kernels launched from
@@ -39,6 +40,7 @@ from typing import Optional
 from ..logger import get_logger
 from ..telemetry import device as _device
 from ..telemetry import event as _event
+from ..telemetry import tracing as _tracing
 
 log = get_logger("profiling")
 
@@ -81,22 +83,38 @@ def prime() -> None:
         pass
 
 
+def _all_threads():
+    """The profiler's setting that records every thread's CPU events (by
+    default only the thread that started it, here the owner thread)."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    return _ExperimentalConfig(profile_all_threads=True)
+
+
 def open_session():
     """Start a ``torch.profiler.profile`` (CPU, and CUDA where a card is
-    visible) on the owner thread; returns it."""
+    visible) on the owner thread, recording every thread's CPU events;
+    returns it.  While it runs, ``telemetry.span`` also opens a
+    ``record_function`` of its name (``tracing.ANNOTATE``), so the
+    program's spans lie beside the kernels on the capture's clock."""
     def _open():
         import torch
 
-        prof = torch.profiler.profile(activities=_activities())
+        prof = torch.profiler.profile(activities=_activities(),
+                                      experimental_config=_all_threads())
         prof.__enter__()
         return prof
 
-    return _on_owner(_open)
+    prof = _on_owner(_open)
+    _tracing.ANNOTATE = True
+    return prof
 
 
 def close_session(prof, trace_dir: str) -> str:
     """Stop ``prof`` on the owner thread and write its Chrome trace into
     ``trace_dir``; returns the file's path."""
+    _tracing.ANNOTATE = False
+
     def _close():
         prof.__exit__(None, None, None)
         os.makedirs(trace_dir, exist_ok=True)

@@ -3,7 +3,8 @@
 The port's copy of the JAX package's ``telemetry/exposition.py``, unchanged
 in what it renders and validates; :func:`samples`, a reader of a scrape
 for scripts and tests (``chip_smoke.py`` reads node processes with it),
-is the port's own.
+and :meth:`Exposition.registries`, the registries' part of a scrape that
+the node and the miner share, are the port's own.
 
 The render side replaces the string-building previously inlined in
 ``node/app.py h_metrics``: every name passes :func:`sanitize` (the
@@ -23,6 +24,8 @@ from __future__ import annotations
 import math
 import re
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from . import metrics
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
@@ -132,6 +135,18 @@ class Exposition:
         self.lines.append(f"{full}_seconds_total {agg['total_s']:.6f}")
         self.lines.append(f"# TYPE {full}_seconds_max gauge")
         self.lines.append(f"{full}_seconds_max {agg['max_s']:.6f}")
+
+    def registries(self) -> None:
+        """Every counter, span and histogram of the registries in scope
+        (:mod:`.metrics`): the tail of the node's and the miner's
+        ``/metrics``."""
+        for name, value in sorted(metrics.counters().items()):
+            self.counter(name, value)
+        for name, st in sorted(metrics.stats().items()):
+            self.span_stats(name, st)
+        for name, h in sorted(metrics.histograms().items()):
+            self.histogram(name, h["bounds"], h["counts"], h["count"],
+                           h["sum"], exemplars=h.get("exemplars"))
 
     def render(self) -> str:
         return "\n".join(self.lines) + "\n"

@@ -1,7 +1,8 @@
 """Request-scoped trace trees over a contextvar trace context.
 
 The port's copy of the JAX package's ``telemetry/tracing.py``, unchanged
-in what it records and renders.
+in what it records and renders; the port adds :data:`ANNOTATE`, which
+puts spans into a running ``torch.profiler`` capture.
 
 ``request_trace()`` opens a root span bound to the current async
 context; every ``span()`` entered underneath (same task, or any task
@@ -47,6 +48,34 @@ _current: contextvars.ContextVar[Optional["Span"]] = \
     contextvars.ContextVar("upow_trace_span", default=None)
 
 _LEVELS = {"debug": 10, "info": 20}
+
+#: True while the program's own ``profiling`` session runs in this
+#: process (``profiling.open_session`` / ``close_session`` set it): every
+#: :func:`span` and :func:`request_trace` then also opens a
+#: ``torch.profiler.record_function`` of its name, so the capture holds
+#: the program's spans beside the kernels on the profiler's clock.  Off,
+#: a span pays this one check.
+ANNOTATE = False
+
+
+def _open_annotation(name: str):
+    from torch.profiler import record_function
+
+    rf = record_function(name)
+    rf.__enter__()
+    return rf
+
+
+@contextlib.contextmanager
+def annotation(name: str):
+    """A ``torch.profiler.record_function`` of ``name`` while
+    :data:`ANNOTATE`; nothing otherwise."""
+    rf = _open_annotation(name) if ANNOTATE else None
+    try:
+        yield
+    finally:
+        if rf is not None:
+            rf.__exit__(None, None, None)
 
 
 def new_trace_id() -> str:
@@ -235,12 +264,15 @@ def request_trace(name: str, trace_id: Optional[str] = None,
     buf = _buf()  # pin the buffer so open/record hit the same scope
     buf.record_open(root)
     token = _current.set(root)
+    rf = _open_annotation(name) if ANNOTATE else None
     try:
         yield root
     except BaseException as e:
         root.error = type(e).__name__
         raise
     finally:
+        if rf is not None:
+            rf.__exit__(None, None, None)
         _current.reset(token)
         root.finish()
         root.fields.pop("_spans", None)
@@ -260,6 +292,7 @@ def span(name: str, level: str = "debug", **fields: Any):
             token = _current.set(node)
         else:
             node = None
+    rf = _open_annotation(name) if ANNOTATE else None
     t0 = time.perf_counter()
     try:
         yield node
@@ -269,6 +302,8 @@ def span(name: str, level: str = "debug", **fields: Any):
         raise
     finally:
         dt = time.perf_counter() - t0
+        if rf is not None:
+            rf.__exit__(None, None, None)
         if token is not None:
             _current.reset(token)
         if node is not None:
