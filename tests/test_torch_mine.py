@@ -664,13 +664,25 @@ def test_miner_cli_serves_metrics_traces_and_profile(tmp_path):
 
 
 @pytest.mark.cuda
-def test_round_gaps_on_card(monkeypatch):
+@pytest.mark.parametrize("search", ["plain", "wrapped"])
+def test_round_gaps_on_card(monkeypatch, search):
     """On the card: one ``mine.round_gap.*`` sample at each round
     boundary of two templates (the first template's first round has no
-    round before it), every gap non-negative on the device clock (runs
-    on a machine with a card; skips elsewhere)."""
+    round before it), every gap non-negative on the device clock.
+    ``wrapped`` replaces ``pow_search`` by a wrapper that forwards only
+    its own arguments, as a harness's variant of the search does: the
+    engine's mark reaches the launch through ``sha256.before_launch``,
+    not through an argument, so every boundary is still timed (runs on
+    a machine with a card; skips elsewhere)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    if search == "wrapped":
+        plain = tsha.pow_search
+
+        def wrapped(template, target, start, count, device=None):
+            return plain(template, target, start, count, device=device)
+
+        monkeypatch.setattr(tsha, "pow_search", wrapped)
     gaps = []
     gap = tengine._ReadBack.gap
 

@@ -556,15 +556,17 @@ def test_cost_analysis_on_a_node_exports_the_txid_batchs_work(monkeypatch):
 
 
 def test_spans_in_a_profiling_session_are_user_annotations(tmp_path):
-    """While the program's own capture runs, a span (on any thread) and
-    a trace root are ``record_function`` ranges of their names in the
-    Chrome trace; the capture's end turns the bridge off."""
+    """While the program's own capture with ``spans`` runs (the miner's
+    endpoint's), a span (on any thread) and a trace root are
+    ``record_function`` ranges of their names in the Chrome trace; the
+    capture's end turns the bridge off."""
     import threading
 
     profiling.reset()
     profiling.prime()
     assert not ttelemetry.tracing.ANNOTATE
-    assert profiling.start(str(tmp_path), max_seconds=60.0)["active"]
+    assert profiling.start(str(tmp_path), max_seconds=60.0,
+                           spans=True)["active"]
     assert ttelemetry.tracing.ANNOTATE
     with ttelemetry.request_trace("bridge.root"):
         with ttelemetry.span("bridge.span"):
@@ -588,6 +590,32 @@ def test_spans_in_a_profiling_session_are_user_annotations(tmp_path):
     assert {"bridge.root", "bridge.span", "bridge.thread",
             "bridge.annotation"} <= marked
     assert ttrace.stats()["bridge.span"]["count"] == 1
+
+
+def test_a_session_without_spans_carries_none(tmp_path, monkeypatch):
+    """A capture started as the node's ``/debug/profile`` starts it (no
+    ``spans``) leaves the bridge off: its spans never build a
+    ``record_function``, and the trace holds no annotation of them."""
+    import torch
+
+    profiling.reset()
+    profiling.prime()
+    assert profiling.start(str(tmp_path), max_seconds=60.0)["active"]
+    assert not ttelemetry.tracing.ANNOTATE
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) without spans")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.profiler, "record_function", refuse)
+        with ttelemetry.request_trace("plain.root"):
+            with ttelemetry.span("plain.span"):
+                pass
+    stopped = profiling.stop()
+    with open(stopped["trace_file"]) as f:
+        events = json.load(f)["traceEvents"]
+    assert not {"plain.root", "plain.span"} & {e["name"] for e in events}
+    assert ttrace.stats()["plain.span"]["count"] == 1
 
 
 def test_spans_outside_a_session_enter_no_record_function(monkeypatch):

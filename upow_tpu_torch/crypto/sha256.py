@@ -376,22 +376,42 @@ def _kernel_lib(name: str = "sha256_search"):
     return lib
 
 
+#: per thread, the call :func:`pow_search` makes just before it launches
+#: the kernel, if one is set (:class:`before_launch`)
+_before_launch = threading.local()
+
+
+class before_launch:
+    """Inside ``with before_launch(fn):``, :func:`pow_search` on this
+    thread calls ``fn`` just before it launches the kernel, after the
+    result's fill: the mining engine records a timing event on the
+    stream there, by which it times the card's gaps between rounds.
+    One instance may be entered again and again, as the engine does
+    every round."""
+
+    __slots__ = ("fn",)
+
+    def __init__(self, fn: Callable[[], None]):
+        self.fn = fn
+
+    def __enter__(self) -> None:
+        _before_launch.fn = self.fn
+
+    def __exit__(self, *exc) -> None:
+        _before_launch.fn = None
+
+
 def pow_search(template: SearchTemplate, target, nonce_base: int, count: int,
-               device: DeviceLike = None,
-               before_launch: Optional[Callable[[], None]] = None
-               ) -> torch.Tensor:
+               device: DeviceLike = None) -> torch.Tensor:
     """Search ``[nonce_base, nonce_base + count)`` for the least nonce
     that meets ``target`` (the :func:`pack_target` vector).
 
     On the card (the default) this launches the kernel on the current
     stream and returns at once: the 0-d int64 result is a fresh tensor
     filled with SENTINEL before every launch, so no hit leaks from one
-    round into the next, and ``int()`` of it waits.  ``before_launch``
-    is called just before the kernel is launched, after the fill (the
-    mining engine records a timing event on the stream there, by which
-    it times the card's gaps between rounds).
-    ``device="cpu"`` runs :func:`pow_search_plain`.  Without a card,
-    and without ``"cpu"``, it raises."""
+    round into the next, and ``int()`` of it waits.  ``device="cpu"``
+    runs :func:`pow_search_plain`.  Without a card, and without
+    ``"cpu"``, it raises."""
     global LAUNCHES
     dev = resolve(device)
     if dev.type == "cpu":
@@ -407,8 +427,9 @@ def pow_search(template: SearchTemplate, target, nonce_base: int, count: int,
     index = out.get_device()
     launch_args = (args.ctypes.data, args.size, out.data_ptr(), index,
                    raw_stream(index))
-    if before_launch is not None:
-        before_launch()
+    hook = getattr(_before_launch, "fn", None)
+    if hook is not None:
+        hook()
     if current_index() == index:
         rc = lib.sha256_search_launch(*launch_args)
     else:

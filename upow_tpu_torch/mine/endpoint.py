@@ -12,8 +12,9 @@ serving what the node serves of its telemetry:
   ``telemetry.debug_endpoints``;
 * ``/debug/profile?action=start|stop|status``: a ``torch.profiler``
   capture (``profiling``) into ``profile.trace_dir``, served only when
-  ``profile.enabled`` (``UPOW_PROFILE_ENABLED=1``) as well; the
-  program's spans lie in it beside the kernels on the profiler's clock.
+  ``profile.enabled`` (``UPOW_PROFILE_ENABLED=1``) as well; it records
+  every thread, and the program's spans lie in it beside the kernels on
+  the profiler's clock (``profiling.start(spans=True)``).
 """
 
 from __future__ import annotations
@@ -89,7 +90,8 @@ class MinerEndpoint:
 
         if action == "start":
             result = profiling.start(self.pcfg.trace_dir,
-                                     self.pcfg.max_capture_seconds)
+                                     self.pcfg.max_capture_seconds,
+                                     spans=True)
         elif action == "stop":
             result = profiling.stop()
         elif action == "status":

@@ -38,10 +38,10 @@ registers the families at its start, :func:`preregister`):
 * on the single-card ``cuda`` backend, the card's idle time between two
   rounds on the device clock: the end of one round's read-back to the
   start of the next round's kernel, both CUDA timing events on the
-  stream (:class:`_RoundClock`), into ``mine.round_gap.handoff`` between two
-  rounds of one template and ``mine.round_gap.refresh`` between a
-  template's last round and the next template's first (the drain, any
-  push, the fetch, the build and the dispatcher's set-up).  A gap is
+  stream (:class:`_RoundClock`), into ``mine.round_gap.handoff``
+  between two rounds of one template and ``mine.round_gap.refresh``
+  between a template's last round and the next template's first (the
+  drain, any push, the fetch, the build and the dispatcher's set-up).  A gap is
   read once both of its events have completed, which the round loop
   waits for anyway.
 """
@@ -142,80 +142,31 @@ class MiningJob:
         return check_pow_hash(digest, self.previous_hash, self.difficulty)
 
 
-class _RoundClock:
-    """One card's events for the gaps between the engine's rounds: a
-    ring of (begin, end) timing-event pairs reused round after round,
-    and the end event of the round launched last, which outlives a
-    :func:`mine` call so that the gap across a refresh is timed too.
-    Only the runtime's drainer for the card launches, so one thread
-    takes pairs, on its current stream (looked up at its first launch)."""
-
-    #: more pairs than rounds alive at once: the pipeline's depth in
-    #: flight, and the round behind the oldest, whose end a gap reads
-    RING = 8
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.ring = [(torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-                     for _ in range(self.RING)]
-        self.next = 0
-        self.stream: Optional[torch.cuda.Stream] = None
-        self.last_end: Optional[torch.cuda.Event] = None
-
-    def take(self) -> tuple:
-        """The next (begin, end) pair and a call that records ``begin``
-        on the launching thread's stream."""
-        if self.stream is None:
-            self.stream = torch.cuda.current_stream(self.device)
-        begin, end = self.ring[self.next]
-        self.next = (self.next + 1) % self.RING
-        return begin, end, lambda: begin.record(self.stream)
-
-
-_clocks: Dict[torch.device, _RoundClock] = {}
-_clocks_lock = threading.Lock()
-
-
-def _clock(device: torch.device) -> _RoundClock:
-    with _clocks_lock:
-        clock = _clocks.get(device)
-        if clock is None:
-            clock = _clocks[device] = _RoundClock(device)
-        return clock
-
-
 class _ReadBack:
     """A round's result on its way to the host.
 
     ``int()`` of the device tensor itself would copy on the stream behind
     every round queued after it, so each read would wait for the next
     round too and the card would idle while the host launched the one
-    after.  Here the copy and an event are queued right behind the
-    round's own kernel, and ``int()`` waits for that event alone.
+    after.  Here the copy and an event (``done``: a fresh one, or the
+    timing event the single-card engine's clock hands it) are queued
+    right behind the round's own kernel, and ``int()`` waits for that
+    event alone.
 
-    With a ``clock`` (the single-card engine), ``done`` and ``begin`` are
-    the clock's timing events (``begin`` recorded just before the
-    round's kernel), both on the clock's stream, and the round keeps the
-    end event of the round launched before it on the card, for
-    :meth:`gap`."""
+    That clock (:meth:`_RoundClock.launch`) also sets ``begin``, its
+    timing event just before the round's kernel, and ``prev``, the end of
+    the round launched before it on the card, for :meth:`gap`."""
+
+    begin: Optional[torch.cuda.Event] = None
+    prev: Optional[torch.cuda.Event] = None
 
     def __init__(self, value: torch.Tensor,
-                 clock: Optional[_RoundClock] = None,
-                 begin: Optional[torch.cuda.Event] = None,
                  done: Optional[torch.cuda.Event] = None):
         self.host = torch.empty((), dtype=value.dtype, pin_memory=True)
         with torch.cuda.device(value.device):
             self.host.copy_(value, non_blocking=True)
-            if clock is None:
-                self.done = torch.cuda.Event()
-                self.done.record()
-            else:
-                self.done = done
-                done.record(clock.stream)
-        self.begin, self.prev = begin, None
-        if clock is not None:
-            self.prev, clock.last_end = clock.last_end, self.done
+            self.done = torch.cuda.Event() if done is None else done
+            self.done.record()
 
     def __int__(self) -> int:
         self.done.synchronize()
@@ -229,6 +180,68 @@ class _ReadBack:
         if self.begin is None or self.prev is None:
             return None
         return self.prev.elapsed_time(self.begin) / 1e3
+
+
+class _RoundClock:
+    """One card's events for the gaps between the engine's rounds: a
+    ring of (begin, end) timing-event pairs reused round after round,
+    and the end event of the round launched last, which outlives a
+    :func:`mine` call so that the gap across a refresh is timed too.
+    Only the runtime's drainer for the card launches, so one thread
+    uses the ring, on its current stream (looked up at its first
+    launch)."""
+
+    #: more pairs than rounds alive at once: the pipeline's depth in
+    #: flight, and the round behind the oldest, whose end a gap reads
+    RING = 8
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.ring = [(torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                     for _ in range(self.RING)]
+        self.next = 0
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.last_end: Optional[torch.cuda.Event] = None
+        self.pair = self.ring[0]
+        self.marked: Optional[torch.cuda.Event] = None
+        self.hook = sha_kernel.before_launch(self._mark)
+
+    def _mark(self) -> None:
+        """Record the current pair's begin (``pow_search``, just before
+        its kernel)."""
+        begin = self.pair[0]
+        begin.record(self.stream)
+        self.marked = begin
+
+    def launch(self, search: Callable[[], torch.Tensor]) -> _ReadBack:
+        """``search()``, one ``pow_search`` launch, with the next pair's
+        begin recorded on the stream just before its kernel
+        (``sha256.before_launch``) and its end behind the read-back."""
+        if self.stream is None:
+            self.stream = torch.cuda.current_stream(self.device)
+        self.pair = self.ring[self.next]
+        self.next = (self.next + 1) % self.RING
+        self.marked = None
+        with self.hook:
+            out = search()
+        end = self.pair[1]
+        round_ = _ReadBack(out, end)
+        round_.begin = self.marked
+        round_.prev, self.last_end = self.last_end, end
+        return round_
+
+
+_clocks: Dict[torch.device, _RoundClock] = {}
+_clocks_lock = threading.Lock()
+
+
+def _clock(device: torch.device) -> _RoundClock:
+    with _clocks_lock:
+        clock = _clocks.get(device)
+        if clock is None:
+            clock = _clocks[device] = _RoundClock(device)
+        return clock
 
 
 def _make_dispatcher(job: MiningJob, backend: str, mesh_devices: int = 0,
@@ -266,13 +279,11 @@ def _make_dispatcher(job: MiningJob, backend: str, mesh_devices: int = 0,
     clock = _clock(device) if device.type == "cuda" else None
 
     def launch(start: int, count: int):
-        if clock is None:
+        def search():
             return sha_kernel.pow_search(template, target, start, count,
                                          device=device)
-        begin, done, mark = clock.take()
-        out = sha_kernel.pow_search(template, target, start, count,
-                                    device=device, before_launch=mark)
-        return _ReadBack(out, clock, begin, done)
+
+        return search() if clock is None else clock.launch(search)
 
     return _through_runtime(launch, "sha256_search", device)
 

@@ -6,9 +6,9 @@ capabilities, both off unless asked for (``UPOW_PROFILE_*`` /
 profiling must never take the node down:
 
 * :func:`start` / :func:`stop` / :func:`status` — one process-wide
-  ``torch.profiler.profile`` session (CPU activities of every thread,
-  with the program's spans as user annotations, and CUDA ones where a
-  card is visible), driven by the
+  ``torch.profiler.profile`` session (CPU activities, and CUDA ones
+  where a card is visible; with ``spans``, the CPU events of every
+  thread and the program's spans as user annotations), driven by the
   ``/debug/profile?action=start|stop|status`` endpoint.  :func:`stop`
   writes a Chrome trace (``<trace_dir>/upow-<pid>-<n>.pt.trace.json``):
   CUPTI's kernel activity is process-wide, so the kernels launched from
@@ -91,22 +91,25 @@ def _all_threads():
     return _ExperimentalConfig(profile_all_threads=True)
 
 
-def open_session():
+def open_session(spans: bool = False):
     """Start a ``torch.profiler.profile`` (CPU, and CUDA where a card is
-    visible) on the owner thread, recording every thread's CPU events;
-    returns it.  While it runs, ``telemetry.span`` also opens a
-    ``record_function`` of its name (``tracing.ANNOTATE``), so the
-    program's spans lie beside the kernels on the capture's clock."""
+    visible) on the owner thread; returns it.  With ``spans`` it records
+    every thread's CPU events, and while it runs ``telemetry.span`` also
+    opens a ``record_function`` of its name (``tracing.ANNOTATE``), so
+    the program's spans lie beside the kernels on the capture's clock.
+    The miner's endpoint asks for that; the node's ``/debug/profile``
+    does not, which keeps its capture light on a node serving
+    requests."""
     def _open():
         import torch
 
-        prof = torch.profiler.profile(activities=_activities(),
-                                      experimental_config=_all_threads())
+        extra = {"experimental_config": _all_threads()} if spans else {}
+        prof = torch.profiler.profile(activities=_activities(), **extra)
         prof.__enter__()
         return prof
 
     prof = _on_owner(_open)
-    _tracing.ANNOTATE = True
+    _tracing.ANNOTATE = spans
     return prof
 
 
@@ -152,16 +155,18 @@ def _stop_locked(reason: str = "requested") -> dict:
     return info
 
 
-def start(trace_dir: str, max_seconds: float = 0.0) -> dict:
-    """Begin a capture into ``trace_dir``.  Returns a status dict; on
-    failure ``{"error": ...}`` rather than raising."""
+def start(trace_dir: str, max_seconds: float = 0.0,
+          spans: bool = False) -> dict:
+    """Begin a capture into ``trace_dir`` (``spans``: see
+    :func:`open_session`).  Returns a status dict; on failure
+    ``{"error": ...}`` rather than raising."""
     with _lock:
         _expire_locked(time.monotonic())
         if _session:
             return {"error": "capture already active",
                     "trace_dir": _session["trace_dir"]}
         try:
-            prof = open_session()
+            prof = open_session(spans)
         except Exception as e:
             log.warning("torch profiler start failed: %s", e)
             return {"error": f"{type(e).__name__}: {e}"[:200]}

@@ -49,33 +49,26 @@ _current: contextvars.ContextVar[Optional["Span"]] = \
 
 _LEVELS = {"debug": 10, "info": 20}
 
-#: True while the program's own ``profiling`` session runs in this
-#: process (``profiling.open_session`` / ``close_session`` set it): every
-#: :func:`span` and :func:`request_trace` then also opens a
+#: True while a ``profiling`` session that asked for the program's spans
+#: runs in this process (``profiling.open_session(spans=True)``, which
+#: the miner's endpoint opens): every :func:`span` and
+#: :func:`request_trace` then also opens a
 #: ``torch.profiler.record_function`` of its name, so the capture holds
 #: the program's spans beside the kernels on the profiler's clock.  Off,
-#: a span pays this one check.
+#: a span pays this check and a shared null context.
 ANNOTATE = False
 
-
-def _open_annotation(name: str):
-    from torch.profiler import record_function
-
-    rf = record_function(name)
-    rf.__enter__()
-    return rf
+_NO_ANNOTATION = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
 def annotation(name: str):
     """A ``torch.profiler.record_function`` of ``name`` while
-    :data:`ANNOTATE`; nothing otherwise."""
-    rf = _open_annotation(name) if ANNOTATE else None
-    try:
-        yield
-    finally:
-        if rf is not None:
-            rf.__exit__(None, None, None)
+    :data:`ANNOTATE`; a null context otherwise."""
+    if not ANNOTATE:
+        return _NO_ANNOTATION
+    from torch.profiler import record_function
+
+    return record_function(name)
 
 
 def new_trace_id() -> str:
@@ -264,15 +257,13 @@ def request_trace(name: str, trace_id: Optional[str] = None,
     buf = _buf()  # pin the buffer so open/record hit the same scope
     buf.record_open(root)
     token = _current.set(root)
-    rf = _open_annotation(name) if ANNOTATE else None
     try:
-        yield root
+        with annotation(name):
+            yield root
     except BaseException as e:
         root.error = type(e).__name__
         raise
     finally:
-        if rf is not None:
-            rf.__exit__(None, None, None)
         _current.reset(token)
         root.finish()
         root.fields.pop("_spans", None)
@@ -292,18 +283,16 @@ def span(name: str, level: str = "debug", **fields: Any):
             token = _current.set(node)
         else:
             node = None
-    rf = _open_annotation(name) if ANNOTATE else None
     t0 = time.perf_counter()
     try:
-        yield node
+        with annotation(name):
+            yield node
     except BaseException as e:
         if node is not None:
             node.error = type(e).__name__
         raise
     finally:
         dt = time.perf_counter() - t0
-        if rf is not None:
-            rf.__exit__(None, None, None)
         if token is not None:
             _current.reset(token)
         if node is not None:
