@@ -257,26 +257,78 @@ int main(int argc, char** argv) {
 
 
 def _kernel_cases():
-    """(template, target, base, count) for the source and card tests:
-    the plain-test cases, ragged counts, the 2^32 - 1 edge and a target
-    made dense so the range's first lane is its minimum."""
+    """(template, target, base, count) for the source and card tests."""
+    return [case for case, _first in _labelled_cases()]
+
+
+def _labelled_cases():
+    """(case, whether the range's first lane is its answer, or None where
+    the case is not built about its first lane): the plain-test cases,
+    ragged counts, the 2^32 - 1 edge, a target made dense so the range's
+    first lane is its minimum, the charset edge, and the two-word cases."""
     cases = []
     for plen, diff, base, count in CASES.values():
         _prefix, template, target = _job(plen, diff)
-        cases.append((template, target, base, count))
+        cases.append(((template, target, base, count), None))
     _prefix, template, target = _job(134, "1.1")
     for base, count in ((0, 1), (9, 127), ((1 << 32) - 1 - 2000, 2000)):
-        cases.append((template, target, base, count))
+        cases.append(((template, target, base, count), None))
     prefix, template, _target = _job(104, "1")
     base = 1 << 24
     first = hashlib.sha256(prefix + base.to_bytes(4, "little")).hexdigest()
     dense_prev = PREV[:-1] + first[0]
-    cases.append((template, tsha.pack_target(tsha.target_spec(dense_prev, "1")),
-                  base, 3000))
+    cases.append(((template, tsha.pack_target(tsha.target_spec(dense_prev, "1")),
+                   base, 3000), True))
     prev, diff, base = _charset_edge(prefix, 1 << 25)
-    cases.append((template, tsha.pack_target(tsha.target_spec(prev, diff)),
-                  base, 3000))
-    return cases
+    cases.append(((template, tsha.pack_target(tsha.target_spec(prev, diff)),
+                   base, 3000), False))
+    return cases + [(case, hits) for _name, case, hits in _two_word_cases()]
+
+
+def _two_word_cases():
+    """(name, case, whether the range's first lane hits): targets whose
+    prefix reaches into digest word 1, each built from a chosen lane's
+    digest as the dense case's is, so that the lane hits or misses at a
+    chosen compare, on a v2 and a v1 template:
+
+    * ``hit9``, ``hit10``: the lane hits at 9.1 and 10.1 (a nonzero
+      word-1 mask, the nibble in word 1);
+    * ``word1_miss``: the lane matches word 0 and the first char of
+      word 1 at 10.1, and fails the second;
+    * ``edge9``: the lane matches 9 chars and its nibble, in word 1,
+      EQUALS the charset size;
+    * ``hit16``, ``edge16``: the same with the nibble in word 2, at 16.x.
+    """
+    out = []
+    for plen, base in ((104, 3 << 24), (134, 5 << 24)):
+        prefix, template, _target = _job(plen, "1")
+        for name, k in (("hit9", 9), ("hit10", 10), ("word1_miss", 10),
+                        ("edge9", 9), ("hit16", 16), ("edge16", 16)):
+            lane = base
+            while True:
+                h = hashlib.sha256(prefix + lane.to_bytes(4, "little")).hexdigest()
+                nib = int(h[k], 16)
+                if name.startswith("edge") and nib in FRAC_OF_CHARSET:
+                    suffix, diff = h[:k], f"{k}{FRAC_OF_CHARSET[nib]}"
+                    break
+                if not name.startswith("edge") and nib < 15:
+                    suffix, diff = h[:k], f"{k}.1"  # charset 15
+                    if name == "word1_miss":
+                        suffix = h[:k - 1] + f"{(int(h[k - 1], 16) + 1) % 16:x}"
+                    break
+                lane += 1
+            target = tsha.pack_target(tsha.target_spec(PREV[:-k] + suffix, diff))
+            out.append((f"v{2 if plen == 104 else 1}_{name}",
+                        (template, target, lane, 3000), name.startswith("hit")))
+    return out
+
+
+def _check_first_lanes(answers):
+    """Each labelled case's answer is its first lane exactly where the
+    label says so."""
+    for (case, first), answer in zip(_labelled_cases(), answers):
+        if first is not None:
+            assert (answer == case[2]) == first, (case[1], case[2], answer)
 
 
 # charset size -> the fractional part of the difficulty that gives it
@@ -319,8 +371,7 @@ def test_kernel_source_matches_plain_under_host_compiler(tmp_path):
     got = np.fromfile(tmp_path / "out.bin", dtype=np.uint32).tolist()
     want = [int(tsha.pow_search_plain(*c)) for c in cases]
     assert got == want
-    assert want[-2] == cases[-2][2]  # dense: the first lane is the minimum
-    assert want[-1] != cases[-1][2]  # the nibble equal to the charset: no hit
+    _check_first_lanes(want)
     assert SENTINEL in want
 
 
@@ -330,9 +381,12 @@ def test_kernel_matches_plain_on_card():
     a machine with a card; skips elsewhere)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    answers = []
     for template, target, base, count in _kernel_cases():
         launches = tsha.LAUNCHES
         got = tsha.pow_search(template, target, base, count, device="cuda")
         assert int(got) == int(tsha.pow_search_plain(template, target, base,
                                                      count))
         assert tsha.LAUNCHES == launches + 1
+        answers.append(int(got))
+    _check_first_lanes(answers)
