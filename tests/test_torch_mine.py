@@ -424,6 +424,21 @@ def test_engine_counts_the_nonces_and_rounds_it_reports(backend, diff, kw):
     assert _delta(before, "mine.rounds_dry") == 0
 
 
+def test_engine_records_the_kernel_launches_by_path(monkeypatch):
+    """``mine.search_launches.*`` take the search kernel's launches by
+    path, as ``sha256`` counts them, once a ``mine()`` call: what grew
+    since the last record, and nothing twice."""
+    _jjob, tjob = _jobs("9")
+    tengine.mine(tjob, "torch", batch=4096, stride_end=4096)
+    before = _counts()
+    monkeypatch.setattr(tsha, "ALIGNED_LAUNCHES", tsha.ALIGNED_LAUNCHES + 5)
+    monkeypatch.setattr(tsha, "GENERIC_LAUNCHES", tsha.GENERIC_LAUNCHES + 2)
+    tengine.mine(tjob, "torch", batch=4096, stride_end=4096)
+    tengine.mine(tjob, "torch", batch=4096, stride_end=4096)
+    assert _delta(before, "mine.search_launches.aligned") == 5
+    assert _delta(before, "mine.search_launches.generic") == 2
+
+
 class _FakeEvent:
     def __init__(self, finished: bool):
         self.finished = finished
@@ -628,7 +643,7 @@ def test_miner_cli_serves_metrics_traces_and_profile(tmp_path):
         assert status == 200 and ctype == exposition.CONTENT_TYPE
         assert exposition.validate(text) == []
         samples = exposition.samples(text)
-        for name in tengine.COUNTERS:
+        for name in tengine.COUNTERS + tengine.SEARCH_LAUNCHES:
             assert "upow_" + name.replace(".", "_") + "_total" in samples
         for name in (tengine.GAP_HANDOFF, tengine.GAP_REFRESH,
                      tengine.ROUND_DISPATCH):

@@ -196,6 +196,110 @@ def test_ops_per_nonce_counts_from_the_nonce_word():
     assert alu + add < v1_alu + v1_add < 64 * 14 + 48 * 10
 
 
+# --- the kernel's fold and launch path ------------------------------------
+
+def _tail_schedule(template):
+    """The 64 message words of the tail block with the nonce 0, as
+    ``_compress_py`` expands them."""
+    w = [int(x) for x in template.tail_words]
+    for i in range(16, 64):
+        s0 = tsha._rotr_py(w[i - 15], 7) ^ tsha._rotr_py(w[i - 15], 18) \
+            ^ (w[i - 15] >> 3)
+        s1 = tsha._rotr_py(w[i - 2], 17) ^ tsha._rotr_py(w[i - 2], 19) \
+            ^ (w[i - 2] >> 10)
+        w.append((w[i - 16] + s0 + w[i - 7] + s1) & 0xFFFFFFFF)
+    return w
+
+
+def _rounds(state, w, n):
+    """``n`` rounds of ``_compress_py`` from ``state`` over ``w``."""
+    a, b, c, d, e, f, g, h = state
+    for i in range(n):
+        s1 = tsha._rotr_py(e, 6) ^ tsha._rotr_py(e, 11) ^ tsha._rotr_py(e, 25)
+        ch = (e & f) ^ (~e & g)
+        t1 = (h + s1 + ch + int(tsha._K[i]) + w[i]) & 0xFFFFFFFF
+        s0 = tsha._rotr_py(a, 2) ^ tsha._rotr_py(a, 13) ^ tsha._rotr_py(a, 22)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        a, b, c, d, e, f, g, h = (t1 + s0 + maj) & 0xFFFFFFFF, a, b, c, \
+            (d + t1) & 0xFFFFFFFF, e, f, g
+    return [a, b, c, d, e, f, g, h]
+
+
+@pytest.mark.parametrize("plen,path,first,nonce_words", [
+    (104, 0, 10, {10}), (134, 1, 1, {1, 2})])
+def test_fold_equals_the_first_rounds_and_the_nonce_free_words(
+        plen, path, first, nonce_words):
+    template = tsha.make_template(PREFIXES[plen])
+    assert tsha.search_path(template) == path
+    fold = tsha.fold_template(template, path)
+    w = _tail_schedule(template)
+    mid = [int(x) for x in template.midstate]
+    # the state after the rounds before the first nonce word
+    assert fold["state"] == _rounds(mid, w, first)
+    # round ``first`` with the nonce 0: a and e are the folded ones
+    after = _rounds(mid, w, first + 1)
+    assert [after[0], after[4]] == [fold["round_a"] & 0xFFFFFFFF,
+                                    fold["round_e"] & 0xFFFFFFFF]
+    assert after[1:4] + after[5:] == fold["state"][:3] + fold["state"][4:7]
+    # every message word the nonce does not reach is folded whole
+    reached = set(nonce_words)
+    for j in range(16, 64):
+        if reached & {j - 16, j - 15, j - 7, j - 2}:
+            reached.add(j)
+    free = [j for j in range(64) if j not in reached]
+    assert [fold["word_c"][j] for j in free] == [w[j] for j in free]
+    # v2: words 0-9, 11-15, 16, 18, 20 and 22; v1: words 0 and 3-15
+    assert len(free) == (19 if plen == 104 else 14)
+    assert fold["mid"] == mid[:3]
+
+
+def test_kernel_args_differ_only_in_base_and_count():
+    _prefix, template, target = _job(104, "9.9")
+    one = tsha.kernel_args(template, target, 0, 1 << 24)
+    two = tsha.kernel_args(template, target, 1 << 24, 12345)
+    assert one.dtype == np.uint32 and one.size == tsha.ARG_WORDS
+    assert np.flatnonzero(one != two).tolist() == [tsha.ARG_WORDS - 2,
+                                                   tsha.ARG_WORDS - 1]
+    assert two[-2:].tolist() == [1 << 24, 12345]
+    one[:] = 0  # each call hands out a block of its own
+    assert np.array_equal(tsha.kernel_args(template, target, 1 << 24, 12345),
+                          two)
+    # the tail must hold 0 under the nonce, as make_template leaves it
+    bad = template._replace(tail_words=template.tail_words | np.uint32(1))
+    with pytest.raises(ValueError):
+        tsha.kernel_args(bad, target, 0, 1)
+
+
+def test_launch_counts_follow_the_layout(monkeypatch):
+    """pow_search's path and per-path counts, with the card's calls
+    stubbed: one launch a call, on the path the layout picks."""
+    launched = []
+
+    class Lib:
+        @staticmethod
+        def sha256_search_launch(args, words, path, out, index, stream):
+            launched.append((words, path))
+            return 0
+
+    monkeypatch.setattr(tsha, "resolve", lambda device: torch.device("meta"))
+    monkeypatch.setattr(tsha, "_kernel_lib", lambda: Lib)
+    monkeypatch.setattr(tsha, "current_index", lambda: -1)
+    monkeypatch.setattr(tsha, "raw_stream", lambda index: 0)
+    target = tsha.pack_target(tsha.target_spec(PREV, "9.9"))
+    templates = {plen: tsha.make_template(PREFIXES[104][:plen] if plen < 104
+                                          else PREFIXES[plen])
+                 for plen in (104, 134, 100, 101)}
+    for plen, path, aligned, generic in ((104, 0, 2, 0), (134, 1, 0, 2),
+                                         (100, 2, 0, 2), (101, 2, 0, 2)):
+        before = (tsha.LAUNCHES, tsha.ALIGNED_LAUNCHES, tsha.GENERIC_LAUNCHES)
+        del launched[:]
+        for base in (0, 1 << 24):
+            tsha.pow_search(templates[plen], target, base, 1 << 24, device="cuda")
+        assert launched == [(tsha.ARG_WORDS, path)] * 2
+        assert (tsha.LAUNCHES, tsha.ALIGNED_LAUNCHES, tsha.GENERIC_LAUNCHES) \
+            == (before[0] + 2, before[1] + aligned, before[2] + generic)
+
+
 # --- the CUDA source under the host compiler -------------------------------
 
 _SHIM = r"""
@@ -204,6 +308,7 @@ _SHIM = r"""
 #include <cstring>
 typedef int cudaError_t;
 typedef void* cudaStream_t;
+#define __host__
 #define __device__
 #define __global__
 #define __constant__
@@ -215,6 +320,13 @@ inline dim3_ blockIdx, threadIdx, blockDim, gridDim;
 inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t s) {
   s &= 31;
   return s ? (lo >> s) | (hi << (32 - s)) : lo;
+}
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = ((uint64_t)y << 32) | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= (uint32_t)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
+  return r;
 }
 inline uint32_t __reduce_min_sync(uint32_t, uint32_t v) { return v; }
 inline uint32_t atomicMin(uint32_t* p, uint32_t v) {
@@ -229,21 +341,23 @@ _MAIN = r"""
 #include <cstdio>
 #include <vector>
 #include "kernel.inc"
-// argv[1]: cases of ARG_WORDS words each; argv[2]: one word per case.
-// Each case runs as a grid of 3 one-thread blocks, one after the other,
-// so the grid-stride loop and the min across blocks are both exercised.
+// argv[1]: cases of a path index (kSearchPaths) and ARG_WORDS words each;
+// argv[2]: one word per case.  Each case runs the path's kernel as a grid
+// of 3 one-thread blocks, one after the other, so the grid-stride loop and
+// the min across blocks are both exercised.
 int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
   std::vector<uint32_t> out;
+  uint32_t path;
   SearchArgs a;
-  while (fread(&a, sizeof a, 1, f) == 1) {
+  while (fread(&path, 4, 1, f) == 1 && fread(&a, sizeof a, 1, f) == 1) {
     uint32_t best = 0xFFFFFFFFu;
     gridDim.x = 3;
     blockDim.x = 1;
     threadIdx.x = 0;
     for (unsigned b = 0; b < gridDim.x; ++b) {
       blockIdx.x = b;
-      sha256_search_kernel(a, &best);
+      kSearchPaths[path](a, &best);
     }
     out.push_back(best);
   }
@@ -282,6 +396,12 @@ def _labelled_cases():
     prev, diff, base = _charset_edge(prefix, 1 << 25)
     cases.append(((template, tsha.pack_target(tsha.target_spec(prev, diff)),
                    base, 3000), False))
+    # prefixes of no header: the nonce word-aligned at word 9, and from
+    # byte 1 of word 9 into word 10
+    for plen, diff in ((100, "1"), (101, "1.3")):
+        template = tsha.make_template(PREFIXES[104][:plen])
+        cases.append(((template, tsha.pack_target(tsha.target_spec(PREV, diff)),
+                       7, 3000), None))
     return cases + [(case, hits) for _name, case, hits in _two_word_cases()]
 
 
@@ -364,7 +484,10 @@ def test_kernel_source_matches_plain_under_host_compiler(tmp_path):
                     str(tmp_path / "main.cpp"), "-o", str(tmp_path / "kernel")],
                    check=True, capture_output=True, timeout=300)
     cases = _kernel_cases()
-    blob = b"".join(tsha.kernel_args(*c).tobytes() for c in cases)
+    # each case on the path the launch wrapper would pick
+    paths = [tsha.search_path(c[0]) for c in cases]
+    blob = b"".join(np.uint32(p).tobytes() + tsha.kernel_args(*c).tobytes()
+                    for p, c in zip(paths, cases))
     (tmp_path / "in.bin").write_bytes(blob)
     subprocess.run([str(tmp_path / "kernel"), str(tmp_path / "in.bin"),
                     str(tmp_path / "out.bin")], check=True, timeout=300)
@@ -373,6 +496,9 @@ def test_kernel_source_matches_plain_under_host_compiler(tmp_path):
     assert got == want
     _check_first_lanes(want)
     assert SENTINEL in want
+    # every path ran a case with a hit
+    hit_paths = {p for p, w in zip(paths, want) if w != SENTINEL}
+    assert hit_paths == set(range(len(tsha.SEARCH_PATHS) + 1))
 
 
 @pytest.mark.cuda

@@ -93,17 +93,23 @@ MASK32 = 0xFFFFFFFF
 PLAIN_CHUNK = 1 << 22
 
 # Kernel launches (plain integers, read by chip_smoke.py): the nonce
-# search's and the batched digests'.  Miners and the node's executor
-# dispatch from worker threads, so updates take the lock.
+# search's, split by its path (ALIGNED_LAUNCHES: the v2 header's nonce
+# word, GENERIC_LAUNCHES: every other layout), and the batched digests'.
+# Miners and the node's executor dispatch from worker threads, so updates
+# take the lock.
 LAUNCHES = 0
+ALIGNED_LAUNCHES = 0
+GENERIC_LAUNCHES = 0
 BLOCKS_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
-    global LAUNCHES, BLOCKS_LAUNCHES
+    global LAUNCHES, ALIGNED_LAUNCHES, GENERIC_LAUNCHES, BLOCKS_LAUNCHES
     with _COUNT_LOCK:
         LAUNCHES = 0
+        ALIGNED_LAUNCHES = 0
+        GENERIC_LAUNCHES = 0
         BLOCKS_LAUNCHES = 0
 
 
@@ -323,29 +329,178 @@ def _check_range(nonce_base: int, count: int) -> None:
 
 
 # --- the kernel ----------------------------------------------------------
+#
+# A nonce fills one tail word (v2 header: word 10) or two (v1: words 1
+# and 2), so the rounds before its first word, and every message word it
+# does not reach, are the same for every nonce.  The host folds them once
+# per template and target (fold_template, cached by kernel_args), and the
+# kernel computes only what reads the nonce.  It has one path per nonce
+# layout, chosen from the template's nonce_spec (search_path).
+
+#: the kernel's paths by index, as csrc/sha256_search.cu's kSearchPaths:
+#: (the first tail word that holds a nonce byte, the nonce's byte offset
+#: in it).  The v2 header's nonce fills word 10; the v1 header's starts
+#: at byte 2 of word 1.  Every other layout takes ANY_LAYOUT, which starts
+#: at round 0 and places each byte where nonce_spec says.
+SEARCH_PATHS = ((10, 0), (1, 2))
+ALIGNED_PATH = 0
+ANY_LAYOUT = len(SEARCH_PATHS)
 
 # The kernel's by-value argument block, in 32-bit words; mirrored by
 # struct SearchArgs in csrc/sha256_search.cu.
-ARG_WORDS = 8 + 16 + 4 + 4 + 7 + 2
+ARG_WORDS = 8 + 3 + 2 + 3 + 64 + 64 + 4 + 4 + 7 + 2
+
+
+def search_path(template: SearchTemplate) -> int:
+    """The index of the kernel path for ``template``'s nonce layout: the
+    entry of :data:`SEARCH_PATHS` that holds its four bytes, in order,
+    from their first word and offset, or :data:`ANY_LAYOUT`."""
+    word, shift = template.nonce_spec[0]
+    offset = 4 * int(word) + 3 - int(shift) // 8
+    contiguous = all(
+        (int(w), int(s)) == ((offset + j) // 4, 8 * (3 - (offset + j) % 4))
+        for j, (w, s) in enumerate(template.nonce_spec))
+    layout = divmod(offset, 4)
+    if contiguous and layout in SEARCH_PATHS:
+        return SEARCH_PATHS.index(layout)
+    return ANY_LAYOUT
+
+
+def _path_words(path: int) -> Tuple[int, set]:
+    """(the path's first round, the tail words its nonce bytes fill)."""
+    if path == ANY_LAYOUT:
+        return 0, set(range(16))
+    first, offset = SEARCH_PATHS[path]
+    return first, {first} if offset == 0 else {first, first + 1}
+
+
+def _sigma0(x: int) -> int:
+    return _rotr_py(x, 7) ^ _rotr_py(x, 18) ^ (x >> 3)
+
+
+def _sigma1(x: int) -> int:
+    return _rotr_py(x, 17) ^ _rotr_py(x, 19) ^ (x >> 10)
+
+
+def _round_py(state: Sequence[int], kw: int) -> Tuple[int, ...]:
+    """One SHA-256 round on the host, ``kw`` = K[i] + w[i]."""
+    a, b, c, d, e, f, g, h = state
+    s1 = _rotr_py(e, 6) ^ _rotr_py(e, 11) ^ _rotr_py(e, 25)
+    ch = (e & f) ^ (~e & g)
+    t1 = (h + s1 + ch + kw) & MASK32
+    s0 = _rotr_py(a, 2) ^ _rotr_py(a, 13) ^ _rotr_py(a, 22)
+    maj = (a & b) ^ (a & c) ^ (b & c)
+    return ((t1 + s0 + maj) & MASK32, a, b, c, (d + t1) & MASK32, e, f, g)
+
+
+def fold_template(template: SearchTemplate, path: int) -> dict:
+    """What ``path`` of the kernel takes as constants for ``template``
+    (struct SearchArgs's fields, before nonce_word): with S the path's
+    first round and a word "reached" where the nonce reaches it,
+
+    * ``word_c``: each message word less its nonce part (the word itself
+      where the nonce does not reach it): the tail words with the nonce
+      bytes zero, then w[j] = w[j-16] + s0(w[j-15]) + w[j-7] + s1(w[j-2])
+      over the words and the sigmas of words the nonce does not reach;
+    * ``state``: a..h after rounds 0..S-1, which read no nonce byte;
+    * ``round_a``, ``round_e``: a and e after round S less the nonce part
+      of word S (round S's h + S1(e) + Ch(e, f, g) + K[S] + word_c[S],
+      then + S0(a) + Maj(a, b, c) and + d);
+    * ``round_k``: for round i > S, K[i] + word_c[i], and for i <= S + 3
+      the h that is still the folded state's; ``round_d``: those three
+      rounds' round_k plus their d, also the folded state's;
+    * ``mid``: the midstate's words 0..2, for the digest words."""
+    first, words = _path_words(path)
+    reached = [j in words for j in range(16)]
+    word_c = [int(x) for x in template.tail_words]
+    for j in range(16, 64):
+        reached.append(reached[j - 16] or reached[j - 15] or reached[j - 7]
+                       or reached[j - 2])
+        c = word_c[j - 16] + word_c[j - 7]
+        if not reached[j - 15]:
+            c += _sigma0(word_c[j - 15])
+        if not reached[j - 2]:
+            c += _sigma1(word_c[j - 2])
+        word_c.append(c & MASK32)
+    state = tuple(int(x) for x in template.midstate)
+    for i in range(first):
+        state = _round_py(state, int(_K[i]) + word_c[i])
+    a, b, c, d, e, f, g, h = state
+    t1 = (h + (_rotr_py(e, 6) ^ _rotr_py(e, 11) ^ _rotr_py(e, 25))
+          + ((e & f) ^ (~e & g)) + int(_K[first]) + word_c[first])
+    round_k = [0] * 64
+    for i in range(first + 1, 64):
+        round_k[i] = int(_K[i]) + word_c[i]
+        if i <= first + 3:
+            round_k[i] += state[7 - (i - first)]
+    return {
+        "state": list(state),
+        "mid": [int(x) for x in template.midstate[:3]],
+        "round_a": t1 + (_rotr_py(a, 2) ^ _rotr_py(a, 13) ^ _rotr_py(a, 22))
+        + ((a & b) ^ (a & c) ^ (b & c)),
+        "round_e": d + t1,
+        "round_d": [round_k[first + 1 + k] + state[2 - k] for k in range(3)],
+        "round_k": round_k,
+        "word_c": word_c,
+    }
+
+
+def _fold_block(template: SearchTemplate, target: np.ndarray,
+                path: int) -> np.ndarray:
+    """The argument block of ``path`` with ``base`` and ``count`` 0."""
+    fold = fold_template(template, path)
+    words = fold["state"] + fold["mid"] + [fold["round_a"], fold["round_e"]] \
+        + fold["round_d"] + fold["round_k"] + fold["word_c"] \
+        + [w for w, _s in template.nonce_spec] \
+        + [s for _w, s in template.nonce_spec] + [int(x) for x in target]
+    return np.array([int(x) & MASK32 for x in words] + [0, 0],
+                    dtype=np.uint32)
+
+
+# (id(template), the target's bytes) -> (template, path, block): a
+# miner's rounds reuse one template and target, so each round copies its
+# block and writes base and count, and nothing is folded again.  The
+# template is kept so that its id cannot be reused while the entry lives.
+_BLOCKS: dict = {}
+_BLOCKS_KEPT = 16
+_BLOCKS_LOCK = threading.Lock()
+
+
+def _search_args(template: SearchTemplate, target, nonce_base: int,
+                 count: int) -> Tuple[int, np.ndarray]:
+    """(path, argument block) for one launch; the folded part is cached
+    a template and target."""
+    target = np.asarray(target, dtype=np.uint32)
+    key = (id(template), target.tobytes())
+    hit = _BLOCKS.get(key)
+    if hit is None or hit[0] is not template:
+        if target.shape != (7,) or int(target[4]) > 2:
+            raise ValueError(f"expected a pack_target vector, got {target}")
+        # the kernel adds each nonce byte into its word, where the plain
+        # version ORs it: equal while the tail holds 0 there, as
+        # make_template leaves it
+        if any((int(template.tail_words[w]) >> s) & 0xFF
+               for w, s in template.nonce_spec):
+            raise ValueError("the template's tail is not 0 under the nonce")
+        path = search_path(template)
+        hit = (template, path, _fold_block(template, target, path))
+        with _BLOCKS_LOCK:
+            if len(_BLOCKS) >= _BLOCKS_KEPT:
+                _BLOCKS.pop(next(iter(_BLOCKS)))
+            _BLOCKS[key] = hit
+    args = hit[2].copy()
+    args[-2] = nonce_base
+    args[-1] = count
+    return hit[1], args
 
 
 def kernel_args(template: SearchTemplate, target, nonce_base: int,
                 count: int) -> np.ndarray:
-    """midstate (8), tail words (16), nonce byte word indices (4) and
-    shifts (4), the target (7), base, count."""
-    target = np.asarray(target, dtype=np.uint32)
-    if target.shape != (7,) or int(target[4]) > 2:
-        raise ValueError(f"expected a pack_target vector, got {target}")
-    args = np.concatenate([
-        np.asarray(template.midstate, dtype=np.uint32),
-        np.asarray(template.tail_words, dtype=np.uint32),
-        np.array([w for w, _s in template.nonce_spec], dtype=np.uint32),
-        np.array([s for _w, s in template.nonce_spec], dtype=np.uint32),
-        target,
-        np.array([nonce_base, count], dtype=np.uint32),
-    ])
-    assert args.size == ARG_WORDS
-    return args
+    """The kernel's argument block, for the path :func:`search_path`
+    picks: the folded template (:func:`fold_template`), the nonce bytes'
+    word indices (4) and shifts (4), the target (7), base, count.  Two
+    rounds of one template and target differ only in base and count."""
+    return _search_args(template, target, nonce_base, count)[1]
 
 
 _LIBS: dict = {}
@@ -353,8 +508,8 @@ _LIB_LOCK = threading.Lock()
 # each library's launch entry and its ctypes argument types
 _ENTRIES = {
     "sha256_search": ("sha256_search_launch", [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p]),
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p]),
     "sha256_blocks": ("sha256_blocks_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
@@ -412,12 +567,12 @@ def pow_search(template: SearchTemplate, target, nonce_base: int, count: int,
     round into the next, and ``int()`` of it waits.  ``device="cpu"``
     runs :func:`pow_search_plain`.  Without a card, and without
     ``"cpu"``, it raises."""
-    global LAUNCHES
+    global LAUNCHES, ALIGNED_LAUNCHES, GENERIC_LAUNCHES
     dev = resolve(device)
     if dev.type == "cpu":
         return pow_search_plain(template, target, nonce_base, count, dev)
     _check_range(nonce_base, count)
-    args = kernel_args(template, target, nonce_base, count)
+    path, args = _search_args(template, target, nonce_base, count)
     # the kernel min-reduces into the low 32 bits (little-endian) of this
     # int64, whose high word stays 0: int() is the unsigned nonce
     out = torch.full((), int(SENTINEL), dtype=torch.int64, device=dev)
@@ -425,7 +580,7 @@ def pow_search(template: SearchTemplate, target, nonce_base: int, count: int,
         return out
     lib = _kernel_lib()
     index = out.get_device()
-    launch_args = (args.ctypes.data, args.size, out.data_ptr(), index,
+    launch_args = (args.ctypes.data, args.size, path, out.data_ptr(), index,
                    raw_stream(index))
     hook = getattr(_before_launch, "fn", None)
     if hook is not None:
@@ -439,6 +594,10 @@ def pow_search(template: SearchTemplate, target, nonce_base: int, count: int,
         raise RuntimeError(f"sha256_search launch failed: CUDA error {rc}")
     with _COUNT_LOCK:
         LAUNCHES += 1
+        if path == ALIGNED_PATH:
+            ALIGNED_LAUNCHES += 1
+        else:
+            GENERIC_LAUNCHES += 1
     if profiling.COST_ANALYSIS:
         profiling.analyze_cost("sha256_search", search_work_counts,
                                template, target, count)

@@ -1,13 +1,10 @@
-// Proof-of-work nonce search: one SHA-256 compression per nonce from the
-// template's midstate, the uPow target test, and the least hit nonce.
+// Proof-of-work nonce search: the part of one SHA-256 compression that
+// reads the nonce, the uPow target test, and the least hit nonce.
 //
 // Replaces upow_tpu/crypto/sha256.py::_pallas_kernel (launched by
-// _pow_search_pallas), with the dynamic target of _hit_nonce_dynamic: the
-// template (midstate, tail words, the (word, shift) of each nonce byte) and
-// the 7-word pack_target vector arrive as one by-value argument block, so
-// one build serves every template, header version and difficulty.  Output:
-// the least nonce in [base, base + count) that meets the target, or
-// 0xFFFFFFFF, min-reduced into *out, which the caller fills with
+// _pow_search_pallas), with the dynamic target of _hit_nonce_dynamic.
+// Output: the least nonce in [base, base + count) that meets the target,
+// or 0xFFFFFFFF, min-reduced into *out, which the caller fills with
 // 0xFFFFFFFF before every launch.  The plain PyTorch version of the same
 // function is crypto/sha256.py::pow_search_plain.
 //
@@ -16,23 +13,31 @@
 // only those that read the nonce, from the template's dataflow): about
 // 820 SHF, LOP3 and PRMT, which only the ALU pipe runs, at 64 per SM per
 // clock, and about 290 adds, which may also issue as IMAD on the FMA
-// pipe.  The ALU pipe binds.  Bytes are nil: 164 bytes of arguments in,
+// pipe.  The ALU pipe binds.  Bytes are nil: 644 bytes of arguments in,
 // 4 out.
 //
-// What the design does about it: the compression (sha256_common.cuh) is
-// fully unrolled into registers with one funnel shift per rotate, and
-// nothing touches memory inside the loop.  The TPU kernel's sequential
-// grid carried one SMEM minimum from step to step, with a sign flip since
-// Mosaic has no unsigned reduction; here blocks run in no order, so each
-// thread walks a grid-stride loop (any count up to 2^32 - 1 on a grid sized
-// to fill the card once), stops at its first hit (its nonces only grow),
-// and the block reduces unsigned with __reduce_min_sync, then one
-// atomicMin.  Lanes at or beyond count never run (the valid mask of
-// _hit_nonce_dynamic), so no count has to be a multiple of a tile.  This
-// first version keeps the generic byte scatter of _build_w, one select per
-// nonce byte and tail word, and runs every round and schedule word for
-// every nonce, those that do not depend on it too: about 1,580 SASS
-// instructions a nonce for sm_90a, where the bound counts about 1,110.
+// What the design does about it: a nonce fills one tail word (v2 header:
+// word 10) or two (v1: words 1 and 2), so rounds before the first of them
+// and every message word they do not reach are the same for every nonce.
+// The host folds them once per template (crypto/sha256.py::fold_template):
+// the state after those rounds, the first nonce round's a and e less the
+// nonce word, each later round's constant addend (K, the constant part of
+// its message word, and h and d while they are still constants) and each
+// message word's constant part.  The kernel takes one instantiation per
+// nonce layout (kSearchPaths, the order of crypto/sha256.py::SEARCH_PATHS):
+// it places the nonce with one PRMT (and two shifts where it straddles two
+// words), computes only the message words that the nonce reaches, runs the
+// rounds from the first nonce word on, and computes only the digest words
+// the target test reads (words 0 and 1, word 2 where the nibble is there),
+// word 0's test first.  A layout of no header (ANY_LAYOUT) starts at round
+// 0 and places each nonce byte where the template says.  Everything is
+// unrolled into registers; round constants are constant-bank operands.
+//
+// The reduction: blocks run in no order, so each thread walks a
+// grid-stride loop (any count up to 2^32 - 1 on a grid sized to fill the
+// card once), stops at its first hit (its nonces only grow), and the block
+// reduces unsigned with __reduce_min_sync, then one atomicMin.  Lanes at or
+// beyond count never run, so no count has to be a multiple of a tile.
 
 #include <atomic>
 #include <cstdint>
@@ -47,10 +52,17 @@ typedef uint64_t u64;
 #define SEARCH_THREADS 256
 #define SEARCH_SENTINEL 0xFFFFFFFFu
 
-// Mirrors crypto/sha256.py::kernel_args (ARG_WORDS 32-bit words).
+// Mirrors crypto/sha256.py::kernel_args (ARG_WORDS 32-bit words).  S is
+// the path's first round, the first whose message word holds a nonce byte.
 struct SearchArgs {
-  u32 mid[8];          // state after the prefix's full blocks
-  u32 tail[16];        // last block, nonce bytes zero, padding applied
+  u32 state[8];        // a..h after rounds 0..S-1 (the midstate if S is 0)
+  u32 mid[3];          // the midstate's words 0..2, for the digest words
+  u32 round_a;         // a after round S, less the nonce part of word S
+  u32 round_e;         // e after round S, likewise
+  u32 round_d[3];      // rounds S+1..S+3: round_k[i] + the constant d
+  u32 round_k[64];     // round i > S: K[i] + word i's constant part
+                       // (+ the constant h for i <= S+3)
+  u32 word_c[64];      // message word j less its nonce part
   u32 nonce_word[4];   // tail word of little-endian nonce byte j
   u32 nonce_shift[4];  // its left shift in that word
   u32 target[7];       // mask0, val0, mask1, val1, nibble word, shift, charset
@@ -58,18 +70,33 @@ struct SearchArgs {
   u32 count;
 };
 
-// The PoW rule of _hit_nonce_dynamic: prefix match on digest words 0 and
-// 1; the fractional nibble (in word 0, 1 or 2) below the charset size,
-// unless the charset is 16 or more.
-__device__ __forceinline__ bool meets(const u32 st[8], const u32 t[7]) {
-  const u32 word = t[4] == 0 ? st[0] : (t[4] == 1 ? st[1] : st[2]);
-  const u32 nib = (word >> t[5]) & 0xFu;
-  return ((st[0] & t[0]) == t[1]) && ((st[1] & t[2]) == t[3]) &&
-         (t[6] >= 16u || nib < t[6]);
+// The message words a nonce placed in tail words `words` (a bit each)
+// reaches: w[j] = w[j-16] + s0(w[j-15]) + w[j-7] + s1(w[j-2]).
+__host__ __device__ constexpr u64 nonce_reach(u64 words) {
+  for (int j = 16; j < 64; ++j)
+    if (((words >> (j - 16)) | (words >> (j - 15)) | (words >> (j - 7))
+         | (words >> (j - 2))) & 1u)
+      words |= u64(1) << j;
+  return words;
 }
 
+__device__ __forceinline__ u32 sigma0(u32 x) {
+  return sha256::rotr(x, 7) ^ sha256::rotr(x, 18) ^ (x >> 3);
+}
+__device__ __forceinline__ u32 sigma1(u32 x) {
+  return sha256::rotr(x, 17) ^ sha256::rotr(x, 19) ^ (x >> 10);
+}
+
+// One instantiation per nonce layout: the nonce starts at byte R of tail
+// word S (R = 0: it fills word S; R = 1..3: it straddles words S and S+1),
+// or, with R = -1 and S = 0, anywhere nonce_word and nonce_shift say.
+template <int S, int R>
 __global__ void __launch_bounds__(SEARCH_THREADS)
     sha256_search_kernel(const SearchArgs a, u32* out) {
+  // the tail words that hold nonce bytes, and the message words they reach
+  constexpr u64 kNonce =
+      R < 0 ? 0xFFFFu : (R == 0 ? u64(1) << S : u64(3) << S);
+  constexpr u64 kReach = nonce_reach(kNonce);
   __shared__ u32 warp_best[SEARCH_THREADS / 32];
   u32 best = SEARCH_SENTINEL;
   const u64 stride = (u64)gridDim.x * blockDim.x;
@@ -77,20 +104,79 @@ __global__ void __launch_bounds__(SEARCH_THREADS)
        i += stride) {
     // base + count <= 2^32 (the wrapper checks), so this never wraps
     const u32 nonce = a.base + (u32)i;
-    u32 w[16];
+    // v[j]: the nonce part of message word j, for the words kReach marks
+    u32 v[64];
+    if (R < 0) {
 #pragma unroll
-    for (int k = 0; k < 16; ++k) w[k] = a.tail[k];
+      for (int k = 0; k < 16; ++k) v[k] = 0u;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const u32 v = ((nonce >> (8 * j)) & 0xFFu) << a.nonce_shift[j];
+      for (int j = 0; j < 4; ++j) {
+        const u32 byte = ((nonce >> (8 * j)) & 0xFFu) << a.nonce_shift[j];
 #pragma unroll
-      for (int k = 0; k < 16; ++k) w[k] |= a.nonce_word[j] == (u32)k ? v : 0u;
+        for (int k = 0; k < 16; ++k)
+          v[k] |= a.nonce_word[j] == (u32)k ? byte : 0u;
+      }
+    } else {
+      // the nonce's bytes, least first, as a big-endian word: one PRMT
+      const u32 swapped = __byte_perm(nonce, 0u, 0x0123u);
+      v[S] = swapped >> (8 * R);
+      if (R > 0) v[S + 1] = swapped << (32 - 8 * (R > 0 ? R : 1));
     }
-    u32 st[8];
+    u32 A = v[S] + a.round_a, B = a.state[0], C = a.state[1], D = a.state[2];
+    u32 E = v[S] + a.round_e, F = a.state[4], G = a.state[5], H = a.state[6];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) st[k] = a.mid[k];
-    sha256::compress(st, w);
-    if (meets(st, a.target)) {
+    for (int r = S + 1; r < 64; ++r) {
+      const bool var = (kReach >> r) & 1u;
+      if (r >= 16 && var) {
+        // word j in full is its nonce part plus its constant part; the
+        // linear terms' constant parts are folded into word_c[r]
+        const int a16 = (r - 16) & 63, a15 = (r - 15) & 63,
+                  a7 = (r - 7) & 63, a2 = (r - 2) & 63;
+        const u32 w15 = v[a15] + (R == 0 && a15 == S ? 0u : a.word_c[a15]);
+        const u32 w2 = v[a2] + (R == 0 && a2 == S ? 0u : a.word_c[a2]);
+        u32 x = 0u;
+        if ((kReach >> a16) & 1u) x += v[a16];
+        if ((kReach >> a15) & 1u) x += sigma0(w15);
+        if ((kReach >> a7) & 1u) x += v[a7];
+        if ((kReach >> a2) & 1u) x += sigma1(w2);
+        v[r] = x;
+      }
+      const u32 S1 = sha256::rotr(E, 6) ^ sha256::rotr(E, 11)
+                     ^ sha256::rotr(E, 25);
+      const u32 ch = (E & F) ^ (~E & G);
+      const u32 nv = var ? v[r & 63] : 0u;
+      u32 t1, e_next;
+      if (r <= S + 3) {
+        // h and d are still the folded state's: both in the constants
+        t1 = S1 + ch + nv + a.round_k[r];
+        e_next = S1 + ch + nv + a.round_d[(r - S - 1) & 3];
+      } else {
+        t1 = H + S1 + ch + nv + a.round_k[r];
+        e_next = D + t1;
+      }
+      const u32 S0 = sha256::rotr(A, 2) ^ sha256::rotr(A, 13)
+                     ^ sha256::rotr(A, 22);
+      const u32 maj = (A & B) ^ (A & C) ^ (B & C);
+      H = G;
+      G = F;
+      F = E;
+      E = e_next;
+      D = C;
+      C = B;
+      B = A;
+      A = t1 + S0 + maj;
+    }
+    // A, B, C are a after rounds 63, 62, 61: digest words 0, 1, 2 less
+    // the midstate's.  The PoW rule of _hit_nonce_dynamic: prefix match
+    // on words 0 and 1; the fractional nibble (in word 0, 1 or 2) below
+    // the charset size, unless the charset is 16 or more.
+    const u32 d0 = a.mid[0] + A;
+    if ((d0 & a.target[0]) != a.target[1]) continue;
+    const u32 d1 = a.mid[1] + B;
+    const u32 word =
+        a.target[4] == 0 ? d0 : (a.target[4] == 1 ? d1 : a.mid[2] + C);
+    if ((d1 & a.target[2]) == a.target[3]
+        && (a.target[6] >= 16u || ((word >> a.target[5]) & 0xFu) < a.target[6])) {
       best = nonce;  // this thread's later nonces are all larger
       break;
     }
@@ -108,38 +194,50 @@ __global__ void __launch_bounds__(SEARCH_THREADS)
   }
 }
 
-// args: ARG_WORDS host words (crypto/sha256.py::kernel_args); out: a device
-// word holding 0xFFFFFFFF; the current device must be `device`.  Launches on
-// `stream` and returns the CUDA error of the launch (0 on success); it does
-// not synchronise.  The grid's wave (SMs times resident blocks an SM) is
-// asked of the runtime at the first launch on a device and kept, as the
-// txid and probe kernels do: a miner's round makes no runtime query.
+// The paths, by crypto/sha256.py::SEARCH_PATHS's index: the v2 header's
+// nonce fills tail word 10; the v1 header's starts at byte 2 of word 1;
+// any other layout.
+typedef void (*SearchKernel)(const SearchArgs, u32*);
+static const SearchKernel kSearchPaths[] = {
+    sha256_search_kernel<10, 0>,
+    sha256_search_kernel<1, 2>,
+    sha256_search_kernel<0, -1>,
+};
+#define SEARCH_PATHS (int)(sizeof(kSearchPaths) / sizeof(kSearchPaths[0]))
+
+// args: ARG_WORDS host words (crypto/sha256.py::kernel_args); path: the
+// index of the template's layout in kSearchPaths; out: a device word
+// holding 0xFFFFFFFF; the current device must be `device`.  Launches on
+// `stream` and returns the CUDA error of the launch (0 on success); it
+// does not synchronise.  The grid's wave (SMs times resident blocks an SM)
+// is asked of the runtime at a path's first launch on a device and kept,
+// as the txid and probe kernels do: a miner's round makes no runtime query.
 #define SEARCH_MAX_DEVICES 64
-extern "C" int sha256_search_launch(const u32* args, int words, void* out,
-                                    int device, void* stream) {
-  static std::atomic<int> wave_cache[SEARCH_MAX_DEVICES];
+extern "C" int sha256_search_launch(const u32* args, int words, int path,
+                                    void* out, int device, void* stream) {
+  static std::atomic<int> wave_cache[SEARCH_MAX_DEVICES][SEARCH_PATHS];
   if (words != (int)(sizeof(SearchArgs) / sizeof(u32)) || device < 0
-      || device >= SEARCH_MAX_DEVICES)
+      || device >= SEARCH_MAX_DEVICES || path < 0 || path >= SEARCH_PATHS)
     return (int)cudaErrorInvalidValue;
   SearchArgs a;
   std::memcpy(&a, args, sizeof a);
   if (a.count == 0) return 0;
-  int wave = wave_cache[device].load(std::memory_order_relaxed);
+  const SearchKernel kernel = kSearchPaths[path];
+  int wave = wave_cache[device][path].load(std::memory_order_relaxed);
   if (wave == 0) {
     int sms = 0, per_sm = 0;
     cudaError_t err =
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, sha256_search_kernel, SEARCH_THREADS, 0);
+          &per_sm, kernel, SEARCH_THREADS, 0);
     if (err != cudaSuccess) return (int)err;
     wave = sms * (per_sm > 0 ? per_sm : 1);
-    wave_cache[device].store(wave, std::memory_order_relaxed);
+    wave_cache[device][path].store(wave, std::memory_order_relaxed);
   }
   // one resident wave of blocks; the grid-stride loop covers the rest
   const u64 need = ((u64)a.count + SEARCH_THREADS - 1) / SEARCH_THREADS;
   const int blocks = (int)(need < (u64)wave ? need : (u64)wave);
-  sha256_search_kernel<<<blocks, SEARCH_THREADS, 0, (cudaStream_t)stream>>>(
-      a, (u32*)out);
+  kernel<<<blocks, SEARCH_THREADS, 0, (cudaStream_t)stream>>>(a, (u32*)out);
   return (int)cudaGetLastError();
 }

@@ -27,6 +27,11 @@ registers the families at its start, :func:`preregister`):
 
 * ``mine.hashes`` and ``mine.rounds``: the nonces and rounds searched,
   every backend, added up in the call and recorded as it returns;
+* ``mine.search_launches.aligned`` and ``mine.search_launches.generic``:
+  the search kernel's launches in this process by path (the v2 header's
+  aligned nonce word, every other layout; ``sha256.ALIGNED_LAUNCHES`` and
+  ``GENERIC_LAUNCHES``), as far as they have grown, recorded as a call
+  returns;
 * ``mine.round_dispatch``: host seconds from a tensor backend's
   ``dispatch(start, count)`` to its handle: the runtime's queue
   (``runtime.queue_wait.mine`` is its finer split), the drainer's hop,
@@ -81,6 +86,9 @@ ROUND_DISPATCH = "mine.round_dispatch"
 COUNTERS = ("mine.hashes", "mine.rounds", "mine.rounds_dry",
             "mine.templates", "mine.templates_expired",
             "mine.blocks_pushed", "mine.blocks_accepted")
+#: the search kernel's launches by path, recorded here from its counts
+SEARCH_LAUNCHES = ("mine.search_launches.aligned",
+                   "mine.search_launches.generic")
 
 
 def preregister() -> None:
@@ -88,7 +96,7 @@ def preregister() -> None:
     of the miner (``miner --metrics-port``) carries them from its first
     read.  The CLI calls it at its start; ``telemetry.configure`` does
     not, so a node's ``/metrics`` keeps its families."""
-    for name in COUNTERS:
+    for name in COUNTERS + SEARCH_LAUNCHES:
         metrics.ensure_counter(name)
     for name in (GAP_HANDOFF, GAP_REFRESH):
         metrics.ensure_histogram(name, GAP_BUCKETS)
@@ -365,6 +373,24 @@ def mine(job: MiningJob, backend: str = "cuda", *, start: int = 0,
         for name, n in counts.items():
             if n:
                 metrics.inc(name, n)
+        _record_search_launches()
+
+
+#: the kernel's launches by path that ``mine.search_launches.*`` hold
+_launches_recorded = [0, 0]
+_launches_lock = threading.Lock()
+
+
+def _record_search_launches() -> None:
+    """Add the kernel's launches by path since the last record (all of
+    them, where ``sha256.reset_counts`` has zeroed its counts since)."""
+    with _launches_lock:
+        now = (sha_kernel.ALIGNED_LAUNCHES, sha_kernel.GENERIC_LAUNCHES)
+        for name, n, seen in zip(SEARCH_LAUNCHES, now, _launches_recorded):
+            added = n - seen if n >= seen else n
+            if added:
+                metrics.inc(name, added)
+        _launches_recorded[:] = now
 
 
 def _mine(job: MiningJob, backend: str, start: int, stride_end: int,
