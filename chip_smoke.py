@@ -30,7 +30,9 @@ Phases, one line each; any failure exits non-zero:
    or its first hit near) on v2 and v1 templates, integer and
    fractional difficulties, a miss, dense hits, ragged counts, a range
    ending at 2^32 - 1, and 16 consecutive 2^24-nonce rounds at
-   difficulty 5 (the miner's dispatch shape); times and the bound;
+   difficulty 5 (the miner's dispatch shape); times and the bound, and
+   the launches by path (the v2 header's aligned fold, every other
+   layout), of which the 16 rounds and the timed ones must be aligned;
 6. the accept path: a 3-block chain fanning one coinbase into 255 x 32
    outputs (a sqlite file), each block mined by the port's ``mine(job,
    "cuda")`` at the protocol's difficulty 6.0, then, on an in-memory
@@ -440,7 +442,7 @@ the script exits non-zero and prints no result.
     python3 chip_smoke.py --only utxo_probe
 
 runs the card line, the build and the named kernel phases alone (a
-comma-separated list of ``KERNEL_PHASES``: ``utxo_probe``,
+comma-separated list of ``KERNEL_PHASES``: ``sha256_search``, ``utxo_probe``,
 ``jac_windows``, ``txid_ragged``, ``runtime_path``, ``swarm_path``,
 ``loadgen_path``, ``lint_path``; ``lint_path`` builds the accept chain
 for itself) and prints no result.
@@ -903,6 +905,7 @@ def sha_cases(rng: random.Random):
 def sha_phase(dev: torch.device, addr: str) -> dict:
     rng = random.Random(0x5EA)
     worst, checked, hits = 0, 0, 0
+    generic = tsha.GENERIC_LAUNCHES
     cases = sha_cases(rng)
     for name, prefix, prev, diff, base, count in cases:
         template = tsha.make_template(prefix)
@@ -925,6 +928,8 @@ def sha_phase(dev: torch.device, addr: str) -> dict:
             fail(f"sha256 {name}: the first lane {base} reported as a hit")
         hits += got != SENTINEL
 
+    generic_cases = tsha.GENERIC_LAUNCHES - generic
+    aligned = tsha.ALIGNED_LAUNCHES
     # the miner's dispatch shape: 16 consecutive 2^24-nonce rounds of one
     # v2 template at difficulty 5
     job = mine_engine.MiningJob.from_header_fields(
@@ -966,6 +971,9 @@ def sha_phase(dev: torch.device, addr: str) -> dict:
     launch_us = us_per_call(lambda: tsha.pow_search(
         template, target, 0, 256, device=dev), 1000)
     torch.cuda.synchronize()
+    if tsha.GENERIC_LAUNCHES != generic + generic_cases:
+        fail("sha256: a v2 round took the generic path")
+    aligned = tsha.ALIGNED_LAUNCHES - aligned
     props = torch.cuda.get_device_properties(dev)
     clock_mhz = tdevice.max_sm_clock_mhz() or props.clock_rate / 1000
     alu, add = tsha.ops_per_nonce(template, target)
@@ -982,7 +990,8 @@ def sha_phase(dev: torch.device, addr: str) -> dict:
           bound_share=round(max(ops_ms, bytes_ms) / ms, 4), bound_by=bound_by,
           alu_ops_per_nonce=alu, add_ops_per_nonce=add,
           sms=props.multi_processor_count, clock_mhz=clock_mhz,
-          launch_path_us=round(launch_us, 3))
+          launch_path_us=round(launch_us, 3), aligned_launches=aligned,
+          generic_launches=generic_cases)
     return {"name": "sha256_search", "route": "cuda",
             "source": "upow_tpu_torch/csrc/sha256_search.cu",
             "replaces": "upow_tpu/crypto/sha256.py:344",
@@ -5247,7 +5256,9 @@ def runtime_only(dev: torch.device) -> None:
 
 
 # the kernel phases that need no chain, by the name ``--only`` takes
-KERNEL_PHASES = {"utxo_probe": probe_phase,
+KERNEL_PHASES = {"sha256_search": lambda dev: sha_phase(
+                     dev, point_to_string(curve.keygen(rng=KEY_SEED)[1])),
+                 "utxo_probe": probe_phase,
                  "jac_windows": lambda dev: windows_phase(
                      dev, signature_mix(LANES)),
                  "txid_ragged": txid_ragged_phase,

@@ -314,7 +314,7 @@ typedef void* cudaStream_t;
 #define __constant__
 #define __shared__ static
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 struct dim3_ { unsigned x; };
 inline dim3_ blockIdx, threadIdx, blockDim, gridDim;
 inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t s) {

@@ -119,23 +119,35 @@ def _rotr_py(x: int, n: int) -> int:
     return ((x >> n) | (x << (32 - n))) & 0xFFFFFFFF
 
 
+def _sigma0(x: int) -> int:
+    return _rotr_py(x, 7) ^ _rotr_py(x, 18) ^ (x >> 3)
+
+
+def _sigma1(x: int) -> int:
+    return _rotr_py(x, 17) ^ _rotr_py(x, 19) ^ (x >> 10)
+
+
+def _round_py(state: Sequence[int], kw: int) -> Tuple[int, ...]:
+    """One SHA-256 round on the host, ``kw`` = K[i] + w[i]."""
+    a, b, c, d, e, f, g, h = state
+    s1 = _rotr_py(e, 6) ^ _rotr_py(e, 11) ^ _rotr_py(e, 25)
+    ch = (e & f) ^ (~e & g)
+    t1 = (h + s1 + ch + kw) & MASK32
+    s0 = _rotr_py(a, 2) ^ _rotr_py(a, 13) ^ _rotr_py(a, 22)
+    maj = (a & b) ^ (a & c) ^ (b & c)
+    return ((t1 + s0 + maj) & MASK32, a, b, c, (d + t1) & MASK32, e, f, g)
+
+
 def _compress_py(state: Sequence[int], block: bytes) -> Tuple[int, ...]:
     """One SHA-256 compression on the host (64-byte block)."""
     w = [int(x) for x in np.frombuffer(block, dtype=">u4")]
     for i in range(16, 64):
-        s0 = _rotr_py(w[i - 15], 7) ^ _rotr_py(w[i - 15], 18) ^ (w[i - 15] >> 3)
-        s1 = _rotr_py(w[i - 2], 17) ^ _rotr_py(w[i - 2], 19) ^ (w[i - 2] >> 10)
-        w.append((w[i - 16] + s0 + w[i - 7] + s1) & 0xFFFFFFFF)
-    a, b, c, d, e, f, g, h = state
+        w.append((w[i - 16] + _sigma0(w[i - 15]) + w[i - 7]
+                  + _sigma1(w[i - 2])) & MASK32)
+    out = tuple(state)
     for i in range(64):
-        s1 = _rotr_py(e, 6) ^ _rotr_py(e, 11) ^ _rotr_py(e, 25)
-        ch = (e & f) ^ (~e & g)
-        t1 = (h + s1 + ch + int(_K[i]) + w[i]) & 0xFFFFFFFF
-        s0 = _rotr_py(a, 2) ^ _rotr_py(a, 13) ^ _rotr_py(a, 22)
-        maj = (a & b) ^ (a & c) ^ (b & c)
-        t2 = (s0 + maj) & 0xFFFFFFFF
-        a, b, c, d, e, f, g, h = (t1 + t2) & 0xFFFFFFFF, a, b, c, (d + t1) & 0xFFFFFFFF, e, f, g
-    return tuple((x + y) & 0xFFFFFFFF for x, y in zip(state, (a, b, c, d, e, f, g, h)))
+        out = _round_py(out, int(_K[i]) + w[i])
+    return tuple((x + y) & MASK32 for x, y in zip(state, out))
 
 
 def sha256_py(message: bytes) -> bytes:
@@ -348,7 +360,7 @@ ANY_LAYOUT = len(SEARCH_PATHS)
 
 # The kernel's by-value argument block, in 32-bit words; mirrored by
 # struct SearchArgs in csrc/sha256_search.cu.
-ARG_WORDS = 8 + 3 + 2 + 3 + 64 + 64 + 4 + 4 + 7 + 2
+ARG_WORDS = 8 + 3 + 1 + 2 + 3 + 64 + 64 + 4 + 4 + 7 + 2
 
 
 def search_path(template: SearchTemplate) -> int:
@@ -374,25 +386,6 @@ def _path_words(path: int) -> Tuple[int, set]:
     return first, {first} if offset == 0 else {first, first + 1}
 
 
-def _sigma0(x: int) -> int:
-    return _rotr_py(x, 7) ^ _rotr_py(x, 18) ^ (x >> 3)
-
-
-def _sigma1(x: int) -> int:
-    return _rotr_py(x, 17) ^ _rotr_py(x, 19) ^ (x >> 10)
-
-
-def _round_py(state: Sequence[int], kw: int) -> Tuple[int, ...]:
-    """One SHA-256 round on the host, ``kw`` = K[i] + w[i]."""
-    a, b, c, d, e, f, g, h = state
-    s1 = _rotr_py(e, 6) ^ _rotr_py(e, 11) ^ _rotr_py(e, 25)
-    ch = (e & f) ^ (~e & g)
-    t1 = (h + s1 + ch + kw) & MASK32
-    s0 = _rotr_py(a, 2) ^ _rotr_py(a, 13) ^ _rotr_py(a, 22)
-    maj = (a & b) ^ (a & c) ^ (b & c)
-    return ((t1 + s0 + maj) & MASK32, a, b, c, (d + t1) & MASK32, e, f, g)
-
-
 def fold_template(template: SearchTemplate, path: int) -> dict:
     """What ``path`` of the kernel takes as constants for ``template``
     (struct SearchArgs's fields, before nonce_word): with S the path's
@@ -404,8 +397,8 @@ def fold_template(template: SearchTemplate, path: int) -> dict:
       over the words and the sigmas of words the nonce does not reach;
     * ``state``: a..h after rounds 0..S-1, which read no nonce byte;
     * ``round_a``, ``round_e``: a and e after round S less the nonce part
-      of word S (round S's h + S1(e) + Ch(e, f, g) + K[S] + word_c[S],
-      then + S0(a) + Maj(a, b, c) and + d);
+      of word S (round S with word_c[S] for its word: h + S1(e) +
+      Ch(e, f, g) + K[S] is its constant part);
     * ``round_k``: for round i > S, K[i] + word_c[i], and for i <= S + 3
       the h that is still the folded state's; ``round_d``: those three
       rounds' round_k plus their d, also the folded state's;
@@ -425,9 +418,8 @@ def fold_template(template: SearchTemplate, path: int) -> dict:
     state = tuple(int(x) for x in template.midstate)
     for i in range(first):
         state = _round_py(state, int(_K[i]) + word_c[i])
-    a, b, c, d, e, f, g, h = state
-    t1 = (h + (_rotr_py(e, 6) ^ _rotr_py(e, 11) ^ _rotr_py(e, 25))
-          + ((e & f) ^ (~e & g)) + int(_K[first]) + word_c[first])
+    # the nonce part of word S enters a and e of round S as a plain term
+    after = _round_py(state, int(_K[first]) + word_c[first])
     round_k = [0] * 64
     for i in range(first + 1, 64):
         round_k[i] = int(_K[i]) + word_c[i]
@@ -436,9 +428,8 @@ def fold_template(template: SearchTemplate, path: int) -> dict:
     return {
         "state": list(state),
         "mid": [int(x) for x in template.midstate[:3]],
-        "round_a": t1 + (_rotr_py(a, 2) ^ _rotr_py(a, 13) ^ _rotr_py(a, 22))
-        + ((a & b) ^ (a & c) ^ (b & c)),
-        "round_e": d + t1,
+        "round_a": after[0],
+        "round_e": after[4],
         "round_d": [round_k[first + 1 + k] + state[2 - k] for k in range(3)],
         "round_k": round_k,
         "word_c": word_c,
@@ -449,7 +440,8 @@ def _fold_block(template: SearchTemplate, target: np.ndarray,
                 path: int) -> np.ndarray:
     """The argument block of ``path`` with ``base`` and ``count`` 0."""
     fold = fold_template(template, path)
-    words = fold["state"] + fold["mid"] + [fold["round_a"], fold["round_e"]] \
+    # the 1 is SearchArgs.one, the factor of the kernel's sums
+    words = fold["state"] + fold["mid"] + [1, fold["round_a"], fold["round_e"]] \
         + fold["round_d"] + fold["round_k"] + fold["word_c"] \
         + [w for w, _s in template.nonce_spec] \
         + [s for _w, s in template.nonce_spec] + [int(x) for x in target]

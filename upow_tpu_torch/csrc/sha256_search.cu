@@ -13,8 +13,8 @@
 // only those that read the nonce, from the template's dataflow): about
 // 820 SHF, LOP3 and PRMT, which only the ALU pipe runs, at 64 per SM per
 // clock, and about 290 adds, which may also issue as IMAD on the FMA
-// pipe.  The ALU pipe binds.  Bytes are nil: 644 bytes of arguments in,
-// 4 out.
+// pipe.  The ALU pipe binds: 0.8255 ms for 2^24 nonces on an H100 at
+// 1,980 MHz.  Bytes are nil: 644 bytes of arguments in, 4 out.
 //
 // What the design does about it: a nonce fills one tail word (v2 header:
 // word 10) or two (v1: words 1 and 2), so rounds before the first of them
@@ -32,7 +32,18 @@
 // word 0's test first.  A layout of no header (ANY_LAYOUT) starts at round
 // 0 and places each nonce byte where the template says.  Everything is
 // unrolled into registers; round constants are constant-bank operands.
-//
+// Every sum is an IMAD (fma_add), so the ALU pipe runs only the SHF and
+// LOP3 the count needs; what then limits the kernel is each round's chain
+// of dependent instructions, so the sums that do not read this round's e
+// and a (h + K + w, then d + that) are taken off the chain, and the
+// kernel keeps 5 blocks an SM resident (48 registers, no spills; 6 blocks
+// force 40 registers and spills, which cost more than the warps gain).
+// Measured on an H100 (700 W): a v2 2^24 round with 10 queued takes
+// 0.97 ms (share 0.85 of the bound), against the first version's 1.53 ms
+// (share 0.54), which rebuilt the tail with 64 selects and ran every
+// round and schedule word; about 1,470 SASS instructions a nonce, some
+// 850 on the ALU pipe (535 SHF, 288 LOP3) and 550 IMAD on the FMA pipe.
+
 // The reduction: blocks run in no order, so each thread walks a
 // grid-stride loop (any count up to 2^32 - 1 on a grid sized to fill the
 // card once), stops at its first hit (its nonces only grow), and the block
@@ -50,6 +61,7 @@ typedef uint32_t u32;
 typedef uint64_t u64;
 
 #define SEARCH_THREADS 256
+#define SEARCH_BLOCKS_PER_SM 5
 #define SEARCH_SENTINEL 0xFFFFFFFFu
 
 // Mirrors crypto/sha256.py::kernel_args (ARG_WORDS 32-bit words).  S is
@@ -57,6 +69,7 @@ typedef uint64_t u64;
 struct SearchArgs {
   u32 state[8];        // a..h after rounds 0..S-1 (the midstate if S is 0)
   u32 mid[3];          // the midstate's words 0..2, for the digest words
+  u32 one;             // 1: each sum is an IMAD by it (fma_add)
   u32 round_a;         // a after round S, less the nonce part of word S
   u32 round_e;         // e after round S, likewise
   u32 round_d[3];      // rounds S+1..S+3: round_k[i] + the constant d
@@ -80,6 +93,13 @@ __host__ __device__ constexpr u64 nonce_reach(u64 words) {
   return words;
 }
 
+// x + y as an IMAD by `one`, which is 1 but comes from the arguments, so
+// the compiler cannot turn it into an IADD3: the FMA pipe takes every sum,
+// and the ALU pipe, which binds, only the shifts and the logic.
+__device__ __forceinline__ u32 fma_add(u32 x, u32 y, u32 one) {
+  return x * one + y;
+}
+
 __device__ __forceinline__ u32 sigma0(u32 x) {
   return sha256::rotr(x, 7) ^ sha256::rotr(x, 18) ^ (x >> 3);
 }
@@ -87,96 +107,122 @@ __device__ __forceinline__ u32 sigma1(u32 x) {
   return sha256::rotr(x, 17) ^ sha256::rotr(x, 19) ^ (x >> 10);
 }
 
-// One instantiation per nonce layout: the nonce starts at byte R of tail
-// word S (R = 0: it fills word S; R = 1..3: it straddles words S and S+1),
-// or, with R = -1 and S = 0, anywhere nonce_word and nonce_shift say.
+// a after rounds 63, 62 and 61: digest words 0, 1 and 2 less the midstate's
+struct Tail {
+  u32 a0, a1, a2;
+};
+
+// The rounds of one nonce from the fold, for the layout of
+// sha256_search_kernel<S, R>.
 template <int S, int R>
-__global__ void __launch_bounds__(SEARCH_THREADS)
-    sha256_search_kernel(const SearchArgs a, u32* out) {
+__device__ __forceinline__ Tail search_rounds(const SearchArgs& a, u32 nonce,
+                                              u32 one) {
   // the tail words that hold nonce bytes, and the message words they reach
   constexpr u64 kNonce =
       R < 0 ? 0xFFFFu : (R == 0 ? u64(1) << S : u64(3) << S);
   constexpr u64 kReach = nonce_reach(kNonce);
+  // v[j]: the nonce part of message word j, for the words kReach marks
+  u32 v[64];
+  if (R < 0) {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const u32 byte = ((nonce >> (8 * j)) & 0xFFu) << a.nonce_shift[j];
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        v[k] |= a.nonce_word[j] == (u32)k ? byte : 0u;
+    }
+  } else {
+    // the nonce's bytes, least first, as a big-endian word: one PRMT
+    const u32 swapped = __byte_perm(nonce, 0u, 0x0123u);
+    v[S] = swapped >> (8 * R);
+    if (R > 0) v[S + 1] = swapped << (32 - 8 * (R > 0 ? R : 1));
+  }
+  u32 A = fma_add(v[S], a.round_a, one), B = a.state[0], C = a.state[1];
+  u32 E = fma_add(v[S], a.round_e, one), F = a.state[4], G = a.state[5];
+  u32 D = a.state[2], H = a.state[6];
+#pragma unroll
+  for (int r = S + 1; r < 64; ++r) {
+    const bool var = (kReach >> r) & 1u;
+    if (r >= 16 && var) {
+      // word j in full is its nonce part plus its constant part; the
+      // linear terms' constant parts are folded into word_c[r]
+      const int a16 = (r - 16) & 63, a15 = (r - 15) & 63, a7 = (r - 7) & 63,
+                a2 = (r - 2) & 63;
+      const u32 w15 =
+          R == 0 && a15 == S ? v[a15] : fma_add(v[a15], a.word_c[a15], one);
+      const u32 w2 =
+          R == 0 && a2 == S ? v[a2] : fma_add(v[a2], a.word_c[a2], one);
+      u32 x = 0u;
+      if ((kReach >> a16) & 1u) x = v[a16];
+      if ((kReach >> a15) & 1u) x = fma_add(sigma0(w15), x, one);
+      if ((kReach >> a7) & 1u) x = fma_add(v[a7], x, one);
+      if ((kReach >> a2) & 1u) x = fma_add(sigma1(w2), x, one);
+      v[r] = x;
+    }
+    // t1 = h + S1 + ch + K[r] + w[r] and e = d + t1, with everything but
+    // S1 + ch summed off the critical path: hk = h + K[r] + w[r], dhk = d + hk
+    u32 hk, dhk;
+    if (r <= S + 3) {
+      // h and d are still the folded state's: both in the constants
+      hk = var ? fma_add(v[r & 63], a.round_k[r], one) : a.round_k[r];
+      dhk = var ? fma_add(v[r & 63], a.round_d[(r - S - 1) & 3], one)
+                : a.round_d[(r - S - 1) & 3];
+    } else {
+      hk = fma_add(H, a.round_k[r], one);
+      if (var) hk = fma_add(v[r & 63], hk, one);
+      dhk = fma_add(D, hk, one);
+    }
+    const u32 S1 =
+        sha256::rotr(E, 6) ^ sha256::rotr(E, 11) ^ sha256::rotr(E, 25);
+    const u32 ch = (E & F) ^ (~E & G);
+    const u32 s1ch = fma_add(S1, ch, one);
+    const u32 t1 = fma_add(s1ch, hk, one);
+    const u32 S0 =
+        sha256::rotr(A, 2) ^ sha256::rotr(A, 13) ^ sha256::rotr(A, 22);
+    const u32 maj = (A & B) ^ (A & C) ^ (B & C);
+    H = G;
+    G = F;
+    F = E;
+    E = fma_add(s1ch, dhk, one);
+    D = C;
+    C = B;
+    B = A;
+    A = fma_add(t1, fma_add(S0, maj, one), one);
+  }
+  return Tail{A, B, C};
+}
+
+// The PoW rule of _hit_nonce_dynamic on the digest words: prefix match on
+// words 0 and 1; the fractional nibble (in word 0, 1 or 2) below the
+// charset size, unless the charset is 16 or more.  Word 0 first: nearly
+// every nonce stops there.
+__device__ __forceinline__ bool meets(const SearchArgs& a, const Tail& t) {
+  const u32 d0 = a.mid[0] + t.a0;
+  if ((d0 & a.target[0]) != a.target[1]) return false;
+  const u32 d1 = a.mid[1] + t.a1;
+  const u32 word =
+      a.target[4] == 0 ? d0 : (a.target[4] == 1 ? d1 : a.mid[2] + t.a2);
+  return (d1 & a.target[2]) == a.target[3]
+         && (a.target[6] >= 16u || ((word >> a.target[5]) & 0xFu) < a.target[6]);
+}
+
+// One instantiation per nonce layout: the nonce starts at byte R of tail
+// word S (R = 0: it fills word S; R = 1..3: it straddles words S and S+1),
+// or, with R = -1 and S = 0, anywhere nonce_word and nonce_shift say.
+template <int S, int R>
+__global__ void __launch_bounds__(SEARCH_THREADS, SEARCH_BLOCKS_PER_SM)
+    sha256_search_kernel(const SearchArgs a, u32* out) {
   __shared__ u32 warp_best[SEARCH_THREADS / 32];
+  const u32 one = a.one;
   u32 best = SEARCH_SENTINEL;
   const u64 stride = (u64)gridDim.x * blockDim.x;
   for (u64 i = (u64)blockIdx.x * blockDim.x + threadIdx.x; i < a.count;
        i += stride) {
     // base + count <= 2^32 (the wrapper checks), so this never wraps
     const u32 nonce = a.base + (u32)i;
-    // v[j]: the nonce part of message word j, for the words kReach marks
-    u32 v[64];
-    if (R < 0) {
-#pragma unroll
-      for (int k = 0; k < 16; ++k) v[k] = 0u;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const u32 byte = ((nonce >> (8 * j)) & 0xFFu) << a.nonce_shift[j];
-#pragma unroll
-        for (int k = 0; k < 16; ++k)
-          v[k] |= a.nonce_word[j] == (u32)k ? byte : 0u;
-      }
-    } else {
-      // the nonce's bytes, least first, as a big-endian word: one PRMT
-      const u32 swapped = __byte_perm(nonce, 0u, 0x0123u);
-      v[S] = swapped >> (8 * R);
-      if (R > 0) v[S + 1] = swapped << (32 - 8 * (R > 0 ? R : 1));
-    }
-    u32 A = v[S] + a.round_a, B = a.state[0], C = a.state[1], D = a.state[2];
-    u32 E = v[S] + a.round_e, F = a.state[4], G = a.state[5], H = a.state[6];
-#pragma unroll
-    for (int r = S + 1; r < 64; ++r) {
-      const bool var = (kReach >> r) & 1u;
-      if (r >= 16 && var) {
-        // word j in full is its nonce part plus its constant part; the
-        // linear terms' constant parts are folded into word_c[r]
-        const int a16 = (r - 16) & 63, a15 = (r - 15) & 63,
-                  a7 = (r - 7) & 63, a2 = (r - 2) & 63;
-        const u32 w15 = v[a15] + (R == 0 && a15 == S ? 0u : a.word_c[a15]);
-        const u32 w2 = v[a2] + (R == 0 && a2 == S ? 0u : a.word_c[a2]);
-        u32 x = 0u;
-        if ((kReach >> a16) & 1u) x += v[a16];
-        if ((kReach >> a15) & 1u) x += sigma0(w15);
-        if ((kReach >> a7) & 1u) x += v[a7];
-        if ((kReach >> a2) & 1u) x += sigma1(w2);
-        v[r] = x;
-      }
-      const u32 S1 = sha256::rotr(E, 6) ^ sha256::rotr(E, 11)
-                     ^ sha256::rotr(E, 25);
-      const u32 ch = (E & F) ^ (~E & G);
-      const u32 nv = var ? v[r & 63] : 0u;
-      u32 t1, e_next;
-      if (r <= S + 3) {
-        // h and d are still the folded state's: both in the constants
-        t1 = S1 + ch + nv + a.round_k[r];
-        e_next = S1 + ch + nv + a.round_d[(r - S - 1) & 3];
-      } else {
-        t1 = H + S1 + ch + nv + a.round_k[r];
-        e_next = D + t1;
-      }
-      const u32 S0 = sha256::rotr(A, 2) ^ sha256::rotr(A, 13)
-                     ^ sha256::rotr(A, 22);
-      const u32 maj = (A & B) ^ (A & C) ^ (B & C);
-      H = G;
-      G = F;
-      F = E;
-      E = e_next;
-      D = C;
-      C = B;
-      B = A;
-      A = t1 + S0 + maj;
-    }
-    // A, B, C are a after rounds 63, 62, 61: digest words 0, 1, 2 less
-    // the midstate's.  The PoW rule of _hit_nonce_dynamic: prefix match
-    // on words 0 and 1; the fractional nibble (in word 0, 1 or 2) below
-    // the charset size, unless the charset is 16 or more.
-    const u32 d0 = a.mid[0] + A;
-    if ((d0 & a.target[0]) != a.target[1]) continue;
-    const u32 d1 = a.mid[1] + B;
-    const u32 word =
-        a.target[4] == 0 ? d0 : (a.target[4] == 1 ? d1 : a.mid[2] + C);
-    if ((d1 & a.target[2]) == a.target[3]
-        && (a.target[6] >= 16u || ((word >> a.target[5]) & 0xFu) < a.target[6])) {
+    if (meets(a, search_rounds<S, R>(a, nonce, one))) {
       best = nonce;  // this thread's later nonces are all larger
       break;
     }
