@@ -14,7 +14,7 @@
 // 820 SHF, LOP3 and PRMT, which only the ALU pipe runs, at 64 per SM per
 // clock, and about 290 adds, which may also issue as IMAD on the FMA
 // pipe.  The ALU pipe binds: 0.8255 ms for 2^24 nonces on an H100 at
-// 1,980 MHz.  Bytes are nil: 644 bytes of arguments in, 4 out.
+// 1,980 MHz.  Bytes are nil: 648 bytes of arguments in, 4 out.
 //
 // What the design does about it: a nonce fills one tail word (v2 header:
 // word 10) or two (v1: words 1 and 2), so rounds before the first of them
