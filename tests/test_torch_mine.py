@@ -425,17 +425,23 @@ def test_engine_counts_the_nonces_and_rounds_it_reports(backend, diff, kw):
 
 
 def test_engine_records_the_kernel_launches_by_path(monkeypatch):
-    """``mine.search_launches.*`` take the search kernel's launches by
-    path, as ``sha256`` counts them, once a ``mine()`` call: what grew
-    since the last record, and nothing twice."""
+    """``mine.search_launches.*`` take the ``cuda`` backend's rounds, one
+    kernel launch each, under the path of the job's template, once a
+    ``mine()`` call; the other backends launch no kernel and add none."""
+    real = tengine._make_dispatcher
+    # the cuda backend's rounds, run by the plain search on the CPU
+    monkeypatch.setattr(tengine, "_make_dispatcher",
+                        lambda job, backend, **kw: real(job, "torch", **kw))
     _jjob, tjob = _jobs("9")
-    tengine.mine(tjob, "torch", batch=4096, stride_end=4096)
+    v1job = tengine.MiningJob(prefix=b"\x01" * 134, previous_hash=PREV,
+                              difficulty=Decimal("9"))
     before = _counts()
-    monkeypatch.setattr(tsha, "ALIGNED_LAUNCHES", tsha.ALIGNED_LAUNCHES + 5)
-    monkeypatch.setattr(tsha, "GENERIC_LAUNCHES", tsha.GENERIC_LAUNCHES + 2)
     tengine.mine(tjob, "torch", batch=4096, stride_end=4096)
-    tengine.mine(tjob, "torch", batch=4096, stride_end=4096)
-    assert _delta(before, "mine.search_launches.aligned") == 5
+    tengine.mine(tjob, "python", batch=4096, stride_end=4096)
+    assert _delta(before, "mine.search_launches.aligned") == 0
+    tengine.mine(tjob, "cuda", batch=4096, stride_end=3 * 4096)
+    tengine.mine(v1job, "cuda", batch=4096, stride_end=2 * 4096)
+    assert _delta(before, "mine.search_launches.aligned") == 3
     assert _delta(before, "mine.search_launches.generic") == 2
 
 

@@ -198,16 +198,43 @@ def test_ops_per_nonce_counts_from_the_nonce_word():
 
 # --- the kernel's fold and launch path ------------------------------------
 
-def _tail_schedule(template):
-    """The 64 message words of the tail block with the nonce 0, as
-    ``_compress_py`` expands them."""
+def _tail_schedule(template, nonce=0):
+    """The 64 message words of the tail block with ``nonce`` placed as
+    ``pow_search_plain`` places it, as ``_compress_py`` expands them."""
     w = [int(x) for x in template.tail_words]
+    for j, (widx, shift) in enumerate(template.nonce_spec):
+        w[widx] |= ((nonce >> (8 * j)) & 0xFF) << shift
     for i in range(16, 64):
         s0 = tsha._rotr_py(w[i - 15], 7) ^ tsha._rotr_py(w[i - 15], 18) \
             ^ (w[i - 15] >> 3)
         s1 = tsha._rotr_py(w[i - 2], 17) ^ tsha._rotr_py(w[i - 2], 19) \
             ^ (w[i - 2] >> 10)
         w.append((w[i - 16] + s0 + w[i - 7] + s1) & 0xFFFFFFFF)
+    return w
+
+
+def _kernel_schedule(template, path, reached, nonce):
+    """The 64 message words as the kernel's ``path`` builds them: each
+    word's folded constant part plus its nonce part, the nonce placed by
+    one PRMT (the aligned path) or by ``nonce_shifts`` (the generic one),
+    and a reached word's nonce part from the recurrence's reached terms."""
+    word_c = tsha.fold_template(template, path)["word_c"]
+    swapped = int.from_bytes(nonce.to_bytes(4, "little"), "big")
+    if path == tsha.ALIGNED_PATH:
+        v = [swapped if k == tsha.ALIGNED_WORD else 0 for k in range(16)]
+    else:
+        v = [((swapped << 32) >> shift) & 0xFFFFFFFF
+             for shift in tsha.nonce_shifts(template)]
+    w = [(c + x) & 0xFFFFFFFF for c, x in zip(word_c, v)]
+    for j in range(16, 64):
+        x = 0
+        if j in reached:
+            x = (v[j - 16] if j - 16 in reached else 0) \
+                + (tsha._sigma0(w[j - 15]) if j - 15 in reached else 0) \
+                + (v[j - 7] if j - 7 in reached else 0) \
+                + (tsha._sigma1(w[j - 2]) if j - 2 in reached else 0)
+        v.append(x & 0xFFFFFFFF)
+        w.append((word_c[j] + x) & 0xFFFFFFFF)
     return w
 
 
@@ -226,9 +253,12 @@ def _rounds(state, w, n):
 
 
 @pytest.mark.parametrize("plen,path,first,nonce_words", [
-    (104, 0, 10, {10}), (134, 1, 1, {1, 2})])
+    (104, 0, 10, {10}), (134, 1, 0, set(range(16)))])
 def test_fold_equals_the_first_rounds_and_the_nonce_free_words(
         plen, path, first, nonce_words):
+    """The v2 header takes the aligned path from word 10; the v1 header,
+    whose nonce straddles words 1 and 2, the generic path from round 0,
+    where every tail word may hold nonce bytes."""
     template = tsha.make_template(PREFIXES[plen])
     assert tsha.search_path(template) == path
     fold = tsha.fold_template(template, path)
@@ -248,9 +278,47 @@ def test_fold_equals_the_first_rounds_and_the_nonce_free_words(
             reached.add(j)
     free = [j for j in range(64) if j not in reached]
     assert [fold["word_c"][j] for j in free] == [w[j] for j in free]
-    # v2: words 0-9, 11-15, 16, 18, 20 and 22; v1: words 0 and 3-15
-    assert len(free) == (19 if plen == 104 else 14)
+    # v2: words 0-9, 11-15, 16, 18, 20 and 22; the generic path: none
+    assert len(free) == (19 if plen == 104 else 0)
     assert fold["mid"] == mid[:3]
+    # and every word, constant part plus nonce part, is the plain one
+    for nonce in (0, 1, 0x80, 0x1234_5678, 0xFFFF_FFFF):
+        assert _kernel_schedule(template, path, reached, nonce) \
+            == _tail_schedule(template, nonce)
+
+
+def test_search_path_refuses_a_scattered_nonce():
+    """Both paths take the nonce's four bytes in a row, least first, as
+    every header holds them; a template that scatters them raises."""
+    template = tsha.make_template(PREFIXES[104])
+    spec = template.nonce_spec
+    for bad in (spec[::-1], spec[:3] + ((12, 24),)):
+        with pytest.raises(ValueError):
+            tsha.search_path(template._replace(nonce_spec=bad))
+
+
+def test_kernel_args_fold_once_for_equal_templates(monkeypatch):
+    """The folded block is cached by the template's content and the
+    target: an equal template built anew, as ``parallel.mesh`` builds one
+    each round, folds nothing again; another target folds once more."""
+    monkeypatch.setattr(tsha, "_BLOCKS", {})
+    folds = []
+    real = tsha.fold_template
+    monkeypatch.setattr(tsha, "fold_template",
+                        lambda *a: folds.append(a) or real(*a))
+    _prefix, template, target = _job(104, "9.9")
+    first = tsha.kernel_args(template, target, 0, 1 << 24)
+    for base in (1 << 24, 2 << 24):
+        again = tsha.SearchTemplate(
+            np.array(template.midstate, dtype=np.uint32),
+            np.array(template.tail_words, dtype=np.uint32),
+            tuple((int(w), int(s)) for w, s in template.nonce_spec))
+        block = tsha.kernel_args(again, target.copy(), base, 1 << 24)
+        assert np.array_equal(block[:-2], first[:-2])
+    assert len(folds) == 1
+    tsha.kernel_args(template, tsha.pack_target(tsha.target_spec(PREV, "9")),
+                     0, 1)
+    assert len(folds) == 2
 
 
 def test_kernel_args_differ_only_in_base_and_count():
@@ -290,7 +358,7 @@ def test_launch_counts_follow_the_layout(monkeypatch):
                                           else PREFIXES[plen])
                  for plen in (104, 134, 100, 101)}
     for plen, path, aligned, generic in ((104, 0, 2, 0), (134, 1, 0, 2),
-                                         (100, 2, 0, 2), (101, 2, 0, 2)):
+                                         (100, 1, 0, 2), (101, 1, 0, 2)):
         before = (tsha.LAUNCHES, tsha.ALIGNED_LAUNCHES, tsha.GENERIC_LAUNCHES)
         del launched[:]
         for base in (0, 1 << 24):
@@ -496,9 +564,9 @@ def test_kernel_source_matches_plain_under_host_compiler(tmp_path):
     assert got == want
     _check_first_lanes(want)
     assert SENTINEL in want
-    # every path ran a case with a hit
+    # both paths ran a case with a hit
     hit_paths = {p for p, w in zip(paths, want) if w != SENTINEL}
-    assert hit_paths == set(range(len(tsha.SEARCH_PATHS) + 1))
+    assert hit_paths == {tsha.ALIGNED_PATH, tsha.GENERIC_PATH}
 
 
 @pytest.mark.cuda

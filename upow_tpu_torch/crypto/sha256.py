@@ -93,8 +93,9 @@ MASK32 = 0xFFFFFFFF
 PLAIN_CHUNK = 1 << 22
 
 # Kernel launches (plain integers, read by chip_smoke.py): the nonce
-# search's, split by its path (ALIGNED_LAUNCHES: the v2 header's nonce
-# word, GENERIC_LAUNCHES: every other layout), and the batched digests'.
+# search's, split by its path (ALIGNED_LAUNCHES: the nonce filling tail
+# word 10, as the v2 header's does; GENERIC_LAUNCHES: any other offset),
+# and the batched digests'.
 # Miners and the node's executor dispatch from worker threads, so updates
 # take the lock.
 LAUNCHES = 0
@@ -342,54 +343,58 @@ def _check_range(nonce_base: int, count: int) -> None:
 
 # --- the kernel ----------------------------------------------------------
 #
-# A nonce fills one tail word (v2 header: word 10) or two (v1: words 1
-# and 2), so the rounds before its first word, and every message word it
-# does not reach, are the same for every nonce.  The host folds them once
-# per template and target (fold_template, cached by kernel_args), and the
-# kernel computes only what reads the nonce.  It has one path per nonce
-# layout, chosen from the template's nonce_spec (search_path).
+# A nonce fills four consecutive bytes of the tail (v2 header: all of word
+# 10; v1: from byte 2 of word 1 into word 2), so the rounds before its
+# first word, and every message word it does not reach, are the same for
+# every nonce.  The host folds them once per template and target
+# (fold_template, cached by kernel_args), and the kernel computes only
+# what reads the nonce.  It has two paths, chosen from the template's
+# nonce_spec (search_path): the nonce filling tail word ALIGNED_WORD, and
+# any other offset, which starts at round 0.
 
-#: the kernel's paths by index, as csrc/sha256_search.cu's kSearchPaths:
-#: (the first tail word that holds a nonce byte, the nonce's byte offset
-#: in it).  The v2 header's nonce fills word 10; the v1 header's starts
-#: at byte 2 of word 1.  Every other layout takes ANY_LAYOUT, which starts
-#: at round 0 and places each byte where nonce_spec says.
-SEARCH_PATHS = ((10, 0), (1, 2))
-ALIGNED_PATH = 0
-ANY_LAYOUT = len(SEARCH_PATHS)
+#: the tail word the aligned path's nonce fills (the v2 header's)
+ALIGNED_WORD = 10
+#: the kernel's paths by index, as csrc/sha256_search.cu's kSearchPaths
+ALIGNED_PATH, GENERIC_PATH = 0, 1
 
 # The kernel's by-value argument block, in 32-bit words; mirrored by
 # struct SearchArgs in csrc/sha256_search.cu.
-ARG_WORDS = 8 + 3 + 1 + 2 + 3 + 64 + 64 + 4 + 4 + 7 + 2
+ARG_WORDS = 8 + 3 + 1 + 2 + 3 + 64 + 64 + 16 + 7 + 2
+
+
+def _nonce_offset(template: SearchTemplate) -> int:
+    """The tail byte that holds the nonce's first (least) byte; the other
+    three must follow it, as every header places them."""
+    word, shift = template.nonce_spec[0]
+    offset = 4 * int(word) + 3 - int(shift) // 8
+    if [(int(w), int(s)) for w, s in template.nonce_spec] != [
+            ((offset + j) // 4, 8 * (3 - (offset + j) % 4)) for j in range(4)]:
+        raise ValueError("the kernel takes a nonce of four consecutive "
+                         f"bytes, not {template.nonce_spec}")
+    return offset
 
 
 def search_path(template: SearchTemplate) -> int:
-    """The index of the kernel path for ``template``'s nonce layout: the
-    entry of :data:`SEARCH_PATHS` that holds its four bytes, in order,
-    from their first word and offset, or :data:`ANY_LAYOUT`."""
-    word, shift = template.nonce_spec[0]
-    offset = 4 * int(word) + 3 - int(shift) // 8
-    contiguous = all(
-        (int(w), int(s)) == ((offset + j) // 4, 8 * (3 - (offset + j) % 4))
-        for j, (w, s) in enumerate(template.nonce_spec))
-    layout = divmod(offset, 4)
-    if contiguous and layout in SEARCH_PATHS:
-        return SEARCH_PATHS.index(layout)
-    return ANY_LAYOUT
+    """The kernel path for ``template``'s nonce: :data:`ALIGNED_PATH`
+    where it fills tail word :data:`ALIGNED_WORD`, else
+    :data:`GENERIC_PATH`."""
+    return ALIGNED_PATH if _nonce_offset(template) == 4 * ALIGNED_WORD \
+        else GENERIC_PATH
 
 
 def _path_words(path: int) -> Tuple[int, set]:
-    """(the path's first round, the tail words its nonce bytes fill)."""
-    if path == ANY_LAYOUT:
-        return 0, set(range(16))
-    first, offset = SEARCH_PATHS[path]
-    return first, {first} if offset == 0 else {first, first + 1}
+    """(the path's first round, the tail words it takes to hold nonce
+    bytes)."""
+    if path == ALIGNED_PATH:
+        return ALIGNED_WORD, {ALIGNED_WORD}
+    return 0, set(range(16))
 
 
 def fold_template(template: SearchTemplate, path: int) -> dict:
     """What ``path`` of the kernel takes as constants for ``template``
-    (struct SearchArgs's fields, before nonce_word): with S the path's
-    first round and a word "reached" where the nonce reaches it,
+    (struct SearchArgs's fields, before nonce_shift): with S the path's
+    first round and a word "reached" where the path lets the nonce reach
+    it,
 
     * ``word_c``: each message word less its nonce part (the word itself
       where the nonce does not reach it): the tail words with the nonce
@@ -436,6 +441,17 @@ def fold_template(template: SearchTemplate, path: int) -> dict:
     }
 
 
+def nonce_shifts(template: SearchTemplate) -> list:
+    """For each tail word k, the right shift by which the generic path
+    takes its nonce part from the byte-swapped nonce n (its least byte
+    first): word k's part is the low word of (n << 32) >> shift, so 32
+    where the nonce fills the word, 32 + 8d where it starts d bytes into
+    it or d bytes before it (d < 0), and 0 where it misses the word."""
+    offset = _nonce_offset(template)
+    return [32 + 8 * (offset - 4 * k) if -4 < offset - 4 * k < 4 else 0
+            for k in range(16)]
+
+
 def _fold_block(template: SearchTemplate, target: np.ndarray,
                 path: int) -> np.ndarray:
     """The argument block of ``path`` with ``base`` and ``count`` 0."""
@@ -443,16 +459,15 @@ def _fold_block(template: SearchTemplate, target: np.ndarray,
     # the 1 is SearchArgs.one, the factor of the kernel's sums
     words = fold["state"] + fold["mid"] + [1, fold["round_a"], fold["round_e"]] \
         + fold["round_d"] + fold["round_k"] + fold["word_c"] \
-        + [w for w, _s in template.nonce_spec] \
-        + [s for _w, s in template.nonce_spec] + [int(x) for x in target]
+        + nonce_shifts(template) + [int(x) for x in target]
     return np.array([int(x) & MASK32 for x in words] + [0, 0],
                     dtype=np.uint32)
 
 
-# (id(template), the target's bytes) -> (template, path, block): a
-# miner's rounds reuse one template and target, so each round copies its
-# block and writes base and count, and nothing is folded again.  The
-# template is kept so that its id cannot be reused while the entry lives.
+# (midstate, tail, nonce_spec, target), as bytes -> (path, block): a
+# miner's rounds reuse one template and target, and the mesh's rebuild
+# an equal template each round, so each round copies its block and
+# writes base and count, and nothing is folded again.
 _BLOCKS: dict = {}
 _BLOCKS_KEPT = 16
 _BLOCKS_LOCK = threading.Lock()
@@ -463,9 +478,11 @@ def _search_args(template: SearchTemplate, target, nonce_base: int,
     """(path, argument block) for one launch; the folded part is cached
     a template and target."""
     target = np.asarray(target, dtype=np.uint32)
-    key = (id(template), target.tobytes())
+    key = (np.asarray(template.midstate, dtype=np.uint32).tobytes(),
+           np.asarray(template.tail_words, dtype=np.uint32).tobytes(),
+           tuple(template.nonce_spec), target.tobytes())
     hit = _BLOCKS.get(key)
-    if hit is None or hit[0] is not template:
+    if hit is None:
         if target.shape != (7,) or int(target[4]) > 2:
             raise ValueError(f"expected a pack_target vector, got {target}")
         # the kernel adds each nonce byte into its word, where the plain
@@ -475,23 +492,24 @@ def _search_args(template: SearchTemplate, target, nonce_base: int,
                for w, s in template.nonce_spec):
             raise ValueError("the template's tail is not 0 under the nonce")
         path = search_path(template)
-        hit = (template, path, _fold_block(template, target, path))
+        hit = (path, _fold_block(template, target, path))
         with _BLOCKS_LOCK:
             if len(_BLOCKS) >= _BLOCKS_KEPT:
                 _BLOCKS.pop(next(iter(_BLOCKS)))
             _BLOCKS[key] = hit
-    args = hit[2].copy()
+    args = hit[1].copy()
     args[-2] = nonce_base
     args[-1] = count
-    return hit[1], args
+    return hit[0], args
 
 
 def kernel_args(template: SearchTemplate, target, nonce_base: int,
                 count: int) -> np.ndarray:
     """The kernel's argument block, for the path :func:`search_path`
-    picks: the folded template (:func:`fold_template`), the nonce bytes'
-    word indices (4) and shifts (4), the target (7), base, count.  Two
-    rounds of one template and target differ only in base and count."""
+    picks: the folded template (:func:`fold_template`), the generic
+    path's shifts (:func:`nonce_shifts`, 16), the target (7), base, count.
+    Two rounds of one template and target differ only in base and
+    count."""
     return _search_args(template, target, nonce_base, count)[1]
 
 

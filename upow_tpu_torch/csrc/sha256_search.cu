@@ -14,24 +14,25 @@
 // 820 SHF, LOP3 and PRMT, which only the ALU pipe runs, at 64 per SM per
 // clock, and about 290 adds, which may also issue as IMAD on the FMA
 // pipe.  The ALU pipe binds: 0.8255 ms for 2^24 nonces on an H100 at
-// 1,980 MHz.  Bytes are nil: 648 bytes of arguments in, 4 out.
+// 1,980 MHz.  Bytes are nil: 680 bytes of arguments in, 4 out.
 //
-// What the design does about it: a nonce fills one tail word (v2 header:
-// word 10) or two (v1: words 1 and 2), so rounds before the first of them
-// and every message word they do not reach are the same for every nonce.
-// The host folds them once per template (crypto/sha256.py::fold_template):
-// the state after those rounds, the first nonce round's a and e less the
-// nonce word, each later round's constant addend (K, the constant part of
-// its message word, and h and d while they are still constants) and each
-// message word's constant part.  The kernel takes one instantiation per
-// nonce layout (kSearchPaths, the order of crypto/sha256.py::SEARCH_PATHS):
-// it places the nonce with one PRMT (and two shifts where it straddles two
-// words), computes only the message words that the nonce reaches, runs the
-// rounds from the first nonce word on, and computes only the digest words
-// the target test reads (words 0 and 1, word 2 where the nibble is there),
-// word 0's test first.  A layout of no header (ANY_LAYOUT) starts at round
-// 0 and places each nonce byte where the template says.  Everything is
-// unrolled into registers; round constants are constant-bank operands.
+// What the design does about it: a nonce fills four consecutive tail
+// bytes (v2 header: all of word 10; v1: from byte 2 of word 1 into word 2),
+// so rounds before its first word and every message word it does not
+// reach are the same for every nonce.  The host folds them once per
+// template (crypto/sha256.py::fold_template): the state after those
+// rounds, the first nonce round's a and e less the nonce word, each later
+// round's constant addend (K, the constant part of its message word, and h
+// and d while they are still constants) and each message word's constant
+// part.  The kernel has two paths (kSearchPaths, the order of
+// crypto/sha256.py::ALIGNED_PATH and GENERIC_PATH): where the nonce fills
+// tail word 10 it places it with one PRMT, computes only the message words
+// the nonce reaches and runs the rounds from word 10 on; at any other
+// offset it starts at round 0 and places the byte-swapped nonce in each
+// tail word with one 64-bit shift by a folded amount.  Both compute only
+// the digest words the target test reads (words 0 and 1, word 2 where the
+// nibble is there), word 0's test first.  Everything is unrolled into
+// registers; round constants are constant-bank operands.
 // Every sum is an IMAD (fma_add), so the ALU pipe runs only the SHF and
 // LOP3 the count needs; what then limits the kernel is each round's chain
 // of dependent instructions, so the sums that do not read this round's e
@@ -65,7 +66,7 @@ typedef uint64_t u64;
 #define SEARCH_SENTINEL 0xFFFFFFFFu
 
 // Mirrors crypto/sha256.py::kernel_args (ARG_WORDS 32-bit words).  S is
-// the path's first round, the first whose message word holds a nonce byte.
+// the path's first round: the aligned path's nonce word, 0 for the other.
 struct SearchArgs {
   u32 state[8];        // a..h after rounds 0..S-1 (the midstate if S is 0)
   u32 mid[3];          // the midstate's words 0..2, for the digest words
@@ -76,8 +77,8 @@ struct SearchArgs {
   u32 round_k[64];     // round i > S: K[i] + word i's constant part
                        // (+ the constant h for i <= S+3)
   u32 word_c[64];      // message word j less its nonce part
-  u32 nonce_word[4];   // tail word of little-endian nonce byte j
-  u32 nonce_shift[4];  // its left shift in that word
+  u32 nonce_shift[16]; // generic path: tail word k's nonce part is the low
+                       // word of (byte-swapped nonce << 32) >> nonce_shift[k]
   u32 target[7];       // mask0, val0, mask1, val1, nibble word, shift, charset
   u32 base;
   u32 count;
@@ -112,32 +113,25 @@ struct Tail {
   u32 a0, a1, a2;
 };
 
-// The rounds of one nonce from the fold, for the layout of
-// sha256_search_kernel<S, R>.
-template <int S, int R>
+// The rounds of one nonce from the fold, for sha256_search_kernel<W>.
+template <int W>
 __device__ __forceinline__ Tail search_rounds(const SearchArgs& a, u32 nonce,
                                               u32 one) {
-  // the tail words that hold nonce bytes, and the message words they reach
-  constexpr u64 kNonce =
-      R < 0 ? 0xFFFFu : (R == 0 ? u64(1) << S : u64(3) << S);
+  // the first round, the tail words that may hold nonce bytes, and the
+  // message words they reach
+  constexpr int S = W < 0 ? 0 : W;
+  constexpr u64 kNonce = W < 0 ? 0xFFFFu : u64(1) << W;
   constexpr u64 kReach = nonce_reach(kNonce);
   // v[j]: the nonce part of message word j, for the words kReach marks
   u32 v[64];
-  if (R < 0) {
+  // the nonce's bytes, least first, as a big-endian word: one PRMT
+  const u32 swapped = __byte_perm(nonce, 0u, 0x0123u);
+  if (W < 0) {
 #pragma unroll
-    for (int k = 0; k < 16; ++k) v[k] = 0u;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const u32 byte = ((nonce >> (8 * j)) & 0xFFu) << a.nonce_shift[j];
-#pragma unroll
-      for (int k = 0; k < 16; ++k)
-        v[k] |= a.nonce_word[j] == (u32)k ? byte : 0u;
-    }
+    for (int k = 0; k < 16; ++k)
+      v[k] = (u32)(((u64)swapped << 32) >> a.nonce_shift[k]);
   } else {
-    // the nonce's bytes, least first, as a big-endian word: one PRMT
-    const u32 swapped = __byte_perm(nonce, 0u, 0x0123u);
-    v[S] = swapped >> (8 * R);
-    if (R > 0) v[S + 1] = swapped << (32 - 8 * (R > 0 ? R : 1));
+    v[S] = swapped;
   }
   u32 A = fma_add(v[S], a.round_a, one), B = a.state[0], C = a.state[1];
   u32 E = fma_add(v[S], a.round_e, one), F = a.state[4], G = a.state[5];
@@ -151,9 +145,9 @@ __device__ __forceinline__ Tail search_rounds(const SearchArgs& a, u32 nonce,
       const int a16 = (r - 16) & 63, a15 = (r - 15) & 63, a7 = (r - 7) & 63,
                 a2 = (r - 2) & 63;
       const u32 w15 =
-          R == 0 && a15 == S ? v[a15] : fma_add(v[a15], a.word_c[a15], one);
+          W >= 0 && a15 == S ? v[a15] : fma_add(v[a15], a.word_c[a15], one);
       const u32 w2 =
-          R == 0 && a2 == S ? v[a2] : fma_add(v[a2], a.word_c[a2], one);
+          W >= 0 && a2 == S ? v[a2] : fma_add(v[a2], a.word_c[a2], one);
       u32 x = 0u;
       if ((kReach >> a16) & 1u) x = v[a16];
       if ((kReach >> a15) & 1u) x = fma_add(sigma0(w15), x, one);
@@ -208,10 +202,9 @@ __device__ __forceinline__ bool meets(const SearchArgs& a, const Tail& t) {
          && (a.target[6] >= 16u || ((word >> a.target[5]) & 0xFu) < a.target[6]);
 }
 
-// One instantiation per nonce layout: the nonce starts at byte R of tail
-// word S (R = 0: it fills word S; R = 1..3: it straddles words S and S+1),
-// or, with R = -1 and S = 0, anywhere nonce_word and nonce_shift say.
-template <int S, int R>
+// The nonce fills tail word W, or, with W = -1, starts anywhere in the
+// tail (nonce_shift).
+template <int W>
 __global__ void __launch_bounds__(SEARCH_THREADS, SEARCH_BLOCKS_PER_SM)
     sha256_search_kernel(const SearchArgs a, u32* out) {
   __shared__ u32 warp_best[SEARCH_THREADS / 32];
@@ -222,7 +215,7 @@ __global__ void __launch_bounds__(SEARCH_THREADS, SEARCH_BLOCKS_PER_SM)
        i += stride) {
     // base + count <= 2^32 (the wrapper checks), so this never wraps
     const u32 nonce = a.base + (u32)i;
-    if (meets(a, search_rounds<S, R>(a, nonce, one))) {
+    if (meets(a, search_rounds<W>(a, nonce, one))) {
       best = nonce;  // this thread's later nonces are all larger
       break;
     }
@@ -240,19 +233,18 @@ __global__ void __launch_bounds__(SEARCH_THREADS, SEARCH_BLOCKS_PER_SM)
   }
 }
 
-// The paths, by crypto/sha256.py::SEARCH_PATHS's index: the v2 header's
-// nonce fills tail word 10; the v1 header's starts at byte 2 of word 1;
-// any other layout.
+// The paths, by crypto/sha256.py's ALIGNED_PATH and GENERIC_PATH: the
+// nonce fills tail word 10 (ALIGNED_WORD, the v2 header's); any other
+// offset.
 typedef void (*SearchKernel)(const SearchArgs, u32*);
 static const SearchKernel kSearchPaths[] = {
-    sha256_search_kernel<10, 0>,
-    sha256_search_kernel<1, 2>,
-    sha256_search_kernel<0, -1>,
+    sha256_search_kernel<10>,
+    sha256_search_kernel<-1>,
 };
 #define SEARCH_PATHS (int)(sizeof(kSearchPaths) / sizeof(kSearchPaths[0]))
 
 // args: ARG_WORDS host words (crypto/sha256.py::kernel_args); path: the
-// index of the template's layout in kSearchPaths; out: a device word
+// index of the template's path in kSearchPaths; out: a device word
 // holding 0xFFFFFFFF; the current device must be `device`.  Launches on
 // `stream` and returns the CUDA error of the launch (0 on success); it
 // does not synchronise.  The grid's wave (SMs times resident blocks an SM)

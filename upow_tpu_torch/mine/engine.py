@@ -28,10 +28,9 @@ registers the families at its start, :func:`preregister`):
 * ``mine.hashes`` and ``mine.rounds``: the nonces and rounds searched,
   every backend, added up in the call and recorded as it returns;
 * ``mine.search_launches.aligned`` and ``mine.search_launches.generic``:
-  the search kernel's launches in this process by path (the v2 header's
-  aligned nonce word, every other layout; ``sha256.ALIGNED_LAUNCHES`` and
-  ``GENERIC_LAUNCHES``), as far as they have grown, recorded as a call
-  returns;
+  the ``cuda`` backend's rounds, one search kernel launch each, under the
+  path the job's template takes (``sha256.search_path``: the v2 header's
+  aligned nonce word, any other offset), recorded as a call returns;
 * ``mine.round_dispatch``: host seconds from a tensor backend's
   ``dispatch(start, count)`` to its handle: the runtime's queue
   (``runtime.queue_wait.mine`` is its finer split), the drainer's hop,
@@ -86,7 +85,7 @@ ROUND_DISPATCH = "mine.round_dispatch"
 COUNTERS = ("mine.hashes", "mine.rounds", "mine.rounds_dry",
             "mine.templates", "mine.templates_expired",
             "mine.blocks_pushed", "mine.blocks_accepted")
-#: the search kernel's launches by path, recorded here from its counts
+#: the search kernel's launches by path, in the order of sha256's paths
 SEARCH_LAUNCHES = ("mine.search_launches.aligned",
                    "mine.search_launches.generic")
 
@@ -369,28 +368,13 @@ def mine(job: MiningJob, backend: str = "cuda", *, start: int = 0,
         return _mine(job, backend, start, min(stride_end, MAX_SEARCH_END),
                      batch, ttl, progress, mesh_devices, device, counts)
     finally:
+        if backend == "cuda" and counts["mine.rounds"]:
+            path = sha_kernel.search_path(sha_kernel.make_template(job.prefix))
+            counts[SEARCH_LAUNCHES[path]] = counts["mine.rounds"]
         # counted by plain adds, recorded once a call (a template)
         for name, n in counts.items():
             if n:
                 metrics.inc(name, n)
-        _record_search_launches()
-
-
-#: the kernel's launches by path that ``mine.search_launches.*`` hold
-_launches_recorded = [0, 0]
-_launches_lock = threading.Lock()
-
-
-def _record_search_launches() -> None:
-    """Add the kernel's launches by path since the last record (all of
-    them, where ``sha256.reset_counts`` has zeroed its counts since)."""
-    with _launches_lock:
-        now = (sha_kernel.ALIGNED_LAUNCHES, sha_kernel.GENERIC_LAUNCHES)
-        for name, n, seen in zip(SEARCH_LAUNCHES, now, _launches_recorded):
-            added = n - seen if n >= seen else n
-            if added:
-                metrics.inc(name, added)
-        _launches_recorded[:] = now
 
 
 def _mine(job: MiningJob, backend: str, start: int, stride_end: int,
